@@ -33,9 +33,36 @@ exits non-zero):
                      on the inputs it had, bit for bit, and timed beside
                      its bounds: bytes or operations, and the serial
                      chain (longest lane's steps x the measured floor).
+  6. serve kernels — the flash-attention kernel against its plain dense
+                     softmax on the full-width llama3.2-3b prefill shape
+                     (B 4, T 2048, 24 heads over 8 KV heads, hd 128,
+                     causal, bf16), a window + softcap case (hd 256) and
+                     a kv_valid case, with ``scaled_dot_product_attention``
+                     timed beside the causal case (bfloat16 outputs are
+                     held element by element: one bfloat16 ulp of the
+                     plain value plus 2^-8 of the row's rms), and two
+                     faulty variants of the plain version on the causal
+                     case (p rounded to bfloat16 before P.V, a dropped
+                     key tile) that must fail that rule; the KV retry kernel
+                     against its plain version on one full-width decode
+                     leaf (28 x 4 x 8 x 2048 pages of 128 bf16 values);
+  7. serve path    — ``ServeEngine`` on the card, first at a small width
+                     held against the same engine on the CPU (equal
+                     tokens and KV read stats), then llama3.2-3b at full
+                     width with seeded weights: ``launch/serve.py``'s
+                     request set (4 prompts of 4-11 tokens) and a long
+                     set (4 prompts of 1024-2048 tokens), 16 new tokens
+                     each, under pr2ar2 (tau 0.05) and baseline engines
+                     sharing the weights.  The launch counts are set to 0
+                     just before each run and read just after; both
+                     kernels must have launched, pr2ar2 must serve some
+                     pages fast and baseline none, and every logit must
+                     be finite.  Every launch of each run is then held
+                     against the plain version on the inputs it had, and
+                     timed beside its bound.
 
 The line before the last is a JSON object describing each kernel
-(launches on the main path, error against the plain version, and times
+(launches on its main path, error against the plain version, and times
 and bound summed over the main path's launches); the last line is ``{"ok": true, "device": {...}}``.  Without a
 CUDA card, or outside a checkout of the repository, it exits non-zero
 and prints no result.
@@ -69,6 +96,23 @@ DEVICE = "cuda"
 # and maxes.
 HBM_BYTES_PER_S = 3.35e12
 F64_OPS_PER_S = 34e12
+# Dense bf16 tensor-core peak, and float32 outside the tensor cores.
+BF16_OPS_PER_S = 989e12
+F32_OPS_PER_S = 67e12
+
+SERVE_ARCH = "llama3.2-3b"
+SERVE_TAU = 0.05
+SERVE_MAX_NEW = 16
+LONG_LENGTHS = (2048, 1024, 1536, 1792)
+# Full-width llama3.2-3b prefill attention: B, T, heads, KV heads, hd.
+PREFILL_SHAPE = (4, 2048, 24, 8, 128)
+# The decode-leaf case's tolerance: at 0.02 a page of 128 values whose
+# largest value dominates its rms retries and a Gaussian page does not
+# (at 0.05 no page of 128 values can retry: the ratio is at most
+# 0.5 * sqrt(128) / (127 * 0.05) = 0.89).
+LEAF_TAU = 0.02
+FA_F32_TOL = 1e-5
+KV_MARGIN_RTOL = 1e-6
 
 
 def phase(name):
@@ -430,6 +474,474 @@ def main_path_phase(chain_ns):
     return launches, held
 
 
+# -- serving: the flash-attention and KV retry kernels ----------------------
+
+
+def _fa_bound_ms(q, k, v, out, kw):
+    """Bytes (each input read once, the output written once) and the
+    operations the visible (query, key) pairs need — 2 flops per
+    element of q.k and of p.v — over the peak of the inputs' type, in
+    milliseconds."""
+    from repro_torch.kernels.flash_attention.plain import attention_mask
+
+    BH, T, hd = q.shape
+    S = k.shape[1]
+    pairs = int(attention_mask(T, S, kw.get("causal", True), kw.get("window"),
+                               kw.get("kv_valid"), q.device).sum())
+    n_ops = 4.0 * BH * pairs * hd
+    peak = BF16_OPS_PER_S if q.dtype.itemsize == 2 else F32_OPS_PER_S
+    n_bytes = sum(t.numel() * t.element_size() for t in (q, k, v, out))
+    return n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / peak * 1e3
+
+
+def _sdpa_ms(q, k, v, kw, reps):
+    """``scaled_dot_product_attention`` on the same inputs (kernel layout
+    viewed as (BK, G, T, hd) queries over (BK, 1, S, hd) keys), or None
+    where it does not compute the same function (softcap, window,
+    kv_valid)."""
+    import torch
+    import torch.nn.functional as F
+
+    if kw.get("softcap") is not None or kw.get("window") is not None \
+            or kw.get("kv_valid") is not None:
+        return None, None
+    BH, T, hd = q.shape
+    BK, S, _ = k.shape
+    qq = q.view(BK, BH // BK, T, hd)
+    kk, vv = k.view(BK, 1, S, hd), v.view(BK, 1, S, hd)
+
+    def call():
+        return F.scaled_dot_product_attention(
+            qq, kk, vv, is_causal=kw.get("causal", True), enable_gqa=True)
+
+    call()
+    ms, out = _cuda_ms(call, reps)
+    return ms, out.reshape(BH, T, hd)
+
+
+def _hold_fa(name, q, k, v, kw, got=None, reps=3, library=True, quiet=False):
+    """Hold one flash-attention launch against the plain version on the
+    same card tensors and time kernel, plain version and library call."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.kernels.flash_attention.plain import (
+        bf16_err_ratio, flash_attention_plain)
+
+    FA.flash_attention_fwd(q, k, v, **kw)                # warm-up
+    ms, again = _cuda_ms(lambda: FA.flash_attention_fwd(q, k, v, **kw), reps)
+    got = again if got is None else got
+    plain_ms, want = _cuda_ms(lambda: flash_attention_plain(q, k, v, **kw), 1)
+    err = float((got.float() - want.float()).abs().max())
+    # Worst |err| / tolerance: 1e-5 in float32; element by element in
+    # bfloat16 (one ulp of the plain value plus 2^-8 of the row's rms).
+    ratio = err / FA_F32_TOL if q.dtype.itemsize == 4 else \
+        bf16_err_ratio(got, want)
+    if not ratio <= 1.0 or not torch.equal(got, again):
+        raise AssertionError(f"{name}: flash_attention differs from its plain "
+                             f"version (max abs {err}, worst |err| / "
+                             f"tolerance {ratio}) or is not deterministic")
+    lib_ms, lib_out = _sdpa_ms(q, k, v, kw, reps) if library else (None, None)
+    t_bytes, t_ops = _fa_bound_ms(q, k, v, got, kw)
+    bound_ms, bound_by = _bound(t_bytes, t_ops)
+    lib = "none" if lib_ms is None else (
+        f"{lib_ms:.3f} ms (max abs vs plain "
+        f"{float((lib_out.float() - want.float()).abs().max()):.3g})")
+    if not quiet:
+        print(f"{name}: q {tuple(q.shape)} k {tuple(k.shape)} {q.dtype} "
+              f"{kw} max_abs_err {err:.3g} (worst |err| / tolerance "
+              f"{ratio:.3g}) kernel {ms:.3f} "
+              f"ms plain {plain_ms:.3f} ms bound {bound_ms:.4f} ms "
+              f"({bound_by}; kernel at {t_ops / ms * 100:.1f}% of the "
+              f"operations bound) sdpa {lib}", flush=True)
+    return dict(case=name, ms=ms, plain_ms=plain_ms, t_bytes=t_bytes,
+                t_ops=t_ops, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=lib_ms, max_abs_err=err, tol_ratio=ratio)
+
+
+def _check_controls(q, k, v):
+    """The bfloat16 rule must reject both faulty variants on the causal
+    prefill case; returns their worst |err| / tolerance."""
+    from repro_torch.kernels.flash_attention.plain import (
+        bf16_err_ratio, faulty_attention_plain, flash_attention_plain)
+
+    want = flash_attention_plain(q, k, v, causal=True)
+    out = {}
+    for fault in ("p-bf16", "drop-tile"):
+        out[fault] = bf16_err_ratio(faulty_attention_plain(q, k, v, fault),
+                                    want)
+        print(f"control {fault}: worst |err| / tolerance {out[fault]:.3g} "
+              f"(must exceed 1)", flush=True)
+        if not out[fault] > 1.0:
+            raise AssertionError(f"the bfloat16 rule accepts the {fault} "
+                                 f"control ({out[fault]})")
+    return out
+
+
+def _kv_bound_ms(data_q, scale, backing, out, margin):
+    """Bytes the read must move — the int8 pages and scales, the output
+    and margins, and the backing pages only of the pages that retry —
+    and its float32 operations (dequant, square, sum: 3 a value, and 5 a
+    page), in milliseconds."""
+    P, E = data_q.shape
+    retried = int((margin[:, 0] < 0).sum())
+    n_bytes = (data_q.numel() + 4 * scale.numel() + 4 * margin.numel()
+               + out.numel() * out.element_size()
+               + retried * E * backing.element_size())
+    n_ops = 3.0 * P * E + 5.0 * P
+    return n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / F32_OPS_PER_S * 1e3, \
+        retried
+
+
+def _hold_kv(name, data_q, scale, backing, tau, got=None, reps=3,
+             quiet=False):
+    """Hold one KV retry launch against the plain version on the same
+    card tensors: margins within rtol 1e-6 of the larger of the margin
+    and its ratio term, decisions counted (flips must be 0), outputs bit
+    for bit where decisions agree."""
+    import torch
+
+    from repro_torch.kernels.kv_retry import ops as KV
+    from repro_torch.kernels.kv_retry.plain import kv_retry_plain
+
+    KV.kv_retry_fwd(data_q, scale, backing, tau)          # warm-up
+    ms, again = _cuda_ms(lambda: KV.kv_retry_fwd(data_q, scale, backing, tau),
+                         reps)
+    out, margin = again if got is None else got
+    plain_ms, (want, want_m) = _cuda_ms(
+        lambda: kv_retry_plain(data_q, scale, backing, tau), 1)
+    m, w = margin.double(), want_m.double()
+    gap = float(((m - w).abs() / torch.maximum(w.abs(), (1 - w).abs())).max())
+    fast = margin[:, 0] >= 0
+    flips = int((fast != (want_m[:, 0] >= 0)).sum())
+    agree = fast == (want_m[:, 0] >= 0)
+    err = float((out[agree].float() - want[agree].float()).abs().max()) \
+        if bool(agree.any()) else 0.0
+    if gap > KV_MARGIN_RTOL or flips or err != 0.0 or not (
+            torch.equal(out, again[0]) and torch.equal(margin, again[1])):
+        raise AssertionError(f"{name}: kv_retry differs from its plain "
+                             f"version: margin gap {gap:.3g}, {flips} "
+                             f"flips, max abs {err}")
+    t_bytes, t_ops, retried = _kv_bound_ms(data_q, scale, backing, out, margin)
+    bound_ms, bound_by = _bound(t_bytes, t_ops)
+    P, E = data_q.shape
+    if not quiet:
+        print(f"{name}: {P} pages of {E} {backing.dtype}, tau {tau}: "
+              f"{P - retried} fast, {retried} retried; margin gap {gap:.3g} "
+              f"(rtol {KV_MARGIN_RTOL}), 0 flips, max_abs_err {err} kernel "
+              f"{ms:.3f} ms plain {plain_ms:.3f} ms bound {bound_ms:.4f} ms "
+              f"({bound_by}; kernel at {t_bytes / ms * 100:.1f}% of the "
+              f"bytes bound)", flush=True)
+    return dict(case=name, ms=ms, plain_ms=plain_ms, t_bytes=t_bytes,
+                t_ops=t_ops, bound_ms=bound_ms, bound_by=bound_by,
+                max_abs_err=err, pages=P, retried=retried,
+                moved=t_bytes * HBM_BYTES_PER_S * 1e-3,
+                leaf=backing.numel() * backing.element_size())
+
+
+@phase("serve kernels")
+def serve_kernel_phase():
+    import torch
+
+    from repro_torch.kernels.kv_retry.plain import quantize_pages
+
+    gen = torch.Generator(DEVICE).manual_seed(0)
+
+    def randn(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen, device=DEVICE)
+                ).to(torch.bfloat16)
+
+    B, T, H, K, hd = PREFILL_SHAPE
+    cases = [
+        ("llama prefill, causal", (B * H, B * K, T, hd),
+         dict(causal=True)),
+        (f"window {T // 4} + softcap 50, hd 256", (B * 8, B * 4, T, 256),
+         dict(causal=True, window=T // 4, softcap=50.0)),
+        (f"kv_valid {T * 3 // 4 - 36}, non-causal", (B * H, B * K, T, hd),
+         dict(causal=False, kv_valid=T * 3 // 4 - 36)),
+    ]
+    fa, controls = [], None
+    for name, (bh, bk, t, d), kw in cases:
+        q, k, v = randn(bh, t, d), randn(bk, t, d), randn(bk, t, d)
+        fa.append(_hold_fa(name, q, k, v, kw))
+        if controls is None:
+            controls = _check_controls(q, k, v)
+        del q, k, v
+    torch.cuda.empty_cache()
+
+    # One full-width decode leaf: (U, B, K, S, hd) pages; about a third
+    # of the pages carry one large value, so that they retry.
+    P = 28 * B * K * T
+    backing = randn(P, hd)
+    spiky = torch.rand(P, generator=gen, device=DEVICE) < 0.3
+    col = torch.randint(0, hd, (P,), generator=gen, device=DEVICE)
+    backing[spiky, col[spiky]] *= 40.0
+    data_q, scale = quantize_pages(backing)
+    kv = [_hold_kv(f"decode leaf (28, {B}, {K}, {T}, {hd})", data_q, scale,
+                   backing, LEAF_TAU)]
+    del backing, data_q, scale
+    torch.cuda.empty_cache()
+    return fa, kv, controls
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def _small_width_check():
+    """The serve path on the card against itself on the CPU (where the
+    kernels run their plain versions), at a small width with head dim 64
+    (what the flash-attention kernel takes), in float32, with the same
+    weights: prefill and two decode steps' logits within 1e-4 of the
+    largest, and the served tokens and KV read stats of 8 new tokens
+    compared (at least 90% of the tokens equal)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.core.retry import RetryPolicy
+    from repro_torch.launch.serve import default_prompts
+    from repro_torch.serving import ServeEngine
+
+    for arch in ("llama3.2-3b", "gemma2-2b"):
+        cfg = dataclasses.replace(reduced_config(get_config(arch)),
+                                  head_dim=64, activation_dtype="float32")
+        # Prompts up to 40 tokens: past gemma2's reduced window of 32.
+        rng = np.random.default_rng(5)
+        prompts = default_prompts(cfg.vocab, 4)[:2] + [
+            rng.integers(2, cfg.vocab, size=n).astype(np.int32)
+            for n in (40, 33)]
+        card = ServeEngine(cfg, policy=RetryPolicy("pr2ar2"), tau=0.01,
+                           seed=0, device=DEVICE)
+        cpu = ServeEngine(cfg, params=_tree_to(card.params, "cpu"),
+                          policy=RetryPolicy("pr2ar2"), tau=0.01,
+                          device="cpu")
+        toks = torch.as_tensor(card._pad_batch(prompts))
+        gap = 0.0
+        with torch.inference_mode():
+            outs = [(e.model.prefill(e.params, {"tokens": toks.to(e.device)}))
+                    for e in (card, cpu)]
+            for step in range(3):
+                (lc, cc), (lp, cp) = outs
+                lc = lc.cpu()
+                if not bool(torch.isfinite(lc).all()):
+                    raise AssertionError(f"{arch}: non-finite logits")
+                gap = max(gap, float((lc - lp).abs().max() / lp.abs().max()))
+                if step == 2:
+                    break
+                tok = lp[:, -1].argmax(-1)[:, None]
+                outs = [e.model.decode_step(e.params, {
+                    "token": tok.to(e.device), "pos": toks.shape[1] + step,
+                    "cache": c}) for e, c in ((card, cc), (cpu, cp))]
+        if gap > 1e-4:
+            raise AssertionError(f"{arch} small width: card logits differ "
+                                 f"from the CPU's by {gap:.3g} of the largest")
+        g_card, s_card = card.generate(prompts, max_new_tokens=8)
+        g_cpu, s_cpu = cpu.generate(prompts, max_new_tokens=8)
+        agree = float((g_card == g_cpu).mean())
+        print(f"small-width {arch} (hd 64, float32, tau 0.01): logits gap "
+              f"{gap:.3g} of the largest (prefill, 2 decode steps); served "
+              f"tokens card == cpu {agree:.4f}; kv_fast card "
+              f"{100 * s_card.kv.fast_fraction:.2f}% cpu "
+              f"{100 * s_cpu.kv.fast_fraction:.2f}% of {s_card.kv.pages} "
+              f"pages", flush=True)
+        if agree < 0.9 or s_card.kv.pages != s_cpu.kv.pages:
+            raise AssertionError(f"{arch} small width: served tokens "
+                                 f"{g_card.tolist()} vs {g_cpu.tolist()}")
+
+
+def _request_sets(vocab):
+    import numpy as np
+
+    from repro_torch.launch.serve import default_prompts
+
+    rng = np.random.default_rng(1)
+    long = [rng.integers(2, vocab, size=n).astype(np.int32)
+            for n in LONG_LENGTHS]
+    return (("short", default_prompts(vocab, 4)), ("long", long))
+
+
+@phase("serve path")
+def serve_path_phase():
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.retry import RetryPolicy
+    from repro_torch.kernels.fcfs_core import ops as B1
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.kernels.kv_retry import ops as KV
+    from repro_torch.serving import KVReadStats, ServeEngine
+
+    _small_width_check()
+
+    cfg = get_config(SERVE_ARCH)
+    t0 = time.perf_counter()
+    eng = ServeEngine(cfg, policy=RetryPolicy("pr2ar2"), tau=SERVE_TAU,
+                      seed=0, device=DEVICE)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(eng.params))
+    print(f"{SERVE_ARCH}: {n_params} seeded float32 parameters on the card "
+          f"in {time.perf_counter() - t0:.3f} s; "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated",
+          flush=True)
+    engines = {"pr2ar2": eng,
+               "baseline": ServeEngine(cfg, params=eng.params,
+                                       policy=RetryPolicy("baseline"),
+                                       tau=SERVE_TAU, device=DEVICE)}
+    finite = []
+
+    def checked(fn):
+        def run(params, batch):
+            logits, cache = fn(params, batch)
+            finite.append(torch.isfinite(logits).all())
+            return logits, cache
+        return run
+
+    for e in engines.values():
+        e.model = dataclasses.replace(
+            e.model, prefill=checked(e.model.prefill),
+            decode_step=checked(e.model.decode_step))
+    sets = _request_sets(cfg.vocab)
+    for e in engines.values():            # warm-up: library loads, cuBLAS
+        e.generate(sets[0][1], max_new_tokens=2)
+
+    rec_fa, rec_kv = [], []
+    fa_fwd, kv_fwd = FA.flash_attention_fwd, KV.kv_retry_fwd
+
+    def recording_fa(q, k, v, **kw):
+        out = fa_fwd(q, k, v, **kw)
+        rec_fa.append((q, k, v, kw, out))
+        return out
+
+    def recording_kv(data_q, scale, backing, tau=0.02):
+        out = kv_fwd(data_q, scale, backing, tau)
+        rec_kv.append((data_q, scale, backing, tau, out))
+        return out
+
+    runs, held_fa, held_kv = {}, [], []
+    launches = {"fcfs_core": 0, "flash_attention": 0, "kv_retry": 0}
+    FA.flash_attention_fwd, KV.kv_retry_fwd = recording_fa, recording_kv
+    try:
+        for set_name, prompts in sets:
+            for mech, e in engines.items():
+                e.store.stats = KVReadStats()
+                finite.clear()
+                B1.launches = FA.launches = KV.launches = 0
+                gen, st = e.generate(prompts, max_new_tokens=SERVE_MAX_NEW)
+                counts = {"fcfs_core": B1.launches,
+                          "flash_attention": FA.launches,
+                          "kv_retry": KV.launches}
+                if len(rec_fa) != counts["flash_attention"] or \
+                        len(rec_kv) != counts["kv_retry"]:
+                    raise AssertionError(f"{set_name}/{mech}: recorded "
+                                         f"calls != launches {counts}")
+                if not bool(torch.stack(finite).all()):
+                    raise AssertionError(f"{set_name}/{mech}: non-finite "
+                                         f"logits")
+                for name, n in counts.items():
+                    launches[name] += n
+                runs[(set_name, mech)] = (gen, st)
+                print(f"{set_name:>5} {mech:>8}: {st.summary()}; launches "
+                      f"{counts}", flush=True)
+                # Hold this run's launches on the inputs they had, then
+                # let them go (a long run keeps ~40 GB of KV pages).
+                FA.flash_attention_fwd, KV.kv_retry_fwd = fa_fwd, kv_fwd
+                fa_run = [_hold_fa(f"{set_name}/{mech} launch {i}", q, k, v,
+                                   kw, got=out, quiet=True)
+                          for i, (q, k, v, kw, out) in enumerate(rec_fa)]
+                kv_run = [_hold_kv(f"{set_name}/{mech} launch {i}", dq, sc,
+                                   bk, tau, got=out, quiet=True)
+                          for i, (dq, sc, bk, tau, out) in enumerate(rec_kv)]
+                for kname, rs in (("flash_attention", fa_run),
+                                  ("kv_retry", kv_run)):
+                    if rs:
+                        _print_held(f"  {set_name}/{mech} {kname}", rs)
+                held_fa += fa_run
+                held_kv += kv_run
+                FA.flash_attention_fwd = recording_fa
+                KV.kv_retry_fwd = recording_kv
+                rec_fa.clear()
+                rec_kv.clear()
+                torch.cuda.empty_cache()
+    finally:
+        FA.flash_attention_fwd, KV.kv_retry_fwd = fa_fwd, kv_fwd
+
+    for name in ("flash_attention", "kv_retry"):
+        if launches[name] <= 0:
+            raise AssertionError(f"the serve path never launched {name}")
+    for set_name, _ in sets:
+        p_gen, p_st = runs[(set_name, "pr2ar2")]
+        b_gen, b_st = runs[(set_name, "baseline")]
+        if not p_st.kv.fast_fraction > 0 or b_st.kv.fast_fraction != 0:
+            raise AssertionError(f"{set_name}: kv_fast pr2ar2 "
+                                 f"{p_st.kv.fast_fraction}, baseline "
+                                 f"{b_st.kv.fast_fraction}")
+        agree = float((p_gen == b_gen).mean())
+        print(f"{set_name}: pr2ar2/baseline token agreement {agree:.4f} "
+              f"({int((p_gen == b_gen).sum())} of {p_gen.size})")
+    return launches, held_fa, held_kv, runs
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def _print_held(name, rs):
+    """One line for the launches of one run, held and re-timed."""
+    bound_ms, bound_by = _bound(sum(r["t_bytes"] for r in rs),
+                                sum(r["t_ops"] for r in rs))
+    lib = [r.get("library_ms") for r in rs]
+    if "pages" in rs[0]:
+        extra = (f", {sum(r['retried'] for r in rs)} of "
+                 f"{sum(r['pages'] for r in rs)} pages retried, "
+                 f"{sum(r['moved'] for r in rs) / 1e9:.3f} GB moved (int8 "
+                 f"pages, scales, margins, output, retried backing) for "
+                 f"{sum(r['leaf'] for r in rs) / 1e9:.3f} GB of backing "
+                 f"leaves")
+    else:
+        extra = (f", worst |err| / tolerance "
+                 f"{max(r['tol_ratio'] for r in rs):.3g}")
+    print(f"{name}: {len(rs)} launches held{extra}, max_abs_err "
+          f"{max(r['max_abs_err'] for r in rs):.3g}; kernel "
+          f"{sum(r['ms'] for r in rs):.3f} ms (largest launch "
+          f"{max(r['ms'] for r in rs):.3f}), plain "
+          f"{sum(r['plain_ms'] for r in rs):.3f} ms, sdpa "
+          f"{'none' if None in lib else f'{sum(lib):.3f} ms'}, bound "
+          f"{bound_ms:.4f} ms ({bound_by})", flush=True)
+
+
+def _kernel_line(name, source, replaces, launches, cases, held, library):
+    """One kernel's entry of the JSON line: times, bound and library time
+    summed over the main path's launches, each re-run on its inputs."""
+    bound_ms, bound_by = _bound(sum(r["t_bytes"] for r in held),
+                                sum(r["t_ops"] for r in held))
+    lib = [r.get("library_ms") for r in held]
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": source,
+        "replaces": replaces,
+        "launches": launches,
+        "max_abs_err": max(r["max_abs_err"] for r in cases + held),
+        "ms": sum(r["ms"] for r in held),
+        "plain_ms": sum(r["plain_ms"] for r in held),
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": sum(lib) if library and None not in lib else None,
+    }
+
+
 def main() -> int:
     import torch
 
@@ -453,24 +965,27 @@ def main() -> int:
     characterize_phase()
     kern, chain_ns = kernel_phase()
     launches, held = main_path_phase(chain_ns)
+    torch.cuda.empty_cache()
+    fa_cases, kv_cases, _ = serve_kernel_phase()
+    serve_launches, held_fa, held_kv, _ = serve_path_phase()
 
-    # Times and bounds are sums over the main path's launches, each
+    # Times and bounds are sums over each main path's launches, each
     # re-run on the inputs it had there.
-    bound_ms, bound_by = _bound(sum(r["t_bytes"] for r in held),
-                                sum(r["t_ops"] for r in held))
-    print(json.dumps({"kernels": [{
-        "name": "fcfs_core",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/fcfs_core/csrc/fcfs_core.cu",
-        "replaces": "src/repro/kernels/fcfs_core/kernel.py:120",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in kern + held),
-        "ms": sum(r["ms"] for r in held),
-        "plain_ms": sum(r["plain_ms"] for r in held),
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": None,
-    }]}))
+    kernels = "src/repro_torch/kernels"
+    print(json.dumps({"kernels": [
+        _kernel_line("fcfs_core", f"{kernels}/fcfs_core/csrc/fcfs_core.cu",
+                     "src/repro/kernels/fcfs_core/kernel.py:120", launches,
+                     kern, held, library=False),
+        _kernel_line("flash_attention",
+                     f"{kernels}/flash_attention/csrc/flash_attention.cu",
+                     "src/repro/kernels/flash_attention/kernel.py:34",
+                     serve_launches["flash_attention"], fa_cases, held_fa,
+                     library=True),
+        _kernel_line("kv_retry", f"{kernels}/kv_retry/csrc/kv_retry.cu",
+                     "src/repro/kernels/kv_retry/kernel.py:26",
+                     serve_launches["kv_retry"], kv_cases, held_kv,
+                     library=False),
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -8,6 +8,9 @@ passes ``device="cpu"``; without CUDA, ``device=None`` raises.
   core      — NAND characterization (threefry draws, V_TH model, ECC,
               retry mechanisms, the 160-chip characterization)
   flashsim  — the SSD simulator and its run APIs
+  configs   — the architecture registry (pure data)
+  models    — the decoder LM of the serving path
+  serving   — the serving engine and the retry-aware quantized KV store
   kernels   — hand-written Hopper kernels beside their plain versions
 """
 
@@ -26,7 +29,10 @@ from repro_torch.flashsim import (
     simulate,
     simulate_batch,
 )
+from repro_torch.configs import get_config
 from repro_torch.kernels.fcfs_core import fcfs_core, fused_core
+from repro_torch.models import build_model
+from repro_torch.serving import QuantizedKVStore, ServeEngine
 
 __all__ = [
     "attempt_cdf",
@@ -42,4 +48,8 @@ __all__ = [
     "simulate_batch",
     "fcfs_core",
     "fused_core",
+    "get_config",
+    "build_model",
+    "QuantizedKVStore",
+    "ServeEngine",
 ]

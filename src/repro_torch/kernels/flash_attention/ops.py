@@ -1,0 +1,129 @@
+"""Dispatch wrapper for the flash-attention forward kernel.
+
+:func:`flash_attention_fwd` takes the kernel layout — q (BH, T, hd),
+k and v (BK, S, hd) — and picks the implementation by the tensors'
+device:
+
+  * CUDA tensors launch the hand-written kernel
+    (``csrc/flash_attention.cu``, built with nvcc at first use) — or
+    raise; there is no fallback;
+  * CPU tensors run the plain torch version
+    (:func:`repro_torch.kernels.flash_attention.plain.flash_attention_plain`).
+
+:func:`flash_attention` is the model-layout adapter of the reference's
+``ops.flash_attention``: q (B, T, K, G, hd) and k, v (B, S, K, hd) are
+flattened to ``bh = (b*K + k)*G + g`` query rows over ``b*K + k`` kv
+rows.  ``launches`` counts the CUDA kernel launches of this process, and
+nothing else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.kernels.flash_attention.plain import flash_attention_plain
+
+#: CUDA launches of the flash-attention kernel in this process.
+launches = 0
+
+_SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+#: Head dims the kernel is instantiated for.
+HEAD_DIMS = (64, 128, 256)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _kernel_fn():
+    """The C entry point of the built kernel library, typed for ctypes."""
+    from repro_torch.kernels import build
+
+    fn = build.load(_SOURCE).fa_fwd_launch
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, ci, ci,
+                   ctypes.c_float, ci, ctypes.c_float, vp]
+    fn.restype = ci
+    return fn
+
+
+def _launch_cuda(q, k, v, causal, window, softcap, kv_valid):
+    """Launch the CUDA kernel on the current stream (no synchronize)."""
+    global launches
+    BH, T, hd = q.shape
+    BK, S, _ = k.shape
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention kernel takes head dims "
+                         f"{HEAD_DIMS}, got {hd}")
+    fn = _kernel_fn()
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             BH, T, S, BK, hd, _DTYPES[q.dtype], int(causal),
+             int(window is not None), 0 if window is None else int(window),
+             kv_valid, hd ** -0.5, int(softcap is not None),
+             0.0 if softcap is None else float(softcap), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
+                           f"error {err}")
+    launches += 1
+    return out
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window: Optional[int] = None,
+                        softcap: Optional[float] = None,
+                        kv_valid: Optional[int] = None) -> torch.Tensor:
+    """Forward attention in the kernel layout.
+
+    q (BH, T, hd), k and v (BK, S, hd), one dtype (float32 or bfloat16)
+    on one device, BH a multiple of BK.  Keys at or past ``kv_valid``
+    are padding.  Returns (BH, T, hd) in q's dtype.
+    """
+    if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape:
+        raise ValueError(f"q must be (BH, T, hd) and k, v (BK, S, hd), got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    BH, T, hd = q.shape
+    BK, S, hd_k = k.shape
+    if hd_k != hd or BK == 0 or BH % BK:
+        raise ValueError(f"q {tuple(q.shape)} does not group over k "
+                         f"{tuple(k.shape)}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"q, k, v must share float32 or bfloat16, got "
+                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if not q.device == k.device == v.device:
+        raise ValueError("q, k and v must share a device")
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    if q.device.type == "cuda":
+        kv = S if kv_valid is None else max(0, min(int(kv_valid), S))
+        return _launch_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
+                            kv_valid=kv, **kw)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, kv_valid=kv_valid, **kw)
+    raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, window: Optional[int] = None,
+                    softcap: Optional[float] = None,
+                    kv_valid: Optional[int] = None,
+                    device=None) -> torch.Tensor:
+    """Attention in the model layout, on ``device`` (``None``: the CUDA
+    card; inputs elsewhere are moved there).
+
+    q (B, T, K, G, hd), k and v (B, S, K, hd).  Returns (B, T, K, G, hd)
+    on ``device``.
+    """
+    dev = resolve_device(device)
+    q, k, v = (t.to(dev) for t in (q, k, v))
+    B, T, K, G, hd = q.shape
+    S = k.shape[1]
+    qf = q.permute(0, 2, 3, 1, 4).reshape(B * K * G, T, hd)
+    kf = k.permute(0, 2, 1, 3).reshape(B * K, S, hd)
+    vf = v.permute(0, 2, 1, 3).reshape(B * K, S, hd)
+    of = flash_attention_fwd(qf, kf, vf, causal=causal, window=window,
+                             softcap=softcap, kv_valid=kv_valid)
+    return of.reshape(B, K, G, T, hd).permute(0, 3, 1, 2, 4)

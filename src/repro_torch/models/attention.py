@@ -1,0 +1,165 @@
+"""GQA attention for the decoder: full-sequence (prefill) and cached decode.
+
+Layouts, as in the reference:
+  q:        (B, T, K, G, hd)   with H = K * G (G query groups per KV head)
+  k, v:     (B, S, K, hd)
+  caches:   global (B, K, S, hd) absolute-position slots;
+            local  (B, K, W, hd) shift-ring (slot W-1 holds the newest).
+
+Full-sequence attention always goes through the flash-attention kernel's
+wrapper (the CUDA kernel on the card, its plain dense-softmax version on
+the CPU); the reference's blockwise and windowed scans are its CPU
+fallbacks and are covered by that plain version.  Decode attention is
+plain torch (einsum, softmax, valid mask), as the reference computes it
+outside any kernel.
+
+Decode on a global cache writes the new token's K/V at slot
+``min(pos, S - 1)``: the reference's ``dynamic_update_slice`` clamps its
+start index, and its serving engine prefills without headroom, so every
+decode step overwrites the last slot (ROADMAP C6).  Bidirectional and
+cross attention (encoder-decoder) and the in-model int8 cache
+(``REPRO_KV_INT8``) are not ported (ROADMAP D12, D13).
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.models.common import init_dense, rmsnorm, rope, softcap
+
+NEG = -1e30
+
+
+def attn_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    H, K = cfg.n_heads, cfg.n_kv_heads
+    p = {
+        "wq": init_dense(gen, (d, H, hd)),
+        "wk": init_dense(gen, (d, K, hd)),
+        "wv": init_dense(gen, (d, K, hd)),
+        "wo": init_dense(gen, (H, hd, d), in_dims=2),
+    }
+    if cfg.qk_norm:
+        p["q_scale"] = torch.zeros((hd,), device=gen.device)
+        p["k_scale"] = torch.zeros((hd,), device=gen.device)
+    return p
+
+
+def _proj(x, w):
+    """einsum("btd,dnk->btnk"): x (B, T, d) by w (d, N, hd)."""
+    d, n, hd = w.shape
+    return (x @ w.to(x.dtype).reshape(d, n * hd)).reshape(
+        x.shape[:-1] + (n, hd))
+
+
+def _project_qkv(cfg: ModelConfig, p, x):
+    """-> q (B,T,K,G,hd), k/v (B,T,K,hd) before rope."""
+    K = cfg.n_kv_heads
+    G = cfg.n_heads // K
+    q = _proj(x, p["wq"])
+    k = _proj(x, p["wk"])
+    v = _proj(x, p["wv"])
+    if cfg.qk_norm:
+        q = rmsnorm(q, p["q_scale"])
+        k = rmsnorm(k, p["k_scale"])
+    B, T = q.shape[:2]
+    return q.reshape(B, T, K, G, q.shape[-1]), k, v
+
+
+def _merge_out(cfg: ModelConfig, p, o):
+    """o (B,T,K,G,hd) -> (B,T,d): einsum("bthk,hkd->btd")."""
+    B, T = o.shape[:2]
+    H, hd, d = p["wo"].shape
+    o = o.reshape(B, T, H * hd)
+    return o @ p["wo"].to(o.dtype).reshape(H * hd, d)
+
+
+def attention_fullseq(cfg: ModelConfig, p: dict, x, positions,
+                      kind: str) -> Tuple[torch.Tensor, dict]:
+    """Prefill attention of ``kind`` "causal" or "local" over x (B, T, d);
+    returns (y, cache).  A global cache holds exactly the T prompt slots
+    (no decode headroom, as the reference's serving engine asks)."""
+    if kind not in ("causal", "local"):
+        raise NotImplementedError(
+            f"{kind!r} attention (encoder-decoder) is not ported: "
+            f"ROADMAP D12")
+    if os.environ.get("REPRO_KV_INT8", "0") == "1":
+        raise NotImplementedError(
+            "REPRO_KV_INT8 (the in-model int8 KV cache) is not ported: "
+            "ROADMAP D13")
+    q, k, v = _project_qkv(cfg, p, x)
+    q = rope(q.reshape(q.shape[:2] + (-1, q.shape[-1])), positions,
+             cfg.rope_theta).reshape(q.shape)
+    k = rope(k, positions, cfg.rope_theta)
+    window = cfg.window if kind == "local" else None
+    o = flash_attention(q, k, v, causal=True, window=window,
+                        softcap=cfg.attn_softcap, device=x.device)
+    y = _merge_out(cfg, p, o)
+    kc = k.transpose(1, 2)
+    vc = v.transpose(1, 2)
+    if kind == "local":
+        w = cfg.window
+        kc, vc = kc[:, :, -w:], vc[:, :, -w:]
+        if kc.shape[2] < w:  # left-pad ring to full window
+            pad = (0, 0, w - kc.shape[2], 0)
+            kc = torch.nn.functional.pad(kc, pad)
+            vc = torch.nn.functional.pad(vc, pad)
+    return y, {"k": kc.contiguous(), "v": vc.contiguous()}
+
+
+def attention_decode(cfg: ModelConfig, p: dict, x, cache: dict, pos: int,
+                     kind: str) -> Tuple[torch.Tensor, dict]:
+    """One decode step of ``kind`` "causal" or "local"; x (B, 1, d), pos
+    the new token's absolute position.  Returns (y, new cache); the
+    input cache is not modified."""
+    if kind not in ("causal", "local"):
+        raise NotImplementedError(
+            f"{kind!r} decode attention (encoder-decoder) is not ported: "
+            f"ROADMAP D12")
+    dt = x.dtype
+    K = cfg.n_kv_heads
+    G = cfg.n_heads // K
+    hd = cfg.resolved_head_dim
+    B = x.shape[0]
+    positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+
+    q = _proj(x, p["wq"])
+    if cfg.qk_norm:
+        q = rmsnorm(q, p["q_scale"])
+    q = rope(q, positions, cfg.rope_theta).reshape(B, 1, K, G, hd)
+
+    knew = _proj(x, p["wk"])
+    vnew = _proj(x, p["wv"])
+    if cfg.qk_norm:
+        knew = rmsnorm(knew, p["k_scale"])
+    knew = rope(knew, positions, cfg.rope_theta).transpose(1, 2)  # (B,K,1,hd)
+    vnew = vnew.transpose(1, 2)
+    if kind == "local":
+        ck = torch.cat([cache["k"][:, :, 1:], knew], dim=2)
+        cv = torch.cat([cache["v"][:, :, 1:], vnew], dim=2)
+        W = ck.shape[2]
+        n_valid = min(pos + 1, W)
+        valid = torch.arange(W, device=x.device) >= (W - n_valid)
+    else:
+        S = cache["k"].shape[2]
+        slot = min(max(pos, 0), S - 1)     # the reference's clamp (C6)
+        ck = cache["k"].clone()
+        cv = cache["v"].clone()
+        ck[:, :, slot] = knew[:, :, 0]
+        cv[:, :, slot] = vnew[:, :, 0]
+        valid = torch.arange(S, device=x.device) <= pos
+
+    # s: (B, K, G, 1, S), products of dt values summed in float32.
+    qf = q.float().permute(0, 2, 3, 1, 4)                 # (B,K,G,1,hd)
+    s = torch.matmul(qf, ck.float()[:, :, None].transpose(-1, -2))
+    s = softcap(s * (hd ** -0.5), cfg.attn_softcap)
+    s = torch.where(valid, s, NEG)
+    w = torch.softmax(s, dim=-1).to(dt)
+    o = torch.matmul(w, cv[:, :, None])                   # (B,K,G,1,hd)
+    y = _merge_out(cfg, p, o.permute(0, 3, 1, 2, 4))
+    return y, {"k": ck, "v": cv}

@@ -1,0 +1,124 @@
+"""Decoder-only LM assembled from the block pattern.
+
+Parameters and caches keep the reference's stacked-unit layout: every
+leaf of ``params["units"]`` and ``cache["units"]`` carries a leading
+unit dim U (one unit is one repeat of the block pattern), so the KV
+store sees the same pages in the same order as the reference does.  The
+reference scans over units; here a Python loop indexes them.  A pattern
+remainder (the reference's unscanned tail) occurs only with RG-LRU
+blocks, and waits for them (ROADMAP D10).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import blocks as B
+from repro_torch.models.common import (
+    apply_norm,
+    embed_apply,
+    embed_init,
+    logits_apply,
+    norm_init,
+)
+
+
+def _moe_here(cfg: ModelConfig, member_idx: int) -> bool:
+    if cfg.moe is None:
+        return False
+    il = cfg.moe.interleave
+    return member_idx % il == il - 1
+
+
+def _stack(trees):
+    """Stack a list of equal nested dicts of tensors along a new dim 0."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack([t[k] for t in trees]) for k in first}
+    return torch.stack(trees)
+
+
+def _index(tree, u: int):
+    """Unit ``u`` of a stacked nested dict."""
+    if isinstance(tree, dict):
+        return {k: _index(v, u) for k, v in tree.items()}
+    return tree[u]
+
+
+def _check_family(cfg: ModelConfig) -> None:
+    if cfg.family != "decoder":
+        raise NotImplementedError(
+            f"the {cfg.family!r} family is not ported: ROADMAP D12")
+    for kind in cfg.block_pattern + cfg.tail_pattern():
+        B.check_kind(kind)
+    if cfg.tail_pattern():
+        raise NotImplementedError("pattern remainders (tails) are not "
+                                  "ported: ROADMAP D10")
+
+
+def lm_init(cfg: ModelConfig, generator: torch.Generator) -> dict:
+    """Seeded float32 parameters on the generator's device."""
+    _check_family(cfg)
+    embed_p = embed_init(generator, cfg)
+    units = [{f"b{i}": B.block_init(generator, cfg, kind, _moe_here(cfg, i))
+              for i, kind in enumerate(cfg.block_pattern)}
+             for _ in range(cfg.unit_count())]
+    return {"embed_p": embed_p, "units": _stack(units),
+            "final_norm": norm_init(cfg, cfg.d_model, generator.device)}
+
+
+def backbone_fullseq(cfg: ModelConfig, params, x, positions):
+    """x (B, T, d) embedded input -> (x_out, cache)."""
+    caches = []
+    for u in range(cfg.unit_count()):
+        unit_p = _index(params["units"], u)
+        unit_c = {}
+        for i, kind in enumerate(cfg.block_pattern):
+            x, unit_c[f"b{i}"] = B.block_fullseq(
+                cfg, kind, unit_p[f"b{i}"], x, positions)
+        caches.append(unit_c)
+    return x, {"units": _stack(caches)}
+
+
+def backbone_decode(cfg: ModelConfig, params, x, cache, pos: int):
+    new_units = []
+    for u in range(cfg.unit_count()):
+        unit_p = _index(params["units"], u)
+        unit_c = _index(cache["units"], u)
+        new_c = {}
+        for i, kind in enumerate(cfg.block_pattern):
+            x, new_c[f"b{i}"] = B.block_decode(
+                cfg, kind, unit_p[f"b{i}"], x, unit_c[f"b{i}"], pos)
+        new_units.append(new_c)
+    return x, {"units": _stack(new_units)}
+
+
+# -- entry points ---------------------------------------------------------------
+
+
+def prefill(cfg: ModelConfig, params, batch):
+    """batch {"tokens": (B, T) int}: -> (last-position float32 logits
+    (B, 1, V), cache)."""
+    _check_family(cfg)
+    tokens = batch["tokens"]
+    x = embed_apply(cfg, params["embed_p"], tokens)
+    T = x.shape[1]
+    positions = torch.arange(T, dtype=torch.int32, device=x.device)
+    x, cache = backbone_fullseq(cfg, params, x, positions)
+    x = apply_norm(cfg, params["final_norm"], x)
+    return logits_apply(cfg, params["embed_p"], x[:, -1:]), cache
+
+
+def decode_step(cfg: ModelConfig, params, batch):
+    """batch {"token": (B, 1), "pos": int, "cache": nested dict}."""
+    x = embed_apply(cfg, params["embed_p"], batch["token"])
+    x, new_cache = backbone_decode(cfg, params, x, batch["cache"],
+                                   int(batch["pos"]))
+    x = apply_norm(cfg, params["final_norm"], x)
+    return logits_apply(cfg, params["embed_p"], x), new_cache
+
+
+def train_loss(cfg: ModelConfig, params, batch):
+    raise NotImplementedError("training (train_loss, cross_entropy) is not "
+                              "ported: ROADMAP D14")

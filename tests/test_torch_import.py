@@ -1,6 +1,6 @@
 """The torch port stands alone: no JAX, no reference package, no silent CPU.
 
-``repro_torch`` must import and simulate on a machine without JAX, must
+``repro_torch`` must import, simulate and serve on a machine without JAX, must
 not import the reference package (not even its numpy-only modules), and
 its entry points must run on the CUDA card unless told otherwise —
 ``device=None`` without CUDA raises instead of falling back.
@@ -44,6 +44,14 @@ def test_import_and_simulate_without_jax(tmp_path):
         "bad = [m for m in sys.modules if m == 'repro' "
         "or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
+        "from repro_torch import ServeEngine, get_config\n"
+        "from repro_torch.configs import reduced_config\n"
+        "eng = ServeEngine(reduced_config(get_config('llama3.2-3b')),"
+        " device='cpu')\n"
+        "gen, st = eng.generate([np.array([5, 9, 11]), np.array([7, 3])],"
+        " max_new_tokens=2)\n"
+        "assert gen.shape == (2, 2) and st.kv.pages > 0, (gen, st)\n"
+        "assert sys.modules['jax'] is None\n"
         "print('ok', s.mean_us)\n"
     )
     env = dict(os.environ, PYTHONPATH=str(SRC), REPRO_CHAR_CACHE="0",
@@ -79,7 +87,22 @@ def _entry_points():
     from repro_torch.flashsim import OperatingCondition
 
     cond = OperatingCondition(30.0, 0.0)
+    from repro_torch.configs import reduced_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.kv_retry import kv_read_with_retry
+    from repro_torch.models.convert import params_from_jax
+
+    cfg = reduced_config(rt.get_config("llama3.2-3b"))
+    x = torch.zeros(8, 16)
+    q = torch.zeros(1, 8, 2, 2, 16)
+    kv = torch.zeros(1, 8, 2, 16)
     return {
+        "ServeEngine": lambda: rt.ServeEngine(cfg),
+        "build_model": lambda: rt.build_model(cfg),
+        "params_from_jax": lambda: params_from_jax({"w": np.zeros(3)}),
+        "kv_read_with_retry": lambda: kv_read_with_retry(
+            x.to(torch.int8), torch.ones(8, 1), x),
+        "flash_attention": lambda: flash_attention(q, kv, kv),
         "characterize_condition": lambda: rt.characterize_condition(
             30.0, 0.0, n_chips=2),
         "attempt_histogram": lambda: rt.attempt_histogram(30.0, 0.0),
@@ -99,7 +122,8 @@ def _entry_points():
 
 
 @pytest.mark.parametrize("name", [
-    "characterize_condition", "attempt_histogram", "attempt_cdf", "SSDSim",
+    "ServeEngine", "build_model", "params_from_jax", "kv_read_with_retry",
+    "flash_attention", "characterize_condition", "attempt_histogram", "attempt_cdf", "SSDSim",
     "simulate", "compare_mechanisms", "simulate_batch", "fcfs_core",
     "fused_core",
 ])
