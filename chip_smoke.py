@@ -57,15 +57,41 @@ exits non-zero):
                      just before each run and read just after; both
                      kernels must have launched, pr2ar2 must serve some
                      pages fast and baseline none, and every logit must
-                     be finite.  Every launch of each run is then held
-                     against the plain version on the inputs it had, and
-                     timed beside its bound.
+                     be finite; then the short set under pr2ar2 at tau
+                     0.01, where pages must retry (B3's backing read)
+                     and others be fast.  Every launch of each run is
+                     then held against the plain version on the inputs
+                     it had, and timed beside its bound;
+  8. ssd/rber kernels — the SSD scan kernel against its plain version on
+                     the full-width mamba2-130m long prefill shape (B 4,
+                     T 2048, 24 heads, hd 64, ds 128, chunk 256, bf16),
+                     a padded case (T 1500) and a float32 case (bfloat16
+                     y held element by element as in phase 6, H and
+                     float32 y within 1e-5 of their largest), and two
+                     faulty variants of the plain version (w rounded to
+                     bfloat16; the carried state not decayed across
+                     chunks) that must fail that rule; then
+                     ``rber_table`` over the 160-chip population's
+                     (mu, sigma) at 365 d / 1000 P/E and the 41-entry
+                     retry table, its count set to 0 just before and
+                     read just after, held against its plain version
+                     and against the characterization's
+                     ``rber_per_retry_step``;
+  9. mamba serve path — ``ServeEngine`` with mamba2-130m, first at its
+                     reduced width (head dim 16, ds 16) on the card
+                     against the CPU (equal tokens, logits within 1e-4
+                     of the largest), then at full width with seeded
+                     weights: the short and long sets, 16 new tokens,
+                     under pr2ar2 and baseline.  Each prefill must launch
+                     the scan 24 times, the KV store read 0 pages, the
+                     two mechanisms give equal tokens and every logit be
+                     finite; every launch is held and timed as above.
 
 The line before the last is a JSON object describing each kernel
 (launches on its main path, error against the plain version, and times
-and bound summed over the main path's launches); the last line is ``{"ok": true, "device": {...}}``.  Without a
-CUDA card, or outside a checkout of the repository, it exits non-zero
-and prints no result.
+and bound summed over the main path's launches); the last line is
+``{"ok": true, "device": {...}}``.  Without a CUDA card, or outside a
+checkout of the repository, it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -113,6 +139,31 @@ PREFILL_SHAPE = (4, 2048, 24, 8, 128)
 LEAF_TAU = 0.02
 FA_F32_TOL = 1e-5
 KV_MARGIN_RTOL = 1e-6
+# The serve run whose pages retry: a page of 128 values retries where
+# tau < max|v| / (254 rms); seeded KV pages are near Gaussian, with
+# max/rms about 2.6 over 128 values, so about half retry at 0.01.
+RETRY_TAU = 0.01
+
+SSM_ARCH = "mamba2-130m"
+# Full-width mamba2-130m long-set scan launch: B, T, heads, hd, ds, chunk.
+SSD_SHAPE = (4, 2048, 24, 64, 128, 256)
+SSD_PADDED_T = 1500
+# float32 scan cases: y and H within 1e-5 of their largest magnitude (the
+# plain version takes the kernel's cumulative-sum order; only product
+# orders differ).  bfloat16 y is held element by element, as B4's.
+SSD_F32_TOL = 1e-5
+# The characterization's population: 160 chips x 8 blocks x 16 pages.
+N_BLOCKS = 8
+N_PAGES = 16
+# RBER table: against its plain version (both call CUDA's erfcf), and
+# against the characterization's rber_per_retry_step (which divides by
+# sqrt(2) and takes sqrt(sigma^2 + 0) as the sensing sigma).
+RBER_RTOL = 1e-6
+RBER_CHAR_RTOL = 1e-4
+RBER_ATOL = 1e-12
+# float32 operations counted for one erfcf in the RBER bound (an
+# estimate: a rational approximation and an exp).
+RBER_ERFC_OPS = 20
 
 
 def phase(name):
@@ -690,13 +741,21 @@ def _tree_to(tree, device):
     return tree.to(device)
 
 
-def _small_width_check():
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k])
+    else:
+        yield tree
+
+
+def _small_width_check(arch, min_agree, **overrides):
     """The serve path on the card against itself on the CPU (where the
-    kernels run their plain versions), at a small width with head dim 64
-    (what the flash-attention kernel takes), in float32, with the same
-    weights: prefill and two decode steps' logits within 1e-4 of the
-    largest, and the served tokens and KV read stats of 8 new tokens
-    compared (at least 90% of the tokens equal)."""
+    kernels run their plain versions), at the reduced width of ``arch``
+    in float32 (with ``overrides``), with the same weights: prefill and
+    two decode steps' logits within 1e-4 of the largest, and the served
+    tokens and KV read stats of 8 new tokens compared (at least
+    ``min_agree`` of the tokens equal, and equal page counts)."""
     import dataclasses
 
     import numpy as np
@@ -707,51 +766,49 @@ def _small_width_check():
     from repro_torch.launch.serve import default_prompts
     from repro_torch.serving import ServeEngine
 
-    for arch in ("llama3.2-3b", "gemma2-2b"):
-        cfg = dataclasses.replace(reduced_config(get_config(arch)),
-                                  head_dim=64, activation_dtype="float32")
-        # Prompts up to 40 tokens: past gemma2's reduced window of 32.
-        rng = np.random.default_rng(5)
-        prompts = default_prompts(cfg.vocab, 4)[:2] + [
-            rng.integers(2, cfg.vocab, size=n).astype(np.int32)
-            for n in (40, 33)]
-        card = ServeEngine(cfg, policy=RetryPolicy("pr2ar2"), tau=0.01,
-                           seed=0, device=DEVICE)
-        cpu = ServeEngine(cfg, params=_tree_to(card.params, "cpu"),
-                          policy=RetryPolicy("pr2ar2"), tau=0.01,
-                          device="cpu")
-        toks = torch.as_tensor(card._pad_batch(prompts))
-        gap = 0.0
-        with torch.inference_mode():
-            outs = [(e.model.prefill(e.params, {"tokens": toks.to(e.device)}))
-                    for e in (card, cpu)]
-            for step in range(3):
-                (lc, cc), (lp, cp) = outs
-                lc = lc.cpu()
-                if not bool(torch.isfinite(lc).all()):
-                    raise AssertionError(f"{arch}: non-finite logits")
-                gap = max(gap, float((lc - lp).abs().max() / lp.abs().max()))
-                if step == 2:
-                    break
-                tok = lp[:, -1].argmax(-1)[:, None]
-                outs = [e.model.decode_step(e.params, {
-                    "token": tok.to(e.device), "pos": toks.shape[1] + step,
-                    "cache": c}) for e, c in ((card, cc), (cpu, cp))]
-        if gap > 1e-4:
-            raise AssertionError(f"{arch} small width: card logits differ "
-                                 f"from the CPU's by {gap:.3g} of the largest")
-        g_card, s_card = card.generate(prompts, max_new_tokens=8)
-        g_cpu, s_cpu = cpu.generate(prompts, max_new_tokens=8)
-        agree = float((g_card == g_cpu).mean())
-        print(f"small-width {arch} (hd 64, float32, tau 0.01): logits gap "
-              f"{gap:.3g} of the largest (prefill, 2 decode steps); served "
-              f"tokens card == cpu {agree:.4f}; kv_fast card "
-              f"{100 * s_card.kv.fast_fraction:.2f}% cpu "
-              f"{100 * s_cpu.kv.fast_fraction:.2f}% of {s_card.kv.pages} "
-              f"pages", flush=True)
-        if agree < 0.9 or s_card.kv.pages != s_cpu.kv.pages:
-            raise AssertionError(f"{arch} small width: served tokens "
-                                 f"{g_card.tolist()} vs {g_cpu.tolist()}")
+    cfg = dataclasses.replace(reduced_config(get_config(arch)),
+                              activation_dtype="float32", **overrides)
+    # Prompts up to 40 tokens: past gemma2's reduced window of 32, and
+    # over two of mamba2's reduced chunks of 32.
+    rng = np.random.default_rng(5)
+    prompts = default_prompts(cfg.vocab, 4)[:2] + [
+        rng.integers(2, cfg.vocab, size=n).astype(np.int32) for n in (40, 33)]
+    card = ServeEngine(cfg, policy=RetryPolicy("pr2ar2"), tau=0.01, seed=0,
+                       device=DEVICE)
+    cpu = ServeEngine(cfg, params=_tree_to(card.params, "cpu"),
+                      policy=RetryPolicy("pr2ar2"), tau=0.01, device="cpu")
+    toks = torch.as_tensor(card._pad_batch(prompts))
+    gap = 0.0
+    with torch.inference_mode():
+        outs = [(e.model.prefill(e.params, {"tokens": toks.to(e.device)}))
+                for e in (card, cpu)]
+        for step in range(3):
+            (lc, cc), (lp, cp) = outs
+            lc = lc.cpu()
+            if not bool(torch.isfinite(lc).all()):
+                raise AssertionError(f"{arch}: non-finite logits")
+            gap = max(gap, float((lc - lp).abs().max() / lp.abs().max()))
+            if step == 2:
+                break
+            tok = lp[:, -1].argmax(-1)[:, None]
+            outs = [e.model.decode_step(e.params, {
+                "token": tok.to(e.device), "pos": toks.shape[1] + step,
+                "cache": c}) for e, c in ((card, cc), (cpu, cp))]
+    if gap > 1e-4:
+        raise AssertionError(f"{arch} small width: card logits differ from "
+                             f"the CPU's by {gap:.3g} of the largest")
+    g_card, s_card = card.generate(prompts, max_new_tokens=8)
+    g_cpu, s_cpu = cpu.generate(prompts, max_new_tokens=8)
+    agree = float((g_card == g_cpu).mean())
+    print(f"small-width {arch} ({overrides or 'reduced'}, float32, tau "
+          f"0.01): logits gap {gap:.3g} of the largest (prefill, 2 decode "
+          f"steps); served tokens card == cpu {agree:.4f}; kv_fast card "
+          f"{100 * s_card.kv.fast_fraction:.2f}% cpu "
+          f"{100 * s_cpu.kv.fast_fraction:.2f}% of {s_card.kv.pages} pages",
+          flush=True)
+    if agree < min_agree or s_card.kv.pages != s_cpu.kv.pages:
+        raise AssertionError(f"{arch} small width: served tokens "
+                             f"{g_card.tolist()} vs {g_cpu.tolist()}")
 
 
 def _request_sets(vocab):
@@ -765,36 +822,67 @@ def _request_sets(vocab):
     return (("short", default_prompts(vocab, 4)), ("long", long))
 
 
-@phase("serve path")
-def serve_path_phase():
+def _kernel_modules():
+    """The launch-counting wrapper module of every kernel of the port."""
+    from repro_torch.kernels.fcfs_core import ops as fcfs
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.kv_retry import ops as kv
+    from repro_torch.kernels.rber import ops as rber
+    from repro_torch.kernels.ssd_scan import ops as ssd
+
+    return {"fcfs_core": fcfs, "flash_attention": fa, "kv_retry": kv,
+            "ssd_scan": ssd, "rber": rber}
+
+
+#: The wrapper each serve-path kernel is entered through, and how one
+#: recorded launch (its bound arguments and its output) is held.
+_HOLDERS = {
+    "flash_attention": ("flash_attention_fwd", lambda name, a, out: _hold_fa(
+        name, a.pop("q"), a.pop("k"), a.pop("v"), a, got=out, quiet=True)),
+    "kv_retry": ("kv_retry_fwd", lambda name, a, out: _hold_kv(
+        name, a["data_q"], a["scale"], a["backing"], a["tau"], got=out,
+        quiet=True)),
+    "ssd_scan": ("ssd_scan_fwd", lambda name, a, out: _hold_ssd(
+        name, (a["x"], a["Bm"], a["Cm"], a["dt"], a["dA"]), a["chunk"],
+        got=out, quiet=True)),
+}
+
+
+class _Recorder:
+    """Wraps ``module.<name>`` while entered, keeping each call's bound
+    arguments and output, so that every launch of a main-path run can be
+    held against the plain version afterwards."""
+
+    def __init__(self, module, name):
+        import inspect
+
+        self.module, self.name = module, name
+        self.orig = getattr(module, name)
+        self.sig = inspect.signature(self.orig)
+        self.calls = []
+
+    def __enter__(self):
+        def record(*a, **kw):
+            out = self.orig(*a, **kw)
+            bound = self.sig.bind(*a, **kw)
+            bound.apply_defaults()
+            self.calls.append((dict(bound.arguments), out))
+            return out
+
+        setattr(self.module, self.name, record)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def _finite_checked(engines):
+    """Wrap each engine's prefill and decode step to note whether all its
+    logits are finite; returns the list the notes go to."""
     import dataclasses
 
-    import numpy as np
     import torch
 
-    from repro_torch.configs import get_config
-    from repro_torch.core.retry import RetryPolicy
-    from repro_torch.kernels.fcfs_core import ops as B1
-    from repro_torch.kernels.flash_attention import ops as FA
-    from repro_torch.kernels.kv_retry import ops as KV
-    from repro_torch.serving import KVReadStats, ServeEngine
-
-    _small_width_check()
-
-    cfg = get_config(SERVE_ARCH)
-    t0 = time.perf_counter()
-    eng = ServeEngine(cfg, policy=RetryPolicy("pr2ar2"), tau=SERVE_TAU,
-                      seed=0, device=DEVICE)
-    torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in _leaves(eng.params))
-    print(f"{SERVE_ARCH}: {n_params} seeded float32 parameters on the card "
-          f"in {time.perf_counter() - t0:.3f} s; "
-          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated",
-          flush=True)
-    engines = {"pr2ar2": eng,
-               "baseline": ServeEngine(cfg, params=eng.params,
-                                       policy=RetryPolicy("baseline"),
-                                       tau=SERVE_TAU, device=DEVICE)}
     finite = []
 
     def checked(fn):
@@ -808,77 +896,129 @@ def serve_path_phase():
         e.model = dataclasses.replace(
             e.model, prefill=checked(e.model.prefill),
             decode_step=checked(e.model.decode_step))
+    return finite
+
+
+def _drive(runs, kernels, finite):
+    """Serve each run ``(label, engine, prompts)`` with every kernel's
+    launch count set to 0 just before and read just after, recording the
+    launches of ``kernels``; then hold each recorded launch against the
+    plain version on its inputs, and time it beside its bound.  Returns
+    ({kernel: launches over the runs}, {kernel: held launches}, {label:
+    (tokens, ServeStats, launch counts)})."""
+    import contextlib
+
+    import torch
+
+    from repro_torch.serving import KVReadStats
+
+    mods = _kernel_modules()
+    launches = dict.fromkeys(mods, 0)
+    held = {k: [] for k in kernels}
+    out = {}
+    for label, e, prompts in runs:
+        e.store.stats = KVReadStats()
+        finite.clear()
+        for m in mods.values():
+            m.launches = 0
+        recs = {k: _Recorder(mods[k], _HOLDERS[k][0]) for k in kernels}
+        with contextlib.ExitStack() as stack:
+            for r in recs.values():
+                stack.enter_context(r)
+            gen, st = e.generate(prompts, max_new_tokens=SERVE_MAX_NEW)
+        counts = {k: m.launches for k, m in mods.items()}
+        if any(len(r.calls) != counts[k] for k, r in recs.items()):
+            raise AssertionError(f"{label}: recorded calls != launches "
+                                 f"{counts}")
+        if not bool(torch.stack(finite).all()):
+            raise AssertionError(f"{label}: non-finite logits")
+        for k, n in counts.items():
+            launches[k] += n
+        out[label] = (gen, st, counts)
+        print(f"{label}: {st.summary()}; launches {counts}", flush=True)
+        # Hold this run's launches on the inputs they had, then let them
+        # go (a long llama run keeps ~40 GB of KV pages).
+        for k, r in recs.items():
+            rs = [_HOLDERS[k][1](f"{label} launch {i}", a, o)
+                  for i, (a, o) in enumerate(r.calls)]
+            if rs:
+                _print_held(f"  {label} {k}", rs)
+            held[k] += rs
+        del recs
+        torch.cuda.empty_cache()
+    return launches, held, out
+
+
+def _first_leaf_ratio(store):
+    """The first KV leaf of a store's cache (in the reference's order),
+    its key, and each page's max|v| / rms: a page retries where tau <
+    max / (254 rms), since its margin is 1 - 0.5 (max/127) / (tau rms)."""
+    import torch
+
+    def first(tree, path=()):
+        for k in sorted(tree):
+            v, p = tree[k], path + (k,)
+            if isinstance(v, dict):
+                hit = first(v, p)
+                if hit is not None:
+                    return hit
+            elif "attn" in p and k in ("k", "v"):
+                return p, v
+        return None
+
+    path, leaf = first(store.backing)
+    x = leaf.reshape(-1, leaf.shape[-1]).float()
+    ratio = x.abs().amax(dim=-1) / x.square().mean(dim=-1).sqrt()
+    return "".join(f"[{k!r}]" for k in path), ratio
+
+
+@phase("serve path")
+def serve_path_phase():
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.retry import RetryPolicy
+    from repro_torch.serving import ServeEngine
+
+    _small_width_check("llama3.2-3b", 0.9, head_dim=64)
+    _small_width_check("gemma2-2b", 0.9, head_dim=64)
+
+    cfg = get_config(SERVE_ARCH)
+    t0 = time.perf_counter()
+    eng = ServeEngine(cfg, policy=RetryPolicy("pr2ar2"), tau=SERVE_TAU,
+                      seed=0, device=DEVICE)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(eng.params))
+    print(f"{SERVE_ARCH}: {n_params} seeded float32 parameters on the card "
+          f"in {time.perf_counter() - t0:.3f} s; "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated",
+          flush=True)
+    engines = {
+        "pr2ar2": eng,
+        "baseline": ServeEngine(cfg, params=eng.params,
+                                policy=RetryPolicy("baseline"),
+                                tau=SERVE_TAU, device=DEVICE),
+        "retry": ServeEngine(cfg, params=eng.params,
+                             policy=RetryPolicy("pr2ar2"), tau=RETRY_TAU,
+                             device=DEVICE),
+    }
+    finite = _finite_checked(engines)
     sets = _request_sets(cfg.vocab)
     for e in engines.values():            # warm-up: library loads, cuBLAS
         e.generate(sets[0][1], max_new_tokens=2)
-
-    rec_fa, rec_kv = [], []
-    fa_fwd, kv_fwd = FA.flash_attention_fwd, KV.kv_retry_fwd
-
-    def recording_fa(q, k, v, **kw):
-        out = fa_fwd(q, k, v, **kw)
-        rec_fa.append((q, k, v, kw, out))
-        return out
-
-    def recording_kv(data_q, scale, backing, tau=0.02):
-        out = kv_fwd(data_q, scale, backing, tau)
-        rec_kv.append((data_q, scale, backing, tau, out))
-        return out
-
-    runs, held_fa, held_kv = {}, [], []
-    launches = {"fcfs_core": 0, "flash_attention": 0, "kv_retry": 0}
-    FA.flash_attention_fwd, KV.kv_retry_fwd = recording_fa, recording_kv
-    try:
-        for set_name, prompts in sets:
-            for mech, e in engines.items():
-                e.store.stats = KVReadStats()
-                finite.clear()
-                B1.launches = FA.launches = KV.launches = 0
-                gen, st = e.generate(prompts, max_new_tokens=SERVE_MAX_NEW)
-                counts = {"fcfs_core": B1.launches,
-                          "flash_attention": FA.launches,
-                          "kv_retry": KV.launches}
-                if len(rec_fa) != counts["flash_attention"] or \
-                        len(rec_kv) != counts["kv_retry"]:
-                    raise AssertionError(f"{set_name}/{mech}: recorded "
-                                         f"calls != launches {counts}")
-                if not bool(torch.stack(finite).all()):
-                    raise AssertionError(f"{set_name}/{mech}: non-finite "
-                                         f"logits")
-                for name, n in counts.items():
-                    launches[name] += n
-                runs[(set_name, mech)] = (gen, st)
-                print(f"{set_name:>5} {mech:>8}: {st.summary()}; launches "
-                      f"{counts}", flush=True)
-                # Hold this run's launches on the inputs they had, then
-                # let them go (a long run keeps ~40 GB of KV pages).
-                FA.flash_attention_fwd, KV.kv_retry_fwd = fa_fwd, kv_fwd
-                fa_run = [_hold_fa(f"{set_name}/{mech} launch {i}", q, k, v,
-                                   kw, got=out, quiet=True)
-                          for i, (q, k, v, kw, out) in enumerate(rec_fa)]
-                kv_run = [_hold_kv(f"{set_name}/{mech} launch {i}", dq, sc,
-                                   bk, tau, got=out, quiet=True)
-                          for i, (dq, sc, bk, tau, out) in enumerate(rec_kv)]
-                for kname, rs in (("flash_attention", fa_run),
-                                  ("kv_retry", kv_run)):
-                    if rs:
-                        _print_held(f"  {set_name}/{mech} {kname}", rs)
-                held_fa += fa_run
-                held_kv += kv_run
-                FA.flash_attention_fwd = recording_fa
-                KV.kv_retry_fwd = recording_kv
-                rec_fa.clear()
-                rec_kv.clear()
-                torch.cuda.empty_cache()
-    finally:
-        FA.flash_attention_fwd, KV.kv_retry_fwd = fa_fwd, kv_fwd
+    retry_label = f"short pr2ar2 tau {RETRY_TAU}"
+    runs = [(f"{s} {m}", engines[m], p) for s, p in sets
+            for m in ("pr2ar2", "baseline")]
+    runs.append((retry_label, engines["retry"], sets[0][1]))
+    launches, held, out = _drive(runs, ("flash_attention", "kv_retry"),
+                                 finite)
 
     for name in ("flash_attention", "kv_retry"):
         if launches[name] <= 0:
             raise AssertionError(f"the serve path never launched {name}")
     for set_name, _ in sets:
-        p_gen, p_st = runs[(set_name, "pr2ar2")]
-        b_gen, b_st = runs[(set_name, "baseline")]
+        p_gen, p_st, _ = out[f"{set_name} pr2ar2"]
+        b_gen, b_st, _ = out[f"{set_name} baseline"]
         if not p_st.kv.fast_fraction > 0 or b_st.kv.fast_fraction != 0:
             raise AssertionError(f"{set_name}: kv_fast pr2ar2 "
                                  f"{p_st.kv.fast_fraction}, baseline "
@@ -886,15 +1026,299 @@ def serve_path_phase():
         agree = float((p_gen == b_gen).mean())
         print(f"{set_name}: pr2ar2/baseline token agreement {agree:.4f} "
               f"({int((p_gen == b_gen).sum())} of {p_gen.size})")
-    return launches, held_fa, held_kv, runs
+    # The retrying run: B3's backing-read branch on the main path.
+    _, r_st, _ = out[retry_label]
+    key, ratio = _first_leaf_ratio(engines["retry"].store)
+    ratio = ratio.sort().values
+    q = [float(ratio[int(f * (ratio.numel() - 1))]) for f in (0.1, 0.5, 0.9)]
+    print(f"{retry_label}: {r_st.kv.retried_pages} of {r_st.kv.pages} page "
+          f"reads retried, {r_st.kv.fast_pages} fast; first KV leaf {key}: "
+          f"max|v| / rms p10 {q[0]:.4f} p50 {q[1]:.4f} p90 {q[2]:.4f}, so "
+          f"half its pages retry below tau {q[1] / 254:.5f}", flush=True)
+    if not (r_st.kv.retried_pages > 0 and r_st.kv.fast_pages > 0):
+        raise AssertionError(f"{retry_label}: no page retried, or none was "
+                             f"fast: {r_st.kv}")
+    return launches, held["flash_attention"], held["kv_retry"], out
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
+# -- Mamba-2 serving and the RBER table: the SSD scan and RBER kernels ------
+
+
+def _ssd_bound_ms(x, Bm, Cm, dt, dA, y, H, chunk):
+    """Bytes (each input read once — B and C once per batch row — and
+    each output written once) and the operations the data needs, over
+    the HBM rate and the peak of the inputs' type, in milliseconds.  Per
+    chunk of n real tokens, with n(n+1)/2 visible (query, key) pairs:
+    the scores C.B^T once per batch row (2 ds flops a pair), and per
+    head the decayed product with x*dt (2 hd a pair), C.H and the state
+    update (2 n ds hd each)."""
+    BH, T, hd = x.shape
+    BG, _, ds = Bm.shape
+    L = min(chunk, T)
+    n_ops = 0.0
+    for t0 in range(0, T, L):
+        n = min(L, T - t0)
+        pairs = n * (n + 1) / 2
+        n_ops += BG * 2.0 * pairs * ds + BH * (2.0 * pairs * hd
+                                               + 4.0 * n * ds * hd)
+    peak = BF16_OPS_PER_S if x.dtype.itemsize == 2 else F32_OPS_PER_S
+    n_bytes = sum(t.numel() * t.element_size()
+                  for t in (x, Bm, Cm, dt, dA, y, H))
+    return n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / peak * 1e3
+
+
+def _ssd_ratios(y, H, want_y, want_H):
+    """Worst |err| / tolerance of y (element by element in bfloat16: one
+    bfloat16 ulp of the plain value plus 2^-8 of the row's rms; in
+    float32, SSD_F32_TOL of the largest |y|) and of H (SSD_F32_TOL of
+    the largest |H|)."""
+    from repro_torch.kernels.flash_attention.plain import bf16_err_ratio
+
+    if y.dtype.itemsize == 2:
+        ry = bf16_err_ratio(y, want_y)
     else:
-        yield tree
+        ry = float((y - want_y).abs().max()) / (
+            SSD_F32_TOL * max(float(want_y.abs().max()), 1e-30))
+    rh = float((H - want_H).abs().max()) / (
+        SSD_F32_TOL * max(float(want_H.abs().max()), 1e-30))
+    return ry, rh
+
+
+def _hold_ssd(name, args, chunk, got=None, reps=3, quiet=False):
+    """Hold one SSD scan launch against the plain version on the same
+    card tensors and time both."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan import ops as SSD
+    from repro_torch.kernels.ssd_scan.plain import ssd_scan_plain
+
+    SSD.ssd_scan_fwd(*args, chunk=chunk)                  # warm-up
+    ms, again = _cuda_ms(lambda: SSD.ssd_scan_fwd(*args, chunk=chunk), reps)
+    y, H = again if got is None else got
+    plain_ms, (want_y, want_H) = _cuda_ms(
+        lambda: ssd_scan_plain(*args, chunk=chunk), 1)
+    err = float((y.float() - want_y.float()).abs().max())
+    ry, rh = _ssd_ratios(y, H, want_y, want_H)
+    if not (ry <= 1.0 and rh <= 1.0) or not (
+            torch.equal(y, again[0]) and torch.equal(H, again[1])):
+        raise AssertionError(f"{name}: ssd_scan differs from its plain "
+                             f"version (max abs {err}, worst |err| / "
+                             f"tolerance y {ry}, H {rh}) or is not "
+                             f"deterministic")
+    t_bytes, t_ops = _ssd_bound_ms(*args, y, H, chunk)
+    bound_ms, bound_by = _bound(t_bytes, t_ops)
+    if not quiet:
+        x, Bm = args[0], args[1]
+        print(f"{name}: x {tuple(x.shape)} B/C {tuple(Bm.shape)} {x.dtype} "
+              f"chunk {chunk}: max_abs_err {err:.3g} (worst |err| / "
+              f"tolerance y {ry:.3g}, H {rh:.3g}) kernel {ms:.3f} ms plain "
+              f"{plain_ms:.3f} ms bound {bound_ms:.4f} ms ({bound_by}; "
+              f"bytes {t_bytes:.4f}, operations {t_ops:.4f})", flush=True)
+    return dict(case=name, ms=ms, plain_ms=plain_ms, t_bytes=t_bytes,
+                t_ops=t_ops, bound_ms=bound_ms, bound_by=bound_by,
+                max_abs_err=err, tol_ratio=ry, h_ratio=rh)
+
+
+def _ssd_inputs(gen, B, nh, T, hd, ds, dtype):
+    """Kernel-layout inputs of mamba2's scan, drawn on the card: x, B, C
+    from N(0, 1) (B and C at 0.5) in ``dtype``; dt = softplus(N(0, 1) +
+    dt_bias) with the model's dt_bias init (softplus(dt_bias) log-uniform
+    over [1e-3, 1e-1]); A = -(1, ..., nh), the model's a_log init."""
+    import math
+
+    import torch
+    import torch.nn.functional as F
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=DEVICE)
+
+    u = torch.rand(nh, generator=gen, device=DEVICE)
+    dt0 = torch.exp(u * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3))
+    bias = dt0 + torch.log(-torch.expm1(-dt0))
+    dt = F.softplus(randn(B * nh, T) + bias.repeat(B)[:, None])
+    A = -torch.arange(1, nh + 1, dtype=torch.float32, device=DEVICE)
+    return (randn(B * nh, T, hd).to(dtype), (0.5 * randn(B, T, ds)).to(dtype),
+            (0.5 * randn(B, T, ds)).to(dtype), dt, dt * A.repeat(B)[:, None])
+
+
+def _check_ssd_controls(args, chunk):
+    """The bfloat16 rule must reject both faulty variants of the plain
+    version on the long prefill case; returns their worst ratios."""
+    from repro_torch.kernels.flash_attention.plain import bf16_err_ratio
+    from repro_torch.kernels.ssd_scan.plain import (faulty_ssd_plain,
+                                                    ssd_scan_plain)
+
+    want = ssd_scan_plain(*args, chunk=chunk)[0]
+    out = {}
+    for fault in ("w-bf16", "no-decay"):
+        out[fault] = bf16_err_ratio(
+            faulty_ssd_plain(*args, chunk, fault)[0], want)
+        print(f"control {fault}: worst |err| / tolerance {out[fault]:.3g} "
+              f"(must exceed 1)", flush=True)
+        if not out[fault] > 1.0:
+            raise AssertionError(f"the bfloat16 rule accepts the {fault} "
+                                 f"control ({out[fault]})")
+    return out
+
+
+def _population():
+    """Level means and sigmas of every page of the 160-chip population at
+    CONDITION (the characterization's draws for its first page type,
+    without the per-page jitter), (20 480, 8) each on the card, and the
+    read levels of the 41-entry retry table, (41, 7)."""
+    import torch
+
+    from repro_torch.core import constants as C
+    from repro_torch.core import prng
+    from repro_torch.core import voltage as V
+
+    key = prng.fold_in(prng.PRNGKey(0, device=DEVICE), 0)
+    k_var, _ = prng.split(key)
+    rate = V.sample_process_variation(k_var, C.N_CHIPS, N_BLOCKS)
+    mu, sigma = V.degraded_distributions(*CONDITION, rate)
+    mu, sigma = (t[:, :, None].expand(-1, -1, N_PAGES, -1).reshape(-1, 8)
+                 .contiguous() for t in (mu, sigma))
+    levels = V.retry_read_levels(torch.arange(
+        C.MAX_RETRY_STEPS + 1, dtype=torch.float32, device=DEVICE))
+    return mu, sigma, levels
+
+
+def _rber_bound_ms(mu, levels, out):
+    """Bytes (mu, sigma and the levels read once, the table written
+    once) and the float32 operations of each (page, entry): per boundary
+    2 subtractions, 2 divisions, 2 scalings by 1/sqrt(2), 2 erfcf
+    (counted at RBER_ERFC_OPS each, an estimate of its rational
+    approximation and exp), 2 halvings, an add and the 1/8, then up to 7
+    adds into the page types' sums; in milliseconds."""
+    N, S = mu.shape[0], levels.shape[0]
+    n_bytes = 4 * (2 * mu.numel() + levels.numel() + out.numel())
+    n_ops = N * S * (7 * (10 + 2 * RBER_ERFC_OPS) + 7)
+    return n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / F32_OPS_PER_S * 1e3
+
+
+def _rber_main_path():
+    """``rber_table`` on the card over the population's (mu, sigma) and the
+    41-entry table, its count set to 0 just before and read just after;
+    the launch is then held against the plain version and against the
+    characterization's ``retry.rber_per_retry_step`` (no jitter, full
+    tR), row by page type, and timed beside its bound."""
+    import torch
+
+    from repro_torch.core import constants as C
+    from repro_torch.core import retry as R
+    from repro_torch.kernels.rber import ops as RB
+    from repro_torch.kernels.rber.plain import rber_plain
+
+    mu, sigma, levels = _population()
+    torch.cuda.synchronize()
+    RB.launches = 0
+    table = RB.rber_table(mu, sigma, levels)
+    torch.cuda.synchronize()
+    launches = RB.launches
+    if launches != 1:
+        raise AssertionError(f"rber_table launched the kernel {launches} "
+                             f"times")
+    RB.rber_fwd(mu, sigma, levels)                        # warm-up
+    ms, again = _cuda_ms(lambda: RB.rber_fwd(mu, sigma, levels), KERNEL_REPS)
+    plain_ms, want = _cuda_ms(lambda: rber_plain(mu, sigma, levels), 1)
+    err = float((table - want).abs().max())
+    if not (torch.allclose(table, want, rtol=RBER_RTOL, atol=RBER_ATOL)
+            and torch.equal(table, again)):
+        raise AssertionError(f"rber differs from its plain version (max abs "
+                             f"{err}) or is not deterministic")
+    char_err = 0.0
+    for p, pt in enumerate(C.PAGE_TYPES):
+        want_c = R.rber_per_retry_step(mu, sigma, pt)
+        char_err = max(char_err, float((table[p] - want_c).abs().max()))
+        if not torch.allclose(table[p], want_c, rtol=RBER_CHAR_RTOL,
+                              atol=RBER_ATOL):
+            raise AssertionError(f"rber {pt} row differs from "
+                                 f"rber_per_retry_step (max abs {char_err})")
+    t_bytes, t_ops = _rber_bound_ms(mu, levels, table)
+    bound_ms, bound_by = _bound(t_bytes, t_ops)
+    print(f"rber_table: population {tuple(mu.shape)} x {levels.shape[0]} "
+          f"entries at {CONDITION[0]:g} d / {CONDITION[1]:g} P/E, {launches} "
+          f"launch; max_abs_err {err:.3g} against the plain version (rtol "
+          f"{RBER_RTOL}), {char_err:.3g} against rber_per_retry_step (rtol "
+          f"{RBER_CHAR_RTOL}); RBER range {float(table.min()):.3g} .. "
+          f"{float(table.max()):.3g}; kernel {ms:.4f} ms plain "
+          f"{plain_ms:.3f} ms bound {bound_ms:.5f} ms ({bound_by})",
+          flush=True)
+    return launches, dict(case="rber_table", ms=ms, plain_ms=plain_ms,
+                          t_bytes=t_bytes, t_ops=t_ops, bound_ms=bound_ms,
+                          bound_by=bound_by, max_abs_err=err)
+
+
+@phase("ssd/rber kernels")
+def ssd_rber_kernel_phase():
+    import torch
+
+    B, T, nh, hd, ds, chunk = SSD_SHAPE
+    gen = torch.Generator(DEVICE).manual_seed(0)
+    cases = [(f"mamba2 long prefill (B {B}, T {T}, {nh} heads), bf16", T,
+              torch.bfloat16),
+             (f"padded T {SSD_PADDED_T}, bf16", SSD_PADDED_T,
+              torch.bfloat16),
+             (f"mamba2 long prefill, float32", T, torch.float32)]
+    ssd, controls = [], None
+    for name, t, dtype in cases:
+        args = _ssd_inputs(gen, B, nh, t, hd, ds, dtype)
+        ssd.append(_hold_ssd(name, args, chunk))
+        if controls is None:
+            controls = _check_ssd_controls(args, chunk)
+        del args
+    torch.cuda.empty_cache()
+    rber_launches, rber = _rber_main_path()
+    return ssd, controls, rber_launches, rber
+
+
+@phase("mamba serve path")
+def mamba_serve_phase():
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.retry import RetryPolicy
+    from repro_torch.serving import ServeEngine
+
+    _small_width_check(SSM_ARCH, 1.0)
+
+    cfg = get_config(SSM_ARCH)
+    t0 = time.perf_counter()
+    eng = ServeEngine(cfg, policy=RetryPolicy("pr2ar2"), tau=SERVE_TAU,
+                      seed=0, device=DEVICE)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(eng.params))
+    print(f"{SSM_ARCH}: {n_params} seeded float32 parameters on the card "
+          f"in {time.perf_counter() - t0:.3f} s", flush=True)
+    engines = {"pr2ar2": eng,
+               "baseline": ServeEngine(cfg, params=eng.params,
+                                       policy=RetryPolicy("baseline"),
+                                       tau=SERVE_TAU, device=DEVICE)}
+    finite = _finite_checked(engines)
+    sets = _request_sets(cfg.vocab)
+    for e in engines.values():            # warm-up
+        e.generate(sets[0][1], max_new_tokens=2)
+    runs = [(f"mamba {s} {m}", e, p) for s, p in sets
+            for m, e in engines.items()]
+    launches, held, out = _drive(runs, ("ssd_scan",), finite)
+    for label, (_, st, counts) in out.items():
+        if counts["ssd_scan"] != cfg.n_layers:
+            raise AssertionError(f"{label}: ssd_scan launched "
+                                 f"{counts['ssd_scan']} times in one "
+                                 f"prefill of {cfg.n_layers} SSD layers")
+        if counts["flash_attention"] or counts["kv_retry"] or st.kv.pages:
+            raise AssertionError(f"{label}: an attention-free model read "
+                                 f"KV pages or attention: {counts}, {st.kv}")
+    for set_name, _ in sets:
+        p_gen, b_gen = (out[f"mamba {set_name} {m}"][0]
+                        for m in ("pr2ar2", "baseline"))
+        if not (p_gen == b_gen).all():
+            raise AssertionError(f"mamba {set_name}: pr2ar2 and baseline "
+                                 f"tokens differ through a passthrough "
+                                 f"store")
+    print(f"mamba: pr2ar2 == baseline tokens on both sets; {cfg.n_layers} "
+          f"ssd_scan launches per prefill, 0 KV pages", flush=True)
+    return launches["ssd_scan"], held["ssd_scan"]
 
 
 def _print_held(name, rs):
@@ -912,11 +1336,13 @@ def _print_held(name, rs):
     else:
         extra = (f", worst |err| / tolerance "
                  f"{max(r['tol_ratio'] for r in rs):.3g}")
+        if "h_ratio" in rs[0]:
+            extra += f" (H {max(r['h_ratio'] for r in rs):.3g})"
     print(f"{name}: {len(rs)} launches held{extra}, max_abs_err "
           f"{max(r['max_abs_err'] for r in rs):.3g}; kernel "
           f"{sum(r['ms'] for r in rs):.3f} ms (largest launch "
           f"{max(r['ms'] for r in rs):.3f}), plain "
-          f"{sum(r['plain_ms'] for r in rs):.3f} ms, sdpa "
+          f"{sum(r['plain_ms'] for r in rs):.3f} ms, library "
           f"{'none' if None in lib else f'{sum(lib):.3f} ms'}, bound "
           f"{bound_ms:.4f} ms ({bound_by})", flush=True)
 
@@ -968,6 +1394,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     fa_cases, kv_cases, _ = serve_kernel_phase()
     serve_launches, held_fa, held_kv, _ = serve_path_phase()
+    torch.cuda.empty_cache()
+    ssd_cases, _, rber_launches, rber = ssd_rber_kernel_phase()
+    ssd_launches, held_ssd = mamba_serve_phase()
 
     # Times and bounds are sums over each main path's launches, each
     # re-run on the inputs it had there.
@@ -985,6 +1414,12 @@ def main() -> int:
                      "src/repro/kernels/kv_retry/kernel.py:26",
                      serve_launches["kv_retry"], kv_cases, held_kv,
                      library=False),
+        _kernel_line("ssd_scan", f"{kernels}/ssd_scan/csrc/ssd_scan.cu",
+                     "src/repro/kernels/ssd_scan/kernel.py:40",
+                     ssd_launches, ssd_cases, held_ssd, library=False),
+        _kernel_line("rber", f"{kernels}/rber/csrc/rber.cu",
+                     "src/repro/kernels/rber/kernel.py:30", rber_launches,
+                     [], [rber], library=False),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -5,6 +5,8 @@ reduced config.
 Usage (the card is the default device):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \
+      --smoke --device cpu
 """
 
 from __future__ import annotations

@@ -1,9 +1,9 @@
 """Public model API: ``build_model(cfg, device, generator)`` -> Model bundle.
 
-The port builds the decoder family (global and sliding-window attention
-with a dense MLP).  Encoder-decoder and VLM families raise
-``NotImplementedError`` (ROADMAP D12); ``input_specs`` is JAX dry-run
-tooling and waits for ROADMAP item 13.
+The port builds the decoder family: global and sliding-window attention
+with a dense MLP, and Mamba-2 SSD blocks.  Encoder-decoder and VLM
+families raise ``NotImplementedError`` (ROADMAP D12); ``input_specs`` is
+JAX dry-run tooling and waits for ROADMAP item 13.
 """
 
 from __future__ import annotations

@@ -13,7 +13,9 @@ A read returns the fast tier wherever the page's quantization-error
 bound sits within the margin tolerance (the ECC-capability-margin
 analogue) and *retries* from backing elsewhere — one pass of the
 ``kv_retry`` kernel on the card.  Non-attention cache leaves stay as
-they are.  Mechanism "baseline" keeps no fast tier and always reads
+they are, so for an attention-free model (Mamba-2's conv and SSM
+states) the store is a passthrough that reads 0 pages, as the
+reference's is.  Mechanism "baseline" keeps no fast tier and always reads
 backing; the AR² mechanisms enable it; ``tau`` plays the role of the
 characterized safe-tR table entry.
 

@@ -11,7 +11,12 @@ element by element within one bfloat16 ulp of the plain value plus 2^-8
 of the row's rms (``bf16_err_ratio``; both sum in float32, in other
 orders); the KV retry read's margins within rtol 1e-6 of the
 larger of the margin and its ratio term, equal decisions, and outputs
-bit for bit.  ``chip_smoke.py`` holds both kernels at the serving path's
+bit for bit; the SSD scan's y within 1e-5 of its largest |y| in float32
+and by the same element-wise bfloat16 rule, and H within 1e-5 of its
+largest |H| (the plain version takes the kernel's cumulative-sum order,
+so only product orders differ), and within 1e-4 of the sequential
+oracle; the RBER table within rtol 1e-6 of the plain version (both call
+CUDA's erfcf).  ``chip_smoke.py`` holds every kernel at its main path's
 full-width shapes.
 """
 
@@ -24,11 +29,19 @@ from repro_torch.kernels.flash_attention.plain import (
     bf16_err_ratio, flash_attention_plain)
 from repro_torch.kernels.kv_retry import ops as KV
 from repro_torch.kernels.kv_retry.plain import kv_retry_plain, quantize_pages
+from repro_torch.kernels.rber import ops as RB
+from repro_torch.kernels.rber.plain import rber_plain
+from repro_torch.kernels.ssd_scan import ops as SSD
+from repro_torch.kernels.ssd_scan.plain import ssd_scan_plain
+from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 
 pytestmark = pytest.mark.gpu
 
 F32_TOL = 1e-5
 MARGIN_RTOL = 1e-6
+SSD_TOL = 1e-5
+SSD_ORDER_TOL = 1e-4
+RBER_RTOL, RBER_ATOL = 1e-6, 1e-30
 
 
 @pytest.fixture(autouse=True)
@@ -92,3 +105,80 @@ def test_kv_retry_matches_plain(dtype, tau):
     assert torch.equal(fast, want_m[:, 0] >= 0)
     assert bool(fast.any()) and bool((~fast).any())
     assert torch.equal(out, want_out)
+
+
+def _ssd_inputs(BG, G, T, hd, ds, dtype, seed=0):
+    """x (BG*G, T, hd), shared B and C (BG, T, ds), dt = softplus(N(0, 1)),
+    A = -exp(N(0, 1)) per head, dA = dt * A."""
+    rng = np.random.default_rng(seed)
+    tdt = getattr(torch, dtype)
+
+    def card(a, t=torch.float32):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
+            "cuda", t)
+
+    x = card(rng.standard_normal((BG * G, T, hd)), tdt)
+    Bm = card(0.5 * rng.standard_normal((BG, T, ds)), tdt)
+    Cm = card(0.5 * rng.standard_normal((BG, T, ds)), tdt)
+    dt = card(np.logaddexp(rng.standard_normal((BG * G, T)), 0))
+    A = card(-np.exp(rng.standard_normal(G)))
+    return x, Bm, Cm, dt, dt * A.repeat(BG)[:, None]
+
+
+def _rel(got, want):
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max())
+
+
+@pytest.mark.parametrize("hd,ds", [(16, 16), (32, 64), (64, 128), (128, 32)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("T,chunk", [(200, 64), (11, 256), (300, 128)],
+                         ids=["pad", "T<chunk", "pad-3chunks"])
+def test_ssd_scan_matches_plain(hd, ds, dtype, T, chunk):
+    args = _ssd_inputs(2, 3, T, hd, ds, dtype, seed=hd + ds)
+    before = SSD.launches
+    y, H = SSD.ssd_scan_fwd(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert SSD.launches == before + 1
+    assert y.dtype == args[0].dtype and y.shape == args[0].shape
+    assert H.dtype == torch.float32 and H.shape == (6, ds, hd)
+    want_y, want_H = ssd_scan_plain(*args, chunk=chunk)
+    if dtype == "float32":
+        assert _rel(y, want_y) <= SSD_TOL
+    else:
+        assert bf16_err_ratio(y, want_y) <= 1.0
+    assert _rel(H, want_H) <= SSD_TOL
+
+
+def test_ssd_scan_matches_sequential_oracle():
+    x, Bm, Cm, dt, dA = _ssd_inputs(2, 3, 300, 64, 128, "float32")
+    y, H = SSD.ssd_scan_fwd(x, Bm, Cm, dt, dA, chunk=128)
+    want_y, want_H = ssd_scan_ref(x, Bm.repeat_interleave(3, 0),
+                                  Cm.repeat_interleave(3, 0), dt, dA)
+    assert _rel(y, want_y) <= SSD_ORDER_TOL
+    assert _rel(H, want_H) <= SSD_ORDER_TOL
+
+
+def test_ssd_scan_rejects_head_dim():
+    x, Bm, Cm, dt, dA = _ssd_inputs(1, 2, 16, 16, 16, "float32")
+    with pytest.raises(ValueError, match="head dims"):
+        SSD.ssd_scan_fwd(x[..., :8].contiguous(), Bm, Cm, dt, dA)
+
+
+@pytest.mark.parametrize("n_pages,n_steps", [(32, 8), (300, 41), (20480, 41)])
+def test_rber_matches_plain(n_pages, n_steps):
+    rng = np.random.default_rng(n_pages)
+    mu = torch.from_numpy((rng.standard_normal((n_pages, 8)) * 0.05
+                           + np.arange(8.0)).astype(np.float32)).cuda()
+    sigma = torch.from_numpy((0.1 + 0.01 * rng.random((n_pages, 8))).astype(
+        np.float32)).cuda()
+    levels = torch.from_numpy((np.linspace(0.3, 6.5, 7)[None, :] - 0.01
+                               * np.arange(n_steps)[:, None]).astype(
+        np.float32)).cuda()
+    before = RB.launches
+    got = RB.rber_fwd(mu, sigma, levels)
+    torch.cuda.synchronize()
+    assert RB.launches == before + 1
+    want = rber_plain(mu, sigma, levels)
+    assert got.shape == (3, n_pages, n_steps)
+    assert torch.allclose(got, want, rtol=RBER_RTOL, atol=RBER_ATOL)

@@ -51,6 +51,15 @@ def test_import_and_simulate_without_jax(tmp_path):
         "gen, st = eng.generate([np.array([5, 9, 11]), np.array([7, 3])],"
         " max_new_tokens=2)\n"
         "assert gen.shape == (2, 2) and st.kv.pages > 0, (gen, st)\n"
+        "eng = ServeEngine(reduced_config(get_config('mamba2-130m')),"
+        " device='cpu')\n"
+        "gen, st = eng.generate([np.array([5, 9, 11]), np.array([7, 3])],"
+        " max_new_tokens=2)\n"
+        "assert gen.shape == (2, 2) and st.kv.pages == 0, (gen, st)\n"
+        "from repro_torch.kernels.rber import rber_table\n"
+        "t = rber_table(np.zeros((2, 8)), np.ones((2, 8)), np.zeros((3, 7)),"
+        " device='cpu')\n"
+        "assert t.shape == (3, 2, 3), t.shape\n"
         "assert sys.modules['jax'] is None\n"
         "print('ok', s.mean_us)\n"
     )
@@ -90,15 +99,25 @@ def _entry_points():
     from repro_torch.configs import reduced_config
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.kv_retry import kv_read_with_retry
+    from repro_torch.kernels.rber import rber_table
+    from repro_torch.kernels.ssd_scan import ssd_scan
     from repro_torch.models.convert import params_from_jax
 
     cfg = reduced_config(rt.get_config("llama3.2-3b"))
+    mamba = reduced_config(rt.get_config("mamba2-130m"))
     x = torch.zeros(8, 16)
     q = torch.zeros(1, 8, 2, 2, 16)
     kv = torch.zeros(1, 8, 2, 16)
     return {
         "ServeEngine": lambda: rt.ServeEngine(cfg),
         "build_model": lambda: rt.build_model(cfg),
+        "build_model-mamba2": lambda: rt.build_model(mamba),
+        "ssd_scan": lambda: ssd_scan(torch.zeros(1, 8, 2, 16),
+                                     torch.zeros(1, 8, 4),
+                                     torch.zeros(1, 8, 4),
+                                     torch.ones(1, 8, 2), -torch.ones(2)),
+        "rber_table": lambda: rber_table(torch.zeros(2, 8), torch.ones(2, 8),
+                                         torch.zeros(3, 7)),
         "params_from_jax": lambda: params_from_jax({"w": np.zeros(3)}),
         "kv_read_with_retry": lambda: kv_read_with_retry(
             x.to(torch.int8), torch.ones(8, 1), x),
@@ -122,8 +141,9 @@ def _entry_points():
 
 
 @pytest.mark.parametrize("name", [
-    "ServeEngine", "build_model", "params_from_jax", "kv_read_with_retry",
-    "flash_attention", "characterize_condition", "attempt_histogram", "attempt_cdf", "SSDSim",
+    "ServeEngine", "build_model", "build_model-mamba2", "params_from_jax",
+    "kv_read_with_retry", "flash_attention", "ssd_scan", "rber_table",
+    "characterize_condition", "attempt_histogram", "attempt_cdf", "SSDSim",
     "simulate", "compare_mechanisms", "simulate_batch", "fcfs_core",
     "fused_core",
 ])

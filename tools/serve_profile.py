@@ -1,21 +1,23 @@
 #!/usr/bin/env python3
 """Where the serving path's time goes on a CUDA card.
 
-Builds ``ServeEngine`` for llama3.2-3b at full width with seeded weights
-on the card (as ``chip_smoke.py``'s serve path does), warms it up, then
+Builds ``ServeEngine`` for ``--arch`` (llama3.2-3b by default, or
+mamba2-130m) at full width with seeded weights on the card (as
+``chip_smoke.py``'s serve paths do), warms it up, then
 runs ``generate`` for each request set and mechanism under
 ``torch.profiler`` and prints, per run: the host-clock prefill and
 decode times, the device time of every CUDA kernel summed by kind (the
-port's two serving kernels, matrix products, copies and casts, other),
+port's serving kernels, matrix products, copies and casts, other),
 the device's busy share of the wall time, and the ten kernels with the
 most device time.  The profiler adds host overhead, so its wall times
 run above ``chip_smoke.py``'s.  Run from the root of a checkout:
 
-    PYTHONPATH=src python tools/serve_profile.py
+    PYTHONPATH=src python tools/serve_profile.py [--arch mamba2-130m]
 """
 
 from __future__ import annotations
 
+import argparse
 import time
 
 import torch
@@ -35,6 +37,8 @@ def _kind(name: str) -> str:
         return "flash_attention kernel"
     if "kv_retry_kernel" in n:
         return "kv_retry kernel"
+    if "ssd_scan_kernel" in n:
+        return "ssd_scan kernel"
     if "gemm" in n or "gemv" in n or "xmma" in n or "cutlass" in n \
             or "matmul" in n:
         return "matrix products"
@@ -50,13 +54,16 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def main():
+def main(argv=None):
     import numpy as np
 
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="llama3.2-3b")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("serve_profile: needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = get_config("llama3.2-3b")
+    cfg = get_config(args.arch)
     eng = ServeEngine(cfg, policy=RetryPolicy("pr2ar2"), tau=0.05, seed=0,
                       device="cuda")
     engines = {"pr2ar2": eng,
@@ -85,7 +92,7 @@ def main():
                 k = _kind(evt.key)
                 by_kind[k] = by_kind.get(k, 0.0) + _device_us(evt)
             busy = sum(by_kind.values()) / 1e6
-            print(f"{set_name} {mech}: wall {wall * 1e3:.1f} ms (prefill "
+            print(f"{args.arch} {set_name} {mech}: wall {wall * 1e3:.1f} ms (prefill "
                   f"{st.prefill_s * 1e3:.1f} ms, decode "
                   f"{st.decode_s * 1e3:.1f} ms, 15 steps); device busy "
                   f"{busy * 1e3:.1f} ms = {busy / wall:.1%} of the wall")
