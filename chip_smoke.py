@@ -13,7 +13,7 @@ exits non-zero):
   2. build         — compiles every CUDA source of the port with nvcc
                      (one process per source, all at once) into
                      ``build/repro_torch/`` and prints ptxas' resource
-                     report;
+                     report (registers and spills of every instance);
   3. characterize  — the 160-chip characterization of 365 d / 1000 P/E and
                      the attempt histograms of all six mechanisms, on the
                      card, held against the port's own CPU run;
@@ -33,12 +33,17 @@ exits non-zero):
                      on the inputs it had, bit for bit, and timed beside
                      its bounds: bytes or operations, and the serial
                      chain (longest lane's steps x the measured floor).
-  6. serve kernels — the flash-attention kernel against its plain dense
+  6. serve kernels — the count of HGMMA (wgmma) instructions in the SASS
+                     of each flash-attention instance (``cuobjdump
+                     -sass``), nonzero for every bfloat16 one; the
+                     flash-attention kernel against its plain dense
                      softmax on the full-width llama3.2-3b prefill shape
                      (B 4, T 2048, 24 heads over 8 KV heads, hd 128,
-                     causal, bf16), a window + softcap case (hd 256) and
-                     a kv_valid case, with ``scaled_dot_product_attention``
-                     timed beside the causal case (bfloat16 outputs are
+                     causal, bf16; its time, TFLOP/s and share of the
+                     bound printed), the same shape at hd 64, a window +
+                     softcap case (hd 256) and a kv_valid case, with
+                     ``scaled_dot_product_attention`` timed beside the
+                     causal cases (bfloat16 outputs are
                      held element by element: one bfloat16 ulp of the
                      plain value plus 2^-8 of the row's rms), and two
                      faulty variants of the plain version on the causal
@@ -55,9 +60,10 @@ exits non-zero):
                      each, under pr2ar2 (tau 0.05) and baseline engines
                      sharing the weights.  The launch counts are set to 0
                      just before each run and read just after; both
-                     kernels must have launched, pr2ar2 must serve some
-                     pages fast and baseline none, and every logit must
-                     be finite; then the short set under pr2ar2 at tau
+                     kernels must have launched, every flash-attention
+                     launch through the tensor-core kernel
+                     (``tc_launches``), pr2ar2 must serve some pages fast
+                     and baseline none, and every logit must be finite; then the short set under pr2ar2 at tau
                      0.01, where pages must retry (B3's backing read)
                      and others be fast.  Every launch of each run is
                      then held against the plain version on the inputs
@@ -216,7 +222,7 @@ def build_phase():
     for src, lib in libs.items():
         print(f"built {src.relative_to(ROOT)} -> {lib.relative_to(ROOT)}")
         for line in Path(f"{lib}.log").read_text().splitlines():
-            if "Used" in line or "spill" in line:
+            if "Used" in line or "spill" in line or "entry function" in line:
                 print(f"  ptxas: {line.strip()}")
 
 
@@ -598,13 +604,16 @@ def _hold_fa(name, q, k, v, kw, got=None, reps=3, library=True, quiet=False):
     lib = "none" if lib_ms is None else (
         f"{lib_ms:.3f} ms (max abs vs plain "
         f"{float((lib_out.float() - want.float()).abs().max()):.3g})")
+    peak = BF16_OPS_PER_S if q.dtype.itemsize == 2 else F32_OPS_PER_S
     if not quiet:
         print(f"{name}: q {tuple(q.shape)} k {tuple(k.shape)} {q.dtype} "
               f"{kw} max_abs_err {err:.3g} (worst |err| / tolerance "
-              f"{ratio:.3g}) kernel {ms:.3f} "
-              f"ms plain {plain_ms:.3f} ms bound {bound_ms:.4f} ms "
-              f"({bound_by}; kernel at {t_ops / ms * 100:.1f}% of the "
-              f"operations bound) sdpa {lib}", flush=True)
+              f"{ratio:.3g}) kernel {ms:.4f} ms, "
+              f"{t_ops * 1e-3 * peak / ms / 1e9:.1f} TFLOP/s of the "
+              f"reference's operations, plain {plain_ms:.3f} ms bound "
+              f"{bound_ms:.4f} ms ({bound_by}; kernel at "
+              f"{t_ops / ms * 100:.1f}% of the operations bound) sdpa {lib}",
+              flush=True)
     return dict(case=name, ms=ms, plain_ms=plain_ms, t_bytes=t_bytes,
                 t_ops=t_ops, bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=lib_ms, max_abs_err=err, tol_ratio=ratio)
@@ -690,11 +699,44 @@ def _hold_kv(name, data_q, scale, backing, tau, got=None, reps=3,
                 leaf=backing.numel() * backing.element_size())
 
 
+def _hgmma_counts():
+    """HGMMA (wgmma) instructions in the SASS of each flash-attention
+    kernel instance, by ``cuobjdump -sass`` on the built library; every
+    bfloat16 (tensor-core) instance must hold some, and the float32 SIMT
+    instances none."""
+    import re
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import ops as FA
+
+    lib = build.build_all([FA._SOURCE])[FA._SOURCE]
+    tool = Path(build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(lib)], check=True,
+                          capture_output=True, text=True, timeout=300).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        hit = re.search(r"Function : (\S+)", line)
+        if hit:
+            fn = hit.group(1)
+            counts[fn] = 0
+        elif fn is not None and "HGMMA" in line:
+            counts[fn] += 1
+    for fn, n in counts.items():
+        print(f"HGMMA instructions in {fn}: {n}")
+        if ("fa_tc_kernel" in fn) != (n > 0):
+            raise AssertionError(f"{fn}: {n} HGMMA instructions")
+    if sum("fa_tc_kernel" in fn for fn in counts) != len(FA.HEAD_DIMS):
+        raise AssertionError(f"tensor-core instances missing: {counts}")
+    return counts
+
+
 @phase("serve kernels")
 def serve_kernel_phase():
     import torch
 
     from repro_torch.kernels.kv_retry.plain import quantize_pages
+
+    _hgmma_counts()
 
     gen = torch.Generator(DEVICE).manual_seed(0)
 
@@ -705,6 +747,8 @@ def serve_kernel_phase():
     B, T, H, K, hd = PREFILL_SHAPE
     cases = [
         ("llama prefill, causal", (B * H, B * K, T, hd),
+         dict(causal=True)),
+        ("llama prefill shape at hd 64, causal", (B * H, B * K, T, 64),
          dict(causal=True)),
         (f"window {T // 4} + softcap 50, hd 256", (B * 8, B * 4, T, 256),
          dict(causal=True, window=T // 4, softcap=50.0)),
@@ -913,7 +957,8 @@ def _drive(runs, kernels, finite):
     from repro_torch.serving import KVReadStats
 
     mods = _kernel_modules()
-    launches = dict.fromkeys(mods, 0)
+    fa = mods["flash_attention"]
+    launches = dict.fromkeys((*mods, "flash_attention_tc"), 0)
     held = {k: [] for k in kernels}
     out = {}
     for label, e, prompts in runs:
@@ -921,12 +966,19 @@ def _drive(runs, kernels, finite):
         finite.clear()
         for m in mods.values():
             m.launches = 0
+        fa.tc_launches = 0
         recs = {k: _Recorder(mods[k], _HOLDERS[k][0]) for k in kernels}
         with contextlib.ExitStack() as stack:
             for r in recs.values():
                 stack.enter_context(r)
             gen, st = e.generate(prompts, max_new_tokens=SERVE_MAX_NEW)
         counts = {k: m.launches for k, m in mods.items()}
+        counts["flash_attention_tc"] = fa.tc_launches
+        if fa.tc_launches != counts["flash_attention"]:
+            raise AssertionError(f"{label}: {counts['flash_attention']} "
+                                 f"flash_attention launches, "
+                                 f"{fa.tc_launches} of them on the tensor "
+                                 f"cores")
         if any(len(r.calls) != counts[k] for k, r in recs.items()):
             raise AssertionError(f"{label}: recorded calls != launches "
                                  f"{counts}")
@@ -1016,6 +1068,9 @@ def serve_path_phase():
     for name in ("flash_attention", "kv_retry"):
         if launches[name] <= 0:
             raise AssertionError(f"the serve path never launched {name}")
+    print(f"flash_attention: {launches['flash_attention']} main-path "
+          f"launches, {launches['flash_attention_tc']} of them through the "
+          f"tensor-core kernel (tc_launches)", flush=True)
     for set_name, _ in sets:
         p_gen, p_st, _ = out[f"{set_name} pr2ar2"]
         b_gen, b_st, _ = out[f"{set_name} baseline"]

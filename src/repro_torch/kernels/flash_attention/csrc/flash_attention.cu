@@ -11,62 +11,86 @@
 //   out = acc / max(l, 1e-30), in q's dtype.
 //
 // q is (BH, T, hd), k and v (BK, S, hd); query row bh reads kv row
-// bh / G with G = BH / BK (GQA).  Inputs are float32 or bfloat16 and are
-// widened to float32 on their way into shared memory; every product and
-// sum is float32, P.V included (the reference kernel casts its tiles to
-// float32 the same way).
+// bh / G with G = BH / BK (GQA).  Two kernels, chosen by dtype:
 //
-// Design.  One block of 256 threads takes one (bh, 64-query tile).  It
-// keeps the query tile in shared memory and streams 64-key tiles of K,
-// then V, through one shared buffer.  Thread (ty, tx) of a 16 x 16 grid
-// owns query rows ty + 16 i (i < 4): it computes the scores of those rows
-// against keys tx + 16 j (j < 4), and the output columns tx*4 + 64 g
-// (g < hd/64, four each) of the same rows; a row's max and sum are
-// reduced across its 16 threads with warp shuffles.  Tiles that hold no
-// visible key for any row of the block are never loaded: those above
-// the causal diagonal, left of the window, or at or past kv_valid.
+// bfloat16: fa_tc_kernel, on the tensor cores.  Bound: at the serving
+// path's prefill shapes (hd 128, causal, T in the thousands) the work is
+// 4*T*S*hd/2 flops per head against O(T*hd) bytes, so it is bound by
+// operations, and only the tensor cores (989 TFLOP/s in bf16, against
+// 67 TFLOP/s on the float32 pipes) come near that bound.  Design:
+//   * a block owns 64*NWG query rows of one query head: NWG consumer
+//     warpgroups of 64 rows each (2 at hd 64 and 128, 1 at hd 256), and
+//     one producer warpgroup (with two consumers it hands registers to
+//     them by setmaxnreg: 24 a thread for it, 240 for each consumer).
+//     One head a block, not a GQA group: a group's K and V tiles are
+//     read once from device memory and then from L2 (50 MB holds every
+//     kv row of a llama prefill), since the blocks of a group's G heads
+//     and one query tile have neighbouring indices; and a block's rows
+//     stay one head, so no G is special.  The longest query tiles of
+//     the causal diagonal go first;
+//   * the producer issues TMA loads (3-D tensor maps (hd, rows, batch),
+//     so a ragged kv row zero-fills instead of reading the next row) of
+//     Q once and of bf16 K and V tiles of BKV keys (128 at hd 64; 64 at
+//     hd 128, where 128-key tiles spill registers, and at hd 256) into a
+//     3-stage ring in 128B-swizzled shared memory, a swizzle atom being
+//     64 columns wide; each tile completes on its own mbarrier, and the
+//     consumers free a stage on a third;
+//   * S = Q K^T by wgmma m64nBKVk16, bf16 x bf16 -> f32, both operands
+//     K-major from shared memory: the products are exact in f32, only
+//     the order of the sums differs from the reference;
+//   * the online softmax runs in registers in f32, in the reference's
+//     order (scale, softcap, mask, m_new, p = expf(s - m_new), c, then
+//     l = l c + sum p), with the mask compiled only into the path of
+//     tiles that cross the causal diagonal, the window's edge or
+//     kv_valid, and tiles with no visible key for the block never
+//     loaded;
+//   * P.V takes P from registers split in two, P_hi = bf16(p) and
+//     P_lo = bf16(p - P_hi), as two wgmma (V an MN-major operand from
+//     shared memory) into one f32 accumulator: p in bf16 alone misses
+//     the reference's f32 P.V by twice the element-wise bf16 tolerance,
+//     the split stays well inside it, at 1.5x the reference's
+//     operations; l sums the f32 p;
+//   * a tile's S and softmax run while the previous tile's P.V is in
+//     flight (wgmma.wait_group 1), so the tensor cores and the softmax
+//     overlap within a warpgroup as well as across the two;
+//   * the epilogue writes acc / max(l, 1e-30) in bf16, rows below T.
+//   The elementwise softmax, not the tensor cores, bounds it at the
+//   prefill shape: without any wgmma a launch still takes most of its
+//   time.  cuTensorMapEncodeTiled, a libcuda function, is taken through
+//   cudaGetDriverEntryPoint(ByVersion), so the library links nothing
+//   beyond the runtime.
 //
-// Bound.  At the serving path's prefill shapes (hd 128, causal, T in the
-// thousands) the work is 4*T*S*hd/2 flops per head against O(T*hd)
-// bytes: it is bound by operations.  This first kernel runs them as
-// scalar float32 fused multiply-adds from shared memory (written as
-// fmaf, so they stay fused under the shared -fmad=false), not on the
-// tensor cores, so it sits well above the bf16 tensor-core bound; a
-// wgmma/TMA pipeline is the later work that closes that gap.
+// float32: fa_fwd_kernel, the first port's SIMT kernel, kept for float32
+// inputs (the card's small-width serving checks).  One block of 256
+// threads takes one (bh, 64-query tile), keeps the query tile in shared
+// memory and streams 64-key tiles of K, then V, through one buffer;
+// every product is a scalar float32 fmaf (kept fused under the shared
+// -fmad=false), so it runs on the float32 pipes.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
+constexpr float kNeg = -1e30f;
+
+// ---------------------------------------------------------------------
+// float32: the SIMT kernel.
+
+namespace simt {
+
 constexpr int kBQ = 64;
 constexpr int kBK = 64;
 constexpr int kThreads = 256;
-constexpr float kNeg = -1e30f;
 
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
 __device__ __forceinline__ void store4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
-  __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y);
-  __nv_bfloat162 b = __floats2bfloat162_rn(v.z, v.w);
-  uint2 u;
-  u.x = *reinterpret_cast<uint32_t*>(&a);
-  u.y = *reinterpret_cast<uint32_t*>(&b);
-  *reinterpret_cast<uint2*>(p) = u;
 }
 
 // Rows [row0, row0 + 64) of a (rows, HD) matrix into shared memory as
@@ -291,23 +315,655 @@ int launch_hd(int hd, const void* q, const void* k, const void* v, void* o,
   }
 }
 
+
+}  // namespace simt
+
+// ---------------------------------------------------------------------
+// bfloat16: the tensor-core kernel.
+
+namespace tc {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Returns once the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// One TMA box of a 3-D tensor map into shared memory, completing on bar.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         int c0, int c1, int c2,
+                                         uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+        "r"(c2), "r"(bar) : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: start address, the
+// leading and stride byte offsets (16-byte units), layout type 1 (B128).
+__device__ __forceinline__ uint64_t desc_b128(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Waits until at most N committed groups are still running.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// After a wait: registers an asynchronous wgmma wrote (or read) are
+// neither read before, nor reused before, this point.
+template <int N>
+__device__ __forceinline__ void fence_regs(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// The wgmma instructions, with their operand lists written out: the
+// accumulator fragment (N / 2 f32 a thread), the descriptors, and for
+// the register-A form the four .b32 registers of P's fragment.  Fragment
+// layout of an f32 accumulator: d[4i + 2h + j] is row
+// 16 * warp + lane / 4 + 8h, column 8i + 2 (lane % 4) + j.
+
+// S (64 x 64) = Q (64 x 16, K-major) . K^T (16 x 64, K-major), bf16 -> f32,
+// plus S where scale_d is not 0.
+__device__ __forceinline__ void mma_ss_n64(float* d, uint64_t da, uint64_t db,
+                                          int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// S (64 x 128) = Q (64 x 16, K-major) . K^T (16 x 128, K-major), bf16 -> f32,
+// plus S where scale_d is not 0.
+__device__ __forceinline__ void mma_ss_n128(float* d, uint64_t da, uint64_t db,
+                                          int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// O (64 x 64) += P (64 x 16, registers) . V (16 x 64, MN-major), bf16 -> f32.
+__device__ __forceinline__ void mma_rs_n64(float* d, const uint32_t* a,
+                                          uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// O (64 x 128) += P (64 x 16, registers) . V (16 x 128, MN-major), bf16 -> f32.
+__device__ __forceinline__ void mma_rs_n128(float* d, const uint32_t* a,
+                                          uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// O (64 x 256) += P (64 x 16, registers) . V (16 x 256, MN-major), bf16 -> f32.
+__device__ __forceinline__ void mma_rs_n256(float* d, const uint32_t* a,
+                                          uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void mma_ss(float* d, uint64_t da, uint64_t db,
+                                       int scale_d) {
+  static_assert(N == 64 || N == 128, "S tile width");
+  if constexpr (N == 64) mma_ss_n64(d, da, db, scale_d);
+  else mma_ss_n128(d, da, db, scale_d);
+}
+
+template <int N>
+__device__ __forceinline__ void mma_rs(float* d, const uint32_t* a,
+                                       uint64_t db) {
+  static_assert(N == 64 || N == 128 || N == 256, "head dim");
+  if constexpr (N == 64) mma_rs_n64(d, a, db);
+  else if constexpr (N == 128) mma_rs_n128(d, a, db);
+  else mma_rs_n256(d, a, db);
+}
+
+template <bool B>
+struct Flag {
+  static constexpr bool value = B;
+};
+
+__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+template <int HD, int BKV, int NWG>
+struct Cfg {
+  static constexpr int BQ = 64 * NWG;             // query rows a block
+  static constexpr int NP = HD / 64;              // 64-column panels
+  static constexpr int Q_BYTES = BQ * HD * 2;
+  static constexpr int KV_BYTES = BKV * HD * 2;   // one K or V tile
+  static constexpr int STAGE = 2 * KV_BYTES;
+  static constexpr int STAGES = 3;                // the K/V ring
+  static constexpr int SMEM = Q_BYTES + STAGES * STAGE + 1024;   // + align
+  static constexpr int THREADS = 128 * (NWG + 1);
+};
+
+// Shared memory: Q as NP panels of (BQ rows x 64 columns), then each
+// stage's K and V as NP panels of (BKV rows x 64 columns); a row of a
+// panel is 128 bytes, swizzled in atoms of 8 rows (1024 bytes), every
+// panel 1024-byte aligned.
+template <int HD, int BKV, int NWG>
+__global__ void __launch_bounds__(Cfg<HD, BKV, NWG>::THREADS, 1)
+fa_tc_kernel(const __grid_constant__ CUtensorMap map_q,
+             const __grid_constant__ CUtensorMap map_k,
+             const __grid_constant__ CUtensorMap map_v,
+             __nv_bfloat16* __restrict__ o, int T_, int BH, int G, int n_qt,
+             int causal, int has_window, int window, int kv_valid,
+             float scale, int has_cap, float cap) {
+  using C = Cfg<HD, BKV, NWG>;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[1 + 3 * C::STAGES];
+
+  const uint32_t s_q = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bar_q = smem_u32(&bars[0]);
+  auto bar_k = [&](int s) { return smem_u32(&bars[1 + s]); };
+  auto bar_v = [&](int s) { return smem_u32(&bars[1 + C::STAGES + s]); };
+  auto bar_free = [&](int s) {
+    return smem_u32(&bars[1 + 2 * C::STAGES + s]);
+  };
+  auto s_k = [&](int s) { return s_q + C::Q_BYTES + s * C::STAGE; };
+
+  // Query tiles in reverse order (the causal diagonal's longest first);
+  // the G heads of one kv row side by side.
+  const int bh = blockIdx.x % BH;
+  const int q0 = (n_qt - 1 - blockIdx.x / BH) * C::BQ;
+
+  // Key tiles holding a visible key for some row of this block.
+  int k_end = kv_valid;
+  if (causal) k_end = min(k_end, q0 + C::BQ);
+  const int k_beg = has_window ? max(0, q0 - window + 1) : 0;
+  const int t_beg = k_beg / BKV;
+  const int n_tiles = max(0, (k_end + BKV - 1) / BKV - t_beg);
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(bar_k(s), 1);
+      mbar_init(bar_v(s), 1);
+      mbar_init(bar_free(s), 4 * NWG);     // one arrival a consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  if (warp >= 4 * NWG) {
+    // Producer warpgroup: it gives up registers for the consumers, and
+    // one thread issues every TMA load.
+    if constexpr (NWG == 2)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 128 * NWG) {
+      mbar_expect_tx(bar_q, C::Q_BYTES);
+#pragma unroll
+      for (int p = 0; p < C::NP; ++p)
+        tma_load(s_q + p * C::BQ * 128, &map_q, 64 * p, q0, bh, bar_q);
+      const int kv_row = bh / G;
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % C::STAGES;
+        mbar_wait(bar_free(s), ((i / C::STAGES) & 1) ^ 1);
+        const int k0 = (t_beg + i) * BKV;
+        const uint32_t sk = s_k(s), sv = sk + C::KV_BYTES;
+        mbar_expect_tx(bar_k(s), C::KV_BYTES);
+#pragma unroll
+        for (int p = 0; p < C::NP; ++p)
+          tma_load(sk + p * BKV * 128, &map_k, 64 * p, k0, kv_row, bar_k(s));
+        mbar_expect_tx(bar_v(s), C::KV_BYTES);
+#pragma unroll
+        for (int p = 0; p < C::NP; ++p)
+          tma_load(sv + p * BKV * 128, &map_v, 64 * p, k0, kv_row, bar_v(s));
+      }
+    }
+  } else {
+    // Consumer warpgroup wg: query rows qa .. qa + 63; this thread holds
+    // rows row0 and row0 + 8 of them.
+    if constexpr (NWG == 2)
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int wg = warp / 4;
+    const int qa = q0 + 64 * wg;
+    const int row0 = qa + 16 * (warp % 4) + lane / 4;
+    const int col = 2 * (lane % 4);
+
+    float acc[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+    float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
+    uint32_t p_hi[BKV / 4], p_lo[BKV / 4];
+
+    // O += P_hi V + P_lo V for the tile in stage s (its V landed),
+    // issued and committed, not waited for: V (keys x hd) is the MN-major
+    // B operand; a step of 16 keys is 2048 bytes, the next 64 columns the
+    // next panel.
+    auto issue_pv = [&](int s) {
+      wgmma_fence();
+      const uint32_t sv = s_k(s) + C::KV_BYTES;
+#pragma unroll
+      for (int kk = 0; kk < BKV / 16; ++kk) {
+        const uint64_t dv = desc_b128(sv + kk * 16 * 128, BKV * 128, 1024);
+        mma_rs<HD>(acc, p_hi + 4 * kk, dv);
+        mma_rs<HD>(acc, p_lo + 4 * kk, dv);
+      }
+      wgmma_commit();
+    };
+    // After the P.V of stage s completed: its registers may be read and
+    // reused, and the stage is free.
+    auto retire_pv = [&](int s) {
+      fence_regs<HD / 2>(acc);
+      fence_regs<BKV / 4>(p_hi);
+      fence_regs<BKV / 4>(p_lo);
+      if (lane == 0) mbar_arrive(bar_free(s));
+    };
+
+    // S = Q K^T for tile it (its K landed), issued and committed: HD / 16
+    // steps of 16 columns; a step advances 32 bytes inside a 128-byte
+    // swizzled row, or moves to the next panel.
+    auto issue_s = [&](int it, float* sc) {
+      const int s = it % C::STAGES;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const uint32_t off = (kk % 4) * 32;
+        mma_ss<BKV>(sc,
+                    desc_b128(s_q + (kk / 4) * C::BQ * 128 + wg * 64 * 128 +
+                              off, 16, 1024),
+                    desc_b128(s_k(s) + (kk / 4) * BKV * 128 + off, 16, 1024),
+                    kk > 0);
+      }
+      wgmma_commit();
+    };
+
+    // Online softmax of tile it on its scores sc (p replaces s): scale,
+    // softcap, mask (only on tiles that cross an edge: `masked` is a
+    // compile-time flag, so other tiles run no mask code); the row maxima
+    // and sums in four partial chains each; m and l updated, and c, the
+    // factor of the rows' earlier sums, returned.
+    auto softmax_tile = [&](int k0, float* sc, float* c, auto masked) {
+      constexpr bool kMasked = decltype(masked)::value;
+      auto visible = [&](int idx) {
+        const int kpos = k0 + 8 * (idx / 4) + col + (idx % 2);
+        const int qpos = row0 + 8 * ((idx / 2) % 2);
+        return kpos < kv_valid && (!causal || kpos <= qpos) &&
+               (!has_window || qpos - kpos < window);
+      };
+      float part[2][4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) part[h][j] = kNeg;
+#pragma unroll
+      for (int idx = 0; idx < BKV / 2; ++idx) sc[idx] *= scale;
+      if (has_cap) {
+#pragma unroll
+        for (int idx = 0; idx < BKV / 2; ++idx)
+          sc[idx] = cap * tanhf(sc[idx] / cap);
+      }
+#pragma unroll
+      for (int idx = 0; idx < BKV / 2; ++idx) {
+        if constexpr (kMasked) {
+          if (!visible(idx)) sc[idx] = kNeg;
+        }
+        float& pm = part[(idx / 2) % 2][(idx / 4) % 4];
+        pm = fmaxf(pm, sc[idx]);
+      }
+      float m_new[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float mx = fmaxf(fmaxf(part[h][0], part[h][1]),
+                         fmaxf(part[h][2], part[h][3]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        m_new[h] = fmaxf(m[h], mx);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) part[h][j] = 0.f;
+      }
+#pragma unroll
+      for (int idx = 0; idx < BKV / 2; ++idx) {
+        float p = expf(sc[idx] - m_new[(idx / 2) % 2]);
+        if constexpr (kMasked) {
+          if (!visible(idx)) p = 0.f;
+        }
+        sc[idx] = p;
+        part[(idx / 2) % 2][(idx / 4) % 4] += p;
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float rs = (part[h][0] + part[h][1]) + (part[h][2] + part[h][3]);
+        rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+        rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+        c[h] = expf(m[h] - m_new[h]);
+        l[h] = l[h] * c[h] + rs;
+        m[h] = m_new[h];
+      }
+    };
+    auto softmax = [&](int it, float* sc, float* c) {
+      const int k0 = (t_beg + it) * BKV;
+      if (k0 + BKV > kv_valid || (causal && k0 + BKV - 1 > qa) ||
+          (has_window && qa + 63 - k0 >= window))
+        softmax_tile(k0, sc, c, Flag<true>{});
+      else
+        softmax_tile(k0, sc, c, Flag<false>{});
+    };
+
+    // P split into bf16 hi and lo parts, in the register-A fragment of a
+    // 16-key step kk: chunks 2kk and 2kk + 1 of the accumulator.
+    auto split_p = [&](const float* sc) {
+#pragma unroll
+      for (int r = 0; r < BKV / 4; ++r) {
+        const float a = sc[2 * r], b = sc[2 * r + 1];
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(a, b);
+        const float2 hf = __bfloat1622float2(hi);
+        p_hi[r] = pack_bf16(hi);
+        p_lo[r] = pack_bf16(__floats2bfloat162_rn(a - hf.x, b - hf.y));
+      }
+    };
+
+    mbar_wait(bar_q, 0);
+    if (n_tiles > 0) {
+      float c[2];
+      {
+        float sc[BKV / 2];
+        mbar_wait(bar_k(0), 0);
+        issue_s(0, sc);
+        wgmma_wait<0>();
+        fence_regs<BKV / 2>(sc);
+        softmax(0, sc, c);               // acc is 0: nothing to rescale
+        split_p(sc);
+      }
+      // Tile it's S = Q K^T and softmax run while tile it - 1's P.V is in
+      // flight on the tensor cores; both tiles' barriers are waited for
+      // before either product is issued.
+      for (int it = 1; it < n_tiles; ++it) {
+        const int sp = (it - 1) % C::STAGES;
+        float sc[BKV / 2];
+        mbar_wait(bar_v(sp), ((it - 1) / C::STAGES) & 1);
+        mbar_wait(bar_k(it % C::STAGES), (it / C::STAGES) & 1);
+        issue_s(it, sc);
+        issue_pv(sp);
+        wgmma_wait<1>();                 // S done; P.V may still run
+        fence_regs<BKV / 2>(sc);
+        softmax(it, sc, c);
+        wgmma_wait<0>();
+        retire_pv(sp);
+#pragma unroll
+        for (int i = 0; i < HD / 2; ++i) acc[i] *= c[(i / 2) % 2];
+        split_p(sc);
+      }
+      const int s = (n_tiles - 1) % C::STAGES;
+      mbar_wait(bar_v(s), ((n_tiles - 1) / C::STAGES) & 1);
+      issue_pv(s);
+      wgmma_wait<0>();
+      retire_pv(s);
+    }
+
+    // Epilogue: rows below T, acc / max(l, 1e-30) in bf16.
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + 8 * h;
+      if (row >= T_) continue;
+      const float den = fmaxf(l[h], 1e-30f);
+      __nv_bfloat16* orow = o + ((size_t)bh * T_ + row) * HD + col;
+#pragma unroll
+      for (int i = 0; i < HD / 8; ++i)
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * i) =
+            __floats2bfloat162_rn(acc[4 * i + 2 * h] / den,
+                                  acc[4 * i + 2 * h + 1] / den);
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from libcuda, looked up through the runtime.
+EncodeTiled encode_fn() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A (hd, rows, batch) bf16 tensor map whose box is 64 columns x box_rows
+// rows of one batch entry, 128-byte swizzled; out-of-range rows read 0.
+int make_map(CUtensorMap* map, const void* ptr, int hd, int rows, int batch,
+             int box_rows) {
+  EncodeTiled encode = encode_fn();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)hd, (cuuint64_t)max(rows, 1),
+                              (cuuint64_t)batch};
+  const cuuint64_t strides[2] = {(cuuint64_t)hd * 2,
+                                 (cuuint64_t)hd * 2 * max(rows, 1)};
+  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                      const_cast<void*>(ptr), dims, strides, box, elem,
+                      CU_TENSOR_MAP_INTERLEAVE_NONE,
+                      CU_TENSOR_MAP_SWIZZLE_128B,
+                      CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <int HD, int BKV, int NWG>
+int launch(const void* q, const void* k, const void* v, void* o, int BH,
+           int T_, int S, int BK, int causal, int has_window, int window,
+           int kv_valid, float scale, int has_cap, float cap,
+           cudaStream_t stream) {
+  using C = Cfg<HD, BKV, NWG>;
+  const int n_qt = (T_ + C::BQ - 1) / C::BQ;
+  const long long blocks = (long long)BH * n_qt;
+  if (blocks == 0) return 0;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  CUtensorMap mq, mk, mv;
+  int err = make_map(&mq, q, HD, T_, BH, C::BQ);
+  if (!err) err = make_map(&mk, k, HD, S, BK, BKV);
+  if (!err) err = make_map(&mv, v, HD, S, BK, BKV);
+  if (err) return err;
+  auto kernel = fa_tc_kernel<HD, BKV, NWG>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<(unsigned)blocks, C::THREADS, C::SMEM, stream>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(o), T_, BH, BH / BK, n_qt,
+      causal, has_window, window, kv_valid, scale, has_cap, cap);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc
+
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16.  Returns a cudaError_t (0 on success).
-extern "C" int fa_fwd_launch(const void* q, const void* k, const void* v,
-                             void* o, int BH, int T_, int S, int BK, int hd,
-                             int dtype, int causal, int has_window,
-                             int window, int kv_valid, float scale,
-                             int has_cap, float cap, void* stream) {
+// float32 q, k, v, o: the SIMT kernel.  Returns a cudaError_t (0 on
+// success).
+extern "C" int fa_fwd_f32_launch(const void* q, const void* k, const void* v,
+                                 void* o, int BH, int T_, int S, int BK,
+                                 int hd, int causal, int has_window,
+                                 int window, int kv_valid, float scale,
+                                 int has_cap, float cap, void* stream) {
+  if (BK <= 0 || BH % BK) return (int)cudaErrorInvalidValue;
+  return simt::launch_hd<float>(hd, q, k, v, o, BH, T_, S, BK, causal,
+                                has_window, window, kv_valid, scale, has_cap,
+                                cap, static_cast<cudaStream_t>(stream));
+}
+
+// bfloat16 q, k, v, o (16-byte aligned, contiguous): the tensor-core
+// kernel.  Returns a cudaError_t (0 on success).
+extern "C" int fa_fwd_tc_launch(const void* q, const void* k, const void* v,
+                                void* o, int BH, int T_, int S, int BK,
+                                int hd, int causal, int has_window,
+                                int window, int kv_valid, float scale,
+                                int has_cap, float cap, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (BK <= 0 || BH % BK) return (int)cudaErrorInvalidValue;
-  if (dtype == 0)
-    return launch_hd<float>(hd, q, k, v, o, BH, T_, S, BK, causal,
-                            has_window, window, kv_valid, scale, has_cap,
-                            cap, st);
-  if (dtype == 1)
-    return launch_hd<__nv_bfloat16>(hd, q, k, v, o, BH, T_, S, BK, causal,
+  switch (hd) {
+    case 64:
+      return tc::launch<64, 128, 2>(q, k, v, o, BH, T_, S, BK, causal,
                                     has_window, window, kv_valid, scale,
                                     has_cap, cap, st);
-  return (int)cudaErrorInvalidValue;
+    case 128:
+      return tc::launch<128, 64, 2>(q, k, v, o, BH, T_, S, BK, causal,
+                                    has_window, window, kv_valid, scale,
+                                    has_cap, cap, st);
+    case 256:
+      return tc::launch<256, 64, 1>(q, k, v, o, BH, T_, S, BK, causal,
+                                    has_window, window, kv_valid, scale,
+                                    has_cap, cap, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

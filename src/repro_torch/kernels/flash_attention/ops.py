@@ -4,9 +4,11 @@
 k and v (BK, S, hd) — and picks the implementation by the tensors'
 device:
 
-  * CUDA tensors launch the hand-written kernel
-    (``csrc/flash_attention.cu``, built with nvcc at first use) — or
-    raise; there is no fallback;
+  * CUDA tensors launch a hand-written kernel of
+    ``csrc/flash_attention.cu`` (built with nvcc at first use): bfloat16
+    the tensor-core kernel (``wgmma`` and TMA; every tensor's base
+    16-byte aligned, else it raises), float32 the SIMT kernel — or
+    raise; neither falls back to the other, nor to the plain version;
   * CPU tensors run the plain torch version
     (:func:`repro_torch.kernels.flash_attention.plain.flash_attention_plain`).
 
@@ -14,7 +16,7 @@ device:
 ``ops.flash_attention``: q (B, T, K, G, hd) and k, v (B, S, K, hd) are
 flattened to ``bh = (b*K + k)*G + g`` query rows over ``b*K + k`` kv
 rows.  ``launches`` counts the CUDA kernel launches of this process, and
-nothing else.
+nothing else; ``tc_launches`` counts those of the tensor-core kernel.
 """
 
 from __future__ import annotations
@@ -28,40 +30,51 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention.plain import flash_attention_plain
 
-#: CUDA launches of the flash-attention kernel in this process.
+#: CUDA launches of the flash-attention kernels in this process.
 launches = 0
+#: Of those, the launches of the bfloat16 tensor-core kernel.
+tc_launches = 0
 
 _SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 #: Head dims the kernel is instantiated for.
 HEAD_DIMS = (64, 128, 256)
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: The C entry point of each dtype: the SIMT kernel for float32, the
+#: tensor-core kernel for bfloat16.
+_ENTRIES = {torch.float32: "fa_fwd_f32_launch",
+            torch.bfloat16: "fa_fwd_tc_launch"}
 
 
-def _kernel_fn():
-    """The C entry point of the built kernel library, typed for ctypes."""
+def _kernel_fn(dtype):
+    """The C entry point for ``dtype`` of the built kernel library, typed
+    for ctypes."""
     from repro_torch.kernels import build
 
-    fn = build.load(_SOURCE).fa_fwd_launch
+    fn = getattr(build.load(_SOURCE), _ENTRIES[dtype])
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, ci, ci,
+    fn.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, ci,
                    ctypes.c_float, ci, ctypes.c_float, vp]
     fn.restype = ci
     return fn
 
 
 def _launch_cuda(q, k, v, causal, window, softcap, kv_valid):
-    """Launch the CUDA kernel on the current stream (no synchronize)."""
-    global launches
+    """Launch the CUDA kernel of q's dtype on the current stream (no
+    synchronize)."""
+    global launches, tc_launches
     BH, T, hd = q.shape
     BK, S, _ = k.shape
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention kernel takes head dims "
                          f"{HEAD_DIMS}, got {hd}")
-    fn = _kernel_fn()
     out = torch.empty_like(q)
+    tc = q.dtype == torch.bfloat16
+    if tc and any(t.data_ptr() % 16 for t in (q, k, v, out)):
+        raise ValueError("the tensor-core flash_attention kernel loads "
+                         "by TMA and needs 16-byte aligned q, k, v")
+    fn = _kernel_fn(q.dtype)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             BH, T, S, BK, hd, _DTYPES[q.dtype], int(causal),
+             BH, T, S, BK, hd, int(causal),
              int(window is not None), 0 if window is None else int(window),
              kv_valid, hd ** -0.5, int(softcap is not None),
              0.0 if softcap is None else float(softcap), stream)
@@ -69,6 +82,7 @@ def _launch_cuda(q, k, v, causal, window, softcap, kv_valid):
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")
     launches += 1
+    tc_launches += int(tc)
     return out
 
 
@@ -91,7 +105,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if hd_k != hd or BK == 0 or BH % BK:
         raise ValueError(f"q {tuple(q.shape)} does not group over k "
                          f"{tuple(k.shape)}")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in _ENTRIES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"q, k, v must share float32 or bfloat16, got "
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
     if not q.device == k.device == v.device:

@@ -16,8 +16,12 @@ and by the same element-wise bfloat16 rule, and H within 1e-5 of its
 largest |H| (the plain version takes the kernel's cumulative-sum order,
 so only product orders differ), and within 1e-4 of the sequential
 oracle; the RBER table within rtol 1e-6 of the plain version (both call
-CUDA's erfcf).  ``chip_smoke.py`` holds every kernel at its main path's
-full-width shapes.
+CUDA's erfcf).  bfloat16 flash attention runs on the tensor-core
+kernel and float32 on the SIMT kernel; the cases cover lengths below,
+at and past a tile, GQA groups of 1, 3 and 8, an all-masked
+``kv_valid = 0``, the wrapper's refusal of a misaligned view, and
+``tc_launches`` counting bfloat16 launches only.  ``chip_smoke.py``
+holds every kernel at its main path's full-width shapes.
 """
 
 import numpy as np
@@ -76,6 +80,69 @@ def test_flash_attention_matches_plain(hd, dtype, kw):
         assert float((got - want).abs().max()) <= F32_TOL
     else:
         assert bf16_err_ratio(got, want) <= 1.0
+
+
+def _fa_inputs(BK, G, T, S, hd, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                 .to("cuda", dtype)
+                 for s in ((BK * G, T, hd), (BK, S, hd), (BK, S, hd)))
+
+
+@pytest.mark.parametrize("T", [1, 11, 65, 1500])
+@pytest.mark.parametrize("G", [1, 3, 8])
+def test_flash_attention_tc_lengths_and_groups(T, G):
+    """bfloat16 causal GQA at lengths below, at and past a tile, and long
+    enough to fill the ring many times over."""
+    q, k, v = _fa_inputs(2, G, T, T, 128, torch.bfloat16, seed=T + G)
+    got = FA.flash_attention_fwd(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    want = flash_attention_plain(q, k, v, causal=True)
+    assert got.shape == q.shape and bool(torch.isfinite(got).all())
+    assert bf16_err_ratio(got, want) <= 1.0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_kv_valid_zero_outputs_zero(dtype):
+    """kv_valid = 0 hides every key: every row is 0, as in the reference."""
+    q, k, v = _fa_inputs(2, 3, 100, 100, 128, getattr(torch, dtype))
+    got = FA.flash_attention_fwd(q, k, v, causal=False, kv_valid=0)
+    torch.cuda.synchronize()
+    assert not bool(got.any())
+
+
+def test_flash_attention_tc_window_softcap_hd256():
+    kw = dict(causal=True, window=200, softcap=30.0)
+    q, k, v = _fa_inputs(2, 2, 600, 600, 256, torch.bfloat16, seed=7)
+    q, k = 3 * q, 3 * k
+    got = FA.flash_attention_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert bf16_err_ratio(got, flash_attention_plain(q, k, v, **kw)) <= 1.0
+
+
+def test_flash_attention_tc_rejects_misaligned_view():
+    """TMA needs 16-byte aligned bases: a view 2 bytes into its storage
+    raises rather than launching or falling back."""
+    BK, G, T, hd = 1, 2, 64, 64
+    flat = torch.zeros(BK * G * T * hd + 1, device="cuda",
+                       dtype=torch.bfloat16)
+    q = flat[1:].view(BK * G, T, hd)
+    k = torch.zeros(BK, T, hd, device="cuda", dtype=torch.bfloat16)
+    before = FA.launches
+    with pytest.raises(ValueError, match="aligned"):
+        FA.flash_attention_fwd(q, k, k)
+    assert FA.launches == before
+
+
+def test_flash_attention_tc_launches_count_bf16_only():
+    counts = []
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = _fa_inputs(1, 2, 64, 64, 64, dtype)
+        launches, tc = FA.launches, FA.tc_launches
+        FA.flash_attention_fwd(q, k, v)
+        counts.append((FA.launches - launches, FA.tc_launches - tc))
+    torch.cuda.synchronize()
+    assert counts == [(1, 1), (1, 0)]
 
 
 def test_flash_attention_rejects_head_dim():

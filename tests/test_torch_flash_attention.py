@@ -10,7 +10,10 @@ bfloat16 element by element within one bfloat16 ulp of the reference's
 value there, plus 2^-8 of the row's rms near zero (``bf16_err_ratio``:
 both compute in float32 and round once).  Two faulty variants a kernel
 could have, p rounded to bfloat16 before P·V and a dropped key tile,
-must fail that rule.  The CUDA kernel itself runs only on the card:
+must fail that rule.  The bfloat16 CUDA kernel's P·V arithmetic (p
+split into two bfloat16 parts, each product summed in float32) is
+emulated here and held to the same rule against the plain version.  The
+CUDA kernels themselves run only on the card:
 ``tests/test_torch_cuda_kernels.py``.
 """
 
@@ -174,3 +177,56 @@ def test_attention_mask_counts_visible_pairs(causal, window, kv_valid, want):
     T, S = 64, 80 if not causal else 64
     mask = attention_mask(T, S, causal, window, kv_valid, "cpu")
     assert mask.shape == (T, S) and int(mask.sum()) == want
+
+
+def _tiled_pv_emulation(q, k, v, pv, bkv=128):
+    """Causal online-softmax attention over key tiles of ``bkv``, as the
+    bfloat16 tensor-core kernel runs it: scores and softmax in float32,
+    ``l`` summed from the float32 p, and P·V through ``pv(p, v_tile)``."""
+    BH, T, hd = q.shape
+    G = BH // k.shape[0]
+    kf = k.float().repeat_interleave(G, dim=0)
+    vf = v.float().repeat_interleave(G, dim=0)
+    qf = q.float()
+    m = torch.full((BH, T, 1), -1e30)
+    l = torch.zeros(BH, T, 1)
+    acc = torch.zeros(BH, T, hd)
+    qpos = torch.arange(T)[:, None]
+    for k0 in range(0, T, bkv):
+        kt, vt = kf[:, k0:k0 + bkv], vf[:, k0:k0 + bkv]
+        ok = torch.arange(k0, k0 + kt.shape[1])[None, :] <= qpos
+        s = torch.where(ok, torch.matmul(qf, kt.transpose(1, 2))
+                        * (hd ** -0.5), -1e30)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.where(ok, torch.exp(s - m_new), 0.0)
+        c = torch.exp(m - m_new)
+        l = l * c + p.sum(dim=-1, keepdim=True)
+        acc = acc * c + pv(p, vt)
+        m = m_new
+    return (acc / torch.clamp(l, min=1e-30)).to(q.dtype)
+
+
+def _pv_split(p, v):
+    hi = p.to(torch.bfloat16).float()
+    lo = (p - hi).to(torch.bfloat16).float()
+    return torch.matmul(hi, v) + torch.matmul(lo, v)
+
+
+def _pv_bf16(p, v):
+    return torch.matmul(p.to(torch.bfloat16).float(), v)
+
+
+def test_split_bf16_pv_design_stays_inside_the_rule():
+    """The tensor-core kernel's P·V (p = hi + lo in two bfloat16 parts,
+    two float32-accumulated products) passes the element-wise bfloat16
+    rule against the plain version on causal GQA inputs; p rounded to
+    bfloat16 alone fails it, so the rule still tells the two apart."""
+    BK, G, T, hd = 2, 3, 512, 128
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in _inputs(BK, G, T, T, hd, seed=0))
+    want = flash_attention_plain(q, k, v, causal=True)
+    split = bf16_err_ratio(_tiled_pv_emulation(q, k, v, _pv_split), want)
+    single = bf16_err_ratio(_tiled_pv_emulation(q, k, v, _pv_bf16), want)
+    print(f"worst |err| / tolerance: split P {split:.3g}, bf16 P "
+          f"{single:.3g}")
+    assert split <= 1.0 < single

@@ -33,7 +33,7 @@ LONG_LENGTHS = (2048, 1024, 1536, 1792)
 
 def _kind(name: str) -> str:
     n = name.lower()
-    if "fa_fwd_kernel" in n:
+    if "fa_fwd_kernel" in n or "fa_tc_kernel" in n:
         return "flash_attention kernel"
     if "kv_retry_kernel" in n:
         return "kv_retry kernel"
