@@ -21,18 +21,33 @@ exits non-zero):
                      on the same card tensors, bit for bit, on the padded
                      op tables of ``websearch`` at 20 000 requests
                      (``baseline`` serial and ``pr2ar2`` pipelined; FIFO,
-                     and priority rings with aging bounds inf and 8) and
-                     on one 48-lane table stacking all six mechanisms;
-                     then the floor of one step's dependency chain
-                     (a probe kernel of dependent f64 max and adds);
+                     and priority rings with aging bounds inf and 8), on
+                     one 48-lane table stacking all six mechanisms, on the
+                     same table with each mechanism's own serial or
+                     pipelined lanes (FIFO, and priority rings at bound
+                     8), and on ``baseline``'s table padded to 16 384 rows,
+                     too wide for shared memory; each case prints its
+                     variant (op table and rings in shared or global
+                     memory) and its shared-memory bytes a block, and the
+                     variant must be the one the shapes call for; then
+                     the floor of one step's dependency chain (a probe
+                     kernel of dependent f64 max and adds);
   5. main path     — ``compare_mechanisms`` over the six mechanisms at
                      20 000 requests with ``engine="batched"``; the kernel
-                     must have launched, and ``baseline`` / ``pr2ar2`` must
-                     equal the array interpreter's SimStats.  Every launch
-                     the run made is then held against the plain version
-                     on the inputs it had, bit for bit, and timed beside
-                     its bounds: bytes or operations, and the serial
-                     chain (longest lane's steps x the measured floor).
+                     must have launched, every launch from shared memory
+                     (``smem_launches``), and ``baseline`` / ``pr2ar2``
+                     must equal the array interpreter's SimStats.  The
+                     host side of the run is timed by phase (trace,
+                     simulators, ``_prepare``, ``_lane_tables``,
+                     ``pad_ops``, step and ring bounds, ``augment_ops``,
+                     the launch and its copies, result assembly).  The six
+                     mechanisms then run again unfused (one launch each),
+                     and every cell's SimStats must equal the fused run's.
+                     Every launch of the fused run is then held against
+                     the plain version on the inputs it had, bit for bit,
+                     and timed beside its bounds: bytes or operations,
+                     and the serial chain (longest lane's steps x the
+                     measured floor).
   6. serve kernels — the count of HGMMA (wgmma) instructions in the SASS
                      of each flash-attention instance (``cuobjdump
                      -sass``), nonzero for every bfloat16 one; the
@@ -296,7 +311,7 @@ def _main_path_tables():
 
     trace = ssd.resolve_trace(WORKLOAD, seed=0, n_requests=N_REQUESTS)
     expansion = ssd.expand_trace(trace, DEFAULT_SSD)
-    tables = {}
+    tables, pipelined = {}, {}
     for m in MECHANISMS:
         sim = ssd.SSDSim(DEFAULT_SSD, OperatingCondition(*CONDITION),
                          RetryPolicy(m), seed=7, engine="batched",
@@ -304,9 +319,10 @@ def _main_path_tables():
         prep = sim._prepare(trace, expansion=expansion)
         lanes, _, _ = EB._lane_tables(sim.cfg, prep.bufs)
         tables[m] = K.pad_ops(lanes)
+        pipelined[m] = prep.pipelined
     n_dies = -(-DEFAULT_SSD.n_dies // DEFAULT_SSD.n_channels)
     t = DEFAULT_SSD.timing
-    return tables, n_dies, (t.tdma_us, t.tecc_us)
+    return tables, pipelined, n_dies, (t.tdma_us, t.tecc_us)
 
 
 def _bound_ms(ops, fin, diestat, lane):
@@ -374,6 +390,18 @@ def _chain_ns_per_step(tdma, tecc):
     return ms * 1e6 / n
 
 
+def _variant(ops, kw):
+    """The kernel variant the wrapper takes for these shapes, and its
+    dynamic shared-memory bytes a block."""
+    from repro_torch.kernels.fcfs_core import ops as K
+
+    shape = (ops.shape[1], kw["n_dies"], kw["capq"], kw["capw"], kw["prio"])
+    place = K.placement(*shape, K.smem_budget(ops.device))
+    if place == K.SMEM:
+        return "smem", K.smem_bytes(*shape)
+    return "global", 0
+
+
 def _hold(name, ops, timing, steps, kw, got=None):
     """Hold one launch of the kernel against its plain version on the
     same card tensors, bit for bit, and time both.
@@ -400,14 +428,22 @@ def _hold(name, ops, timing, steps, kw, got=None):
     t_bytes, t_ops = _bound_ms(ops, *got)
     bound_ms, bound_by = _bound(t_bytes, t_ops)
     longest = _longest_lane_steps(ops, got[2])
-    print(f"{name}: lanes {ops.shape[0]} maxp {ops.shape[1]} steps {steps} "
-          f"longest lane {longest} max_abs_err {err} kernel {ms:.3f} ms "
-          f"({ms * 1e6 / longest:.1f} ns per step of the longest lane) "
-          f"plain {plain_ms:.1f} ms bound {bound_ms:.6f} ms ({bound_by})",
-          flush=True)
+    variant, smem = _variant(ops, kw)
+    n_pip = int((timing[:, 3] != 0).sum())
+    print(f"{name}: lanes {ops.shape[0]} ({n_pip} pipelined) maxp "
+          f"{ops.shape[1]} steps {steps} longest lane {longest} variant "
+          f"{variant} ({smem} B of shared memory a block) max_abs_err "
+          f"{err} kernel {ms:.3f} ms ({ms * 1e6 / longest:.1f} ns per step "
+          f"of the longest lane) plain {plain_ms:.1f} ms bound "
+          f"{bound_ms:.6f} ms ({bound_by})", flush=True)
     return dict(case=name, steps=steps, longest=longest, ms=ms,
                 plain_ms=plain_ms, t_bytes=t_bytes, t_ops=t_ops,
-                bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err)
+                bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
+                variant=variant, smem=smem)
+
+
+#: Rows of the phase-4 case too wide for a block's shared memory.
+WIDE_MAXP = 16384
 
 
 @phase("kernels")
@@ -417,30 +453,48 @@ def kernel_phase():
 
     from repro_torch.kernels.fcfs_core import ops as K
 
-    tables, n_dies, (tdma, tecc) = _main_path_tables()
+    tables, pipelined, n_dies, (tdma, tecc) = _main_path_tables()
     cases = []
-    for m, pipelined in (("baseline", False), ("pr2ar2", True)):
+    for m in ("baseline", "pr2ar2"):
         for label, bound in (("fifo", None), ("prio-inf", float("inf")),
                              ("prio-8", 8.0)):
-            cases.append((f"{m}/{label}", tables[m], pipelined, bound))
+            cases.append((f"{m}/{label}", tables[m], pipelined[m], bound,
+                          "smem"))
     widest = max(t.shape[1] for t in tables.values())
     stacked = np.concatenate(
         [K.pad_ops([row[np.isfinite(row[:, 0])] for row in tables[m]],
                    maxp=widest) for m in MECHANISMS], axis=0)
-    cases.append(("six-mechanisms-48-lanes/fifo", stacked, True, None))
+    mixed = np.concatenate([[pipelined[m]] * tables[m].shape[0]
+                            for m in MECHANISMS])
+    cases.append(("six-mechanisms-48-lanes/fifo", stacked, True, None,
+                  "smem"))
+    cases.append(("six-mechanisms-48-lanes-mixed/fifo", stacked, mixed,
+                  None, "smem"))
+    cases.append(("six-mechanisms-48-lanes-mixed/prio-8", stacked, mixed,
+                  8.0, "smem"))
+    wide = K.pad_ops([row[np.isfinite(row[:, 0])]
+                      for row in tables["baseline"]], maxp=WIDE_MAXP)
+    cases.append((f"baseline-{WIDE_MAXP}-rows/fifo", wide,
+                  pipelined["baseline"], None, "global"))
 
     results = []
-    for name, ops_np, pipelined, bound in cases:
+    for name, ops_np, pip, bound, variant in cases:
         prio = bound is not None
+        L = ops_np.shape[0]
+        pip = np.broadcast_to(np.asarray(pip, np.float64), (L,))
         capq, capw = K.ring_caps(ops_np, n_dies)
-        ops = torch.as_tensor(K.augment_ops(ops_np, pipelined),
+        ops = torch.as_tensor(K.augment_ops(ops_np, pip != 0),
                               dtype=torch.float64, device=DEVICE)
-        timing = torch.tensor([[tdma, tecc, bound if prio else 0.0]]
-                              * ops.shape[0], dtype=torch.float64,
-                              device=DEVICE)
-        kw = dict(n_dies=n_dies, capq=capq, capw=capw, pipelined=pipelined,
-                  prio=prio)
-        results.append(_hold(name, ops, timing, K.count_steps(ops_np), kw))
+        timing = torch.as_tensor(np.stack(
+            [np.full(L, tdma), np.full(L, tecc),
+             np.full(L, bound if prio else 0.0), pip], axis=1),
+            dtype=torch.float64, device=DEVICE)
+        kw = dict(n_dies=n_dies, capq=capq, capw=capw, prio=prio)
+        r = _hold(name, ops, timing, K.count_steps(ops_np), kw)
+        if r["variant"] != variant:
+            raise AssertionError(f"{name}: took the {r['variant']} variant, "
+                                 f"the shapes call for {variant}")
+        results.append(r)
     chain_ns = _chain_ns_per_step(tdma, tecc)
     print(f"chain floor: {chain_ns:.3f} ns per step (dependent f64 max "
           f"and adds, {CHAIN_PROBE_STEPS} links)", flush=True)
@@ -452,6 +506,48 @@ def _outcome(s):
 
     return {f.name: getattr(s, f.name) for f in dataclasses.fields(s)
             if f.compare}
+
+
+def _host_timers():
+    """Wrap the host phases of ``compare_mechanisms``'s batched path in
+    wall-clock timers.  Returns ``(seconds by phase, restore)``; nested
+    phases (``augment_ops`` inside the dispatch, ``_prepare`` inside
+    nothing) are listed by what they span."""
+    from repro_torch.flashsim import engine_batched as EB
+    from repro_torch.flashsim import ssd
+    from repro_torch.kernels.fcfs_core import ops as K
+
+    spans = [("trace", ssd, "resolve_trace"), ("trace", ssd, "expand_trace"),
+             ("simulators", ssd.SSDSim, "__init__"),
+             ("_prepare", ssd.SSDSim, "_prepare"),
+             ("_lane_tables", EB, "_lane_tables"), ("pad_ops", K, "pad_ops"),
+             ("step and ring bounds", K, "count_steps"),
+             ("step and ring bounds", K, "ring_caps"),
+             ("dispatch (augment, copies, launch, wait)", K, "_dispatch"),
+             ("augment_ops (in dispatch)", K, "augment_ops"),
+             ("_assemble_result", EB, "_assemble_result"),
+             ("_finalize", ssd.SSDSim, "_finalize")]
+    secs = {name: 0.0 for name, _, _ in spans}
+    saved = []
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                secs[name] += time.perf_counter() - t0
+        return run
+
+    for name, owner, attr in spans:
+        fn = owner.__dict__[attr]
+        saved.append((owner, attr, fn))
+        setattr(owner, attr, timed(name, fn))
+
+    def restore():
+        for owner, attr, fn in saved:
+            setattr(owner, attr, fn)
+    return secs, restore
 
 
 @phase("main path")
@@ -475,21 +571,40 @@ def main_path_phase(chain_ns):
         return out
 
     K.fcfs_core_fwd = recording_fwd
-    K.launches = 0
+    secs, restore = _host_timers()
+    K.launches = K.smem_launches = 0
     t0 = time.perf_counter()
     res = compare_mechanisms(WORKLOAD, cond, MECHANISMS,
                              n_requests=N_REQUESTS, engine="batched",
                              device=DEVICE)
     torch.cuda.synchronize()
     batched_s = time.perf_counter() - t0
-    launches = K.launches
+    launches, smem_launches = K.launches, K.smem_launches
+    restore()
     K.fcfs_core_fwd = fwd
     if launches <= 0:
         raise AssertionError("compare_mechanisms(engine='batched') never "
                              "launched the fcfs_core kernel")
+    if smem_launches != launches:
+        raise AssertionError(f"{launches - smem_launches} of {launches} "
+                             f"main-path launches ran from global memory")
     if len(recorded) != launches:
         raise AssertionError(f"{len(recorded)} recorded calls for "
                              f"{launches} kernel launches")
+    kw0 = recorded[0][3]
+    resident = K.resident_lanes(recorded[0][0].shape[1], kw0["n_dies"],
+                                kw0["capq"], kw0["capw"], kw0["prio"],
+                                DEVICE)
+    print(f"main path: {launches} kernel launches ({smem_launches} from "
+          f"shared memory) for {len(MECHANISMS)} mechanisms x 8 lanes; "
+          f"the card holds {resident} lanes at once at this footprint",
+          flush=True)
+    top = sum(v for k, v in secs.items() if "(in dispatch)" not in k)
+    print(f"host phases of the batched run ({batched_s:.4f} s on the host "
+          f"clock, synchronized): " + ", ".join(
+              f"{k} {v:.4f} s" for k, v in secs.items())
+          + f", rest {batched_s - top:.4f} s", flush=True)
+
     t0 = time.perf_counter()
     ref = compare_mechanisms(WORKLOAD, cond, ("baseline", "pr2ar2"),
                              n_requests=N_REQUESTS, engine="array",
@@ -499,6 +614,16 @@ def main_path_phase(chain_ns):
         if _outcome(res[m]) != _outcome(ref[m]):
             raise AssertionError(f"{m}: batched SimStats differ from the "
                                  f"array interpreter's")
+    t0 = time.perf_counter()
+    unfused = compare_mechanisms(WORKLOAD, cond, MECHANISMS,
+                                 n_requests=N_REQUESTS, engine="batched",
+                                 fuse=False, device=DEVICE)
+    torch.cuda.synchronize()
+    unfused_s = time.perf_counter() - t0
+    for m in MECHANISMS:
+        if _outcome(res[m]) != _outcome(unfused[m]):
+            raise AssertionError(f"{m}: fused SimStats differ from the "
+                                 f"unfused run's")
     for m, s in res.items():
         if s.n_requests != N_REQUESTS or not all(
                 math.isfinite(v) for v in (s.mean_us, s.p99_us)):
@@ -515,20 +640,23 @@ def main_path_phase(chain_ns):
         raise AssertionError("pr2ar2 is not faster than baseline")
     print(f"pr2ar2 vs baseline: mean -{red_mean:.2%}, p99 -{red_p99:.2%}")
     print(f"main path: batched {batched_s:.3f} s ({launches} kernel "
+          f"launches), unfused {unfused_s:.3f} s ({len(MECHANISMS)} "
           f"launches), array interpreter for 2 mechanisms {array_s:.3f} s; "
-          f"batched == array for baseline and pr2ar2", flush=True)
+          f"batched == array for baseline and pr2ar2, fused == unfused "
+          f"for all six", flush=True)
 
     held = []
     for i, (ops, timing, steps, kw, out) in enumerate(recorded):
         mode = "prio" if kw["prio"] else "fifo"
-        r = _hold(f"main-path launch {i} ({mode}, pipelined="
-                  f"{kw['pipelined']})", ops, timing, steps, kw, got=out)
+        r = _hold(f"main-path launch {i} ({mode}, "
+                  f"{int((timing[:, 3] != 0).sum())} of {ops.shape[0]} "
+                  f"lanes pipelined)", ops, timing, steps, kw, got=out)
         r["chain_ms"] = r["longest"] * chain_ns * 1e-6
         print(f"  chain bound {r['chain_ms']:.3f} ms = {r['longest']} steps "
               f"x {chain_ns:.3f} ns; kernel at "
               f"{r['ms'] / r['chain_ms']:.1f}x its chain bound", flush=True)
         held.append(r)
-    return launches, held
+    return launches, smem_launches, held
 
 
 # -- serving: the flash-attention and KV retry kernels ----------------------
@@ -1445,7 +1573,7 @@ def main() -> int:
     build_phase()
     characterize_phase()
     kern, chain_ns = kernel_phase()
-    launches, held = main_path_phase(chain_ns)
+    launches, smem_launches, held = main_path_phase(chain_ns)
     torch.cuda.empty_cache()
     fa_cases, kv_cases, _ = serve_kernel_phase()
     serve_launches, held_fa, held_kv, _ = serve_path_phase()
@@ -1457,9 +1585,10 @@ def main() -> int:
     # re-run on the inputs it had there.
     kernels = "src/repro_torch/kernels"
     print(json.dumps({"kernels": [
-        _kernel_line("fcfs_core", f"{kernels}/fcfs_core/csrc/fcfs_core.cu",
-                     "src/repro/kernels/fcfs_core/kernel.py:120", launches,
-                     kern, held, library=False),
+        dict(_kernel_line(
+            "fcfs_core", f"{kernels}/fcfs_core/csrc/fcfs_core.cu",
+            "src/repro/kernels/fcfs_core/kernel.py:120", launches, kern,
+            held, library=False), smem_launches=smem_launches),
         _kernel_line("flash_attention",
                      f"{kernels}/flash_attention/csrc/flash_attention.cu",
                      "src/repro/kernels/flash_attention/kernel.py:34",

@@ -229,16 +229,16 @@ class FusedRun:
     n_requests: int
 
 
-#: Lane budget of one fused dispatch.  Kept at the reference's value,
-#: which was measured for its CPU lowering; fusion decisions never
-#: change results (the cell-axis law), and the H100 value is still to
-#: be derived (ROADMAP.md).
+#: Lane budget of one fused dispatch on the CPU.  Kept at the
+#: reference's value, which was measured for its CPU lowering; fusion
+#: decisions never change results (the cell-axis law).  On a CUDA card
+#: :func:`_card_chunks` chunks by the lanes the card holds at once.
 _FUSE_LANE_CAP = 64
 
-#: Step-homogeneity bound of one chunk: chunks split when the next
+#: Step-homogeneity bound of one CPU chunk: chunks split when the next
 #: cell's step bound exceeds the chunk minimum by more than this ratio.
-#: The reference's CPU-measured value, semantics-neutral, still to be
-#: re-derived on the H100 (ROADMAP.md).
+#: The reference's CPU-measured value, semantics-neutral; the CUDA
+#: kernel has no lockstep, so the card's chunks ignore it.
 _FUSE_STEP_RATIO = 1.5
 
 
@@ -248,7 +248,8 @@ def _fuse_cell_cap(n_channels: int) -> int:
 
 
 def _fuse_chunks(cells, n_channels: int):
-    """Split one static-shape group into step-homogeneous chunks.
+    """Split one static-shape group into step-homogeneous chunks (the
+    CPU rule, the reference's).
 
     ``cells`` is a sequence of ``(steps, index, payload)`` triples; the
     split is deterministic — sort by (steps, index), then greedily chunk
@@ -270,6 +271,22 @@ def _fuse_chunks(cells, n_channels: int):
     return chunks
 
 
+def _card_chunks(cells, n_channels: int, resident_lanes: int):
+    """Split one group into chunks for the CUDA kernel (the card's rule).
+
+    The kernel runs each lane in its own block and a launch costs its
+    longest lane while every lane is resident, so a chunk holds as many
+    cells as fit ``resident_lanes`` (the card's resident blocks for the
+    group's shapes, :func:`repro_torch.kernels.fcfs_core.ops.
+    resident_lanes`), whatever their step bounds.  Cells are taken in
+    (steps, index) order, so a group past one wave puts cells of like
+    length together.  ``cells`` as for :func:`_fuse_chunks`.
+    """
+    cap = max(1, resident_lanes // max(1, n_channels))
+    ordered = sorted(cells, key=lambda t: t[:2])
+    return [ordered[i:i + cap] for i in range(0, len(ordered), cap)]
+
+
 def run_event_cores_fused(runs, device=None) -> list:
     """Run many eligible cells in as few kernel launches as possible, on
     ``device`` (the CUDA card by default).
@@ -278,17 +295,20 @@ def run_event_cores_fused(runs, device=None) -> list:
     :class:`FusedRun`) along the lane axis — cell c's channels occupy
     lane rows [c*L, (c+1)*L) — and dispatches each *chunk* once.  A
     group is the maximal sub-grid sharing every static kernel parameter:
-    (n_channels, local die count, pipelined, scheduler lowering mode,
-    padded-width bucket); each group then chunks by the two measured
+    (n_channels, local die count, scheduler lowering mode, padded-width
+    bucket), and on the CPU also ``pipelined``; the CUDA kernel takes
+    ``pipelined`` per lane, so on the card serial and pipelined cells
+    share a launch.  On the CPU each group chunks by the reference's two
     limits (:func:`_fuse_chunks`): at most ``_FUSE_LANE_CAP`` stacked
-    lanes per launch and step bounds within ``_FUSE_STEP_RATIO`` of
-    each other.  Ring capacities and the step bound are the chunk
-    maxima — all semantics-neutral, so each cell's rows are
-    bit-identical to its own :func:`run_event_core_batched` run (the
-    cell-axis law; see :func:`fused_core_ref`).  Per-cell scalars
-    (tdma, tecc, aging bound) ride as per-lane timing rows, so cells
-    with different timing models or ``host_prio_aged`` bounds still
-    fuse.
+    lanes per launch and step bounds within ``_FUSE_STEP_RATIO`` of each
+    other; on the card by the lanes it holds at once
+    (:func:`_card_chunks`).  Ring capacities and the step bound are
+    chunk maxima on the CPU and group maxima on the card — all
+    semantics-neutral, so each cell's rows are bit-identical to its own
+    :func:`run_event_core_batched` run (the cell-axis law; see
+    :func:`fused_core_ref`).  Per-cell scalars (tdma, tecc, aging bound,
+    pipelined) ride as per-lane timing rows, so cells with different
+    timing models or ``host_prio_aged`` bounds still fuse.
 
     Eligibility is checked per cell up front —
     :class:`BatchedUnsupported` propagates before any dispatch (callers
@@ -297,9 +317,13 @@ def run_event_cores_fused(runs, device=None) -> list:
     :class:`EngineResult` per run, in order, each with
     ``fused_cells = len(its chunk)``.
     """
+    from repro_torch.device import resolve_device
     from repro_torch.kernels.fcfs_core.ops import (
-        count_steps, fused_core, pad_ops, pad_width, ring_caps)
+        count_steps, fused_core, pad_ops, pad_width, resident_lanes,
+        ring_caps)
 
+    dev = resolve_device(device)
+    card = dev.type == "cuda"
     prepped = []
     for r in runs:
         check_batched_supported(r.policy, False)
@@ -309,47 +333,57 @@ def run_event_cores_fused(runs, device=None) -> list:
         prepped.append((r, tables, lane_idx, rid, mode, bound, widest))
 
     # Group key = every static kernel parameter; per-cell dynamics
-    # (timing, bound, table contents) ride in the operands.
+    # (timing, bound, pipelined on the card, table contents) ride in the
+    # operands.
     groups = {}
     for i, (r, tables, lane_idx, rid, mode, bound, widest) in \
             enumerate(prepped):
         n_ch = r.cfg.n_channels
-        key = (n_ch, -(-r.cfg.n_dies // n_ch), r.pipelined, mode,
-               pad_width(widest))
+        key = (n_ch, -(-r.cfg.n_dies // n_ch), mode, pad_width(widest),
+               None if card else r.pipelined)
         groups.setdefault(key, []).append(i)
 
     results = [None] * len(prepped)
-    for (n_ch, n_dies_local, pipelined, mode, maxp), idxs in \
-            groups.items():
+    for (n_ch, n_dies_local, mode, maxp, _), idxs in groups.items():
+        prio = mode == "prio"
         cells = []
         for i in idxs:
             _, tables, _, _, _, _, _ = prepped[i]
             ops_c = pad_ops(tables, maxp=maxp)
             cells.append((count_steps(ops_c), i, ops_c))
-        for chunk in _fuse_chunks(cells, n_ch):
+        if card:
+            # Group-wide ring caps fix the shared-memory footprint, and
+            # with it the lanes the card holds at once.
+            caps = ring_caps(np.concatenate([c for _, _, c in cells]),
+                             n_dies_local)
+            chunks = _card_chunks(cells, n_ch, resident_lanes(
+                maxp, n_dies_local, *caps, prio, dev))
+        else:
+            chunks = _fuse_chunks(cells, n_ch)
+        for chunk in chunks:
             C = len(chunk)
             cell_ops = [ops_c for _, _, ops_c in chunk]
-            timing_rows = []
+            timing_rows, pip = [], []
             for _, i, _ in chunk:
                 r, _, _, _, _, bound, _ = prepped[i]
-                b = bound if mode == "prio" else 0.0
+                b = bound if prio else 0.0
                 timing_rows.append(np.tile(
                     [[r.cfg.timing.tdma_us, r.cfg.timing.tecc_us, b]],
                     (n_ch, 1)))
+                pip += [r.pipelined] * n_ch
             stacked = np.concatenate(cell_ops, axis=0)
             timing = np.concatenate(timing_rows,
                                     axis=0).astype(np.float64)
 
-            # Chunk-wide caps: ring bounds read off the stacked table in
-            # one pass (growing a cap never changes a cell's rows).  The
+            # Ring bounds read off the stacked table in one pass on the
+            # CPU (growing a cap never changes a cell's rows).  The
             # chunk-max step count is the stacked table's exact step
             # bound (max over lanes), so the launch skips its recount.
             steps = max(st for st, _, _ in chunk)
             fin, diestat, lane = fused_core(
-                stacked, n_dies_local, pipelined, timing,
-                prio=(mode == "prio"),
-                caps=ring_caps(stacked, n_dies_local), steps=steps,
-                device=device)
+                stacked, n_dies_local, np.asarray(pip), timing, prio=prio,
+                caps=caps if card else ring_caps(stacked, n_dies_local),
+                steps=steps, device=dev)
             for j, (_, i, _) in enumerate(chunk):
                 r, _, lane_idx, rid, _, _, _ = prepped[i]
                 rows = slice(j * n_ch, (j + 1) * n_ch)

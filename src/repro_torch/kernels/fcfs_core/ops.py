@@ -11,7 +11,9 @@ the tensors' device:
     (:func:`repro_torch.kernels.fcfs_core.plain.fcfs_core_plain`).
 
 Both are bit-identical to :func:`ref.fcfs_core_ref`.  ``launches``
-counts the CUDA kernel launches of this process, and nothing else.
+counts the CUDA kernel launches of this process, and nothing else;
+``smem_launches`` those of them whose op table and rings sat in shared
+memory (:func:`placement` decides from the shapes before the launch).
 The table bucketing (``pad_ops``, ``ring_caps``) keeps the reference's
 powers of two so both packages see the same padded shapes.
 """
@@ -29,8 +31,10 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.fcfs_core.plain import fcfs_core_plain
 
 #: CUDA launches of the shard-core kernel in this process (every entry
-#: point goes through :func:`fcfs_core_fwd`).
+#: point goes through :func:`fcfs_core_fwd`), and of those the launches
+#: with the op table and rings in shared memory.
 launches = 0
+smem_launches = 0
 
 _SOURCE = Path(__file__).resolve().parent / "csrc" / "fcfs_core.cu"
 #: Largest per-lane die count the kernel holds (``kMaxDies`` in the source).
@@ -71,7 +75,7 @@ def pad_ops(lanes_ops, maxp: Optional[int] = None) -> np.ndarray:
     return ops
 
 
-def augment_ops(ops: np.ndarray, pipelined: bool) -> np.ndarray:
+def augment_ops(ops: np.ndarray, pipelined) -> np.ndarray:
     """Append the host-precomputed grant-attribute columns.
 
     ``gdt`` — delta from grant time to the op's first event (tR for
@@ -79,15 +83,15 @@ def augment_ops(ops: np.ndarray, pipelined: bool) -> np.ndarray:
     (0 sense, 1 release), which doubles as the op's non-read flag;
     ``grem0`` — initial remaining-attempt counter (serial mode counts
     down from ``attempts``; pipelined counts issued copies up from 0).
+    ``pipelined`` is one flag for every lane or an (L,) array of flags.
     """
     kind = ops[:, :, 1]
     is_read = kind == 0.0
     gdt = np.where(is_read, ops[:, :, 5], ops[:, :, 3])
     gk0 = np.where(is_read, 0.0, 1.0)
-    if pipelined:
-        grem0 = np.zeros_like(gdt)
-    else:
-        grem0 = np.where(is_read, ops[:, :, 4], 0.0)
+    pip = np.asarray(pipelined, bool)
+    grem0 = np.where(pip[:, None] if pip.ndim else pip, 0.0,
+                     np.where(is_read, ops[:, :, 4], 0.0))
     return np.concatenate(
         [ops, np.stack([gdt, gk0, grem0], axis=2)], axis=2)
 
@@ -135,55 +139,175 @@ def ring_caps(ops: np.ndarray, n_dies: int) -> Tuple[int, int]:
     return _pow2_at_least(max(per_die, 4)), _pow2_at_least(max(writes, 4))
 
 
-def _kernel_fn():
-    """The C entry point of the built kernel library, typed for ctypes."""
+#: Bit layout of the packed op word (``csrc/fcfs_core.cu``): kind in
+#: bits 0-1, hp in bit 2, the local die in bits 3-6, attempts from bit 7.
+_HP_SHIFT, _DIE_SHIFT, _ATT_SHIFT = 2, 3, 7
+#: Attempts must stay below this to fit the packed word's int32.
+MAX_ATTEMPTS = 1 << 24
+
+#: ``placement`` of a launch: the op table and the rings in the block's
+#: shared memory, or both in global memory (``csrc/fcfs_core.cu``).
+SMEM, GLOBAL = 3, 0
+
+
+def _check_ops(ops: torch.Tensor, n_dies: int) -> None:
+    """Raise unless every row of the augmented table is one the kernel
+    takes: kind 0-3, pads (kind 3) at ``arrival = inf``, and on real rows
+    an integral die in [0, n_dies) and integral attempts in
+    [0, MAX_ATTEMPTS).  One device-to-host read for all four checks."""
+    arr, kind, die, att = (ops[:, :, c] for c in (0, 1, 2, 4))
+    real = kind != 3.0
+    bad = torch.stack([
+        ((kind != 0.0) & (kind != 1.0) & (kind != 2.0) & real).any(),
+        (~real & (arr != float("inf"))).any(),
+        (real & ~((die >= 0) & (die < n_dies) & (die == die.floor()))).any(),
+        (real & ~((att >= 0) & (att < MAX_ATTEMPTS)
+                  & (att == att.floor()))).any(),
+    ]).tolist()
+    for failed, msg in zip(bad, (
+            "op kinds must be 0 (read), 1 (write), 2 (erase) or 3 (pad)",
+            "pad rows (kind 3) must have arrival = inf",
+            f"every op's die must be an integer in [0, {n_dies})",
+            f"every op's attempts must be an integer in "
+            f"[0, {MAX_ATTEMPTS})")):
+        if failed:
+            raise ValueError(msg)
+
+
+def pack_ops(ops: torch.Tensor, n_dies: int = MAX_DIES):
+    """The kernel's compressed op table, 20 bytes a row.
+
+    From the augmented (L, MAXP, 10) float64 table, on its device:
+    ``arr`` (L, MAXP) float64 arrivals, ``gdt`` (L, MAXP) float64 grant
+    deltas (tR for reads, dur for writes and erases; column 7 of
+    :func:`augment_ops`), and ``pk`` (L, MAXP) int32 words holding kind,
+    ``hp == 1``, die and attempts (pad rows: kind 3 and zeros).  Raises
+    ``ValueError`` for a row the kernel does not take (:func:`_check_ops`).
+    """
+    _check_ops(ops, n_dies)
+    kind = ops[:, :, 1]
+    real = kind != 3.0
+    i64 = torch.int64
+    die = torch.where(real, ops[:, :, 2], 0.0).to(i64)
+    att = torch.where(real, ops[:, :, 4], 0.0).to(i64)
+    hp = (ops[:, :, 6] == 1.0).to(i64)
+    pk = (kind.to(i64) | (hp << _HP_SHIFT) | (die << _DIE_SHIFT)
+          | (att << _ATT_SHIFT)).to(torch.int32)
+    return ops[:, :, 0].contiguous(), ops[:, :, 7].contiguous(), pk
+
+
+def smem_bytes(maxp: int, n_dies: int, capq: int, capw: int,
+               prio: bool) -> int:
+    """Dynamic shared memory of one shared-memory block: the ACQ ring,
+    the packed op table and the FIFO rings (``layout`` in the source)."""
+    return 24 * capw + 20 * maxp + 4 * n_dies * capq * (2 if prio else 1)
+
+
+def placement(maxp: int, n_dies: int, capq: int, capw: int, prio: bool,
+              budget: int) -> int:
+    """:data:`SMEM` when one lane's table and rings fit ``budget`` bytes
+    of dynamic shared memory, else :data:`GLOBAL` (the same kernel code
+    with them in global memory)."""
+    fits = smem_bytes(maxp, n_dies, capq, capw, prio) <= budget
+    return SMEM if fits else GLOBAL
+
+
+def _lib():
+    """The built kernel library, its C entry points typed for ctypes."""
     from repro_torch.kernels import build
 
-    fn = build.load(_SOURCE).fcfs_core_launch
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, ci, ci, ci, vp, ctypes.c_longlong, ci, ci, ci, ci,
-                   vp, vp, vp, vp, vp, vp]
-    fn.restype = ci
-    return fn
+    lib = build.load(_SOURCE)
+    vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.fcfs_core_launch.argtypes = [vp, vp, vp, ci, ci, ci, vp, ll, ci, ci,
+                                     ci, ci, vp, vp, vp, vp, vp, vp]
+    lib.fcfs_core_launch.restype = ci
+    lib.fcfs_core_smem_budget.argtypes = [ci, ctypes.POINTER(ll)]
+    lib.fcfs_core_smem_budget.restype = ci
+    lib.fcfs_core_resident_blocks.argtypes = [ci, ci, ci, ll,
+                                              ctypes.POINTER(ci)]
+    lib.fcfs_core_resident_blocks.restype = ci
+    lib.fcfs_core_smem_bytes.argtypes = [ci, ci, ci, ci, ci, ci]
+    lib.fcfs_core_smem_bytes.restype = ll
+    return lib
+
+
+def _device_index(device) -> int:
+    dev = torch.device(device)
+    return torch.cuda.current_device() if dev.index is None else dev.index
+
+
+def smem_budget(device) -> int:
+    """Dynamic shared memory one block of the kernel may take on a CUDA
+    ``device``: the opt-in limit less the kernel's static die state."""
+    out = ctypes.c_longlong()
+    err = _lib().fcfs_core_smem_budget(_device_index(device),
+                                       ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"fcfs_core shared-memory query failed: CUDA "
+                           f"error {err}")
+    return out.value
+
+
+def resident_lanes(maxp: int, n_dies: int, capq: int, capw: int,
+                   prio: bool, device) -> int:
+    """Lanes the card holds at once for these shapes: blocks per SM of
+    the variant :func:`placement` picks, at its shared memory
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), times the SMs."""
+    place = placement(maxp, n_dies, capq, capw, prio, smem_budget(device))
+    nbytes = smem_bytes(maxp, n_dies, capq, capw, prio) if place else 0
+    out = ctypes.c_int()
+    err = _lib().fcfs_core_resident_blocks(_device_index(device), place,
+                                           n_dies, nbytes, ctypes.byref(out))
+    if err != 0 or out.value < 1:
+        raise RuntimeError(f"fcfs_core occupancy query failed: CUDA error "
+                           f"{err}")
+    return out.value
 
 
 def _launch_cuda(ops: torch.Tensor, timing: torch.Tensor, steps: int,
-                 n_dies: int, capq: int, capw: int, pipelined: bool,
-                 prio: bool):
+                 n_dies: int, capq: int, capw: int, prio: bool):
     """Launch the CUDA kernel on the current stream (no synchronize)."""
-    global launches
-    if n_dies > MAX_DIES:
-        raise ValueError(f"fcfs_core kernel holds at most {MAX_DIES} dies "
-                         f"per lane, got {n_dies}")
-    fn = _kernel_fn()
+    global launches, smem_launches
+    for name, cap in (("capq", capq), ("capw", capw)):
+        if cap < 1 or cap & (cap - 1):
+            raise ValueError(f"fcfs_core kernel takes power-of-two ring "
+                             f"capacities, got {name} = {cap}")
+    arr, gdt, pk = pack_ops(ops, n_dies)
     L, maxp, _ = ops.shape
     dev = ops.device
-    fifo = torch.empty((L, n_dies, capq * (2 if prio else 1)),
-                       dtype=torch.int32, device=dev)
-    acq = torch.empty((L, capw, 3), dtype=torch.float64, device=dev)
+    place = placement(maxp, n_dies, capq, capw, prio, smem_budget(dev))
+    fifo = acq = None
+    if place != SMEM:
+        fifo = torch.empty((L, n_dies, capq * (2 if prio else 1)),
+                           dtype=torch.int32, device=dev)
+        acq = torch.empty((L, capw, 3), dtype=torch.float64, device=dev)
     fin = torch.zeros((L, maxp + 1), dtype=torch.float64, device=dev)
     diestat = torch.empty((L, n_dies, 2), dtype=torch.float64, device=dev)
     lane = torch.empty((L, 4), dtype=torch.float64, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(ops.data_ptr(), L, maxp, n_dies, timing.data_ptr(), steps,
-             capq, capw, int(pipelined), int(prio), fifo.data_ptr(),
-             acq.data_ptr(), fin.data_ptr(), diestat.data_ptr(),
-             lane.data_ptr(), stream)
+    err = _lib().fcfs_core_launch(
+        arr.data_ptr(), gdt.data_ptr(), pk.data_ptr(), L, maxp, n_dies,
+        timing.data_ptr(), steps, capq, capw, int(prio), place,
+        None if fifo is None else fifo.data_ptr(),
+        None if acq is None else acq.data_ptr(), fin.data_ptr(),
+        diestat.data_ptr(), lane.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"fcfs_core kernel launch failed: CUDA error {err}")
     launches += 1
+    smem_launches += place == SMEM
     return fin, diestat, lane
 
 
 def fcfs_core_fwd(ops: torch.Tensor, timing: torch.Tensor, steps: int, *,
-                  n_dies: int, capq: int, capw: int, pipelined: bool,
-                  prio: bool):
+                  n_dies: int, capq: int, capw: int, prio: bool):
     """Run the shard core on device tensors.
 
-    ``ops`` (L, MAXP, 10) float64 augmented table, ``timing`` (L, 3)
-    float64 per-lane [tdma, tecc, age_bound], ``steps`` the lockstep
-    step bound (:func:`count_steps`).  CUDA tensors launch the kernel;
-    CPU tensors run the plain version.  Returns float64 tensors
+    ``ops`` (L, MAXP, 10) float64 augmented table, ``timing`` (L, 4)
+    float64 per-lane [tdma, tecc, age_bound, pipelined] (pipelined 1.0
+    or 0.0), ``steps`` the lockstep step bound (:func:`count_steps`).
+    CUDA tensors launch the kernel (its table and rings in shared memory
+    where they fit, counted in ``smem_launches``, else in global
+    memory); CPU tensors run the plain version.  Returns float64 tensors
     ``(fin (L, MAXP+1), diestat (L, n_dies, 2), lane (L, 4))`` on the
     input's device.
     """
@@ -191,42 +315,47 @@ def fcfs_core_fwd(ops: torch.Tensor, timing: torch.Tensor, steps: int, *,
     if ops.dim() != 3 or ops.shape[2] != 10 or ops.dtype != torch.float64:
         raise ValueError(f"ops must be (L, MAXP, 10) float64, got "
                          f"{tuple(ops.shape)} {ops.dtype}")
-    if timing.shape != (L, 3) or timing.dtype != torch.float64:
-        raise ValueError(f"timing must be ({L}, 3) float64, got "
+    if timing.shape != (L, 4) or timing.dtype != torch.float64:
+        raise ValueError(f"timing must be ({L}, 4) float64, got "
                          f"{tuple(timing.shape)} {timing.dtype}")
     if timing.device != ops.device:
         raise ValueError("ops and timing must share a device")
-    kw = dict(n_dies=n_dies, capq=capq, capw=capw, pipelined=pipelined,
-              prio=prio)
+    if n_dies > MAX_DIES:
+        raise ValueError(f"fcfs_core holds at most {MAX_DIES} dies per "
+                         f"lane, got {n_dies}")
+    kw = dict(n_dies=n_dies, capq=capq, capw=capw, prio=prio)
     if ops.device.type == "cuda":
         return _launch_cuda(ops.contiguous(), timing.contiguous(), steps,
                             **kw)
     if ops.device.type == "cpu":
+        _check_ops(ops, n_dies)
         return fcfs_core_plain(ops, timing, steps, **kw)
     raise ValueError(f"fcfs_core runs on cuda or cpu, not {ops.device}")
 
 
-def _dispatch(ops: np.ndarray, n_dies: int, pipelined: bool,
-              timing: np.ndarray, prio: bool, caps=None, steps=None,
-              device=None):
+def _dispatch(ops: np.ndarray, n_dies: int, pipelined, timing: np.ndarray,
+              prio: bool, caps=None, steps=None, device=None):
     """One run on a padded numpy table with per-lane timing rows.
 
-    ``caps`` optionally forces ``(capq, capw)`` (the fused sweep buckets
-    them group-wide; capacity is semantics-neutral because the rings
-    pair via monotone counters).  ``steps`` skips the recount when the
-    caller already knows the bound.  Returns numpy ``(fin, diestat,
-    lane)``.
+    ``pipelined`` is one flag for every lane or an (L,) array of per-lane
+    flags; ``timing`` the (L, 3) [tdma, tecc, age_bound] rows.  ``caps``
+    optionally forces ``(capq, capw)`` (the fused sweep buckets them
+    group-wide; capacity is semantics-neutral because the rings pair via
+    monotone counters).  ``steps`` skips the recount when the caller
+    already knows the bound.  Returns numpy ``(fin, diestat, lane)``.
     """
     dev = resolve_device(device)
     if steps is None:
         steps = count_steps(ops)
     capq, capw = ring_caps(ops, n_dies) if caps is None else caps
+    pip = np.broadcast_to(np.asarray(pipelined, np.float64),
+                          (ops.shape[0],))
     aug = torch.as_tensor(augment_ops(ops, pipelined), dtype=torch.float64,
                           device=dev)
-    tim = torch.as_tensor(np.asarray(timing, np.float64), device=dev)
+    tim = torch.as_tensor(np.concatenate(
+        [np.asarray(timing, np.float64), pip[:, None]], axis=1), device=dev)
     fin, diestat, lane = fcfs_core_fwd(aug, tim, steps, n_dies=n_dies,
-                                       capq=capq, capw=capw,
-                                       pipelined=pipelined, prio=prio)
+                                       capq=capq, capw=capw, prio=prio)
     return fin.cpu().numpy(), diestat.cpu().numpy(), lane.cpu().numpy()
 
 
@@ -251,15 +380,16 @@ def fcfs_core(ops: np.ndarray, n_dies: int, pipelined: bool,
     return _dispatch(ops, n_dies, pipelined, timing, prio, device=device)
 
 
-def fused_core(ops: np.ndarray, n_dies: int, pipelined: bool,
+def fused_core(ops: np.ndarray, n_dies: int, pipelined,
                timing: np.ndarray, prio: bool, caps=None, steps=None,
                device=None):
     """Run one launch over the lanes of many stacked cells.
 
     ``ops`` is the (C*L, MAXP, 7) cell-stacked padded table (cell c's
     lanes occupy rows [c*L, (c+1)*L)), ``timing`` the matching (C*L, 3)
-    per-lane [tdma, tecc, age_bound] rows.  ``pipelined`` and ``prio``
-    must be uniform across the stacked cells.  Returns the same triple
+    per-lane [tdma, tecc, age_bound] rows, ``pipelined`` one flag or a
+    (C*L,) array of per-lane flags.  ``prio`` must be uniform across the
+    stacked cells.  Returns the same triple
     as :func:`fcfs_core`; rows [c*L, (c+1)*L) are cell c's, bit-identical
     to a separate :func:`fcfs_core` run (the cell-axis law restated by
     :func:`ref.fused_core_ref`).

@@ -49,13 +49,13 @@ _WARM_STEPS = 3
 
 
 def fcfs_core_plain(ops: torch.Tensor, timing: torch.Tensor, steps: int, *,
-                    n_dies: int, capq: int, capw: int, pipelined: bool,
-                    prio: bool):
+                    n_dies: int, capq: int, capw: int, prio: bool):
     """Run ``steps`` lockstep steps over every lane of ``ops``.
 
-    ``ops`` (L, MAXP, 10) and ``timing`` (L, 3) [tdma, tecc, age_bound]
-    are float64 tensors on one device.  Returns float64 tensors
-    ``(fin (L, MAXP+1), diestat (L, D, 2), lane (L, 4))`` on that device.
+    ``ops`` (L, MAXP, 10) and ``timing`` (L, 4) [tdma, tecc, age_bound,
+    pipelined] are float64 tensors on one device; a lane is pipelined
+    where its flag is not 0.  Returns float64 tensors ``(fin (L, MAXP+1),
+    diestat (L, D, 2), lane (L, 4))`` on that device.
     """
     L, maxp, _ = ops.shape
     D = n_dies
@@ -64,6 +64,10 @@ def fcfs_core_plain(ops: torch.Tensor, timing: torch.Tensor, steps: int, *,
     lanes = torch.arange(L, device=dev)
     inf = float("inf")
     tdma, tecc, bound = timing[:, 0], timing[:, 1], timing[:, 2]
+    pip = timing[:, 3] != 0.0
+    # which sense handlers the lanes need: one when all lanes agree
+    n_pip = int(pip.sum())
+    serial_lanes, pip_lanes = n_pip < L, n_pip > 0
 
     ncols = 17 if prio else 14
     state = torch.zeros((L, D + 1, ncols), dtype=f64, device=dev)
@@ -148,16 +152,22 @@ def fcfs_core_plain(ops: torch.Tensor, timing: torch.Tensor, steps: int, *,
         # -- sense / copy handler --
         s_tm = tmin
         s_tr = row[_TRACT]
-        if not pipelined:
+        if serial_lanes:
             s_more = row[_REM] > 1.0
             s_next = torch.where(s_more, (c_done + tecc) + s_tr, c_done)
             s_rem = row[_REM] - 1.0
-        else:
-            s_more = row[_REM] + 1.0 < row[_AACT]
-            s_rel = torch.where(row[_AACT] > 1.0, s_tm + s_tr, s_tm)
-            s_next = torch.where(s_more, torch.maximum(s_tm + s_tr, c_done),
-                                 s_rel)
-            s_rem = row[_REM] + 1.0
+        if pip_lanes:
+            p_more = row[_REM] + 1.0 < row[_AACT]
+            p_rel = torch.where(row[_AACT] > 1.0, s_tm + s_tr, s_tm)
+            p_next = torch.where(p_more, torch.maximum(s_tm + s_tr, c_done),
+                                 p_rel)
+            p_rem = row[_REM] + 1.0
+            if serial_lanes:
+                s_more = torch.where(pip, p_more, s_more)
+                s_next = torch.where(pip, p_next, s_next)
+                s_rem = torch.where(pip, p_rem, s_rem)
+            else:
+                s_more, s_next, s_rem = p_more, p_next, p_rem
         s_fin = c_done + tecc
 
         # -- grants: admission (free die), ACQ landing, release pop --
@@ -197,6 +207,9 @@ def fcfs_core_plain(ops: torch.Tensor, timing: torch.Tensor, steps: int, *,
         g_op = torch.where(grant2, o2, torch.where(take_adm, ai, o_acq))
         g_row = ops[lanes, g_op].unbind(1)
         gr_tm = torch.where(take_adm, adm_t, r_tm)
+        # the granted read's first remaining-attempt count, from the
+        # lane's own flag (the table's grem0 column, restated per lane)
+        g_rem0 = torch.where(pip | (g_row[_GK0] != 0.0), 0.0, g_row[_A])
 
         # ---- assemble the new die row --------------------------------
         new_evt = torch.where(
@@ -216,8 +229,7 @@ def fcfs_core_plain(ops: torch.Tensor, timing: torch.Tensor, steps: int, *,
                         torch.where(ev_rel & ~q_nonempty, 1.0,
                                     row[_FREE])),
             torch.where(ev_sense, s_rem,
-                        torch.where(grant_any, g_row[_GREM0],
-                                    row[_REM])),
+                        torch.where(grant_any, g_rem0, row[_REM])),
             torch.where(grant_any, g_row[_A], row[_AACT]),
             torch.where(grant_any, g_row[_TR], row[_TRACT]),
         ]

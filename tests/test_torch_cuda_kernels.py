@@ -20,14 +20,21 @@ CUDA's erfcf).  bfloat16 flash attention runs on the tensor-core
 kernel and float32 on the SIMT kernel; the cases cover lengths below,
 at and past a tile, GQA groups of 1, 3 and 8, an all-masked
 ``kv_valid = 0``, the wrapper's refusal of a misaligned view, and
-``tc_launches`` counting bfloat16 launches only.  ``chip_smoke.py``
-holds every kernel at its main path's full-width shapes.
+``tc_launches`` counting bfloat16 launches only.  The shard core
+(``fcfs_core``) is held bit for bit against its plain version on the
+card: its shared-memory and global-memory variants under the FIFO and
+priority lowerings, serial and pipelined, lanes of both kinds in one
+launch, more lanes than the card holds at once, and ``smem_launches``
+counting shared-memory launches only.  ``chip_smoke.py`` holds every
+kernel at its main path's full-width shapes.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.fcfs_core import ops as FC
+from repro_torch.kernels.fcfs_core.plain import fcfs_core_plain
 from repro_torch.kernels.flash_attention import ops as FA
 from repro_torch.kernels.flash_attention.plain import (
     bf16_err_ratio, flash_attention_plain)
@@ -249,3 +256,105 @@ def test_rber_matches_plain(n_pages, n_steps):
     want = rber_plain(mu, sigma, levels)
     assert got.shape == (3, n_pages, n_steps)
     assert torch.allclose(got, want, rtol=RBER_RTOL, atol=RBER_ATOL)
+
+
+def _fc_table(seed, sizes, n_dies=3, maxp=None):
+    """A padded shard-core table of random lanes (reads, writes and
+    erases; half the reads host reads)."""
+    rng = np.random.default_rng(seed)
+    lanes = []
+    for n in sizes:
+        kind = rng.choice([0.0, 0.0, 1.0, 2.0], size=n)
+        lanes.append(np.stack([
+            np.sort(rng.uniform(0.0, 400.0, n)), kind,
+            rng.integers(0, n_dies, n).astype(np.float64),
+            rng.uniform(10.0, 60.0, n),
+            rng.integers(1, 6, n).astype(np.float64),
+            rng.uniform(5.0, 25.0, n),
+            np.where((kind == 0.0) & (rng.random(n) < 0.5), 1.0, 0.0)],
+            axis=1))
+    return FC.pad_ops(lanes, maxp=maxp)
+
+
+def _fc_hold(ops_np, pip, bound, n_dies=3):
+    """One kernel launch against the plain version on the same card
+    tensors, bit for bit; returns the launch's placement counts."""
+    L = ops_np.shape[0]
+    pip = np.broadcast_to(np.asarray(pip, bool), (L,))
+    prio = bound is not None
+    capq, capw = FC.ring_caps(ops_np, n_dies)
+    ops = torch.as_tensor(FC.augment_ops(ops_np, pip), device="cuda")
+    timing = torch.as_tensor(np.stack(
+        [np.full(L, 3.0), np.full(L, 5.0), np.full(L, bound if prio else 0.0),
+         pip.astype(np.float64)], axis=1), device="cuda")
+    kw = dict(n_dies=n_dies, capq=capq, capw=capw, prio=prio)
+    steps = FC.count_steps(ops_np)
+    before = FC.launches, FC.smem_launches
+    got = FC.fcfs_core_fwd(ops, timing, steps, **kw)
+    counts = FC.launches - before[0], FC.smem_launches - before[1]
+    want = fcfs_core_plain(ops, timing, steps, **kw)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert bool((got[2][:, 2] > 0).any())
+    return counts
+
+
+@pytest.mark.parametrize("pipelined", [False, True])
+@pytest.mark.parametrize("bound", [None, 0.0, float("inf")],
+                         ids=["fifo", "prio-0", "prio-inf"])
+@pytest.mark.parametrize("variant", ["smem", "global"])
+def test_fcfs_core_matches_plain(variant, bound, pipelined, monkeypatch):
+    if variant == "global":
+        monkeypatch.setattr(FC, "smem_budget", lambda device: 0)
+    counts = _fc_hold(_fc_table(1, [40, 0, 1, 40, 23]), pipelined, bound)
+    assert counts == ((1, 1) if variant == "smem" else (1, 0))
+
+
+@pytest.mark.parametrize("n_dies", [9, 16])
+@pytest.mark.parametrize("bound", [None, 2.0], ids=["fifo", "prio-2"])
+def test_fcfs_core_sixteen_die_slots(n_dies, bound):
+    """Past 8 dies the event choice compares 16 slots."""
+    ops_np = _fc_table(5, [60, 45, 60], n_dies=n_dies)
+    assert _fc_hold(ops_np, [False, True, True], bound, n_dies) == (1, 1)
+
+
+@pytest.mark.parametrize("bound", [None, 8.0], ids=["fifo", "prio-8"])
+def test_fcfs_core_mixed_pipelined_lanes(bound):
+    pip = np.arange(12) % 3 == 0
+    assert _fc_hold(_fc_table(2, [30] * 12), pip, bound) == (1, 1)
+
+
+def test_fcfs_core_lanes_past_one_wave():
+    """300 lanes of a table padded to 8192 rows (164 KB of shared memory
+    a block): more lanes than the card holds at once."""
+    ops_np = _fc_table(3, [20] * 300, maxp=8192)
+    capq, capw = FC.ring_caps(ops_np, 3)
+    assert FC.resident_lanes(8192, 3, capq, capw, False, "cuda") < 300
+    assert _fc_hold(ops_np, True, None) == (1, 1)
+
+
+def test_fcfs_core_smem_layout_matches_source():
+    lib = FC._lib()
+    for shape in [(4096, 8, 1024, 64, 0), (4096, 8, 1024, 64, 1),
+                  (16, 3, 4, 4, 1), (16384, 16, 2048, 128, 0)]:
+        assert lib.fcfs_core_smem_bytes(*shape, FC.SMEM) == \
+            FC.smem_bytes(*shape)
+        assert lib.fcfs_core_smem_bytes(*shape, FC.GLOBAL) == 0
+    assert FC.smem_budget("cuda") >= FC.smem_bytes(4096, 8, 1024, 64, True)
+
+
+def test_fcfs_core_rejects_bad_rows_and_caps():
+    ops_np = _fc_table(4, [10, 10])
+    aug = FC.augment_ops(ops_np, False)
+    aug[0, 2, 4] = 2.5
+    timing = torch.zeros((2, 4), dtype=torch.float64, device="cuda")
+    before = FC.launches
+    with pytest.raises(ValueError, match="attempts"):
+        FC.fcfs_core_fwd(torch.as_tensor(aug, device="cuda"), timing, 50,
+                         n_dies=3, capq=4, capw=4, prio=False)
+    with pytest.raises(ValueError, match="power-of-two"):
+        FC.fcfs_core_fwd(torch.as_tensor(FC.augment_ops(ops_np, False),
+                                         device="cuda"), timing, 50,
+                         n_dies=3, capq=6, capw=4, prio=False)
+    assert FC.launches == before

@@ -120,10 +120,131 @@ def test_table_helpers_equal(ref_kernel, seed):
     assert T.ring_caps(ops, 4) == rops.ring_caps(ops, 4)
 
 
+@pytest.mark.parametrize("prio", [False, True], ids=["fifo", "prio"])
+def test_mixed_pipelined_lanes_equal_reference_groups(ref_kernel, prio):
+    """Serial and pipelined cells stacked in one table, each lane with
+    its own flag, equal the reference's oracle run on each uniform
+    group, row for row."""
+    cells = []
+    for c, (tdma, tecc) in enumerate([(3.0, 5.0), (2.5, 7.0), (4.0, 1.0),
+                                      (1.5, 2.0)]):
+        cells.append((_table(c % 3), tdma, tecc,
+                      float(c) if prio else None, c % 2 == 1))
+    stacked = np.concatenate([c[0] for c in cells], axis=0)
+    rows = np.concatenate([np.tile([[tdma, tecc, b if prio else 0.0]],
+                                   (ops.shape[0], 1))
+                           for ops, tdma, tecc, b, _ in cells])
+    pip = np.concatenate([[p] * ops.shape[0] for ops, *_, p in cells])
+    got = T.fused_core(stacked, 3, pip, rows, prio=prio, device="cpu")
+    L = cells[0][0].shape[0]
+    for pipelined in (False, True):
+        group = [c for c in cells if c[4] == pipelined]
+        want = ref_kernel.ref.fused_core_ref([c[:4] for c in group], 3,
+                                             pipelined)
+        at = [i for i, c in enumerate(cells) if c[4] == pipelined]
+        sel = np.concatenate([np.arange(i * L, (i + 1) * L) for i in at])
+        _equal(tuple(g[sel] for g in got), want)
+
+
+def _decode(pk):
+    """The packed word's fields, by the layout ``csrc/fcfs_core.cu``
+    states: kind, hp, die, attempts."""
+    pk = pk.numpy().astype(np.int64)
+    return pk & 3, (pk >> 2) & 1, (pk >> 3) & 15, pk >> 7
+
+
+@pytest.mark.parametrize("pipelined", [False, True, "mixed"])
+def test_pack_ops_round_trips_augment_columns(pipelined):
+    import torch
+
+    ops = _table(1)
+    pip = np.array([0, 1, 1, 0], bool) if pipelined == "mixed" \
+        else pipelined
+    aug = T.augment_ops(ops, pip)
+    arr, gdt, pk = T.pack_ops(torch.as_tensor(aug), 3)
+    assert arr.dtype == gdt.dtype == torch.float64 and pk.dtype == torch.int32
+    kind, hp, die, att = _decode(pk)
+    real = aug[:, :, 1] != 3.0
+    read = aug[:, :, 1] == 0.0
+    assert np.array_equal(arr.numpy(), aug[:, :, 0])
+    assert np.array_equal(gdt.numpy(), aug[:, :, 7])
+    assert np.array_equal(kind, aug[:, :, 1])
+    assert np.array_equal(hp, aug[:, :, 6] == 1.0)
+    assert np.array_equal(die[real], aug[:, :, 2][real])
+    assert np.array_equal(att[real].astype(np.float64), aug[:, :, 4][real])
+    assert not die[~real].any() and not att[~real].any()
+    # the columns the kernel reads through gdt and kind
+    assert np.array_equal(gdt.numpy()[read], aug[:, :, 5][read])
+    assert np.array_equal(gdt.numpy()[real & ~read], aug[:, :, 3][real & ~read])
+    assert np.array_equal((kind != 0).astype(np.float64), aug[:, :, 8])
+    pip_rows = np.broadcast_to(np.asarray(pip)[..., None] if np.ndim(pip)
+                               else pip, kind.shape)
+    assert np.array_equal(np.where(pip_rows | (kind != 0), 0.0,
+                                   att.astype(np.float64)), aug[:, :, 9])
+
+
+@pytest.mark.parametrize("col,value,match", [
+    (4, 2.5, "attempts"), (4, -1.0, "attempts"), (4, float(1 << 24),
+                                                   "attempts"),
+    (2, 16.0, "die"), (2, 1.5, "die"), (1, 5.0, "kinds")])
+def test_pack_ops_rejects_rows_the_kernel_does_not_take(col, value, match):
+    import torch
+
+    aug = T.augment_ops(_table(0), False)
+    aug[0, 3, col] = value
+    with pytest.raises(ValueError, match=match):
+        T.pack_ops(torch.as_tensor(aug))
+
+
+def test_pack_ops_checks_die_against_lane_dies():
+    import torch
+
+    aug = T.augment_ops(_table(0), False)
+    aug[1, 0, 2] = 3.0
+    T.pack_ops(torch.as_tensor(aug), 4)
+    with pytest.raises(ValueError, match="die"):
+        T.pack_ops(torch.as_tensor(aug), 3)
+
+
+def test_smem_placement_from_shapes():
+    """The main path's table (MAXP 4096, 8 dies, capq 1024, capw 64)
+    fits a block's shared memory under both lowerings; MAXP 16 384 does
+    not and takes the global-memory variant."""
+    budget = 232448 - 1664                    # H100 opt-in less DieState
+    assert T.smem_bytes(4096, 8, 1024, 64, False) == 116224
+    assert T.smem_bytes(4096, 8, 1024, 64, True) == 148992
+    assert T.placement(4096, 8, 1024, 64, False, budget) == T.SMEM
+    assert T.placement(4096, 8, 1024, 64, True, budget) == T.SMEM
+    assert T.placement(16384, 8, 1024, 64, False, budget) == T.GLOBAL
+
+
+# Step bounds of the six mechanisms' cells on the main path (websearch,
+# 20 000 requests, 365 d / 1000 P/E): baseline, sota, pr2, ar2, pr2ar2,
+# sota+pr2ar2.
+_MAIN_STEPS = (63312, 31255, 63312, 64070, 64070, 31497)
+
+
+def test_card_chunks_put_main_path_cells_in_one_launch(ref_kernel):
+    from repro_torch.flashsim import engine_batched as EB
+
+    cells = [(s, i, f"cell{i}") for i, s in enumerate(_MAIN_STEPS)]
+    (chunk,) = EB._card_chunks(cells, 8, 132)
+    assert sorted(i for _, i, _ in chunk) == list(range(6))
+    # past one wave the chunks hold like lengths together
+    chunks = EB._card_chunks(cells, 8, 24)
+    assert [[i for _, i, _ in c] for c in chunks] == [[1, 5, 0], [2, 3, 4]]
+    assert EB._card_chunks(cells, 8, 4) == [[c] for c in sorted(cells)]
+    # the CPU rule is still the reference's
+    from repro.flashsim import engine_batched as REB
+
+    for n_ch in (1, 8, 16):
+        assert EB._fuse_chunks(cells, n_ch) == REB._fuse_chunks(cells, n_ch)
+
+
 def test_launch_counter_counts_only_kernel_launches():
-    before = T.launches
+    before = T.launches, T.smem_launches
     T.fcfs_core(_table(0), 3, False, 3.0, 5.0, device="cpu")
-    assert T.launches == before
+    assert (T.launches, T.smem_launches) == before
 
 
 @pytest.mark.gpu
