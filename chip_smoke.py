@@ -83,15 +83,24 @@ exits non-zero):
                      and others be fast.  Every launch of each run is
                      then held against the plain version on the inputs
                      it had, and timed beside its bound;
-  8. ssd/rber kernels — the SSD scan kernel against its plain version on
+  8. ssd/rber kernels — the HGMMA count of each SSD scan instance
+                     (nonzero for the bf16 chunk scan; 0 for the chunk
+                     states, state passing and scores kernels and the
+                     SIMT kernel); the SSD scan against
+                     its plain
+                     version on
                      the full-width mamba2-130m long prefill shape (B 4,
-                     T 2048, 24 heads, hd 64, ds 128, chunk 256, bf16),
-                     a padded case (T 1500) and a float32 case (bfloat16
+                     T 2048, 24 heads, hd 64, ds 128, chunk 256, bf16:
+                     the tensor-core path),
+                     a padded case (T 1500) and a float32 case (the SIMT
+                     kernel; bfloat16
                      y held element by element as in phase 6, H and
                      float32 y within 1e-5 of their largest), and two
                      faulty variants of the plain version (w rounded to
                      bfloat16; the carried state not decayed across
-                     chunks) that must fail that rule; then
+                     chunks) that must fail that rule; the time of each
+                     kernel of the tensor-core path alone on the long
+                     case; then
                      ``rber_table`` over the 160-chip population's
                      (mu, sigma) at 365 d / 1000 P/E and the 41-entry
                      retry table, its count set to 0 just before and
@@ -104,7 +113,8 @@ exits non-zero):
                      of the largest), then at full width with seeded
                      weights: the short and long sets, 16 new tokens,
                      under pr2ar2 and baseline.  Each prefill must launch
-                     the scan 24 times, the KV store read 0 pages, the
+                     the scan 24 times, every launch on the tensor-core
+                     path (``tc_launches``), the KV store read 0 pages, the
                      two mechanisms give equal tokens and every logit be
                      finite; every launch is held and timed as above.
 
@@ -827,17 +837,16 @@ def _hold_kv(name, data_q, scale, backing, tau, got=None, reps=3,
                 leaf=backing.numel() * backing.element_size())
 
 
-def _hgmma_counts():
-    """HGMMA (wgmma) instructions in the SASS of each flash-attention
-    kernel instance, by ``cuobjdump -sass`` on the built library; every
-    bfloat16 (tensor-core) instance must hold some, and the float32 SIMT
-    instances none."""
+def _hgmma_counts(source, marker, n_tc):
+    """HGMMA (wgmma) instructions in the SASS of each kernel instance of
+    ``source``, by ``cuobjdump -sass`` on the built library; the
+    ``n_tc`` instances whose name holds ``marker`` (the bfloat16
+    tensor-core ones) must hold some, every other instance none."""
     import re
 
     from repro_torch.kernels import build
-    from repro_torch.kernels.flash_attention import ops as FA
 
-    lib = build.build_all([FA._SOURCE])[FA._SOURCE]
+    lib = build.build_all([source])[source]
     tool = Path(build._nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(tool), "-sass", str(lib)], check=True,
                           capture_output=True, text=True, timeout=300).stdout
@@ -851,9 +860,9 @@ def _hgmma_counts():
             counts[fn] += 1
     for fn, n in counts.items():
         print(f"HGMMA instructions in {fn}: {n}")
-        if ("fa_tc_kernel" in fn) != (n > 0):
+        if (marker in fn) != (n > 0):
             raise AssertionError(f"{fn}: {n} HGMMA instructions")
-    if sum("fa_tc_kernel" in fn for fn in counts) != len(FA.HEAD_DIMS):
+    if sum(marker in fn for fn in counts) != n_tc:
         raise AssertionError(f"tensor-core instances missing: {counts}")
     return counts
 
@@ -862,9 +871,10 @@ def _hgmma_counts():
 def serve_kernel_phase():
     import torch
 
+    from repro_torch.kernels.flash_attention import ops as FA
     from repro_torch.kernels.kv_retry.plain import quantize_pages
 
-    _hgmma_counts()
+    _hgmma_counts(FA._SOURCE, "fa_tc_kernel", len(FA.HEAD_DIMS))
 
     gen = torch.Generator(DEVICE).manual_seed(0)
 
@@ -1085,8 +1095,8 @@ def _drive(runs, kernels, finite):
     from repro_torch.serving import KVReadStats
 
     mods = _kernel_modules()
-    fa = mods["flash_attention"]
-    launches = dict.fromkeys((*mods, "flash_attention_tc"), 0)
+    tc_kernels = ("flash_attention", "ssd_scan")
+    launches = dict.fromkeys((*mods, *(f"{k}_tc" for k in tc_kernels)), 0)
     held = {k: [] for k in kernels}
     out = {}
     for label, e, prompts in runs:
@@ -1094,19 +1104,20 @@ def _drive(runs, kernels, finite):
         finite.clear()
         for m in mods.values():
             m.launches = 0
-        fa.tc_launches = 0
+        for k in tc_kernels:
+            mods[k].tc_launches = 0
         recs = {k: _Recorder(mods[k], _HOLDERS[k][0]) for k in kernels}
         with contextlib.ExitStack() as stack:
             for r in recs.values():
                 stack.enter_context(r)
             gen, st = e.generate(prompts, max_new_tokens=SERVE_MAX_NEW)
         counts = {k: m.launches for k, m in mods.items()}
-        counts["flash_attention_tc"] = fa.tc_launches
-        if fa.tc_launches != counts["flash_attention"]:
-            raise AssertionError(f"{label}: {counts['flash_attention']} "
-                                 f"flash_attention launches, "
-                                 f"{fa.tc_launches} of them on the tensor "
-                                 f"cores")
+        for k in tc_kernels:
+            counts[f"{k}_tc"] = mods[k].tc_launches
+            if counts[f"{k}_tc"] != counts[k]:
+                raise AssertionError(f"{label}: {counts[k]} {k} launches, "
+                                     f"{counts[f'{k}_tc']} of them on the "
+                                     f"tensor cores")
         if any(len(r.calls) != counts[k] for k, r in recs.items()):
             raise AssertionError(f"{label}: recorded calls != launches "
                                  f"{counts}")
@@ -1292,8 +1303,10 @@ def _hold_ssd(name, args, chunk, got=None, reps=3, quiet=False):
     bound_ms, bound_by = _bound(t_bytes, t_ops)
     if not quiet:
         x, Bm = args[0], args[1]
+        path = ("tensor-core" if SSD.uses_tensor_cores(
+            x.dtype, x.shape[2], Bm.shape[2], x.shape[1], chunk) else "SIMT")
         print(f"{name}: x {tuple(x.shape)} B/C {tuple(Bm.shape)} {x.dtype} "
-              f"chunk {chunk}: max_abs_err {err:.3g} (worst |err| / "
+              f"chunk {chunk}, {path} path: max_abs_err {err:.3g} (worst |err| / "
               f"tolerance y {ry:.3g}, H {rh:.3g}) kernel {ms:.3f} ms plain "
               f"{plain_ms:.3f} ms bound {bound_ms:.4f} ms ({bound_by}; "
               f"bytes {t_bytes:.4f}, operations {t_ops:.4f})", flush=True)
@@ -1432,10 +1445,30 @@ def _rber_main_path():
                           bound_by=bound_by, max_abs_err=err)
 
 
+def _ssd_stage_times(args, chunk):
+    """Each kernel of the tensor-core path alone on the long case (the
+    chunk states, the state passing, the scores, the chunk scan), after
+    one run of all four has written their scratch; CUDA events over
+    KERNEL_REPS launches."""
+    from repro_torch.kernels.ssd_scan import ops as SSD
+
+    runs, _ = SSD.tc_stage_launchers(*args, chunk=chunk)
+    for r in runs:
+        r()
+    names = ("chunk states", "state passing", "scores", "chunk scan")
+    out = {n: _cuda_ms(r, KERNEL_REPS)[0] for n, r in zip(names, runs)}
+    print("ssd_scan tensor-core kernels on the long case: " + ", ".join(
+        f"{n} {t:.4f} ms" for n, t in out.items()), flush=True)
+    return out
+
+
 @phase("ssd/rber kernels")
 def ssd_rber_kernel_phase():
     import torch
 
+    from repro_torch.kernels.ssd_scan import ops as SSD
+
+    _hgmma_counts(SSD._SOURCE, "_tc_kernel", len(SSD.TC_STATE_DIMS))
     B, T, nh, hd, ds, chunk = SSD_SHAPE
     gen = torch.Generator(DEVICE).manual_seed(0)
     cases = [(f"mamba2 long prefill (B {B}, T {T}, {nh} heads), bf16", T,
@@ -1449,6 +1482,7 @@ def ssd_rber_kernel_phase():
         ssd.append(_hold_ssd(name, args, chunk))
         if controls is None:
             controls = _check_ssd_controls(args, chunk)
+            _ssd_stage_times(args, chunk)
         del args
     torch.cuda.empty_cache()
     rber_launches, rber = _rber_main_path()
@@ -1500,7 +1534,9 @@ def mamba_serve_phase():
                                  f"tokens differ through a passthrough "
                                  f"store")
     print(f"mamba: pr2ar2 == baseline tokens on both sets; {cfg.n_layers} "
-          f"ssd_scan launches per prefill, 0 KV pages", flush=True)
+          f"ssd_scan launches per prefill, all on the tensor-core path "
+          f"({launches['ssd_scan_tc']} of {launches['ssd_scan']}), 0 KV "
+          f"pages", flush=True)
     return launches["ssd_scan"], held["ssd_scan"]
 
 

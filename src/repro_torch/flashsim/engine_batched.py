@@ -44,6 +44,7 @@ from typing import Tuple
 
 import numpy as np
 
+from repro_torch.device import resolve_device
 from repro_torch.flashsim.engine import EngineResult
 from repro_torch.flashsim.sched import SchedulerPolicy
 
@@ -53,11 +54,21 @@ class BatchedUnsupported(NotImplementedError):
     supported matrix (never a silent fallback)."""
 
 
-def check_batched_config(cfg) -> None:
-    """Config-level eligibility for ``engine='batched'`` (fail fast at
+def dies_per_lane(cfg) -> int:
+    """Dies one channel (one shard-core lane) holds: ``n_dies`` spread
+    over ``n_channels``, rounded up."""
+    return -(-cfg.n_dies // cfg.n_channels)
+
+
+def check_batched_config(cfg, device=None) -> None:
+    """Config-level eligibility for ``engine='batched'`` on ``device``
+    (``None`` is the CUDA card, as for every entry point; fail fast at
     construction; run-time state is checked again by
-    :func:`check_batched_supported`)."""
+    :func:`check_batched_supported`).  On a CUDA device a channel holds
+    at most the shard-core kernel's ``MAX_DIES`` dies; the CPU's plain
+    core has no cap."""
     from repro_torch.flashsim.sched import get_scheduler
+    from repro_torch.kernels.fcfs_core.ops import MAX_DIES
 
     pol = get_scheduler(cfg.scheduler)
     if pol.ring_lowering is None:
@@ -65,6 +76,13 @@ def check_batched_config(cfg) -> None:
             f"engine='batched' supports ring-lowerable schedulers only "
             f"(fcfs, host_prio, host_prio_aged[:bound]), got "
             f"{cfg.scheduler!r}; use engine='array'"
+        )
+    dies = dies_per_lane(cfg)
+    if resolve_device(device).type == "cuda" and dies > MAX_DIES:
+        raise BatchedUnsupported(
+            f"engine='batched' on a CUDA device holds at most {MAX_DIES} "
+            f"dies per channel (the shard-core kernel's die slots), got "
+            f"{dies}; use engine='array'"
         )
 
 
@@ -83,8 +101,10 @@ def check_batched_supported(policy: SchedulerPolicy, validate: bool) -> None:
         )
 
 
-def resolve_engine(cfg, validate: bool = False) -> Tuple[str, str]:
-    """Resolve ``engine="auto"`` for a config: ``(engine, reason)``.
+def resolve_engine(cfg, validate: bool = False,
+                   device=None) -> Tuple[str, str]:
+    """Resolve ``engine="auto"`` for a config on ``device`` (``None`` is
+    the CUDA card): ``(engine, reason)``.
 
     Returns ``("batched", "")`` when the config is inside the batched
     matrix, else ``("array", reason)`` where ``reason`` is the exact
@@ -95,7 +115,7 @@ def resolve_engine(cfg, validate: bool = False) -> Tuple[str, str]:
     if validate:
         return ("array", "validate=True is interpreter instrumentation")
     try:
-        check_batched_config(cfg)
+        check_batched_config(cfg, device)
     except BatchedUnsupported as e:
         return ("array", str(e))
     return ("batched", "")
@@ -149,8 +169,7 @@ def _assemble_result(cfg, rid, lane_idx, fin, diestat, lane,
                      n_requests: int, fused_cells: int = 0) -> EngineResult:
     """Reassemble an :class:`EngineResult` from one cell's kernel rows
     exactly as ``merge_shard_results`` would."""
-    n_ch, n_dies = cfg.n_channels, cfg.n_dies
-    n_dies_local = -(-n_dies // n_ch)
+    n_dies = cfg.n_dies
 
     req_done = np.zeros(n_requests, dtype=np.float64)
     live = [(c, idx) for c, idx in enumerate(lane_idx) if idx.size]
@@ -208,9 +227,8 @@ def run_event_core_batched(
 
     mode, bound = policy.ring_lowering
     ops = pad_ops(tables)
-    n_dies_local = -(-cfg.n_dies // cfg.n_channels)
     fin, diestat, lane = fcfs_core(
-        ops, n_dies_local, pipelined, t.tdma_us, t.tecc_us,
+        ops, dies_per_lane(cfg), pipelined, t.tdma_us, t.tecc_us,
         age_bound=bound if mode == "prio" else None, device=device)
     return _assemble_result(cfg, rid, lane_idx, fin, diestat, lane,
                             n_requests)
@@ -317,7 +335,6 @@ def run_event_cores_fused(runs, device=None) -> list:
     :class:`EngineResult` per run, in order, each with
     ``fused_cells = len(its chunk)``.
     """
-    from repro_torch.device import resolve_device
     from repro_torch.kernels.fcfs_core.ops import (
         count_steps, fused_core, pad_ops, pad_width, resident_lanes,
         ring_caps)
@@ -339,7 +356,7 @@ def run_event_cores_fused(runs, device=None) -> list:
     for i, (r, tables, lane_idx, rid, mode, bound, widest) in \
             enumerate(prepped):
         n_ch = r.cfg.n_channels
-        key = (n_ch, -(-r.cfg.n_dies // n_ch), mode, pad_width(widest),
+        key = (n_ch, dies_per_lane(r.cfg), mode, pad_width(widest),
                None if card else r.pipelined)
         groups.setdefault(key, []).append(i)
 

@@ -375,7 +375,7 @@ class SSDSim:
             from repro_torch.flashsim.engine_batched import (
                 check_batched_config)
 
-            check_batched_config(cfg)
+            check_batched_config(cfg, self.device)
         # engine="auto" defers resolution to run(), where validate= is
         # known; it never raises BatchedUnsupported — the decision (and
         # any fallback reason) is recorded on the returned SimStats.
@@ -448,7 +448,8 @@ class SSDSim:
         if self.engine == "auto":
             from repro_torch.flashsim.engine_batched import resolve_engine
 
-            engine_selected, engine_reason = resolve_engine(cfg, validate)
+            engine_selected, engine_reason = resolve_engine(cfg, validate,
+                                                           self.device)
         batched = engine_selected == "batched"
 
         ex = expansion if expansion is not None else expand_trace(trace, cfg)
@@ -624,7 +625,8 @@ def _with_knobs(cfg: SSDConfig, scheduler: Optional[str],
     return cfg
 
 
-def _fuse_resolved(cfg, engine: str, fuse: Optional[bool]) -> bool:
+def _fuse_resolved(cfg, engine: str, fuse: Optional[bool],
+                   device) -> bool:
     """Whether a sweep over ``cfg`` takes the fused batched path: fusion
     enabled (``fuse=``, default ``cfg.fuse``) *and* the config resolves
     inside the batched matrix.  ``engine="batched"`` with an ineligible
@@ -636,7 +638,7 @@ def _fuse_resolved(cfg, engine: str, fuse: Optional[bool]) -> bool:
         return False
     from repro_torch.flashsim.engine_batched import resolve_engine
 
-    return resolve_engine(cfg)[0] == "batched"
+    return resolve_engine(cfg, device=device)[0] == "batched"
 
 
 def simulate(
@@ -716,7 +718,7 @@ def compare_mechanisms(
     expansion = expand_trace(trace, cfg)
     sims = [SSDSim(cfg, condition, RetryPolicy(m), seed=seed + 7,
                    engine=engine, device=dev) for m in mechanisms]
-    if _fuse_resolved(cfg, engine, fuse) and len(sims) > 1:
+    if _fuse_resolved(cfg, engine, fuse, dev) and len(sims) > 1:
         items = [(sim, sim._prepare(trace, expansion=expansion))
                  for sim in sims]
         return dict(zip(mechanisms, _run_prepared_fused(items, dev)))
@@ -764,7 +766,7 @@ def simulate_batch(
     dev = resolve_device(device)
     conditions = tuple(conditions)
     seeds = tuple(seeds)
-    fused = (_fuse_resolved(cfg, engine, fuse)
+    fused = (_fuse_resolved(cfg, engine, fuse, dev)
              and len(conditions) * len(mechanisms) * len(seeds) > 1)
     keys, items = [], []
     out: Dict[Tuple[str, OperatingCondition, int], SimStats] = {}

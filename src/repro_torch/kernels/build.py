@@ -3,9 +3,11 @@
 Each ``csrc/*.cu`` file has a plain C interface and is compiled on first
 use into its own shared library under ``build/repro_torch/`` at the root
 of the checkout, for Hopper only: ``-gencode arch=compute_90a,code=sm_90a -O3 -fmad=false``, never
-fast math.  The library's file name carries a hash of its source and
-flags, so an edited source rebuilds and a stale library is never
-loaded.  :func:`build_all` starts one ``nvcc`` per source, all at once.
+fast math.  Headers shared by several sources live in ``kernels/csrc/``,
+which is on the include path.  The library's file name carries a hash of
+its source, the local headers it includes and the flags, so an edited
+source or header rebuilds and a stale library is never loaded.
+:func:`build_all` starts one ``nvcc`` per source, all at once.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -23,6 +26,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-Xptxas", "-v")
 
 _KERNELS = Path(__file__).resolve().parent
+INCLUDE_DIR = _KERNELS / "csrc"
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
@@ -40,8 +45,27 @@ def _nvcc() -> str:
                        "CUDA toolkit's nvcc (set CUDA_HOME)")
 
 
+def _inputs(source: Path) -> list:
+    """``source`` and the local headers it includes, recursively; a
+    header is looked up beside the file that includes it, then in
+    :data:`INCLUDE_DIR`."""
+    seen, todo = [], [source]
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.append(path)
+        for name in _LOCAL_INCLUDE.findall(path.read_bytes()):
+            name = name.decode()
+            near = path.parent / name
+            todo.append(near if near.exists() else INCLUDE_DIR / name)
+    return seen
+
+
 def _target(source: Path) -> Path:
-    h = hashlib.sha1(source.read_bytes() + repr(NVCC_FLAGS).encode())
+    h = hashlib.sha1(repr(NVCC_FLAGS).encode())
+    for path in _inputs(source):
+        h.update(path.read_bytes())
     return build_dir() / f"{source.stem}_{h.hexdigest()[:16]}.so"
 
 
@@ -60,7 +84,8 @@ def build_all(sources: Sequence[Path]) -> Dict[Path, Path]:
         if lib.exists():
             continue
         tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(INCLUDE_DIR), "-o", str(tmp),
+               str(src)]
         procs.append((src, lib, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))

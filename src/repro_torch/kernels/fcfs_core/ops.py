@@ -268,6 +268,9 @@ def _launch_cuda(ops: torch.Tensor, timing: torch.Tensor, steps: int,
                  n_dies: int, capq: int, capw: int, prio: bool):
     """Launch the CUDA kernel on the current stream (no synchronize)."""
     global launches, smem_launches
+    if n_dies > MAX_DIES:
+        raise ValueError(f"fcfs_core kernel holds at most {MAX_DIES} dies "
+                         f"per lane, got {n_dies}")
     for name, cap in (("capq", capq), ("capw", capw)):
         if cap < 1 or cap & (cap - 1):
             raise ValueError(f"fcfs_core kernel takes power-of-two ring "
@@ -320,9 +323,6 @@ def fcfs_core_fwd(ops: torch.Tensor, timing: torch.Tensor, steps: int, *,
                          f"{tuple(timing.shape)} {timing.dtype}")
     if timing.device != ops.device:
         raise ValueError("ops and timing must share a device")
-    if n_dies > MAX_DIES:
-        raise ValueError(f"fcfs_core holds at most {MAX_DIES} dies per "
-                         f"lane, got {n_dies}")
     kw = dict(n_dies=n_dies, capq=capq, capw=capw, prio=prio)
     if ops.device.type == "cuda":
         return _launch_cuda(ops.contiguous(), timing.contiguous(), steps,

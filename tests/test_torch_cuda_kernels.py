@@ -15,7 +15,8 @@ bit for bit; the SSD scan's y within 1e-5 of its largest |y| in float32
 and by the same element-wise bfloat16 rule, and H within 1e-5 of its
 largest |H| (the plain version takes the kernel's cumulative-sum order,
 so only product orders differ), and within 1e-4 of the sequential
-oracle; the RBER table within rtol 1e-6 of the plain version (both call
+oracle; its bfloat16 launches at hd 64 on the tensor-core path
+(``tc_launches``), bit for bit equal from one launch to the next; the RBER table within rtol 1e-6 of the plain version (both call
 CUDA's erfcf).  bfloat16 flash attention runs on the tensor-core
 kernel and float32 on the SIMT kernel; the cases cover lengths below,
 at and past a tile, GQA groups of 1, 3 and 8, an all-masked
@@ -231,6 +232,39 @@ def test_ssd_scan_matches_sequential_oracle():
                                   Cm.repeat_interleave(3, 0), dt, dA)
     assert _rel(y, want_y) <= SSD_ORDER_TOL
     assert _rel(H, want_H) <= SSD_ORDER_TOL
+
+
+@pytest.mark.parametrize("G", [1, 24])
+@pytest.mark.parametrize("T", [4, 11, 300, 1500, 2048])
+def test_ssd_scan_tc_matches_plain(T, G):
+    """The tensor-core path at mamba2-130m's widths (hd 64, ds 128, chunk
+    256, four batch rows): a short prompt's single ragged chunk (T 4,
+    11), a ragged last chunk (300, 1500) and the long prefill (2048, 24
+    heads: the main path's shape); two launches give equal bits."""
+    args = _ssd_inputs(4, G, T, 64, 128, "bfloat16", seed=T + G)
+    launches, tc = SSD.launches, SSD.tc_launches
+    y, H = SSD.ssd_scan_fwd(*args)
+    y2, H2 = SSD.ssd_scan_fwd(*args)
+    torch.cuda.synchronize()
+    assert SSD.launches - launches == SSD.tc_launches - tc == 2
+    assert torch.equal(y, y2) and torch.equal(H, H2)
+    want_y, want_H = ssd_scan_plain(*args)
+    assert bf16_err_ratio(y, want_y) <= 1.0
+    assert _rel(H, want_H) <= SSD_TOL
+
+
+@pytest.mark.parametrize("dtype,hd,tc", [("bfloat16", 64, 1),
+                                         ("float32", 64, 0),
+                                         ("bfloat16", 32, 0)])
+def test_ssd_scan_tc_launches_count_tensor_core_path_only(dtype, hd, tc):
+    """bfloat16 at hd 64 takes the tensor-core path; float32, and
+    bfloat16 at a head dim outside its rule, the SIMT kernel."""
+    args = _ssd_inputs(2, 3, 300, hd, 128, dtype)
+    launches, tcl = SSD.launches, SSD.tc_launches
+    SSD.ssd_scan_fwd(*args)
+    torch.cuda.synchronize()
+    assert (SSD.launches - launches, SSD.tc_launches - tcl) == (1, tc)
+    assert SSD.uses_tensor_cores(args[0].dtype, hd, 128, 300, 256) == bool(tc)
 
 
 def test_ssd_scan_rejects_head_dim():

@@ -141,6 +141,31 @@ def test_simulate_matches_reference(tables, engine, scheduler):
     assert (got.fast_path_events > 0) == (engine != "array")
 
 
+@pytest.mark.parametrize("engine", ENGINES)
+def test_wide_channels_match_reference(tables, engine):
+    """32 dies a channel, twice the CUDA shard core's die slots (ROADMAP
+    C8's cell).  The cap is the card's alone: on the CPU the batched
+    and auto engines run the cell like the reference's, with no
+    fallback."""
+    from repro.flashsim import config as RCFG
+    from repro.flashsim import ssd as RS
+
+    kw = dict(n_requests=200, engine=engine)
+    ref = RS.simulate("websearch", _ref_cond(AGED), "pr2ar2",
+                      cfg=dataclasses.replace(RCFG.DEFAULT_SSD,
+                                              dies_per_channel=32), **kw)
+    got = TF.simulate("websearch", TF.OperatingCondition(*AGED), "pr2ar2",
+                      cfg=dataclasses.replace(TF.DEFAULT_SSD,
+                                              dies_per_channel=32),
+                      device="cpu", **kw)
+    _same(got, ref)
+    assert got.engine_selected == ref.engine_selected
+    assert got.engine_selected == ("array" if engine == "array"
+                                   else "batched")
+    assert got.engine_fallback_reason == ref.engine_fallback_reason == ""
+    assert (got.fast_path_events > 0) == (engine != "array")
+
+
 @pytest.mark.parametrize("scheduler", ["preempt", "tokens"])
 @pytest.mark.parametrize("engine", ["array", "auto"])
 def test_interpreter_only_schedulers_match_reference(tables, engine,

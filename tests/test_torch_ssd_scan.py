@@ -33,6 +33,7 @@ from repro.kernels.ssd_scan import ssd_scan_ref as ref_sequential
 from repro.models.ssm import ssd_chunked
 from repro_torch.kernels.flash_attention.plain import bf16_err_ratio
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_fwd, ssd_scan_ref
+from repro_torch.kernels.ssd_scan.emulate import tensor_core_emulation
 from repro_torch.kernels.ssd_scan.plain import faulty_ssd_plain, ssd_scan_plain
 
 INTERPRET_TOL = 2e-5
@@ -190,3 +191,130 @@ def test_entry_moves_inputs_and_checks_shapes():
         ssd_scan_fwd(torch.zeros(4, 8, 16), torch.zeros(2, 8, 4),
                      torch.zeros(2, 8, 4), torch.zeros(4, 8).double(),
                      torch.zeros(4, 8))
+
+
+def test_tensor_core_design_stays_inside_the_rule():
+    """The tensor-core path's numerics on the CPU, at B 1, 3 heads, T 600
+    (the last chunk ragged), hd 64, ds 128, chunk 256, against the plain
+    version: y within the element-wise bfloat16 rule (one bfloat16 ulp
+    plus 2^-8 of the row's rms: ratio <= 1), H within 1e-5 of its
+    largest value.  w' in one bfloat16 part fails the y rule, so it goes
+    in as two."""
+    T, chunk, hd, ds, nh = 600, 256, 64, 128, 3
+    x, Bm, Cm, dt, A = _inputs(T, hd, ds, seed=5, B=1, nh=nh)
+    xh = torch.from_numpy(np.ascontiguousarray(
+        x.transpose(0, 2, 1, 3).reshape(nh, T, hd))).to(torch.bfloat16)
+    Bb, Cb = (torch.from_numpy(a).to(torch.bfloat16) for a in (Bm, Cm))
+    dth = torch.from_numpy(np.ascontiguousarray(dt[0].T))
+    dAh = dth * torch.from_numpy(A)[:, None]
+    args = (xh, Bb, Cb, dth, dAh)
+    want_y, want_H = ssd_scan_plain(*args, chunk)
+
+    def ratios(**kw):
+        y, H = tensor_core_emulation(*args, chunk, **kw)
+        return (bf16_err_ratio(y, want_y),
+                float((H - want_H).abs().max() / (1e-5 * want_H.abs().max())))
+
+    ry, rh = ratios()
+    ry_w1, _ = ratios(w_parts=1)
+    print(f"worst |err| / tolerance: y {ry:.3g}, H {rh:.3g}; one-part w' "
+          f"y {ry_w1:.3g}")
+    assert ry <= 1.0 and rh <= 1.0
+    assert ry_w1 > 1.0
+
+
+def test_state_path_keeps_the_plain_order_on_padded_rows():
+    """A left-padded prompt repeats one token: with C nearly orthogonal to
+    B there, C . H_{c-1} cancels to a small part of its summands, y is
+    small, and the element-wise bfloat16 rule's tolerance with it.  The
+    kernel's float32 state path (S and C . H in the plain version's
+    order) stays within the rule (ratio <= 1); S on the tensor cores
+    (B * dt * seg in three bfloat16 parts, exact products), or H in two
+    bfloat16 parts for C . H, does not — the case mamba2-130m's padded
+    rows showed on the card.  B 1, 3 heads, T 600, hd 64, ds 128, chunk
+    256, dt 0.0012, A -16, -4, -1."""
+    T, nh, hd, ds = 600, 3, 64, 128
+    rng = np.random.default_rng(4)
+    b0 = (0.5 * rng.standard_normal(ds)).astype(np.float32)
+    r = (0.5 * rng.standard_normal(ds)).astype(np.float32)
+    c0 = r - (r @ b0) / (b0 @ b0) * b0
+    x0 = rng.standard_normal((nh, hd)).astype(np.float32)
+
+    def bf(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(torch.bfloat16)
+
+    args = (bf(np.broadcast_to(x0[:, None], (nh, T, hd))),
+            bf(np.broadcast_to(b0, (1, T, ds))),
+            bf(np.broadcast_to(c0, (1, T, ds))),
+            torch.full((nh, T), 0.0012),
+            torch.full((nh, T), 0.0012)
+            * torch.tensor([-16.0, -4.0, -1.0])[:, None])
+    want = ssd_scan_plain(*args, 256)[0]
+
+    def ratio(**kw):
+        return bf16_err_ratio(tensor_core_emulation(*args, 256, **kw)[0],
+                              want)
+
+    kernel, tc_s, parts_h = ratio(), ratio(s_parts=3), ratio(h_parts=2)
+    print(f"worst |err| / tolerance: kernel {kernel:.3g}, tensor-core S "
+          f"{tc_s:.3g}, two-part H {parts_h:.3g}")
+    assert kernel <= 1.0 < tc_s
+    assert parts_h > 1.0
+
+
+def test_wgmma_sum_truncates_its_accumulator():
+    """The emulation of wgmma's float32 accumulation: each 16-deep
+    product exact, each addition rounded toward zero.  One step is the
+    exact product truncated: no larger in magnitude, less than an ulp
+    off.  Two steps stay within an ulp of each partial sum, and differ
+    from the round-to-nearest sum where a truncation moved it (of 4096
+    random sums, some must)."""
+    from repro_torch.kernels.ssd_scan.emulate import wgmma_sum
+
+    def ulp(v):
+        v = v.abs()
+        return (torch.nextafter(v, torch.full_like(v, float("inf")))
+                - v).double()
+
+    g = torch.Generator().manual_seed(7)
+    a = torch.randn((64, 32), generator=g).to(torch.bfloat16).float()
+    b = torch.randn((32, 64), generator=g).to(torch.bfloat16).float()
+    exact1 = a[:, :16].double() @ b[:16].double()
+    one = wgmma_sum(a[:, :16], b[:16])
+    assert torch.all(one.double().abs() <= exact1.abs())
+    assert torch.all((one.double() - exact1).abs() < ulp(one))
+    exact = a.double() @ b.double()
+    two = wgmma_sum(a, b)
+    assert torch.all((two.double() - exact).abs() <= ulp(one) + ulp(two))
+    assert torch.any(two != exact.float())
+
+
+@pytest.mark.parametrize("dtype,hd,ds,T,chunk,tc", [
+    ("bfloat16", 64, 128, 2048, 256, True),    # mamba2-130m's long prefill
+    ("bfloat16", 64, 128, 11, 256, True),      # a short prompt: one chunk
+    ("bfloat16", 64, 64, 300, 128, True),
+    ("bfloat16", 64, 128, 300, 100, False),    # chunks not 64-aligned
+    ("bfloat16", 64, 128, 600, 512, False),    # chunk past 256
+    ("bfloat16", 32, 128, 2048, 256, False),   # head dim
+    ("bfloat16", 64, 32, 2048, 256, False),    # state dim
+    ("float32", 64, 128, 2048, 256, False),    # float32: SIMT
+])
+def test_tensor_core_path_rule(dtype, hd, ds, T, chunk, tc):
+    """Which CUDA launches take the tensor-core path: a rule of dtype and
+    shape alone, never a retry after a failure."""
+    from repro_torch.kernels.ssd_scan import ops
+
+    assert ops.uses_tensor_cores(getattr(torch, dtype), hd, ds, T,
+                                 chunk) is tc
+
+
+def test_head_groups_fill_the_card():
+    """The chunk scan splits a row's heads into the fewest groups that
+    give a block per SM: 2 at the long prefill (128 blocks), every head
+    its own block for a short prompt (4 blocks), never more than G."""
+    from repro_torch.kernels.ssd_scan import ops
+
+    assert ops.head_groups(4, 24, 2048, 256) == 2
+    assert ops.head_groups(4, 24, 11, 11) == 24
+    assert ops.head_groups(1, 3, 11, 11) == 3
+    assert ops.head_groups(64, 24, 4096, 256) == 1
