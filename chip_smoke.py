@@ -65,7 +65,14 @@ exits non-zero):
                      case (p rounded to bfloat16 before P.V, a dropped
                      key tile) that must fail that rule; the KV retry kernel
                      against its plain version on one full-width decode
-                     leaf (28 x 4 x 8 x 2048 pages of 128 bf16 values);
+                     leaf (28 x 4 x 8 x 2048 pages of 128 bf16 values),
+                     with its variant (the vector kernel: lanes a page,
+                     pages in flight a thread), its share of the bytes
+                     bound, the warp-per-page kernel's time on the same
+                     leaf and ``quantize_pages`` of the leaf (the store's
+                     re-quantization, a measurement only); then 65 536
+                     pages whose margins lie within 1e-6 of 0 (sums exact
+                     in any order), held by the same rule;
   7. serve path    — ``ServeEngine`` on the card, first at a small width
                      held against the same engine on the CPU (equal
                      tokens and KV read stats), then llama3.2-3b at full
@@ -77,7 +84,9 @@ exits non-zero):
                      just before each run and read just after; both
                      kernels must have launched, every flash-attention
                      launch through the tensor-core kernel
-                     (``tc_launches``), pr2ar2 must serve some pages fast
+                     (``tc_launches``) and every KV retry launch through
+                     the vector kernel (``vec_launches``), pr2ar2 must
+                     serve some pages fast
                      and baseline none, and every logit must be finite; then the short set under pr2ar2 at tau
                      0.01, where pages must retry (B3's backing read)
                      and others be fast.  Every launch of each run is
@@ -106,7 +115,12 @@ exits non-zero):
                      retry table, its count set to 0 just before and
                      read just after, held against its plain version
                      and against the characterization's
-                     ``rber_per_retry_step``;
+                     ``rber_per_retry_step``; its bare time (100
+                     launches of the typed C entry queued behind a
+                     sleeping stream) beside its time through the
+                     wrapper, and its bound with the operations of one
+                     erfcf and one IEEE division read from the SASS of
+                     the library's probes (``cuobjdump -sass``);
   9. mamba serve path — ``ServeEngine`` with mamba2-130m, first at its
                      reduced width (head dim 16, ds 16) on the card
                      against the CPU (equal tokens, logits within 1e-4
@@ -192,9 +206,9 @@ N_PAGES = 16
 RBER_RTOL = 1e-6
 RBER_CHAR_RTOL = 1e-4
 RBER_ATOL = 1e-12
-# float32 operations counted for one erfcf in the RBER bound (an
-# estimate: a rational approximation and an exp).
-RBER_ERFC_OPS = 20
+# Launches of the RBER kernel queued behind a sleeping stream for its
+# bare time (no host time between them).
+RBER_BARE_REPS = 100
 
 
 def phase(name):
@@ -837,27 +851,44 @@ def _hold_kv(name, data_q, scale, backing, tau, got=None, reps=3,
                 leaf=backing.numel() * backing.element_size())
 
 
+def _kv_leaf_report(held, data_q, scale, backing, tau):
+    """The decode leaf's variant and share of its bytes bound, the
+    warp-per-page kernel (the first design) on the same leaf, and
+    ``quantize_pages`` of the leaf, which the KV store runs on every leaf
+    at every step (a measurement beside B3, not a kernel of the port)."""
+    from repro_torch.kernels.kv_retry import ops as KV
+    from repro_torch.kernels.kv_retry.emulate import lanes_per_page
+    from repro_torch.kernels.kv_retry.plain import quantize_pages
+
+    E = data_q.shape[1]
+    if not KV.uses_vector(E):
+        raise AssertionError(f"the decode leaf (E {E}) must take the vector "
+                             f"kernel")
+
+    def warp_per_page():
+        return KV._launch_cuda(data_q, scale, backing, tau, vector=False)
+
+    warp_per_page()                                       # warm-up
+    old_ms, _ = _cuda_ms(warp_per_page, KERNEL_REPS)
+    quant_ms, _ = _cuda_ms(lambda: quantize_pages(backing), KERNEL_REPS)
+    t = held["t_bytes"]
+    print(f"decode leaf: vector kernel ({lanes_per_page(E)} lanes a page) "
+          f"{held['ms']:.4f} ms, "
+          f"{t / held['ms'] * 100:.1f}% of the {t:.4f} ms bytes bound; "
+          f"warp-per-page kernel {old_ms:.4f} ms, "
+          f"{t / old_ms * 100:.1f}%; quantize_pages of the leaf "
+          f"{quant_ms:.4f} ms", flush=True)
+
+
 def _hgmma_counts(source, marker, n_tc):
     """HGMMA (wgmma) instructions in the SASS of each kernel instance of
     ``source``, by ``cuobjdump -sass`` on the built library; the
     ``n_tc`` instances whose name holds ``marker`` (the bfloat16
     tensor-core ones) must hold some, every other instance none."""
-    import re
-
     from repro_torch.kernels import build
 
-    lib = build.build_all([source])[source]
-    tool = Path(build._nvcc()).with_name("cuobjdump")
-    sass = subprocess.run([str(tool), "-sass", str(lib)], check=True,
-                          capture_output=True, text=True, timeout=300).stdout
-    counts, fn = {}, None
-    for line in sass.splitlines():
-        hit = re.search(r"Function : (\S+)", line)
-        if hit:
-            fn = hit.group(1)
-            counts[fn] = 0
-        elif fn is not None and "HGMMA" in line:
-            counts[fn] += 1
+    counts = {fn: sum("HGMMA" in i for i in ins)
+              for fn, ins in build.sass(source).items()}
     for fn, n in counts.items():
         print(f"HGMMA instructions in {fn}: {n}")
         if (marker in fn) != (n > 0):
@@ -872,6 +903,7 @@ def serve_kernel_phase():
     import torch
 
     from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.kernels.kv_retry.emulate import pages_near_zero
     from repro_torch.kernels.kv_retry.plain import quantize_pages
 
     _hgmma_counts(FA._SOURCE, "fa_tc_kernel", len(FA.HEAD_DIMS))
@@ -912,7 +944,12 @@ def serve_kernel_phase():
     data_q, scale = quantize_pages(backing)
     kv = [_hold_kv(f"decode leaf (28, {B}, {K}, {T}, {hd})", data_q, scale,
                    backing, LEAF_TAU)]
+    _kv_leaf_report(kv[0], data_q, scale, backing, LEAF_TAU)
     del backing, data_q, scale
+    q, s, tau = pages_near_zero(1 << 16, hd)
+    kv.append(_hold_kv(f"near-zero margins ({q.shape[0]} pages of {hd}, "
+                       f"exact sums)", q.to(DEVICE), s.to(DEVICE),
+                       randn(*q.shape), tau))
     torch.cuda.empty_cache()
     return fa, kv, controls
 
@@ -1016,6 +1053,15 @@ def _kernel_modules():
             "ssd_scan": ssd, "rber": rber}
 
 
+#: Every serve-path launch of these kernels must take the named variant:
+#: ``{count key: (the wrapper's counter, the variant)}``.
+_VARIANTS = {
+    "flash_attention_tc": ("tc_launches", "on the tensor cores"),
+    "ssd_scan_tc": ("tc_launches", "on the tensor cores"),
+    "kv_retry_vec": ("vec_launches", "through the vector kernel"),
+}
+
+
 #: The wrapper each serve-path kernel is entered through, and how one
 #: recorded launch (its bound arguments and its output) is held.
 _HOLDERS = {
@@ -1095,8 +1141,7 @@ def _drive(runs, kernels, finite):
     from repro_torch.serving import KVReadStats
 
     mods = _kernel_modules()
-    tc_kernels = ("flash_attention", "ssd_scan")
-    launches = dict.fromkeys((*mods, *(f"{k}_tc" for k in tc_kernels)), 0)
+    launches = dict.fromkeys((*mods, *_VARIANTS), 0)
     held = {k: [] for k in kernels}
     out = {}
     for label, e, prompts in runs:
@@ -1104,20 +1149,20 @@ def _drive(runs, kernels, finite):
         finite.clear()
         for m in mods.values():
             m.launches = 0
-        for k in tc_kernels:
-            mods[k].tc_launches = 0
+        for k, (attr, _) in _VARIANTS.items():
+            setattr(mods[k.rsplit("_", 1)[0]], attr, 0)
         recs = {k: _Recorder(mods[k], _HOLDERS[k][0]) for k in kernels}
         with contextlib.ExitStack() as stack:
             for r in recs.values():
                 stack.enter_context(r)
             gen, st = e.generate(prompts, max_new_tokens=SERVE_MAX_NEW)
         counts = {k: m.launches for k, m in mods.items()}
-        for k in tc_kernels:
-            counts[f"{k}_tc"] = mods[k].tc_launches
-            if counts[f"{k}_tc"] != counts[k]:
-                raise AssertionError(f"{label}: {counts[k]} {k} launches, "
-                                     f"{counts[f'{k}_tc']} of them on the "
-                                     f"tensor cores")
+        for k, (attr, what) in _VARIANTS.items():
+            name = k.rsplit("_", 1)[0]
+            counts[k] = getattr(mods[name], attr)
+            if counts[k] != counts[name]:
+                raise AssertionError(f"{label}: {counts[name]} {name} "
+                                     f"launches, {counts[k]} of them {what}")
         if any(len(r.calls) != counts[k] for k, r in recs.items()):
             raise AssertionError(f"{label}: recorded calls != launches "
                                  f"{counts}")
@@ -1209,7 +1254,9 @@ def serve_path_phase():
             raise AssertionError(f"the serve path never launched {name}")
     print(f"flash_attention: {launches['flash_attention']} main-path "
           f"launches, {launches['flash_attention_tc']} of them through the "
-          f"tensor-core kernel (tc_launches)", flush=True)
+          f"tensor-core kernel (tc_launches); kv_retry: "
+          f"{launches['kv_retry']}, {launches['kv_retry_vec']} of them "
+          f"through the vector kernel (vec_launches)", flush=True)
     for set_name, _ in sets:
         p_gen, p_st, _ = out[f"{set_name} pr2ar2"]
         b_gen, b_st, _ = out[f"{set_name} baseline"]
@@ -1379,17 +1426,79 @@ def _population():
     return mu, sigma, levels
 
 
-def _rber_bound_ms(mu, levels, out):
+def _sass_ops(ins):
+    """Float32 operations of a kernel's straight path (the instructions
+    before its first unpredicated EXIT), from its SASS: an FFMA counts
+    two (the peak counts a fused multiply-add as two), every other float
+    instruction (FADD, FMUL, FSETP, FSEL, FRND, FCHK, FMNMX) and MUFU one;
+    integer, memory, move and control instructions none."""
+    n = 0
+    for i in ins:
+        words = i.split()
+        if words[0] == "EXIT":
+            break
+        op = words[1] if words[0].startswith("@") else words[0]
+        if op.startswith("FFMA"):
+            n += 2
+        elif op.startswith(("FADD", "FMUL", "FSETP", "FSEL", "FRND", "FCHK",
+                            "FMNMX", "MUFU")):
+            n += 1
+    return n
+
+
+def _rber_op_counts():
+    """Operations of one erfcf and of one IEEE float32 division, read
+    from the SASS of the RBER library's probes (``cuobjdump -sass``):
+    each probe's straight path against ``rber_probe_base``, which has
+    the same loads, an add and the store (the division replaces that
+    add)."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.rber import ops as RB
+
+    sass = build.sass(RB._SOURCE)
+    base = _sass_ops(sass["rber_probe_base"])
+    erfc = _sass_ops(sass["rber_probe_erfc"]) - base
+    div = _sass_ops(sass["rber_probe_div"]) - base + 1
+    for name in ("rber_probe_erfc", "rber_probe_div"):
+        ops = [i.split()[1] if i.startswith("@") else i.split()[0]
+               for i in sass[name]]
+        print(f"SASS of {name}: {len(ops)} instructions: "
+              f"{' '.join(ops)}", flush=True)
+    print(f"RBER operations from the SASS: erfcf {erfc}, IEEE division "
+          f"{div} (float instructions of the straight path, FFMA counted "
+          f"twice; base probe {base})", flush=True)
+    return erfc, div
+
+
+def _rber_bound_ms(mu, levels, out, erfc_ops, div_ops):
     """Bytes (mu, sigma and the levels read once, the table written
     once) and the float32 operations of each (page, entry): per boundary
-    2 subtractions, 2 divisions, 2 scalings by 1/sqrt(2), 2 erfcf
-    (counted at RBER_ERFC_OPS each, an estimate of its rational
-    approximation and exp), 2 halvings, an add and the 1/8, then up to 7
-    adds into the page types' sums; in milliseconds."""
+    2 subtractions, 2 divisions (``div_ops`` each), 2 scalings by
+    1/sqrt(2), 2 erfcf (``erfc_ops`` each), 2 halvings, an add and the
+    1/8, and its add into its page type's sum; in milliseconds."""
     N, S = mu.shape[0], levels.shape[0]
     n_bytes = 4 * (2 * mu.numel() + levels.numel() + out.numel())
-    n_ops = N * S * (7 * (10 + 2 * RBER_ERFC_OPS) + 7)
+    n_ops = N * S * 7 * (9 + 2 * div_ops + 2 * erfc_ops)
     return n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / F32_OPS_PER_S * 1e3
+
+
+def _queued_ms(launch, reps):
+    """Milliseconds a launch of ``launch()`` takes on the card alone:
+    ``reps`` launches queued behind a sleeping stream, so the host's
+    time between them is hidden, timed by CUDA events around them."""
+    import torch
+
+    launch()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)
+    start.record()
+    for _ in range(reps):
+        launch()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def _rber_main_path():
@@ -1415,7 +1524,21 @@ def _rber_main_path():
         raise AssertionError(f"rber_table launched the kernel {launches} "
                              f"times")
     RB.rber_fwd(mu, sigma, levels)                        # warm-up
-    ms, again = _cuda_ms(lambda: RB.rber_fwd(mu, sigma, levels), KERNEL_REPS)
+    wrapper_ms, again = _cuda_ms(lambda: RB.rber_fwd(mu, sigma, levels),
+                                 RBER_BARE_REPS)
+    out = torch.empty_like(table)
+    args = (mu.data_ptr(), sigma.data_ptr(), levels.data_ptr(),
+            out.data_ptr(), mu.shape[0], levels.shape[0],
+            torch.cuda.current_stream().cuda_stream)
+    fn = RB._kernel_fn()
+
+    def bare():
+        if fn(*args) != 0:
+            raise RuntimeError("rber kernel launch failed")
+
+    ms = _queued_ms(bare, RBER_BARE_REPS)
+    if not torch.equal(out, table):
+        raise AssertionError("rber's bare launches differ from the wrapper's")
     plain_ms, want = _cuda_ms(lambda: rber_plain(mu, sigma, levels), 1)
     err = float((table - want).abs().max())
     if not (torch.allclose(table, want, rtol=RBER_RTOL, atol=RBER_ATOL)
@@ -1430,19 +1553,22 @@ def _rber_main_path():
                               atol=RBER_ATOL):
             raise AssertionError(f"rber {pt} row differs from "
                                  f"rber_per_retry_step (max abs {char_err})")
-    t_bytes, t_ops = _rber_bound_ms(mu, levels, table)
+    t_bytes, t_ops = _rber_bound_ms(mu, levels, table, *_rber_op_counts())
     bound_ms, bound_by = _bound(t_bytes, t_ops)
     print(f"rber_table: population {tuple(mu.shape)} x {levels.shape[0]} "
           f"entries at {CONDITION[0]:g} d / {CONDITION[1]:g} P/E, {launches} "
           f"launch; max_abs_err {err:.3g} against the plain version (rtol "
           f"{RBER_RTOL}), {char_err:.3g} against rber_per_retry_step (rtol "
           f"{RBER_CHAR_RTOL}); RBER range {float(table.min()):.3g} .. "
-          f"{float(table.max()):.3g}; kernel {ms:.4f} ms plain "
-          f"{plain_ms:.3f} ms bound {bound_ms:.5f} ms ({bound_by})",
-          flush=True)
-    return launches, dict(case="rber_table", ms=ms, plain_ms=plain_ms,
-                          t_bytes=t_bytes, t_ops=t_ops, bound_ms=bound_ms,
-                          bound_by=bound_by, max_abs_err=err)
+          f"{float(table.max()):.3g}; kernel bare {ms:.5f} ms "
+          f"({RBER_BARE_REPS} launches queued), through the wrapper "
+          f"{wrapper_ms:.5f} ms, plain {plain_ms:.3f} ms, bound "
+          f"{bound_ms:.5f} ms ({bound_by}; bare kernel at "
+          f"{bound_ms / ms * 100:.1f}% of it)", flush=True)
+    return launches, dict(case="rber_table", ms=ms, wrapper_ms=wrapper_ms,
+                          plain_ms=plain_ms, t_bytes=t_bytes, t_ops=t_ops,
+                          bound_ms=bound_ms, bound_by=bound_by,
+                          max_abs_err=err)
 
 
 def _ssd_stage_times(args, chunk):
@@ -1630,16 +1756,18 @@ def main() -> int:
                      "src/repro/kernels/flash_attention/kernel.py:34",
                      serve_launches["flash_attention"], fa_cases, held_fa,
                      library=True),
-        _kernel_line("kv_retry", f"{kernels}/kv_retry/csrc/kv_retry.cu",
-                     "src/repro/kernels/kv_retry/kernel.py:26",
-                     serve_launches["kv_retry"], kv_cases, held_kv,
-                     library=False),
+        dict(_kernel_line("kv_retry", f"{kernels}/kv_retry/csrc/kv_retry.cu",
+                          "src/repro/kernels/kv_retry/kernel.py:26",
+                          serve_launches["kv_retry"], kv_cases, held_kv,
+                          library=False),
+             vec_launches=serve_launches["kv_retry_vec"]),
         _kernel_line("ssd_scan", f"{kernels}/ssd_scan/csrc/ssd_scan.cu",
                      "src/repro/kernels/ssd_scan/kernel.py:40",
                      ssd_launches, ssd_cases, held_ssd, library=False),
-        _kernel_line("rber", f"{kernels}/rber/csrc/rber.cu",
-                     "src/repro/kernels/rber/kernel.py:30", rber_launches,
-                     [], [rber], library=False),
+        dict(_kernel_line("rber", f"{kernels}/rber/csrc/rber.cu",
+                          "src/repro/kernels/rber/kernel.py:30",
+                          rber_launches, [], [rber], library=False),
+             wrapper_ms=rber["wrapper_ms"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

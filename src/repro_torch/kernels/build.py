@@ -112,6 +112,27 @@ def load(source: Path) -> ctypes.CDLL:
     return lib
 
 
+def sass(source: Path) -> Dict[str, list]:
+    """The SASS of each kernel of a source's built library (built at
+    first use), by ``cuobjdump -sass``: ``{function: [instruction,
+    ...]}``, each instruction as printed (predicate, opcode, operands)."""
+    lib = build_all([source])[source]
+    tool = Path(_nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(tool), "-sass", str(lib)], check=True,
+                          capture_output=True, text=True, timeout=300).stdout
+    out, fn = {}, None
+    for line in text.splitlines():
+        hit = re.search(r"Function : (\S+)", line)
+        if hit:
+            fn = hit.group(1)
+            out[fn] = []
+            continue
+        ins = re.search(r"/\*[0-9a-f]{4,}\*/\s+([^;]+);", line)
+        if fn is not None and ins:
+            out[fn].append(ins.group(1).strip())
+    return out
+
+
 def all_sources() -> list:
     """Every CUDA source of the port."""
     return sorted(_KERNELS.glob("*/csrc/*.cu"))

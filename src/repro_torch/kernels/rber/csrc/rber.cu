@@ -18,10 +18,18 @@
 // consecutive entries s of one page, so the three stores of a warp are
 // contiguous.
 //
-// Bound.  14 erfcf a thread against 12 bytes written: bound by
-// operations (the float32 pipes), not bytes; at the characterization's
-// size (20 480 pages x 41 entries) the work is a few microseconds and
-// the launch itself dominates.
+// Bound.  14 erfcf and 14 IEEE divisions a thread against 12 bytes
+// written: bound by operations (the float32 pipes), not bytes.
+// chip_smoke.py counts them from the SASS of the probes below: about
+// 1 100 float32 operations a thread (an FFMA two), 0.0138 ms at the
+// characterization's size (20 480 pages x 41 entries).  On the H100 the
+// kernel takes 0.029 ms alone, 47% of that: half the float instructions
+// of erfcf are not fused multiply-adds, so the issue slots, not the
+// flops, hold it (about 750 float instructions a thread, some 19 us at
+// one instruction a lane a clock).  tools/rber_ablation.cu holds the
+// designs measured against it, none faster: a 32-bit index, the levels
+// in shared memory, and tiles of pages x all entries with a page's
+// means and sigmas in registers across its entries.
 
 #include <cuda_runtime.h>
 
@@ -58,6 +66,21 @@ rber_kernel(const float* __restrict__ mu, const float* __restrict__ sigma,
 }
 
 }  // namespace
+
+// Probes, never launched: the SASS of one erfcf and of one IEEE float32
+// division, each counted against rber_probe_base (the same loads, add
+// and store) by chip_smoke.py to count the operations in the bound.
+extern "C" __global__ void rber_probe_base(const float* x, float* y) {
+  y[threadIdx.x] = x[threadIdx.x] + x[threadIdx.x + 32];
+}
+
+extern "C" __global__ void rber_probe_erfc(const float* x, float* y) {
+  y[threadIdx.x] = erfcf(x[threadIdx.x]) + x[threadIdx.x + 32];
+}
+
+extern "C" __global__ void rber_probe_div(const float* x, float* y) {
+  y[threadIdx.x] = x[threadIdx.x] / x[threadIdx.x + 32];
+}
 
 // Returns a cudaError_t (0 on success).
 extern "C" int rber_launch(const void* mu, const void* sigma,

@@ -15,6 +15,7 @@ launches of this process, and nothing else.
 from __future__ import annotations
 
 import ctypes
+import functools
 from pathlib import Path
 
 import torch
@@ -28,8 +29,10 @@ launches = 0
 _SOURCE = Path(__file__).resolve().parent / "csrc" / "rber.cu"
 
 
+@functools.lru_cache(maxsize=None)
 def _kernel_fn():
-    """The C entry point of the built kernel library, typed for ctypes."""
+    """The C entry point of the built kernel library, typed for ctypes
+    once."""
     from repro_torch.kernels import build
 
     fn = build.load(_SOURCE).rber_launch
@@ -43,10 +46,9 @@ def _launch_cuda(mu, sigma, levels):
     """Launch the CUDA kernel on the current stream (no synchronize)."""
     global launches
     N, S = mu.shape[0], levels.shape[0]
-    fn = _kernel_fn()
     out = torch.empty((3, N, S), dtype=torch.float32, device=mu.device)
     stream = torch.cuda.current_stream(mu.device).cuda_stream
-    err = fn(mu.data_ptr(), sigma.data_ptr(), levels.data_ptr(),
+    err = _kernel_fn()(mu.data_ptr(), sigma.data_ptr(), levels.data_ptr(),
              out.data_ptr(), N, S, stream)
     if err != 0:
         raise RuntimeError(f"rber kernel launch failed: CUDA error {err}")

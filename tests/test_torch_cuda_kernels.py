@@ -11,13 +11,16 @@ element by element within one bfloat16 ulp of the plain value plus 2^-8
 of the row's rms (``bf16_err_ratio``; both sum in float32, in other
 orders); the KV retry read's margins within rtol 1e-6 of the
 larger of the margin and its ratio term, equal decisions, and outputs
-bit for bit; the SSD scan's y within 1e-5 of its largest |y| in float32
-and by the same element-wise bfloat16 rule, and H within 1e-5 of its
+bit for bit, at E 16-512 (the vector kernel, ``vec_launches``) and E
+20 and 36 (the warp-per-page kernel), and bit for bit on pages whose
+margins lie within 1e-6 of 0 with sums exact in any order; the SSD
+scan's y within 1e-5 of its largest |y| in float32 and by the same element-wise bfloat16 rule, and H within 1e-5 of its
 largest |H| (the plain version takes the kernel's cumulative-sum order,
 so only product orders differ), and within 1e-4 of the sequential
 oracle; its bfloat16 launches at hd 64 on the tensor-core path
 (``tc_launches``), bit for bit equal from one launch to the next; the RBER table within rtol 1e-6 of the plain version (both call
-CUDA's erfcf).  bfloat16 flash attention runs on the tensor-core
+CUDA's erfcf), on the characterization's shape, a ragged page count and
+long retry tables.  bfloat16 flash attention runs on the tensor-core
 kernel and float32 on the SIMT kernel; the cases cover lengths below,
 at and past a tile, GQA groups of 1, 3 and 8, an all-masked
 ``kv_valid = 0``, the wrapper's refusal of a misaligned view, and
@@ -40,6 +43,7 @@ from repro_torch.kernels.flash_attention import ops as FA
 from repro_torch.kernels.flash_attention.plain import (
     bf16_err_ratio, flash_attention_plain)
 from repro_torch.kernels.kv_retry import ops as KV
+from repro_torch.kernels.kv_retry.emulate import pages_near_zero
 from repro_torch.kernels.kv_retry.plain import kv_retry_plain, quantize_pages
 from repro_torch.kernels.rber import ops as RB
 from repro_torch.kernels.rber.plain import rber_plain
@@ -159,27 +163,97 @@ def test_flash_attention_rejects_head_dim():
         FA.flash_attention_fwd(q, q, q)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("tau", [0.01, 0.02])
-def test_kv_retry_matches_plain(dtype, tau):
-    rng = np.random.default_rng(6)
-    x = rng.standard_normal((4099, 128)).astype(np.float32)
-    spikes = rng.random(4099) < 0.3
-    x[spikes, rng.integers(0, 128, spikes.sum())] *= 40.0
+def _kv_pages(P, E, dtype, seed=6):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((P, E)).astype(np.float32)
+    spikes = rng.random(P) < 0.3
+    x[spikes, rng.integers(0, E, spikes.sum())] *= 40.0
     b = torch.from_numpy(x).to("cuda", getattr(torch, dtype))
-    q, s = quantize_pages(b)
-    before = KV.launches
-    out, margin = KV.kv_retry_fwd(q, s, b, tau=tau)
-    torch.cuda.synchronize()
-    assert KV.launches == before + 1
+    return (*quantize_pages(b), b)
+
+
+def _kv_hold(q, s, b, tau, out, margin):
+    """Margins within the rule, equal decisions, outputs bit for bit;
+    returns the fast-page mask."""
     want_out, want_m = kv_retry_plain(q, s, b, tau=tau)
     m, w = margin.double(), want_m.double()
     assert bool(((m - w).abs() <= MARGIN_RTOL
                  * torch.maximum(w.abs(), (1 - w).abs())).all())
     fast = margin[:, 0] >= 0
     assert torch.equal(fast, want_m[:, 0] >= 0)
-    assert bool(fast.any()) and bool((~fast).any())
     assert torch.equal(out, want_out)
+    return fast
+
+
+# Page widths and taus at which the pages of _kv_pages both retry and
+# read fast (a page retries only where tau < sqrt(E) / 254); E 20 takes
+# the warp-per-page kernel, the others the vector kernel.
+KV_CASES = [(64, 0.01), (64, 0.02), (128, 0.01), (128, 0.02), (256, 0.01),
+            (256, 0.02), (20, 0.01), (20, 0.015)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("E,tau", KV_CASES)
+@pytest.mark.parametrize("P", [4099, 37])
+def test_kv_retry_matches_plain(dtype, E, tau, P):
+    q, s, b = _kv_pages(P, E, dtype)
+    before = KV.launches
+    out, margin = KV.kv_retry_fwd(q, s, b, tau=tau)
+    torch.cuda.synchronize()
+    assert KV.launches == before + 1
+    fast = _kv_hold(q, s, b, tau, out, margin)
+    if P > 1000:
+        assert bool(fast.any()) and bool((~fast).any())
+
+
+@pytest.mark.parametrize("E", [16, 48, 64, 128, 256, 512, 20, 36])
+def test_kv_retry_vec_launches_count_multiples_of_16(E):
+    q, s, b = _kv_pages(300, E, "bfloat16")
+    launches, vec = KV.launches, KV.vec_launches
+    out, margin = KV.kv_retry_fwd(q, s, b, tau=0.01)
+    torch.cuda.synchronize()
+    assert KV.launches == launches + 1
+    assert KV.vec_launches == vec + (E % 16 == 0)
+    _kv_hold(q, s, b, 0.01, out, margin)
+
+
+def test_kv_retry_rejects_width_not_multiple_of_4():
+    q, s, b = _kv_pages(64, 18, "float32")
+    with pytest.raises(ValueError, match="multiples of 4"):
+        KV.kv_retry_fwd(q, s, b)
+
+
+def test_kv_retry_vector_rejects_misaligned_view():
+    q, s, b = _kv_pages(64, 64, "bfloat16")
+    shifted = torch.empty(q.numel() + 8, dtype=torch.int8, device="cuda")
+    view = shifted[8:].view(q.shape)
+    view.copy_(q)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        KV.kv_retry_fwd(view, s, b)
+
+
+@pytest.mark.parametrize("E", [64, 128, 256])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kv_retry_margins_near_zero_decide_alike(E, dtype):
+    q, s, tau = pages_near_zero(4099, E, seed=E)
+    q, s = q.cuda(), s.cuda()
+    b = torch.randn(q.shape, device="cuda").to(getattr(torch, dtype))
+    out, margin = KV.kv_retry_fwd(q, s, b, tau=tau)
+    torch.cuda.synchronize()
+    assert float(margin.abs().max()) < 1e-6
+    fast = _kv_hold(q, s, b, tau, out, margin)
+    assert bool(fast.any()) and bool((~fast).any())
+    assert torch.equal(margin, kv_retry_plain(q, s, b, tau=tau)[1])
+
+
+@pytest.mark.parametrize("E", [64, 128, 256])
+def test_kv_retry_warp_kernel_matches_plain_on_vector_widths(E):
+    q, s, b = _kv_pages(4099, E, "bfloat16")
+    launches, vec = KV.launches, KV.vec_launches
+    out, margin = KV._launch_cuda(q, s, b, 0.01, vector=False)
+    torch.cuda.synchronize()
+    assert (KV.launches, KV.vec_launches) == (launches + 1, vec)
+    _kv_hold(q, s, b, 0.01, out, margin)
 
 
 def _ssd_inputs(BG, G, T, hd, ds, dtype, seed=0):
@@ -273,7 +347,11 @@ def test_ssd_scan_rejects_head_dim():
         SSD.ssd_scan_fwd(x[..., :8].contiguous(), Bm, Cm, dt, dA)
 
 
-@pytest.mark.parametrize("n_pages,n_steps", [(32, 8), (300, 41), (20480, 41)])
+# The characterization's shape (20 480 x 41), a page count whose last
+# block is ragged, and long retry tables.
+@pytest.mark.parametrize("n_pages,n_steps", [(32, 8), (300, 41), (20480, 41),
+                                             (20487, 41), (100, 600),
+                                             (37, 1228)])
 def test_rber_matches_plain(n_pages, n_steps):
     rng = np.random.default_rng(n_pages)
     mu = torch.from_numpy((rng.standard_normal((n_pages, 8)) * 0.05

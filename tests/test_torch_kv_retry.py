@@ -10,7 +10,12 @@ computed from (margin = 1 - r, so near 0 its rounding is r's), outputs
 bitwise wherever the fast/retry decision agrees, and the flipped
 decisions counted — 0 on these inputs.  Inputs are made with
 numpy from a seed.  The CUDA kernel itself runs only on the card:
-``tests/test_torch_cuda_kernels.py``.
+``tests/test_torch_cuda_kernels.py``; its vector kernel's summation
+order (lane partials of 16, then a butterfly over E/16 lanes) is
+restated by ``kernels/kv_retry/emulate.py`` and held here by the same
+rule, at E 64, 128 and 256, on a page count no block size divides, and
+on pages built so that every margin lies within 1e-6 of 0 (sums exact
+in any order, so every decision must agree).
 """
 
 import jax.numpy as jnp
@@ -22,6 +27,8 @@ from repro.kernels.kv_retry.kernel import kv_retry_pallas
 from repro.kernels.kv_retry.ops import quantize_pages as ref_quantize
 from repro.kernels.kv_retry.ref import kv_retry_ref
 from repro_torch.kernels.kv_retry import ops as KV
+from repro_torch.kernels.kv_retry.emulate import (
+    kv_retry_emulate, lanes_per_page, pages_near_zero, sum_of_squares)
 from repro_torch.kernels.kv_retry.plain import kv_retry_plain, quantize_pages
 
 MARGIN_RTOL = 1e-6
@@ -69,15 +76,14 @@ def test_quantize_pages_bitwise(P, E, dtype):
     assert np.array_equal(s.numpy(), np.asarray(sr))
 
 
-@pytest.mark.parametrize("P,E", SHAPES)
-@pytest.mark.parametrize("tau", TAUS)
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_plain_matches_reference(P, E, tau, dtype):
-    b = _backing(_pages(P, E, seed=3 * P + E), dtype)
-    q, s = quantize_pages(b)
-    out, margin = KV.kv_retry_fwd(q, s, b, tau=tau)
+def _hold_against_reference(q, s, b, tau, out, margin):
+    """Margins within the rule, 0 flipped decisions and outputs bitwise
+    against the Pallas kernel in interpret mode and ``kv_retry_ref``;
+    returns the fast-page mask."""
+    P = q.shape[0]
     assert out.dtype == b.dtype and margin.shape == (P, 1)
     jq, js, jb = jnp.asarray(q.numpy()), jnp.asarray(s.numpy()), _jnp(b)
+    fast = margin.numpy()[:, 0] >= 0
     for name, (want_out, want_m) in (
             ("pallas", kv_retry_pallas(jq, js, jb, tau=tau, bp=32,
                                        interpret=True)),
@@ -85,12 +91,71 @@ def test_plain_matches_reference(P, E, tau, dtype):
         want_m = np.asarray(want_m)
         want_out = np.asarray(want_out.astype(jnp.float32))
         assert_margins_close(margin.numpy(), want_m)
-        fast = margin.numpy()[:, 0] >= 0
         flips = fast != (want_m[:, 0] >= 0)
         print(f"{name}: {fast.sum()} of {P} pages fast, {flips.sum()} flips")
         assert flips.sum() == 0
         agree = ~flips
         assert np.array_equal(out.float().numpy()[agree], want_out[agree])
+    return fast
+
+
+@pytest.mark.parametrize("P,E", SHAPES)
+@pytest.mark.parametrize("tau", TAUS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_matches_reference(P, E, tau, dtype):
+    b = _backing(_pages(P, E, seed=3 * P + E), dtype)
+    q, s = quantize_pages(b)
+    out, margin = KV.kv_retry_fwd(q, s, b, tau=tau)
+    _hold_against_reference(q, s, b, tau, out, margin)
+
+
+# A page count that no block of the vector kernel divides (its blocks
+# take 256 / G x 4 pages a step).
+RAGGED_P = 1037
+
+
+@pytest.mark.parametrize("E", [64, 128, 256])
+@pytest.mark.parametrize("tau", [0.01, 0.02])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_vector_emulation_matches_reference(E, tau, dtype):
+    b = _backing(_pages(RAGGED_P, E, seed=5 * E + 1), dtype)
+    q, s = quantize_pages(b)
+    out, margin = kv_retry_emulate(q, s, b, tau=tau)
+    fast = _hold_against_reference(q, s, b, tau, out, margin)
+    assert fast.any() and (~fast).any()
+
+
+@pytest.mark.parametrize("E", [64, 128, 256])
+@pytest.mark.parametrize("impl", ["emulate", "plain"])
+def test_margins_near_zero_decide_alike(E, impl):
+    q, s, tau = pages_near_zero(300, E, seed=E)
+    b = torch.from_numpy(np.random.default_rng(E).standard_normal(
+        (300, E)).astype(np.float32))
+    fn = kv_retry_emulate if impl == "emulate" else kv_retry_plain
+    out, margin = fn(q, s, b, tau=tau)
+    assert float(margin.abs().max()) < 1e-6
+    fast = _hold_against_reference(q, s, b, tau, out, margin)
+    assert fast.any() and (~fast).any()
+
+
+@pytest.mark.parametrize("E,G", [(16, 1), (48, 4), (64, 4), (128, 8),
+                                 (256, 16), (512, 32)])
+def test_vector_lanes_and_butterfly_order(E, G):
+    assert lanes_per_page(E) == G and KV.uses_vector(E)
+    assert not KV.uses_vector(E + 4) and not KV.uses_vector(E + 512)
+    deq = torch.from_numpy(np.random.default_rng(E).standard_normal(
+        (5, E)).astype(np.float32))
+    sq = (deq * deq).double().numpy()
+    part = np.zeros((5, G), np.float32)
+    for lane in range(G):
+        for j in range(16):
+            if lane * 16 + j < E:
+                part[:, lane] = np.float32(part[:, lane]
+                                           + np.float32(sq[:, lane * 16 + j]))
+    while part.shape[1] > 1:           # lane i adds lane i + half's sum
+        half = part.shape[1] // 2
+        part = (part[:, :half] + part[:, half:]).astype(np.float32)
+    assert np.array_equal(sum_of_squares(deq).numpy(), part[:, 0])
 
 
 def test_retried_pages_get_exact_backing():
