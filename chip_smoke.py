@@ -130,11 +130,39 @@ exits non-zero):
                      the scan 24 times, every launch on the tensor-core
                      path (``tc_launches``), the KV store read 0 pages, the
                      two mechanisms give equal tokens and every logit be
-                     finite; every launch is held and timed as above.
+                     finite; every launch is held and timed as above;
+ 10. sweep runtime — ``run_sweep`` over ``websearch`` at 20 000 requests,
+                     365 d / 1000 P/E and 30 d / 0 P/E, all six
+                     mechanisms, seeds 0-31, ``engine="batched"``, at
+                     workers 1 (inline), 2 and 4 (spawned workers, each
+                     with its own CUDA context, launching the shard-core
+                     kernel): the three ``sweep_to_json`` outputs must be
+                     byte-identical, every cell fused on the kernel; the
+                     launches of each sweep are read off the cells'
+                     ``fused_cells`` (workers' launches are not counted in
+                     this process) and, inline, must equal the kernel's
+                     count, set to 0 just before and read just after; the
+                     wall of each, a seed group's share and each pool's
+                     start-up (first result minus pool creation) are
+                     printed beside ``nvidia-smi``'s name and power
+                     limit.  Then the array engine on seed 0's sub-grid
+                     (both conditions, baseline and pr2ar2) must give the
+                     batched sweep's bytes; a journaled sweep at 4
+                     workers, cut to its header and first record, must
+                     resume inline to the same bytes launching only the
+                     missing seed groups; 12 ``simulate`` cells of two
+                     seeds through ``run_cells`` must fuse across cells,
+                     one launch a chunk; ``compare_mechanisms(engine=
+                     "array", workers=2)`` (forked workers on the host)
+                     must equal workers 1; and the inline sweep's first
+                     launch is held against the plain version, bit for
+                     bit, and timed.
 
 The line before the last is a JSON object describing each kernel
 (launches on its main path, error against the plain version, and times
-and bound summed over the main path's launches); the last line is
+and bound summed over the main path's launches; for the shard core also
+the inline sweep's counted launches and its held launch); the last line
+is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or outside a
 checkout of the repository, it exits non-zero and prints no result.
 """
@@ -209,6 +237,15 @@ RBER_ATOL = 1e-12
 # Launches of the RBER kernel queued behind a sleeping stream for its
 # bare time (no host time between them).
 RBER_BARE_REPS = 100
+
+# Phase 10: the paper grid swept by run_sweep at these worker counts
+# (1 inline, the rest spawned), the array engine on a one-seed sub-grid,
+# and cross-cell fusion over two seeds' simulate cells.
+SWEEP_CONDITIONS = ((365.0, 1000.0), (30.0, 0.0))
+SWEEP_SEEDS = tuple(range(32))
+SWEEP_WORKERS = (1, 2, 4)
+SWEEP_ARRAY_MECHANISMS = ("baseline", "pr2ar2")
+FUSION_SEEDS = (0, 1)
 
 
 def phase(name):
@@ -1666,6 +1703,257 @@ def mamba_serve_phase():
     return launches["ssd_scan"], held["ssd_scan"]
 
 
+# -- the sweep runtime: run_sweep / run_cells over the paper grid ----------
+
+
+def _launches_of(stats):
+    """Shard-core launches behind these cells, read off the cells: a
+    fused cell shares one launch with ``fused_cells - 1`` others, an
+    unfused batched cell has its own.  This counts launches made in
+    spawned workers, which the parent's counter cannot see."""
+    from fractions import Fraction
+
+    n = sum(Fraction(1, s.fused_cells) if s.fused_cells else Fraction(1)
+            for s in stats)
+    if n.denominator != 1:
+        raise AssertionError(f"fused_cells do not form whole launches: {n}")
+    return int(n)
+
+
+def _check_sweep_cells(label, res, kernel=True):
+    import math
+
+    for key, s in res.items():
+        if s.n_requests != N_REQUESTS or not all(
+                math.isfinite(v) for v in (s.mean_us, s.p99_us)):
+            raise AssertionError(f"{label} {key}: bad stats {s}")
+        if kernel and (s.engine_selected != "batched"
+                       or s.fast_path_events <= 0 or s.fused_cells <= 0):
+            raise AssertionError(f"{label} {key}: did not run fused on the "
+                                 f"shard-core kernel: {s}")
+
+
+def _timed_pools(RT, marks):
+    """Patch the runtime's pool class to record when each pool is made
+    and when its first task comes back; returns the restore callable."""
+    base = RT.ProcessPoolExecutor
+
+    class TimedPool(base):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            marks.append({"created": time.perf_counter(), "first": None})
+
+        def submit(self, *a, **kw):
+            fut = super().submit(*a, **kw)
+            mark = marks[-1]
+
+            def done(_):
+                if mark["first"] is None:
+                    mark["first"] = time.perf_counter()
+            fut.add_done_callback(done)
+            return fut
+
+    RT.ProcessPoolExecutor = TimedPool
+
+    def restore():
+        RT.ProcessPoolExecutor = base
+    return restore
+
+
+@phase("sweep runtime")
+def sweep_phase(smi):
+    import json as _json
+
+    import torch
+
+    from repro_torch.flashsim import (OperatingCondition, compare_mechanisms,
+                                      runtime as RT)
+    from repro_torch.kernels.fcfs_core import ops as K
+
+    conds = tuple(OperatingCondition(*c) for c in SWEEP_CONDITIONS)
+    kw = dict(n_requests=N_REQUESTS, engine="batched", device=DEVICE)
+    grid = f"{len(conds)} x {len(MECHANISMS)} x {len(SWEEP_SEEDS)}"
+    t0 = time.perf_counter()
+    n_tables = RT.prewarm_characterization(
+        [RT.Cell("batch", WORKLOAD, conds, MECHANISMS, s, **kw)
+         for s in SWEEP_SEEDS])
+    torch.cuda.synchronize()
+    print(f"sweep: {n_tables} (condition, mechanism) tables characterized "
+          f"on the card in {time.perf_counter() - t0:.3f} s", flush=True)
+
+    # Keep the inline sweep's first launch, to hold it against the plain
+    # version once the counts are read.
+    recorded = []
+    fwd = K.fcfs_core_fwd
+
+    def recording_fwd(ops, timing, steps, **kwargs):
+        out = fwd(ops, timing, steps, **kwargs)
+        if not recorded:
+            recorded.append((ops, timing, steps, kwargs, out))
+        return out
+
+    walls, blobs, launches, startup, results = {}, {}, {}, {}, {}
+    marks = []
+    restore = _timed_pools(RT, marks)
+    try:
+        for w in SWEEP_WORKERS:
+            n_pools = len(marks)
+            if w == 1:
+                K.fcfs_core_fwd = recording_fwd
+                secs, restore_timers = _host_timers()
+                K.launches = 0
+            t0 = time.perf_counter()
+            res = RT.run_sweep(WORKLOAD, conds, MECHANISMS, SWEEP_SEEDS,
+                               workers=w, **kw)
+            torch.cuda.synchronize()
+            walls[w] = time.perf_counter() - t0
+            if w == 1:
+                counted = K.launches
+                restore_timers()
+                K.fcfs_core_fwd = fwd
+                top = sum(v for k, v in secs.items()
+                          if "(in dispatch)" not in k)
+                print(f"host phases of the inline sweep ({walls[w]:.4f} s "
+                      f"on the host clock): " + ", ".join(
+                          f"{k} {v:.4f} s" for k, v in secs.items())
+                      + f", rest {walls[w] - top:.4f} s", flush=True)
+            _check_sweep_cells(f"workers={w}", res)
+            results[w], blobs[w] = res, RT.sweep_to_json(res)
+            launches[w] = _launches_of(res.values())
+            if w > 1:
+                if len(marks) != n_pools + 1:
+                    raise AssertionError(f"workers={w}: {len(marks) - n_pools}"
+                                         f" pools made, expected 1")
+                startup[w] = marks[-1]["first"] - marks[-1]["created"]
+            sizes = sorted({s.fused_cells for s in res.values()})
+            print(f"sweep {grid} at workers={w}: {walls[w]:.3f} s "
+                  f"({walls[w] / len(SWEEP_SEEDS):.4f} s a seed group), "
+                  f"{launches[w]} shard-core launches read from fused_cells "
+                  f"(cells a launch: {sizes})"
+                  + (f", spawn start-up {startup[w]:.3f} s" if w > 1 else
+                     f", {counted} counted in the process"), flush=True)
+    finally:
+        K.fcfs_core_fwd = fwd
+        restore()
+    if counted <= 0 or counted != launches[1]:
+        raise AssertionError(f"inline sweep: {counted} kernel launches "
+                             f"counted, {launches[1]} read from fused_cells")
+    for w in SWEEP_WORKERS[1:]:
+        if blobs[w] != blobs[1]:
+            raise AssertionError(f"sweep_to_json at workers={w} differs "
+                                 f"from workers=1")
+        if launches[w] != launches[1]:
+            raise AssertionError(f"workers={w}: {launches[w]} launches, "
+                                 f"inline {launches[1]}")
+    print(f"sweep: sweep_to_json byte-identical at workers "
+          f"{SWEEP_WORKERS} ({len(blobs[1])} bytes)", flush=True)
+    inline = results[1]
+
+    t0 = time.perf_counter()
+    sub = RT.run_sweep(WORKLOAD, conds, SWEEP_ARRAY_MECHANISMS,
+                       SWEEP_SEEDS[:1], n_requests=N_REQUESTS,
+                       engine="array", device=DEVICE)
+    array_s = time.perf_counter() - t0
+    _check_sweep_cells("array sub-grid", sub, kernel=False)
+    want = {k: inline[k] for k in sub}
+    if RT.sweep_to_json(sub) != RT.sweep_to_json(want):
+        raise AssertionError("array sub-grid differs from the batched sweep")
+    print(f"sweep: array engine on {len(sub)} cells (seed "
+          f"{SWEEP_SEEDS[0]}, {SWEEP_ARRAY_MECHANISMS}) in {array_s:.3f} s, "
+          f"sweep_to_json equal to the batched sweep's", flush=True)
+
+    jpath = CACHE / "sweep_journal.jsonl"
+    jpath.parent.mkdir(parents=True, exist_ok=True)
+    jpath.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    jres = RT.run_sweep(WORKLOAD, conds, MECHANISMS, SWEEP_SEEDS,
+                        workers=SWEEP_WORKERS[-1], journal=jpath, **kw)
+    journal_s = time.perf_counter() - t0
+    lines = jpath.read_text().splitlines()
+    if RT.sweep_to_json(jres) != blobs[1] or \
+            len(lines) != 1 + len(SWEEP_SEEDS):
+        raise AssertionError(f"journaled sweep: {len(lines)} journal lines "
+                             f"or its bytes differ")
+    kept = SWEEP_SEEDS[_json.loads(lines[1])["i"]]
+    jpath.write_text("\n".join(lines[:2]) + "\n")
+    K.launches = 0
+    t0 = time.perf_counter()
+    resumed = RT.run_sweep(WORKLOAD, conds, MECHANISMS, SWEEP_SEEDS,
+                           journal=jpath, **kw)
+    resume_s = time.perf_counter() - t0
+    resumed_launches = K.launches
+    want_launches = launches[1] - _launches_of(
+        v for k, v in inline.items() if k[2] == kept)
+    if RT.sweep_to_json(resumed) != blobs[1]:
+        raise AssertionError("resumed sweep differs from the full sweep")
+    if resumed_launches != want_launches:
+        raise AssertionError(f"resumed sweep launched {resumed_launches} "
+                             f"times, the missing seed groups need "
+                             f"{want_launches}")
+    print(f"sweep: journaled at workers={SWEEP_WORKERS[-1]} in "
+          f"{journal_s:.3f} s; cut to its header and seed {kept}'s group, "
+          f"resumed inline in {resume_s:.3f} s with {resumed_launches} "
+          f"launches (the {len(SWEEP_SEEDS) - 1} missing groups), "
+          f"byte-identical", flush=True)
+
+    fcells = [RT.Cell("simulate", WORKLOAD, conds[:1], (m,), s, **kw)
+              for s in FUSION_SEEDS for m in MECHANISMS]
+    K.launches = 0
+    fres = RT.run_cells(fcells, workers=1)
+    fused_launches = K.launches
+    chunks = _launches_of(fres)
+    if max(s.fused_cells for s in fres) <= 1 or fused_launches != chunks:
+        raise AssertionError(f"cross-cell fusion: fused_cells "
+                             f"{[s.fused_cells for s in fres]}, "
+                             f"{fused_launches} launches for {chunks} chunks")
+    for c, st in zip(fcells, fres):
+        key = (c.mechanisms[0], conds[0], c.seed)
+        if RT._stats_payload(st) != RT._stats_payload(inline[key]):
+            raise AssertionError(f"cross-cell fused {key} differs from the "
+                                 f"sweep's cell")
+    print(f"sweep: {len(fcells)} simulate cells of seeds {FUSION_SEEDS} "
+          f"fused across cells into {fused_launches} launches (cells a "
+          f"launch: {[s.fused_cells for s in fres]}), equal to the sweep's "
+          f"cells", flush=True)
+
+    walls_cmp = {}
+    cmp = {}
+    for w in (1, 2):
+        t0 = time.perf_counter()
+        cmp[w] = compare_mechanisms(WORKLOAD, conds[0],
+                                    SWEEP_ARRAY_MECHANISMS,
+                                    n_requests=N_REQUESTS, engine="array",
+                                    workers=w, device=DEVICE)
+        walls_cmp[w] = time.perf_counter() - t0
+    if {m: RT._stats_payload(s) for m, s in cmp[1].items()} != \
+            {m: RT._stats_payload(s) for m, s in cmp[2].items()}:
+        raise AssertionError("compare_mechanisms(engine='array') differs "
+                             "between workers 1 and 2")
+    print(f"sweep: compare_mechanisms(engine='array') at workers 1 "
+          f"{walls_cmp[1]:.3f} s and 2 (forked) {walls_cmp[2]:.3f} s, equal",
+          flush=True)
+
+    ops, timing, steps, kwargs, out = recorded[0]
+    held = _hold(f"sweep launch 0 ({ops.shape[0]} lanes)", ops, timing,
+                 steps, kwargs, got=out)
+    kernel_s = held["ms"] * 1e-3 * counted
+    print(f"sweep: the inline sweep's {counted} launches at the held "
+          f"launch's {held['ms']:.3f} ms are {kernel_s:.3f} s, "
+          f"{kernel_s / walls[1]:.1%} of its wall", flush=True)
+    print(smi)
+    summary = dict(grid=grid, n_requests=N_REQUESTS, walls_s=walls,
+                   per_group_s={w: v / len(SWEEP_SEEDS)
+                                for w, v in walls.items()},
+                   spawn_startup_s=startup, launches=launches,
+                   counted_inline=counted, array_subgrid_s=array_s,
+                   journal_s=journal_s, resume_s=resume_s,
+                   resumed_launches=resumed_launches,
+                   fusion_launches=fused_launches,
+                   compare_array_s=walls_cmp)
+    print("sweep summary: " + _json.dumps(summary), flush=True)
+    return counted, held
+
+
 def _print_held(name, rs):
     """One line for the launches of one run, held and re-timed."""
     bound_ms, bound_by = _bound(sum(r["t_bytes"] for r in rs),
@@ -1731,7 +2019,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    name, _ = device_phase()
+    name, smi = device_phase()
     build_phase()
     characterize_phase()
     kern, chain_ns = kernel_phase()
@@ -1742,6 +2030,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     ssd_cases, _, rber_launches, rber = ssd_rber_kernel_phase()
     ssd_launches, held_ssd = mamba_serve_phase()
+    torch.cuda.empty_cache()
+    sweep_launches, sweep_held = sweep_phase(smi)
 
     # Times and bounds are sums over each main path's launches, each
     # re-run on the inputs it had there.
@@ -1750,7 +2040,10 @@ def main() -> int:
         dict(_kernel_line(
             "fcfs_core", f"{kernels}/fcfs_core/csrc/fcfs_core.cu",
             "src/repro/kernels/fcfs_core/kernel.py:120", launches, kern,
-            held, library=False), smem_launches=smem_launches),
+            held, library=False), smem_launches=smem_launches,
+            sweep_launches=sweep_launches, sweep_ms=sweep_held["ms"],
+            sweep_plain_ms=sweep_held["plain_ms"],
+            sweep_bound_ms=sweep_held["bound_ms"]),
         _kernel_line("flash_attention",
                      f"{kernels}/flash_attention/csrc/flash_attention.cu",
                      "src/repro/kernels/flash_attention/kernel.py:34",

@@ -128,6 +128,23 @@ def clear_tables() -> None:
     _CDF_MEMO.clear()
 
 
+def tables_snapshot() -> tuple:
+    """Copies of the three in-process memos, for :func:`restore_tables`
+    in another process (the sweep runtime hands them to spawned
+    workers, which start with empty memos)."""
+    return dict(_COND_MEMO), dict(_HIST_MEMO), dict(_CDF_MEMO)
+
+
+def restore_tables(snapshot: tuple) -> None:
+    """Place a :func:`tables_snapshot` in this process's memos, every
+    array read-only as the memos hand them out."""
+    for memo, tables in zip((_COND_MEMO, _HIST_MEMO, _CDF_MEMO), snapshot):
+        for key, value in tables.items():
+            if isinstance(value, np.ndarray):
+                value.setflags(write=False)
+            memo[key] = value
+
+
 def _cond_key(retention_days, pec, n_chips=C.N_CHIPS, n_blocks=8,
               n_pages=16, seed=0, params=DEFAULT_NAND):
     return (float(retention_days), float(pec), n_chips, n_blocks, n_pages,

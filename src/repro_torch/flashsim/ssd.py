@@ -28,11 +28,15 @@ card, its plain torch version on the CPU), bit-identical to the array
 engine; ``engine="auto"`` picks batched when the configuration is inside
 its matrix and records the decision on :class:`SimStats`.
 
+``engine="reference"`` runs the seed closure engine
+(:mod:`repro_torch.flashsim.engine_ref`) on the host.  ``workers > 1``
+and ``journal=`` hand the sweep to :mod:`repro_torch.flashsim.runtime`.
+
 Every run API takes ``device=`` and runs on the CUDA card unless told
 otherwise; ``device=None`` without CUDA raises.  Knobs whose subsystems
 are not ported yet (the FTL and GC, faults, the closed-loop frontend
-and host cache, the reference engine, the sweep runtime's workers and
-journal) raise :class:`NotImplementedError` naming their ROADMAP item.
+and host cache) raise :class:`NotImplementedError` naming their ROADMAP
+item.
 """
 
 from __future__ import annotations
@@ -77,9 +81,6 @@ _DEFERRED = {
     "gc=online": "D3 (gc_online)",
     "gc=prepass": "D4 (ftl and prepass GC)",
     "host_cache": "D5 (hostcache)",
-    "engine=reference": "D6 (engine_ref)",
-    "workers": "D7 (runtime: workers and journal)",
-    "journal": "D7 (runtime: workers and journal)",
 }
 
 
@@ -363,12 +364,10 @@ class SSDSim:
         device=None,
     ):
         self.device = resolve_device(device)
-        if engine == "reference":
-            raise _unported("engine=reference")
         if engine not in ("array", "batched", "auto"):
             raise ValueError(
                 f"SSDSim engine must be 'array', 'batched' or 'auto', got "
-                f"{engine!r}"
+                f"{engine!r} (engine='reference' is SSDSimRef)"
             )
         _check_ported(cfg)
         if engine == "batched":
@@ -641,6 +640,51 @@ def _fuse_resolved(cfg, engine: str, fuse: Optional[bool],
     return resolve_engine(cfg, device=device)[0] == "batched"
 
 
+def _shared_views(trace, cfg):
+    """(expansion, schedule) pair shared by every mechanism of a sweep.
+
+    The schedule is the FTL pre-pass's, which the port does not have yet
+    (ROADMAP D4), so it is always ``None``.
+    """
+    return expand_trace(trace, cfg), None
+
+
+def _make_sim(cfg, condition, mechanism, seed, engine, device):
+    """The simulator of one cell: :class:`SSDSim` for the array, batched
+    and auto engines (``"batched"`` raises ``BatchedUnsupported`` outside
+    its matrix), the seed closure engine for ``"reference"``."""
+    if engine in ("array", "batched", "auto"):
+        return SSDSim(cfg, condition, RetryPolicy(mechanism), seed=seed,
+                      engine=engine, device=device)
+    if engine == "reference":
+        if cfg.faults is not None:
+            raise NotImplementedError(
+                "faults require the array engine (the reference engine "
+                "predates the fault-injection subsystem)"
+            )
+        if cfg.ncq_depth is not None:
+            raise NotImplementedError(
+                "the closed-loop frontend (ncq_depth) requires the array "
+                "engine"
+            )
+        from repro_torch.flashsim.engine_ref import SSDSimRef
+
+        return SSDSimRef(cfg, condition, RetryPolicy(mechanism), seed=seed,
+                         device=device)
+    raise ValueError(
+        f"unknown engine {engine!r} (use 'array', 'batched', 'auto' or "
+        f"'reference')"
+    )
+
+
+def _reject_reference_shard(engine: str) -> None:
+    if engine == "reference":
+        raise NotImplementedError(
+            "shard=True requires the array engine (the reference engine "
+            "predates the sharded event core)"
+        )
+
+
 def simulate(
     workload: WorkloadLike,
     condition: OperatingCondition,
@@ -668,20 +712,24 @@ def simulate(
     shard-core kernel — bit-identical to the array engine on its matrix
     (fcfs / host_prio / host_prio_aged[:bound], no validate) and raising
     :class:`~repro_torch.flashsim.engine_batched.BatchedUnsupported`
-    elsewhere; ``engine="auto"`` picks it when eligible.  ``shard=True``
-    runs the array engine as one loop per channel (a no-op for
-    batched).  ``device`` places the characterization and the batched
-    kernel (default: the CUDA card).  ``gc`` other than ``"off"``,
-    ``faults``, ``ncq_depth`` and ``host_cache`` are not ported yet and
-    raise :class:`NotImplementedError`.
+    elsewhere; ``engine="auto"`` picks it when eligible;
+    ``engine="reference"`` runs the seed closure engine (fcfs only).
+    ``shard=True`` runs the array engine as one loop per channel (a
+    no-op for batched; the reference engine rejects it).  ``device``
+    places the characterization and the batched kernel (default: the
+    CUDA card).  ``gc`` other than ``"off"``, ``faults``, ``ncq_depth``
+    and ``host_cache`` are not ported yet and raise
+    :class:`NotImplementedError`.
     """
     engine = cfg.engine if engine is None else engine
     cfg = _with_knobs(cfg, scheduler, gc, faults, ncq_depth, host_cache)
     if trace is None:
         trace = resolve_trace(workload, seed=seed, n_requests=n_requests)
-    sim = SSDSim(cfg, condition, RetryPolicy(mechanism), seed=seed + 7,
-                 engine=engine, device=device)
-    return sim.run(trace, shard=shard, validate=validate)
+    sim = _make_sim(cfg, condition, mechanism, seed + 7, engine, device)
+    if shard:
+        _reject_reference_shard(engine)
+        return sim.run(trace, shard=True, validate=validate)
+    return sim.run(trace, validate=validate)
 
 
 def compare_mechanisms(
@@ -707,17 +755,30 @@ def compare_mechanisms(
     ``fuse=`` (default ``cfg.fuse``): when the config resolves inside
     the batched matrix, the mechanisms' op tables are stacked along the
     kernel's lane axis and launched together — results bit-identical
-    to the sequential batched runs.  ``workers > 1`` is not ported yet.
+    to the sequential batched runs.  ``workers > 1`` fans the mechanisms
+    over a forked pool (:func:`repro_torch.flashsim.runtime.run_compare`,
+    results identical to the inline run) for the array, batched and auto
+    engines; ``engine="reference"`` runs its mechanisms one by one.
     """
     engine = cfg.engine if engine is None else engine
-    if workers > 1:
-        raise _unported("workers")
     cfg = _with_knobs(cfg, scheduler, gc, faults, ncq_depth, host_cache)
+    if workers > 1 and engine in ("array", "batched", "auto"):
+        from repro_torch.flashsim.runtime import run_compare
+
+        return run_compare(workload, condition, mechanisms, seed, cfg,
+                           n_requests, None, None, shard, workers,
+                           engine=engine, fuse=fuse, device=device)
     dev = resolve_device(device)
     trace = resolve_trace(workload, seed=seed, n_requests=n_requests)
-    expansion = expand_trace(trace, cfg)
-    sims = [SSDSim(cfg, condition, RetryPolicy(m), seed=seed + 7,
-                   engine=engine, device=dev) for m in mechanisms]
+    if engine == "reference":
+        return {
+            m: simulate(workload, condition, m, seed, cfg, trace=trace,
+                        engine=engine, shard=shard, device=dev)
+            for m in mechanisms
+        }
+    expansion, _ = _shared_views(trace, cfg)
+    sims = [_make_sim(cfg, condition, m, seed + 7, engine, dev)
+            for m in mechanisms]
     if _fuse_resolved(cfg, engine, fuse, dev) and len(sims) > 1:
         items = [(sim, sim._prepare(trace, expansion=expansion))
                  for sim in sims]
@@ -753,16 +814,25 @@ def simulate_batch(
     (mechanism, condition) cell; characterization tables are memoized
     per condition.  ``fuse=`` stacks every cell of the grid on the
     kernel's lane axis when the config is batched-eligible (results
-    identical for any fusion decision).  ``workers > 1`` and
-    ``journal=`` are not ported yet.  Returns
+    identical for any fusion decision).  ``workers > 1`` schedules seed
+    groups across a process pool and ``journal=`` names a checkpoint
+    file a re-run resumes from
+    (:func:`repro_torch.flashsim.runtime.run_sweep`); cell values and
+    dict order are identical for every worker count.  Returns
     ``{(mechanism, condition, seed): SimStats}`` in seed-major order.
     """
     engine = cfg.engine if engine is None else engine
-    if workers > 1:
-        raise _unported("workers")
-    if journal is not None:
-        raise _unported("journal")
+    if shard:
+        _reject_reference_shard(engine)
     cfg = _with_knobs(cfg, scheduler, gc, faults, ncq_depth, host_cache)
+    if workers > 1 or journal is not None:
+        from repro_torch.flashsim.runtime import run_sweep
+
+        # Seed-group cells re-enter this function with workers=1 inside
+        # each worker, reference engine included.
+        return run_sweep(workload, conditions, mechanisms, seeds, cfg,
+                         n_requests, engine, None, None, shard, workers,
+                         journal=journal, fuse=fuse, device=device)
     dev = resolve_device(device)
     conditions = tuple(conditions)
     seeds = tuple(seeds)
@@ -772,15 +842,18 @@ def simulate_batch(
     out: Dict[Tuple[str, OperatingCondition, int], SimStats] = {}
     for s in seeds:
         trace = resolve_trace(workload, seed=s, n_requests=n_requests)
-        expansion = expand_trace(trace, cfg)
+        expansion = None
+        if engine != "reference":
+            expansion, _ = _shared_views(trace, cfg)
         for cond in conditions:
             for m in mechanisms:
-                sim = SSDSim(cfg, cond, RetryPolicy(m), seed=s + 7,
-                             engine=engine, device=dev)
+                sim = _make_sim(cfg, cond, m, s + 7, engine, dev)
                 if fused:
                     keys.append((m, cond, s))
                     items.append((sim, sim._prepare(trace,
                                                     expansion=expansion)))
+                elif expansion is None:
+                    out[(m, cond, s)] = sim.run(trace)
                 else:
                     out[(m, cond, s)] = sim.run(trace, expansion=expansion,
                                                 shard=shard)

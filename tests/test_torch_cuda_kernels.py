@@ -29,7 +29,9 @@ at and past a tile, GQA groups of 1, 3 and 8, an all-masked
 card: its shared-memory and global-memory variants under the FIFO and
 priority lowerings, serial and pipelined, lanes of both kinds in one
 launch, more lanes than the card holds at once, and ``smem_launches``
-counting shared-memory launches only.  ``chip_smoke.py`` holds every
+counting shared-memory launches only.  A sweep through spawned workers
+(``run_cells`` at workers 2, a CUDA context each) gives workers 1's
+bytes with every cell fused on the card.  ``chip_smoke.py`` holds every
 kernel at its main path's full-width shapes.
 """
 
@@ -470,3 +472,27 @@ def test_fcfs_core_rejects_bad_rows_and_caps():
                                          device="cuda"), timing, 50,
                          n_dies=3, capq=6, capw=4, prio=False)
     assert FC.launches == before
+
+
+def test_sweep_spawned_workers_launch_on_the_card(monkeypatch, tmp_path):
+    """``run_sweep`` on the card at workers 2 (spawned workers, each with
+    its own CUDA context) gives workers 1's bytes, every cell fused on
+    the shard core; launches in the workers are read off ``fused_cells``
+    (12 cells of a seed group share one launch on the card)."""
+    from repro_torch.flashsim import OperatingCondition, runtime as RT
+
+    monkeypatch.setenv("REPRO_TORCH_CHAR_CACHE_DIR", str(tmp_path))
+    monkeypatch.delenv("REPRO_SWEEP_START_METHOD", raising=False)
+    conds = (OperatingCondition(365.0, 1000.0), OperatingCondition(30.0, 0.0))
+    mechs = ("baseline", "sota", "pr2", "ar2", "pr2ar2", "sota+pr2ar2")
+    cells = [RT.Cell("batch", "websearch", conds, mechs, s, n_requests=2000,
+                     engine="batched") for s in (0, 1, 2)]
+    assert RT._mp_context(cells).get_start_method() == "spawn"
+    blobs = {}
+    for w in (1, 2):
+        groups = RT.run_cells(cells, workers=w)
+        stats = [st for g in groups for st in g.values()]
+        assert all(st.fused_cells == 12 for st in stats)
+        blobs[w] = RT.sweep_to_json({k: v for g in groups
+                                     for k, v in g.items()})
+    assert blobs[1] == blobs[2]

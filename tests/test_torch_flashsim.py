@@ -224,9 +224,6 @@ def test_simulate_batch_matches_reference(tables, engine):
     ("faults", dict(faults="cfg")),
     ("gc=prepass", dict(gc="prepass")),
     ("gc=online", dict(gc="online")),
-    ("engine=reference", dict(engine="reference")),
-    ("workers", dict(workers=2)),
-    ("journal", dict(journal="sweep.jsonl")),
 ])
 def test_unported_knobs_raise(tables, knob, call):
     cond = TF.OperatingCondition(*AGED)
@@ -236,15 +233,8 @@ def test_unported_knobs_raise(tables, knob, call):
     if kw.get("faults") == "cfg":
         kw["faults"] = TF.FaultConfig()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if knob == "journal":
-            TF.simulate_batch("websearch", [cond], n_requests=50,
-                              device="cpu", **kw)
-        elif knob == "workers":
-            TF.compare_mechanisms("websearch", cond, n_requests=50,
-                                  device="cpu", **kw)
-        else:
-            TF.simulate("websearch", cond, "baseline", n_requests=50,
-                        device="cpu", **kw)
+        TF.simulate("websearch", cond, "baseline", n_requests=50,
+                    device="cpu", **kw)
 
 
 def test_unported_config_fields_raise(tables):

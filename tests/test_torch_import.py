@@ -40,6 +40,16 @@ def test_import_and_simulate_without_jax(tmp_path):
         " n_requests=200, engine='batched', device='cpu')\n"
         "assert s.n_requests == 200 and s.fast_path_events > 0, s\n"
         "assert s.mean_read_attempts == 3.0, s\n"
+        "from repro_torch.flashsim import run_sweep, sweep_to_json\n"
+        "r = simulate('websearch', OperatingCondition(30.0, 0.0), 'pr2ar2',"
+        " n_requests=200, engine='reference', device='cpu')\n"
+        "assert r.mean_read_attempts == 3.0, r\n"
+        "j = sys.argv[1] + '/sweep.jsonl'\n"
+        "kw = dict(n_requests=100, device='cpu', journal=j)\n"
+        "a = run_sweep('websearch', [OperatingCondition(30.0, 0.0)],"
+        " ('baseline',), (0, 1), **kw)\n"
+        "assert sweep_to_json(a) == sweep_to_json(run_sweep('websearch',"
+        " [OperatingCondition(30.0, 0.0)], ('baseline',), (0, 1), **kw))\n"
         "assert sys.modules['jax'] is None\n"
         "bad = [m for m in sys.modules if m == 'repro' "
         "or m.startswith('repro.')]\n"
@@ -65,7 +75,8 @@ def test_import_and_simulate_without_jax(tmp_path):
     )
     env = dict(os.environ, PYTHONPATH=str(SRC), REPRO_CHAR_CACHE="0",
                REPRO_TORCH_CHAR_CACHE_DIR=str(tmp_path), OMP_NUM_THREADS="1")
-    out = subprocess.run([sys.executable, "-c", code], env=env,
+    out = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                         env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok ")
@@ -93,7 +104,9 @@ def _ops_table():
 
 def _entry_points():
     import repro_torch as rt
-    from repro_torch.flashsim import OperatingCondition
+    from repro_torch.flashsim import (Cell, OperatingCondition, run_cells,
+                                      run_sweep)
+    from repro_torch.flashsim.engine_ref import SSDSimRef
 
     cond = OperatingCondition(30.0, 0.0)
     from repro_torch.configs import reduced_config
@@ -133,6 +146,12 @@ def _entry_points():
             "websearch", cond, n_requests=50),
         "simulate_batch": lambda: rt.simulate_batch(
             "websearch", [cond], n_requests=50),
+        "SSDSimRef": lambda: SSDSimRef(condition=cond),
+        "run_sweep": lambda: run_sweep("websearch", [cond], ("baseline",),
+                                       (0,), n_requests=50),
+        "run_cells": lambda: run_cells([Cell(
+            "simulate", "websearch", (cond,), ("baseline",), 0,
+            n_requests=50)]),
         "fcfs_core": lambda: rt.fcfs_core(_ops_table(), 2, False, 3.0, 5.0),
         "fused_core": lambda: rt.fused_core(
             _ops_table(), 2, False, np.tile([[3.0, 5.0, 0.0]], (2, 1)),
@@ -144,8 +163,8 @@ def _entry_points():
     "ServeEngine", "build_model", "build_model-mamba2", "params_from_jax",
     "kv_read_with_retry", "flash_attention", "ssd_scan", "rber_table",
     "characterize_condition", "attempt_histogram", "attempt_cdf", "SSDSim",
-    "simulate", "compare_mechanisms", "simulate_batch", "fcfs_core",
-    "fused_core",
+    "simulate", "compare_mechanisms", "simulate_batch", "SSDSimRef",
+    "run_sweep", "run_cells", "fcfs_core", "fused_core",
 ])
 def test_entry_point_without_cuda_raises(name, monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -1,0 +1,440 @@
+"""The port's sweep runtime against the JAX reference's, on the CPU.
+
+Both packages read the synthetic tables of ``tests/test_torch_flashsim.py``
+(its ``tables`` fixture, which also carries the reference's batched
+engine past ROADMAP C1).  The bar is the reference's own:
+``sweep_to_json`` byte-identical — between worker counts, between a
+journaled and an uninterrupted run, and between the port and the
+reference.  The reference side runs inline (its spawned batched workers
+would not see the patched tables) and with its array engine: its
+``sweep_to_json`` is engine-invariant by its own contract, and its
+batched engine costs seconds a grid on the CPU.
+
+Pools here fork (CPU cells in a parent that has not touched CUDA); one
+test forces a spawn pool to show that spawned workers read the
+parent's ``load_tables`` tables, and one shows that a forced fork with
+cells on CUDA is refused.
+"""
+
+import dataclasses
+import json
+import multiprocessing
+import os
+import signal
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch.flashsim as TF
+from repro_torch.flashsim import runtime as RT
+from repro_torch.flashsim.workloads import (RequestTrace, TraceSource,
+                                            clear_trace_cache)
+from test_torch_flashsim import AGED, MODEST, N, one_thread, tables  # noqa: F401
+
+MECHS = ("baseline", "sota", "pr2", "ar2", "pr2ar2", "sota+pr2ar2")
+SEEDS = (0, 1, 2)
+PORT_CONDS = (TF.OperatingCondition(*AGED), TF.OperatingCondition(*MODEST))
+
+
+def _ref_conds():
+    from repro.flashsim.config import OperatingCondition
+
+    return (OperatingCondition(*AGED), OperatingCondition(*MODEST))
+
+
+def _require_pool():
+    if "fork" not in multiprocessing.get_all_start_methods():
+        pytest.skip("fork start method unavailable")
+    if os.environ.get("REPRO_SWEEP_INLINE") == "1":
+        pytest.skip("pool execution disabled (REPRO_SWEEP_INLINE=1)")
+
+
+def _port_sweep(workers=1, engine="array", scheduler=None, mechs=MECHS,
+                seeds=SEEDS, **kw):
+    return TF.run_sweep("websearch", PORT_CONDS, mechs, seeds,
+                        n_requests=N, engine=engine, scheduler=scheduler,
+                        workers=workers, device="cpu", **kw)
+
+
+@pytest.fixture(scope="module")
+def ref_json(tables):
+    """The reference's inline sweep of the grid (array engine), once a
+    scheduler."""
+    from repro.flashsim import runtime as RR
+
+    blobs = {}
+
+    def get(scheduler):
+        if scheduler not in blobs:
+            blobs[scheduler] = RR.sweep_to_json(RR.run_sweep(
+                "websearch", _ref_conds(), MECHS, SEEDS, n_requests=N,
+                engine="array", scheduler=scheduler))
+        return blobs[scheduler]
+    return get
+
+
+@pytest.mark.parametrize("engine,scheduler,workers", [
+    ("array", "fcfs", 1),
+    ("array", "fcfs", 2),
+    ("array", "host_prio_aged:4", 1),
+    ("array", "host_prio_aged:4", 2),
+    ("batched", "fcfs", 2),
+    ("auto", "host_prio_aged:4", 2),
+])
+def test_sweep_matches_reference(ref_json, engine, scheduler, workers):
+    """2 conditions x 6 mechanisms x 3 seeds at N 300: the port gives
+    the reference's bytes.  The batched and auto engines run in the
+    pool only: inline, a seed group is ``simulate_batch``, which
+    ``tests/test_torch_flashsim.py`` holds against the reference, and
+    the CPU's plain shard core costs seconds a grid."""
+    if workers > 1:
+        _require_pool()
+    got = _port_sweep(workers, engine, scheduler)
+    assert RT.sweep_to_json(got) == ref_json(scheduler)
+    want_keys = [(m, c, s) for s in SEEDS for c in PORT_CONDS for m in MECHS]
+    assert list(got) == want_keys
+    if engine != "array":
+        assert all(s.engine_selected == "batched" and s.fused_cells > 0
+                   for s in got.values())
+
+
+@pytest.fixture(scope="module")
+def small(tables):
+    """2 conditions x 2 mechanisms x 3 seeds (array engine) at workers
+    1, 2 and 4."""
+    _require_pool()
+    return {wk: _port_sweep(wk, mechs=("baseline", "pr2ar2"))
+            for wk in (1, 2, 4)}
+
+
+def test_workers_1_2_4_byte_identical(small):
+    blobs = {wk: RT.sweep_to_json(res) for wk, res in small.items()}
+    assert blobs[1] == blobs[2] == blobs[4]
+    assert len(json.loads(blobs[1])) == 2 * 2 * 3
+
+
+def test_key_order_is_canonical(small):
+    """seed -> condition -> mechanism, the inline sweep's insertion
+    order, for every worker count."""
+    want = [(m, c, s) for s in SEEDS for c in PORT_CONDS
+            for m in ("baseline", "pr2ar2")]
+    assert all(list(res) == want for res in small.values())
+
+
+def test_inline_env_forces_no_pool(small, monkeypatch):
+    monkeypatch.setenv("REPRO_SWEEP_INLINE", "1")
+    forced = _port_sweep(4, mechs=("baseline", "pr2ar2"))
+    assert RT.sweep_to_json(forced) == RT.sweep_to_json(small[1])
+
+
+def test_sweep_cell_key_full_float_precision():
+    c1 = TF.OperatingCondition(365.00001, 0.0)
+    c2 = TF.OperatingCondition(365.00002, 0.0)
+    assert RT.sweep_cell_key("baseline", c1, 0) != \
+        RT.sweep_cell_key("baseline", c2, 0)
+    keys = {RT.sweep_cell_key(m, c, s) for m in ("baseline", "pr2ar2")
+            for c in PORT_CONDS + (TF.OperatingCondition(365.0, 0.0),)
+            for s in (0, 1)}
+    assert len(keys) == 12
+
+
+def _simulate_cells(seeds, mechs=("baseline",), n=200, **kw):
+    return [TF.Cell("simulate", "websearch", (PORT_CONDS[0],), (m,), s,
+                    n_requests=n, device="cpu", **kw)
+            for s in seeds for m in mechs]
+
+
+def test_results_in_input_order(tables):
+    _require_pool()
+    cells = _simulate_cells((3, 1, 2))
+    par = RT.run_cells(cells, workers=3)
+    inline = RT.run_cells(cells, workers=1)
+    assert par == inline
+    # Distinct seeds give distinct stats, so positional equality above
+    # proves ordering, not just content.
+    assert len({s.mean_us for s in inline}) == 3
+
+
+def test_chunked_submission(tables):
+    _require_pool()
+    cells = _simulate_cells(range(5), ("baseline", "pr2ar2"), n=120)
+    chunks = RT._chunk_pending(dict(enumerate(cells)), workers=2)
+    assert len(chunks) < len(cells)
+    assert [i for ch in chunks for i, _ in ch] == list(range(len(cells)))
+    blobs = [json.dumps([dataclasses.asdict(r)
+                         for r in RT.run_cells(cells, workers=wk)],
+                        sort_keys=True) for wk in (1, 3)]
+    assert blobs[0] == blobs[1]
+
+
+def test_cell_validation():
+    with pytest.raises(ValueError, match="kind"):
+        TF.Cell("fanout", "websearch", (PORT_CONDS[0],), ("baseline",), 0)
+    with pytest.raises(ValueError, match="one mechanism"):
+        TF.Cell("simulate", "websearch", (PORT_CONDS[0],),
+                ("baseline", "pr2"), 0)
+    with pytest.raises(ValueError, match="one condition"):
+        TF.Cell("compare", "websearch", PORT_CONDS, ("baseline",), 0)
+    # The device is stored by name (picklable, part of the journal key).
+    cell = TF.Cell("batch", "websearch", PORT_CONDS, ("baseline",), 0,
+                   device=torch.device("cpu"))
+    assert cell.device == "cpu"
+    assert TF.Cell("batch", "websearch", PORT_CONDS, ("baseline",),
+                   0).device is None
+
+
+def test_cell_errors_propagate(tables):
+    bad = TF.Cell("simulate", "websearch", (PORT_CONDS[0],),
+                  ("no-such-mechanism",), 0, n_requests=50, device="cpu")
+    with pytest.raises(ValueError):
+        RT.run_cells([bad], workers=1)
+    _require_pool()
+    with pytest.raises(ValueError):
+        RT.run_cells([bad, bad], workers=2, prewarm=False)
+
+
+def test_cell_on_the_card_raises_without_cuda(monkeypatch):
+    """A card cell never runs on the CPU: without CUDA it raises."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cell = TF.Cell("simulate", "websearch", (PORT_CONDS[0],), ("baseline",),
+                   0, n_requests=50)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        RT.run_cells([cell], workers=1)
+
+
+def _trace(seed: int, n: int) -> RequestTrace:
+    rng = np.random.default_rng(seed)
+    return RequestTrace(
+        arrival_us=np.cumsum(rng.exponential(30.0, n)),
+        is_read=rng.random(n) < 0.7,
+        n_pages=np.ones(n, np.int64),
+        start_page=rng.integers(0, 4096, n),
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class KillOnceSource(TraceSource):
+    """A trace source that SIGKILLs the first *worker* that builds it.
+
+    The marker file makes the kill once-only and observable; the
+    parent's pid keeps inline runs alive.
+    """
+
+    marker: str = ""
+    parent_pid: int = 0
+    n: int = 300
+    transforms: tuple = ()
+
+    def cache_key(self, seed: int) -> tuple:
+        return ("kill-once", self.n, seed,
+                tuple(t.key for t in self.transforms))
+
+    def _build(self, seed: int) -> RequestTrace:
+        if (self.marker and not os.path.exists(self.marker)
+                and os.getpid() != self.parent_pid):
+            Path(self.marker).touch()
+            os.kill(os.getpid(), signal.SIGKILL)
+        return _trace(seed, self.n)
+
+
+def test_killed_worker_keeps_completed_results(tables, tmp_path):
+    """SIGKILL one worker mid-sweep: finished chunks are harvested, only
+    the unfinished cells run again, and the bytes equal workers=1."""
+    _require_pool()
+    marker = tmp_path / "killed"
+    src = KillOnceSource(marker=str(marker), parent_pid=os.getpid())
+    kw = dict(conditions=(PORT_CONDS[0],), mechanisms=("baseline", "pr2ar2"),
+              seeds=(0, 1, 2, 3), n_requests=200, device="cpu")
+    clear_trace_cache()
+    parallel = TF.run_sweep(src, workers=2, **kw)
+    assert marker.exists(), "no worker was killed: the test is vacuous"
+    inline = TF.run_sweep(src, workers=1, **kw)
+    assert RT.sweep_to_json(parallel) == RT.sweep_to_json(inline)
+
+
+def test_stalled_pool_is_finished_inline(tables, tmp_path):
+    """``cell_timeout`` bounds the wait for progress: a pool that makes
+    none is abandoned and the cells complete inline."""
+    _require_pool()
+    src = KillOnceSource(marker=str(tmp_path / "killed"),
+                         parent_pid=os.getpid(), n=100)
+    clear_trace_cache()
+    cells = [TF.Cell("simulate", src, (PORT_CONDS[0],), ("baseline",), s,
+                     n_requests=50, device="cpu") for s in range(2)]
+    results = RT.run_cells(cells, workers=2, cell_timeout=60.0,
+                           max_retries=1)
+    assert [r.n_requests for r in results] == [50, 50]
+    assert results == RT.run_cells(cells, workers=1)
+
+
+class TestJournal:
+    KW = dict(mechanisms=("baseline", "pr2ar2"), seeds=(1, 2, 3),
+              n_requests=150, device="cpu")
+
+    def _sweep(self, **kw):
+        return TF.simulate_batch("websearch", PORT_CONDS, **dict(self.KW,
+                                                                 **kw))
+
+    def test_full_journal_resumes(self, tables, tmp_path):
+        jpath = tmp_path / "sweep.jsonl"
+        fresh = RT.sweep_to_json(self._sweep())
+        assert RT.sweep_to_json(self._sweep(journal=jpath)) == fresh
+        assert len(jpath.read_text().splitlines()) == 1 + 3
+        assert RT.sweep_to_json(self._sweep(journal=jpath)) == fresh
+
+    def test_partial_journal_resumes(self, tables, tmp_path, monkeypatch):
+        """Header plus the first record: only the two missing seed
+        groups run again."""
+        jpath = tmp_path / "sweep.jsonl"
+        fresh = RT.sweep_to_json(self._sweep(journal=jpath))
+        lines = jpath.read_text().splitlines()
+        jpath.write_text("\n".join(lines[:2]) + "\n")
+        ran = []
+        run_cell = RT._run_cell
+        monkeypatch.setattr(RT, "_run_cell",
+                            lambda c: ran.append(c.seed) or run_cell(c))
+        assert RT.sweep_to_json(self._sweep(journal=jpath)) == fresh
+        assert ran == [2, 3]
+
+    def test_torn_tail_is_ignored(self, tables, tmp_path):
+        jpath = tmp_path / "sweep.jsonl"
+        fresh = RT.sweep_to_json(self._sweep(journal=jpath))
+        with open(jpath, "a") as f:
+            f.write('{"i": 99, "r": {"t": "cells", "v"')
+        assert RT.sweep_to_json(self._sweep(journal=jpath)) == fresh
+
+    def test_journal_is_keyed_to_its_cell_list(self, tables, tmp_path):
+        jpath = tmp_path / "sweep.jsonl"
+        self._sweep(journal=jpath)
+        fresh = RT.sweep_to_json(self._sweep(seeds=(7, 8)))
+        assert RT.sweep_to_json(self._sweep(seeds=(7, 8),
+                                            journal=jpath)) == fresh
+        assert len(jpath.read_text().splitlines()) == 1 + 2
+
+    def test_journal_with_workers(self, tables, tmp_path):
+        _require_pool()
+        jpath = tmp_path / "sweep.jsonl"
+        fresh = RT.sweep_to_json(self._sweep())
+        assert RT.sweep_to_json(self._sweep(journal=jpath,
+                                            workers=2)) == fresh
+        assert len(jpath.read_text().splitlines()) == 1 + 3
+
+
+def test_cross_cell_fusion_matches_reference(tables):
+    """Simulate cells of one trace fuse across cells; on the CPU the
+    chunking rule is the reference's, so ``fused_cells`` is too."""
+    from repro.flashsim import runtime as RR
+
+    mechs = ("pr2", "pr2ar2", "pr2ar2", "sota+pr2ar2")
+    cells = _simulate_cells((5,), mechs, engine="batched")
+    ref_cells = [RR.Cell("simulate", "websearch", (_ref_conds()[0],), (m,),
+                         5, n_requests=200, engine="batched")
+                 for m in mechs]
+    got = RT.run_cells(cells, workers=1)
+    want = RR.run_cells(ref_cells, workers=1)
+    assert [RT._stats_payload(s) for s in got] == \
+        [RR._stats_payload(s) for s in want]
+    assert [s.fused_cells for s in got] == [s.fused_cells for s in want]
+    assert max(s.fused_cells for s in got) > 1
+    unfused = RT.run_cells([dataclasses.replace(c, fuse=False)
+                            for c in cells], workers=1)
+    assert unfused == got
+    assert all(s.fused_cells == 0 for s in unfused)
+
+
+def test_spawned_workers_read_the_parents_tables(tables, monkeypatch):
+    """A spawned worker starts with empty memos: the pool's initializer
+    hands it the parent's tables (here ``load_tables``' synthetic ones;
+    a worker that characterized would give other stats)."""
+    _require_pool()
+    monkeypatch.setenv("REPRO_SWEEP_START_METHOD", "spawn")
+    assert RT._mp_context().get_start_method() == "spawn"
+    cells = _simulate_cells((0,), ("baseline", "pr2ar2"))
+    assert RT.run_cells(cells, workers=2) == RT.run_cells(cells, workers=1)
+
+
+def test_mp_context_picks_spawn_for_the_card(monkeypatch):
+    cpu = _simulate_cells((0,))
+    card = [dataclasses.replace(c, device="cuda") for c in cpu]
+    monkeypatch.delenv("REPRO_SWEEP_START_METHOD", raising=False)
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: False)
+    if "fork" in multiprocessing.get_all_start_methods():
+        assert RT._mp_context(cpu).get_start_method() == "fork"
+    assert RT._mp_context(card).get_start_method() == "spawn"
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
+    assert RT._mp_context(cpu).get_start_method() == "spawn"
+    monkeypatch.setenv("REPRO_SWEEP_START_METHOD", "fork")
+    with pytest.raises(ValueError, match="forked worker cannot use CUDA"):
+        RT._mp_context(card)
+
+
+#: (kind, engine, scheduler, fuse) of each cell of a case.
+SIG_CASES = {
+    "auto-ineligible": [("batch", "auto", "tokens", None)],
+    "array": [("batch", "array", None, None)],
+    "batched": [("batch", "batched", None, None)],
+    "batched-unfused": [("batch", "batched", None, False)],
+    "aged": [("batch", "batched", "host_prio_aged:4", None)],
+    "compare": [("compare", "auto", None, None)],
+    "simulate-x3": [("simulate", "batched", None, None)] * 3,
+}
+
+
+@pytest.mark.parametrize("case", list(SIG_CASES))
+def test_batched_sigs_match_reference(tables, case):
+    """The signature count ``prewarm_batched`` reports is the
+    reference's; CPU cells warm nothing."""
+    from repro.flashsim import runtime as RR
+
+    port, ref = [], []
+    for kind, engine, scheduler, fuse in SIG_CASES[case]:
+        n_conds = 2 if kind == "batch" else 1
+        mechs = ("pr2ar2",) if kind == "simulate" else MECHS
+        kw = dict(n_requests=200, engine=engine, scheduler=scheduler,
+                  fuse=fuse)
+        port.append(TF.Cell(kind, "websearch", PORT_CONDS[:n_conds], mechs,
+                            0, device="cpu", **kw))
+        ref.append(RR.Cell(kind, "websearch", _ref_conds()[:n_conds], mechs,
+                           0, **kw))
+    assert RT._batched_sigs(port) == RR._batched_sigs(ref)
+    assert RT.prewarm_batched(port) == len(RR._batched_sigs(ref))
+
+
+@pytest.mark.parametrize("engine", ["array", "batched"])
+def test_compare_workers_match_inline_and_reference(tables, engine):
+    """``compare_mechanisms(workers=2)`` forks one worker a mechanism
+    (unfused, so the batched one runs in the workers too); the
+    reference inline, on its array engine as above."""
+    _require_pool()
+    from repro.flashsim import ssd as RS
+
+    kw = dict(mechanisms=("baseline", "pr2ar2"), seed=2, n_requests=N)
+    inline = TF.compare_mechanisms("websearch", PORT_CONDS[0], engine=engine,
+                                   fuse=False, device="cpu", **kw)
+    pooled = TF.compare_mechanisms("websearch", PORT_CONDS[0], engine=engine,
+                                   fuse=False, workers=2, device="cpu", **kw)
+    ref = RS.compare_mechanisms("websearch", _ref_conds()[0], **kw)
+    assert pooled == inline
+    assert list(pooled) == list(ref)
+    assert [RT._stats_payload(s) for s in pooled.values()] == \
+        [RT._stats_payload(s) for s in ref.values()]
+
+
+def test_reference_engine_workers_match_inline(tables):
+    """Seed groups fan out for the reference engine too."""
+    _require_pool()
+    kw = dict(mechanisms=("baseline",), seeds=(0, 1), n_requests=150,
+              engine="reference", device="cpu")
+    a = TF.simulate_batch("websearch", PORT_CONDS[:1], **kw)
+    b = TF.simulate_batch("websearch", PORT_CONDS[:1], workers=2, **kw)
+    assert a == b
+    assert list(a) == list(b)
+
+
+def test_host_fingerprint_fields():
+    fp = RT.host_fingerprint()
+    assert set(fp) == {"cpu_model", "cpu_count", "platform", "python",
+                       "numpy"}
+    assert fp["cpu_count"] >= 1
