@@ -156,13 +156,40 @@ exits non-zero):
                      "array", workers=2)`` (forked workers on the host)
                      must equal workers 1; and the inline sweep's first
                      launch is held against the plain version, bit for
-                     bit, and timed.
+                     bit, and timed;
+ 11. prepass GC   — ``compare_mechanisms`` over the paper's write-heavy
+                     ``prn`` profile at 20 000 requests, 365 d / 1000
+                     P/E, all six mechanisms, ``gc="prepass"`` (the FTL
+                     auto-sized at 7% over-provisioning),
+                     ``engine="batched"``: the shard-core count set to 0
+                     just before and read just after must equal the
+                     chunks read off ``fused_cells``; it prints the
+                     launch's placement (``smem_launches`` against
+                     ``launches``) and the lanes the card holds at once,
+                     and the host phases with ``build_ftl_schedule``.
+                     Every cell must equal the array interpreter's and
+                     the unfused run's, with WA > 1, ``gc_invocations ==
+                     blocks_erased > 0`` and the same FTL stats for every
+                     mechanism.  The first GC launch must hold erases
+                     (kind 2) and low-priority GC reads and is held
+                     against the plain version, bit for bit, and timed.
+                     ``baseline`` and ``pr2ar2`` under
+                     ``host_prio_aged:4`` (the GC reads through the aged
+                     priority rings) must equal the array interpreter;
+                     mean and read p99 are printed beside the in-place
+                     ``prn`` run's; then ``run_sweep`` of ``prn`` over
+                     both phase-10 conditions, ``baseline`` and
+                     ``pr2ar2``, seeds 0-3, at 300 P/E an erase (blocks
+                     reach the worn P/E bins, characterized on the card)
+                     must give the same bytes at workers 1 and 2
+                     (spawned).
 
 The line before the last is a JSON object describing each kernel
 (launches on its main path, error against the plain version, and times
 and bound summed over the main path's launches; for the shard core also
-the inline sweep's counted launches and its held launch); the last line
-is
+the inline sweep's counted launches and its held launch, and the
+prepass-GC compare's counted launches and its held launch); the last
+line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or outside a
 checkout of the repository, it exits non-zero and prints no result.
 """
@@ -246,6 +273,15 @@ SWEEP_SEEDS = tuple(range(32))
 SWEEP_WORKERS = (1, 2, 4)
 SWEEP_ARRAY_MECHANISMS = ("baseline", "pr2ar2")
 FUSION_SEEDS = (0, 1)
+
+# Phase 11: prepass GC on the paper's write-heavy profile, the priority
+# rings on two mechanisms, and a worn-bin sweep (blocks gain this many
+# P/E cycles an erase, so they snap to the higher characterization bins).
+GC_WORKLOAD = "prn"
+GC_PRIO_SCHEDULER = "host_prio_aged:4"
+GC_PRIO_MECHANISMS = ("baseline", "pr2ar2")
+GC_WEAR_SEEDS = (0, 1, 2, 3)
+GC_PEC_PER_ERASE = 300.0
 
 
 def phase(name):
@@ -575,10 +611,12 @@ def _host_timers():
     phases (``augment_ops`` inside the dispatch, ``_prepare`` inside
     nothing) are listed by what they span."""
     from repro_torch.flashsim import engine_batched as EB
+    from repro_torch.flashsim import ftl as FTL
     from repro_torch.flashsim import ssd
     from repro_torch.kernels.fcfs_core import ops as K
 
     spans = [("trace", ssd, "resolve_trace"), ("trace", ssd, "expand_trace"),
+             ("build_ftl_schedule", FTL, "build_ftl_schedule"),
              ("simulators", ssd.SSDSim, "__init__"),
              ("_prepare", ssd.SSDSim, "_prepare"),
              ("_lane_tables", EB, "_lane_tables"), ("pad_ops", K, "pad_ops"),
@@ -1954,6 +1992,240 @@ def sweep_phase(smi):
     return counted, held
 
 
+# -- prepass GC: the FTL pre-pass feeding erases and GC traffic to B1 ------
+
+
+def _ftl_stats(s):
+    return (s.wa, s.gc_invocations, s.gc_page_reads, s.gc_page_progs,
+            s.blocks_erased)
+
+
+def _check_gc_cells(label, res):
+    import math
+
+    for key, s in res.items():
+        if s.n_requests != N_REQUESTS or not all(
+                math.isfinite(v) for v in (s.mean_us, s.read_p99_us)):
+            raise AssertionError(f"{label} {key}: bad stats {s}")
+        if not (s.wa > 1.0 and s.gc_invocations == s.blocks_erased > 0):
+            raise AssertionError(f"{label} {key}: no GC in a prepass run: "
+                                 f"{s}")
+
+
+@phase("prepass GC")
+def gc_phase(smi, chain_ns):
+    import json as _json
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import characterize as TC
+    from repro_torch.flashsim import (GCConfig, OperatingCondition,
+                                      SSDConfig, build_ftl_schedule,
+                                      compare_mechanisms, runtime as RT)
+    from repro_torch.flashsim.ftl import OP_GC_READ
+    from repro_torch.flashsim.ssd import resolve_trace
+    from repro_torch.kernels.fcfs_core import ops as K
+
+    cond = OperatingCondition(*CONDITION)
+    kw = dict(n_requests=N_REQUESTS, gc="prepass", device=DEVICE)
+    # Keep every launch of the compare, to hold the first against the
+    # plain version once the counts are read.
+    recorded = []
+    fwd = K.fcfs_core_fwd
+
+    def recording_fwd(ops, timing, steps, **kwargs):
+        out = fwd(ops, timing, steps, **kwargs)
+        recorded.append((ops, timing, steps, kwargs, out))
+        return out
+
+    K.fcfs_core_fwd = recording_fwd
+    secs, restore = _host_timers()
+    K.launches = K.smem_launches = 0
+    try:
+        t0 = time.perf_counter()
+        res = compare_mechanisms(GC_WORKLOAD, cond, MECHANISMS,
+                                 engine="batched", **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, smem_launches = K.launches, K.smem_launches
+    finally:
+        restore()
+        K.fcfs_core_fwd = fwd
+    chunks = _launches_of(res.values())
+    if launches <= 0 or launches != chunks or len(recorded) != launches:
+        raise AssertionError(f"prepass GC compare: {launches} launches "
+                             f"counted, {chunks} chunks read from "
+                             f"fused_cells, {len(recorded)} recorded")
+    _check_gc_cells("prepass GC batched", res)
+    ops0, timing0, steps0, kw0, out0 = recorded[0]
+    kinds, hp = ops0[:, :, 1], ops0[:, :, 6]
+    n_erase = int((kinds == 2.0).sum())
+    n_gc_reads = int(((kinds == 0.0) & (hp == 0.0)).sum())
+    if n_erase <= 0 or n_gc_reads <= 0:
+        raise AssertionError(f"prepass GC launch 0 holds {n_erase} erases "
+                             f"and {n_gc_reads} low-priority reads")
+    resident = K.resident_lanes(ops0.shape[1], kw0["n_dies"], kw0["capq"],
+                                kw0["capw"], kw0["prio"], DEVICE)
+    variant, smem = _variant(ops0, kw0)
+    print(f"prepass GC: {launches} shard-core launches ({smem_launches} "
+          f"from shared memory, launch 0 variant {variant}) for "
+          f"{len(MECHANISMS)} mechanisms x 8 lanes; the card holds "
+          f"{resident} lanes at once at launch 0's footprint (maxp "
+          f"{ops0.shape[1]}, capq {kw0['capq']}, capw {kw0['capw']}); "
+          f"launch 0 holds {int((kinds != 3.0).sum())} op rows, {n_erase} "
+          f"erases and {n_gc_reads} low-priority reads", flush=True)
+    top = sum(v for k, v in secs.items() if "(in dispatch)" not in k)
+    print(f"host phases of the prepass GC compare ({wall:.4f} s on the "
+          f"host clock, synchronized): " + ", ".join(
+              f"{k} {v:.4f} s" for k, v in secs.items())
+          + f", rest {wall - top:.4f} s", flush=True)
+
+    t0 = time.perf_counter()
+    ref = compare_mechanisms(GC_WORKLOAD, cond, MECHANISMS, engine="array",
+                             **kw)
+    array_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    unfused = compare_mechanisms(GC_WORKLOAD, cond, MECHANISMS,
+                                 engine="batched", fuse=False, **kw)
+    torch.cuda.synchronize()
+    unfused_s = time.perf_counter() - t0
+    for m in MECHANISMS:
+        if _outcome(res[m]) != _outcome(ref[m]):
+            raise AssertionError(f"prepass GC {m}: batched SimStats differ "
+                                 f"from the array interpreter's")
+        if _outcome(res[m]) != _outcome(unfused[m]):
+            raise AssertionError(f"prepass GC {m}: fused SimStats differ "
+                                 f"from the unfused run's")
+        if res[m].fast_path_events <= 0:
+            raise AssertionError(f"prepass GC {m}: no events went through "
+                                 f"the kernel")
+    ftl = {_ftl_stats(s) for s in res.values()}
+    if len(ftl) != 1:
+        raise AssertionError(f"prepass GC: FTL stats differ between "
+                             f"mechanisms: {ftl}")
+    wa, gc_inv, gc_reads, gc_progs, erased = ftl.pop()
+    print(f"prepass GC: WA {wa}, {gc_inv} GC passes, {gc_reads} copy-back "
+          f"reads and {gc_progs} programs, {erased} erases, equal for every "
+          f"mechanism; batched {wall:.3f} s ({launches} launches), unfused "
+          f"{unfused_s:.3f} s ({_launches_of(unfused.values())} launches), "
+          f"array interpreter {array_s:.3f} s; batched == array and fused "
+          f"== unfused for all six", flush=True)
+
+    inplace = compare_mechanisms(GC_WORKLOAD, cond, MECHANISMS,
+                                 n_requests=N_REQUESTS, engine="batched",
+                                 device=DEVICE)
+    for m in MECHANISMS:
+        g, p = res[m], inplace[m]
+        print(f"{m:>12}: prepass GC mean {g.mean_us:.3f} us read p99 "
+              f"{g.read_p99_us:.3f} us attempts {g.mean_read_attempts:.3f} "
+              f"| in place mean {p.mean_us:.3f} us read p99 "
+              f"{p.read_p99_us:.3f} us attempts {p.mean_read_attempts:.3f}",
+              flush=True)
+
+    t0 = time.perf_counter()
+    prio = compare_mechanisms(GC_WORKLOAD, cond, GC_PRIO_MECHANISMS,
+                              engine="batched", scheduler=GC_PRIO_SCHEDULER,
+                              **kw)
+    torch.cuda.synchronize()
+    prio_s = time.perf_counter() - t0
+    prio_ref = compare_mechanisms(GC_WORKLOAD, cond, GC_PRIO_MECHANISMS,
+                                  engine="array",
+                                  scheduler=GC_PRIO_SCHEDULER, **kw)
+    _check_gc_cells("prepass GC aged rings", prio)
+    for m in GC_PRIO_MECHANISMS:
+        if _outcome(prio[m]) != _outcome(prio_ref[m]):
+            raise AssertionError(f"prepass GC {GC_PRIO_SCHEDULER} {m}: "
+                                 f"batched differs from the array "
+                                 f"interpreter")
+        print(f"{m:>12} ({GC_PRIO_SCHEDULER}): mean {prio[m].mean_us:.3f} "
+              f"us read p99 {prio[m].read_p99_us:.3f} us", flush=True)
+    print(f"prepass GC: {GC_PRIO_SCHEDULER} batched ({prio_s:.3f} s) == "
+          f"array for {GC_PRIO_MECHANISMS}", flush=True)
+
+    wear_cfg = SSDConfig(gc=GCConfig(enabled=True,
+                                     pec_per_erase=GC_PEC_PER_ERASE))
+    conds = tuple(OperatingCondition(*c) for c in SWEEP_CONDITIONS)
+    walls, blobs, sweep_launches = {}, {}, {}
+    for w in (1, 2):
+        t0 = time.perf_counter()
+        out = RT.run_sweep(GC_WORKLOAD, conds, GC_PRIO_MECHANISMS,
+                           GC_WEAR_SEEDS, cfg=wear_cfg,
+                           n_requests=N_REQUESTS, engine="batched",
+                           workers=w, device=DEVICE)
+        torch.cuda.synchronize()
+        walls[w] = time.perf_counter() - t0
+        _check_sweep_cells(f"worn-bin sweep workers={w}", out)
+        _check_gc_cells(f"worn-bin sweep workers={w}", out)
+        blobs[w], sweep_launches[w] = RT.sweep_to_json(out), \
+            _launches_of(out.values())
+        if w == 1:
+            worn = out
+    if blobs[2] != blobs[1]:
+        raise AssertionError("worn-bin sweep: sweep_to_json differs between "
+                             "workers 1 and 2")
+    # The sweep's own traffic: each seed's FTL schedule (host code with
+    # no RNG, the one the sweep built) must read blocks that GC erased
+    # before; count those reads by the P/E bin each condition samples
+    # them from, and each such bin must have been characterized.
+    done = ({(k[0], k[1]) for k in TC._COND_MEMO}
+            | {(k[0], k[1]) for k in TC._HIST_MEMO})
+    read_bins = {(c.retention_days, c.pec): {} for c in conds}
+    for s in GC_WEAR_SEEDS:
+        sched = build_ftl_schedule(
+            resolve_trace(GC_WORKLOAD, seed=s, n_requests=N_REQUESTS),
+            wear_cfg)
+        is_worn = (sched.kind <= OP_GC_READ) & (sched.wear_pec > 0.0)
+        if not is_worn.any():
+            raise AssertionError(f"worn-bin sweep seed {s}: no read of a "
+                                 f"block GC erased before")
+        wear, n = np.unique(sched.wear_pec[is_worn], return_counts=True)
+        for c in conds:
+            counts = read_bins[(c.retention_days, c.pec)]
+            for w, k in zip(wear.tolist(), n.tolist()):
+                b = TC.snap_pec(c.with_wear(w).pec)
+                counts[b] = counts.get(b, 0) + k
+    for (ret, pec), counts in read_bins.items():
+        missing = [b for b in counts if b != pec and (ret, b) not in done]
+        if not counts or missing:
+            raise AssertionError(f"worn-bin sweep at {ret:g} d / {pec:g} "
+                                 f"P/E: worn reads by bin {counts}, bins "
+                                 f"not characterized {missing}")
+    att = {(m, c.retention_days): worn[(m, c, GC_WEAR_SEEDS[0])]
+           .mean_read_attempts for c in conds for m in GC_PRIO_MECHANISMS}
+    print(f"prepass GC worn-bin sweep ({len(conds)} x "
+          f"{len(GC_PRIO_MECHANISMS)} x {len(GC_WEAR_SEEDS)} at "
+          f"{GC_PEC_PER_ERASE:g} P/E an erase): workers 1 {walls[1]:.3f} s, "
+          f"workers 2 (spawned) {walls[2]:.3f} s, {sweep_launches[1]} and "
+          f"{sweep_launches[2]} launches read from fused_cells, "
+          f"sweep_to_json byte-identical ({len(blobs[1])} bytes); reads "
+          f"of GC-erased blocks by (days, P/E) and the P/E bin they are "
+          f"sampled from, over seeds {GC_WEAR_SEEDS}: {read_bins}; seed "
+          f"{GC_WEAR_SEEDS[0]}'s "
+          f"read attempts by (mechanism, retention days): {att}",
+          flush=True)
+
+    held = _hold(f"prepass-GC launch 0 ({ops0.shape[0]} lanes, "
+                 f"{int((timing0[:, 3] != 0).sum())} pipelined)", ops0,
+                 timing0, steps0, kw0, got=out0)
+    held["chain_ms"] = held["longest"] * chain_ns * 1e-6
+    print(f"  chain bound {held['chain_ms']:.3f} ms = {held['longest']} "
+          f"steps x {chain_ns:.3f} ns; kernel at "
+          f"{held['ms'] / held['chain_ms']:.1f}x its chain bound", flush=True)
+    print(smi)
+    summary = dict(workload=GC_WORKLOAD, n_requests=N_REQUESTS,
+                   wall_s=wall, host_s=secs, launches=launches,
+                   smem_launches=smem_launches, resident_lanes=resident,
+                   variant=variant, maxp=int(ops0.shape[1]),
+                   longest_lane_steps=held["longest"],
+                   launch_ms=held["ms"], plain_ms=held["plain_ms"],
+                   bound_ms=held["bound_ms"], array_s=array_s,
+                   unfused_s=unfused_s, wa=wa, gc_invocations=gc_inv,
+                   worn_sweep_s=walls, worn_sweep_launches=sweep_launches)
+    print("prepass GC summary: " + _json.dumps(summary), flush=True)
+    return launches, smem_launches, held
+
+
 def _print_held(name, rs):
     """One line for the launches of one run, held and re-timed."""
     bound_ms, bound_by = _bound(sum(r["t_bytes"] for r in rs),
@@ -2032,6 +2304,8 @@ def main() -> int:
     ssd_launches, held_ssd = mamba_serve_phase()
     torch.cuda.empty_cache()
     sweep_launches, sweep_held = sweep_phase(smi)
+    torch.cuda.empty_cache()
+    gc_launches, gc_smem_launches, gc_held = gc_phase(smi, chain_ns)
 
     # Times and bounds are sums over each main path's launches, each
     # re-run on the inputs it had there.
@@ -2043,7 +2317,10 @@ def main() -> int:
             held, library=False), smem_launches=smem_launches,
             sweep_launches=sweep_launches, sweep_ms=sweep_held["ms"],
             sweep_plain_ms=sweep_held["plain_ms"],
-            sweep_bound_ms=sweep_held["bound_ms"]),
+            sweep_bound_ms=sweep_held["bound_ms"],
+            gc_launches=gc_launches, gc_smem_launches=gc_smem_launches,
+            gc_ms=gc_held["ms"], gc_plain_ms=gc_held["plain_ms"],
+            gc_bound_ms=gc_held["bound_ms"]),
         _kernel_line("flash_attention",
                      f"{kernels}/flash_attention/csrc/flash_attention.cu",
                      "src/repro/kernels/flash_attention/kernel.py:34",

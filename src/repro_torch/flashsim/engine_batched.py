@@ -26,9 +26,14 @@ than silently falling back to the interpreter:
                        interpreter instrumentation)
   ===================  ========================================
 
-GC, faults and the closed-loop frontend are not ported yet; the run
-APIs of :mod:`repro_torch.flashsim.ssd` reject them for every engine
-before a batched run is prepared.
+Prepass GC is inside the matrix: its schedule's GC copy-back reads
+(``rid = -1``, the low scheduling class), GC programs and erases (op
+kind 2) are ordinary rows of the op table.  Online GC, faults and the
+closed-loop frontend are not ported yet; the run APIs of
+:mod:`repro_torch.flashsim.ssd` reject them for every engine before a
+batched run is prepared, so :func:`check_batched_config` has no gate of
+its own for them (the reference's online-GC and fault gates return with
+ROADMAP D3 and D2).
 
 ``engine="auto"`` resolution lives here too (:func:`resolve_engine`):
 it runs the same checks non-fatally and returns ``("batched", "")``

@@ -294,12 +294,12 @@ def _run_items_fused(items: Sequence[Tuple[int, Cell]]) -> Dict[int, object]:
         dev = resolve_device(device)
         prepped: List[Tuple[int, object, object]] = []
         for trace, cfg, _, members in dev_groups:
-            expansion, _ = _shared_views(trace, cfg)
+            expansion, schedule = _shared_views(trace, cfg)
             for i, cell in members:
                 sim = _make_sim(cfg, cell.conditions[0], cell.mechanisms[0],
                                 cell.seed + 7, _engine(cell), dev)
-                prepped.append((i, sim, sim._prepare(trace,
-                                                     expansion=expansion)))
+                prepped.append((i, sim, sim._prepare(
+                    trace, expansion=expansion, schedule=schedule)))
         try:
             stats = _run_prepared_fused([(s, p) for _, s, p in prepped],
                                         dev)
@@ -309,27 +309,76 @@ def _run_items_fused(items: Sequence[Tuple[int, Cell]]) -> Dict[int, object]:
     return out
 
 
+def _worn_bins(cell: Cell, schedules: Optional[Dict] = None
+               ) -> Dict[OperatingCondition, Tuple[float, ...]]:
+    """P/E bins the reads of ``cell``'s worn blocks are sampled from, by
+    condition.
+
+    A read (host or GC copy-back) of a block that GC erased before is
+    sampled at the condition's P/E count plus the block's added wear,
+    snapped up to the characterization grid (``SSDSim._cdf_for``).  The
+    wear comes from the cell's FTL schedule, host code with no RNG,
+    built here as the run builds it; ``schedules`` shares it between
+    cells of one trace and config.  No bins without prepass GC or at
+    ``pec_per_erase`` 0.
+    """
+    gc = cell.cfg.gc
+    prepass = (cell.gc == "prepass" if cell.gc is not None
+               else gc.enabled and gc.mode == "prepass")
+    if not prepass or gc.pec_per_erase <= 0.0:
+        return {cond: () for cond in cell.conditions}
+    from repro_torch.flashsim import ftl as FTL
+    from repro_torch.flashsim.ssd import _with_knobs, resolve_trace
+
+    trace = resolve_trace(cell.workload, seed=cell.seed,
+                          n_requests=cell.n_requests)
+    cfg = _with_knobs(cell.cfg, None, cell.gc)
+    schedules = {} if schedules is None else schedules
+    key = (id(trace), repr(cfg))
+    if key not in schedules:
+        s = FTL.build_ftl_schedule(trace, cfg)
+        worn = (s.kind <= FTL.OP_GC_READ) & (s.wear_pec > 0.0)
+        # The trace rides along so its id stays unique while keyed.
+        schedules[key] = (trace, np.unique(s.wear_pec[worn]))
+    wear = schedules[key][1]
+    return {cond: tuple(sorted({CH.snap_pec(cond.with_wear(float(w)).pec)
+                                for w in wear}))
+            for cond in cell.conditions}
+
+
 def prewarm_characterization(cells: Iterable[Cell]) -> int:
     """Build every (condition, mechanism) table the cells will touch, on
-    each cell's device.
+    each cell's device, the worn-block bins of prepass-GC cells
+    included (:func:`_worn_bins`: only the bins their reads reach).
 
     Called in the parent before the pool is created; the pool hands the
-    resulting memos to every worker (see the module docstring).
-    Returns the number of distinct tables touched.
+    resulting memos to every worker (see the module docstring), so a
+    worker never characterizes.  Returns the number of distinct
+    (condition, mechanism) pairs touched, as the reference counts them.
     """
     from repro_torch.core.retry import RetryPolicy
-    from repro_torch.flashsim.ssd import SSDSim
+    from repro_torch.flashsim.ssd import PAGE_TYPE_ORDER, SSDSim
 
     seen = set()
+    worn = set()
+    schedules: Dict = {}
     for cell in cells:
+        bins = _worn_bins(cell, schedules)
         for cond in cell.conditions:
             for mech in cell.mechanisms:
-                key = (cond, mech)
-                if key in seen:
-                    continue
-                seen.add(key)
-                SSDSim(cell.cfg, cond, RetryPolicy(mech),
-                       device=cell.device)
+                sim = None
+                if (cond, mech) not in seen:
+                    seen.add((cond, mech))
+                    sim = SSDSim(cell.cfg, cond, RetryPolicy(mech),
+                                 device=cell.device)
+                for pec in bins[cond]:
+                    if (cond, mech, pec, cell.device) in worn:
+                        continue
+                    worn.add((cond, mech, pec, cell.device))
+                    sim = sim or SSDSim(cell.cfg, cond, RetryPolicy(mech),
+                                        device=cell.device)
+                    for pt in PAGE_TYPE_ORDER:
+                        sim._bin_cdf(pt, pec)
     return len(seen)
 
 
@@ -781,8 +830,9 @@ _COMPARE_LOCK = threading.Lock()
 
 
 def _run_compare_mech(index: int):
-    trace, expansion, sims, shard = _COMPARE_PAYLOAD
-    return sims[index].run(trace, expansion=expansion, shard=shard)
+    trace, expansion, schedule, sims, shard = _COMPARE_PAYLOAD
+    return sims[index].run(trace, expansion=expansion, schedule=schedule,
+                           shard=shard)
 
 
 def run_compare(
@@ -831,13 +881,18 @@ def run_compare(
             device=dev,
         )
     trace = ssd.resolve_trace(workload, seed=seed, n_requests=n_requests)
-    expansion, _ = ssd._shared_views(trace, cfg)
-    # Materialize the lazy list view now so forked children share it.
+    expansion, schedule = ssd._shared_views(trace, cfg)
+    # Materialize the lazy list views now so forked children share them.
     expansion.admission_lists
+    if schedule is not None:
+        schedule.admission_lists
+    prewarm_characterization([Cell("compare", workload, (condition,),
+                                   mechanisms, seed, cfg, n_requests,
+                                   device=dev)])
     sims = [ssd._make_sim(cfg, condition, m, seed + 7, engine, dev)
             for m in mechanisms]
     with _COMPARE_LOCK:
-        _COMPARE_PAYLOAD = (trace, expansion, sims, shard)
+        _COMPARE_PAYLOAD = (trace, expansion, schedule, sims, shard)
         try:
             try:
                 pool = ProcessPoolExecutor(

@@ -32,11 +32,16 @@ its matrix and records the decision on :class:`SimStats`.
 (:mod:`repro_torch.flashsim.engine_ref`) on the host.  ``workers > 1``
 and ``journal=`` hand the sweep to :mod:`repro_torch.flashsim.runtime`.
 
+``gc="prepass"`` runs the trace through the page-mapping FTL
+(:mod:`repro_torch.flashsim.ftl`) once per trace; its schedule of host
+ops, GC copy-back reads and programs, and erases is shared by every
+mechanism, and worn blocks sample their attempts and AR² scale from the
+characterization of their own P/E bin.
+
 Every run API takes ``device=`` and runs on the CUDA card unless told
 otherwise; ``device=None`` without CUDA raises.  Knobs whose subsystems
-are not ported yet (the FTL and GC, faults, the closed-loop frontend
-and host cache) raise :class:`NotImplementedError` naming their ROADMAP
-item.
+are not ported yet (online GC, faults, the closed-loop frontend and host
+cache) raise :class:`NotImplementedError` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -55,6 +60,7 @@ from repro_torch.flashsim.config import (
     OperatingCondition,
     SSDConfig,
 )
+from repro_torch.flashsim import ftl as FTL
 from repro_torch.flashsim.engine import make_buffers, run_event_core
 from repro_torch.flashsim.sched import get_scheduler
 from repro_torch.flashsim.workloads import (
@@ -79,7 +85,6 @@ _DEFERRED = {
     "ncq_depth": "D1 (closed-loop frontend: run_closed_loop)",
     "faults": "D2 (faults)",
     "gc=online": "D3 (gc_online)",
-    "gc=prepass": "D4 (ftl and prepass GC)",
     "host_cache": "D5 (hostcache)",
 }
 
@@ -98,8 +103,8 @@ def _check_ported(cfg: SSDConfig) -> None:
         raise _unported("host_cache")
     if cfg.faults is not None:
         raise _unported("faults")
-    if cfg.gc.enabled:
-        raise _unported(f"gc={cfg.gc.mode}")
+    if cfg.gc.enabled and cfg.gc.mode == "online":
+        raise _unported("gc=online")
 
 
 def _pctl(a: np.ndarray, qs) -> np.ndarray:
@@ -174,10 +179,11 @@ class SimStats:
 
     All times are microseconds; utilizations are fractions of the trace
     span.  The field set is the reference's, so the two packages' stats
-    compare field by field.  The GC, fault and closed-loop blocks keep
-    their defaults here (the in-place, failure-free, open-loop facts):
-    the FTL, the fault model and the closed-loop frontend are not ported
-    yet.  ``gc_suspensions`` counts preempt-scheduler suspend events.
+    compare field by field.  The GC block is filled by prepass-GC runs;
+    the fault and closed-loop blocks keep their defaults (the
+    failure-free, open-loop facts): the fault model and the closed-loop
+    frontend are not ported yet.  ``gc_suspensions`` counts
+    preempt-scheduler suspend events.
     """
 
     mean_us: float            # mean response time over ALL requests (us)
@@ -396,7 +402,13 @@ class SSDSim:
                 self.tr_scale = float(policy.tr_scale)
         else:
             self.tr_scale = 1.0
-        # Unscaled per-page-type tR.
+        # Per-block AR² scale memo: snapped effective P/E -> safe scale.
+        self._wear_scales: Dict[float, float] = {}
+        # Worn-block attempt-CDF memo: (page type, wear) -> CDF, one
+        # resolution per distinct wear for the whole run.
+        self._wear_cdfs: Dict[Tuple[str, float], np.ndarray] = {}
+        # Unscaled per-page-type tR (scale applied per op: device-level for
+        # unworn blocks, per-block for GC-worn ones).
         self._tr_base = np.array(
             [cfg.timing.tr_us[pt] for pt in PAGE_TYPE_ORDER]
         )
@@ -414,28 +426,127 @@ class SSDSim:
             for pt in PAGE_TYPE_ORDER
         }
 
-    def _sample_attempts(self, page_types: np.ndarray) -> np.ndarray:
+    # -- attempt sampling ----------------------------------------------------
+
+    def _scale_for(self, wear_pec: float) -> float:
+        """AR² tR scale at a block's effective wear.
+
+        Zero wear, or a non-adaptive or pinned-scale policy, uses the
+        device-condition scale.  A worn block resolves its condition
+        (``OperatingCondition.with_wear``), snaps the effective P/E count
+        up to the characterization grid and takes *that* bin's safe
+        scale (:meth:`_bin_scale`).
+        """
+        if (wear_pec <= 0.0 or not self.policy.adaptive_tr
+                or self.policy.tr_scale != "auto"):
+            return self.tr_scale
+        return self._bin_scale(CH.snap_pec(self.cond.with_wear(wear_pec).pec))
+
+    def _bin_scale(self, pec_bin: float) -> float:
+        """Safe AR² scale of one P/E bin at this run's retention,
+        characterized on ``self.device``; memoized per bin."""
+        s = self._wear_scales.get(pec_bin)
+        if s is None:
+            s = CH.characterize_condition(
+                self.cond.retention_days, pec_bin, device=self.device
+            ).safe_tr_scale
+            self._wear_scales[pec_bin] = s
+        return s
+
+    def _cdf_for(self, page_type: str, wear_pec: float) -> np.ndarray:
+        """Attempt CDF for one page type at a block's effective wear.
+
+        Zero wear uses the device-condition table untouched.  A worn
+        block snaps its effective P/E count up to the characterization
+        grid and samples that bin's table (:meth:`_bin_cdf`); memoized
+        per (page type, wear).
+        """
+        if wear_pec <= 0.0:
+            return self._attempt_cdfs[page_type]
+        key = (page_type, wear_pec)
+        cdf = self._wear_cdfs.get(key)
+        if cdf is None:
+            cdf = self._bin_cdf(
+                page_type, CH.snap_pec(self.cond.with_wear(wear_pec).pec))
+            self._wear_cdfs[key] = cdf
+        return cdf
+
+    def _bin_cdf(self, page_type: str, pec_bin: float) -> np.ndarray:
+        """Attempt CDF of one page type in one P/E bin: for adaptive-tR
+        policies the search runs at the bin's own AR² scale, so a worn
+        block's attempts and sense time come from one characterization
+        bin."""
+        scale = (self._bin_scale(pec_bin) if self.policy.adaptive_tr
+                 and self.policy.tr_scale == "auto" else self.tr_scale)
+        return CH.attempt_cdf(
+            self.cond.retention_days, pec_bin, page_type=page_type,
+            sota=self.policy.sota_start, tr_scale=scale, device=self.device)
+
+    def _draw_attempts(self, ptype_idx: int, wear_pec: float,
+                       rng: Optional[np.random.Generator] = None) -> int:
+        """One attempt count at (page type, block wear), from ``rng``
+        (default: the run's ``self.rng``)."""
+        pt = PAGE_TYPE_ORDER[ptype_idx]
+        r = self.rng if rng is None else rng
+        a = int(np.searchsorted(self._cdf_for(pt, wear_pec), r.random()))
+        return a if a > 1 else 1
+
+    def _tr_for(self, ptype_idx: int, wear_pec: float) -> float:
+        """Per-attempt sense time at (page type, block wear)."""
+        return float(self._tr_base[ptype_idx]) * self._scale_for(wear_pec)
+
+    def _sample_attempts(
+        self,
+        page_types: np.ndarray,
+        wear_pec: Optional[np.ndarray] = None,
+    ) -> np.ndarray:
         """Inverse-CDF attempt counts for a batch of page-type indices,
-        one uniform per read page in admission order."""
+        one uniform per read page in admission order.  With ``wear_pec``
+        (FTL runs) each read samples the CDF of its block's wear; the
+        uniform stream is the same either way."""
         u = self.rng.random(page_types.shape)
         out = np.empty(page_types.shape, np.int64)
         for i, pt in enumerate(PAGE_TYPE_ORDER):
             m = page_types == i
-            if m.any():
+            if not m.any():
+                continue
+            if wear_pec is None:
                 out[m] = np.searchsorted(self._attempt_cdfs[pt], u[m])
+            else:
+                um, wm = u[m], wear_pec[m]
+                om = np.empty(um.shape, np.int64)
+                for wv in np.unique(wm):
+                    sel = wm == wv
+                    om[sel] = np.searchsorted(self._cdf_for(pt, float(wv)),
+                                              um[sel])
+                out[m] = om
         return np.maximum(out, 1)
 
     # -- run orchestration ---------------------------------------------------
+
+    def _tr_scales_for_schedule(self, schedule, read_like: np.ndarray):
+        """Per-op AR² scale over an FTL schedule (per-block resolution)."""
+        P = schedule.n_ops
+        scale = np.full(P, self.tr_scale)
+        if self.policy.adaptive_tr and self.policy.tr_scale == "auto":
+            wear = schedule.wear_pec
+            worn = read_like & (wear > 0.0)
+            if worn.any():
+                for wv in np.unique(wear[worn]):
+                    scale[worn & (wear == wv)] = self._scale_for(float(wv))
+        return scale
 
     def _prepare(
         self,
         trace: RequestTrace,
         expansion: Optional[TraceExpansion] = None,
+        schedule: Optional[FTL.FTLSchedule] = None,
         validate: bool = False,
     ) -> "_PreparedRun":
         """Everything :meth:`run` does before the engine dispatch.
 
-        Resolves the engine, samples the attempt schedule (consuming
+        Resolves the engine, builds the FTL schedule under prepass GC when
+        none is given, samples the attempt schedule (consuming
         ``self.rng`` in admission order) and builds the admission
         buffers.  Split out so the fused sweep path can prepare many
         cells, run them in one kernel launch, and :meth:`_finalize` each.
@@ -450,51 +561,81 @@ class SSDSim:
             engine_selected, engine_reason = resolve_engine(cfg, validate,
                                                            self.device)
         batched = engine_selected == "batched"
+        if schedule is None and cfg.gc.enabled and cfg.gc.mode == "prepass":
+            schedule = FTL.build_ftl_schedule(trace, cfg)
 
-        ex = expansion if expansion is not None else expand_trace(trace, cfg)
-        P = ex.n_ops
-        read_mask = ex.is_read
-        attempts_np = np.ones(P, np.int64)
-        attempts_np[read_mask] = self._sample_attempts(ex.ptype[read_mask])
-        tr_np = (self._tr_base * self.tr_scale)[ex.ptype]
-        if batched:
-            # Batched runs read whole columns: hand them numpy views.
-            adm_a, rid_a, die_a, ch_a, read_a = ex.admission_arrays
-            bufs = make_buffers(adm_a, rid_a, die_a, ch_a, read_a,
-                                np.zeros(P, bool),
-                                np.full(P, tprog, np.float64),
-                                attempts_np, tr_np)
+        if schedule is not None:
+            # Prepass FTL path: host and GC page-ops, attempts and AR² tR
+            # scale resolved per block wear.
+            P = schedule.n_ops
+            read_like = schedule.kind <= FTL.OP_GC_READ
+            attempts_np = np.ones(P, np.int64)
+            attempts_np[read_like] = self._sample_attempts(
+                schedule.ptype[read_like], schedule.wear_pec[read_like])
+            tr_np = (self._tr_base[schedule.ptype]
+                     * self._tr_scales_for_schedule(schedule, read_like))
+            if batched:
+                bufs = make_buffers(*schedule.admission_arrays,
+                                    attempts_np, tr_np)
+            else:
+                bufs = make_buffers(*schedule.admission_lists,
+                                    attempts_np.tolist(), tr_np.tolist())
+            host_read = schedule.kind == FTL.OP_READ
+            n_requests = schedule.n_requests
         else:
-            adm_t, op_rid, op_die, op_ch, op_read = ex.admission_lists
-            bufs = make_buffers(adm_t, op_rid, op_die, op_ch, op_read,
-                                [False] * P,    # no erases without FTL
-                                [tprog] * P,    # write-like ops: tPROG
-                                attempts_np.tolist(), tr_np.tolist())
+            ex = (expansion if expansion is not None
+                  else expand_trace(trace, cfg))
+            P = ex.n_ops
+            host_read = ex.is_read
+            attempts_np = np.ones(P, np.int64)
+            attempts_np[host_read] = self._sample_attempts(
+                ex.ptype[host_read])
+            tr_np = (self._tr_base * self.tr_scale)[ex.ptype]
+            if batched:
+                # Batched runs read whole columns: hand them numpy views.
+                adm_a, rid_a, die_a, ch_a, read_a = ex.admission_arrays
+                bufs = make_buffers(adm_a, rid_a, die_a, ch_a, read_a,
+                                    np.zeros(P, bool),
+                                    np.full(P, tprog, np.float64),
+                                    attempts_np, tr_np)
+            else:
+                adm_t, op_rid, op_die, op_ch, op_read = ex.admission_lists
+                bufs = make_buffers(adm_t, op_rid, op_die, op_ch, op_read,
+                                    [False] * P,    # no erases without FTL
+                                    [tprog] * P,    # write-like ops: tPROG
+                                    attempts_np.tolist(), tr_np.tolist())
+            n_requests = ex.n_requests
         return _PreparedRun(
             trace=trace, validate=validate, pipelined=self.policy.pipelined,
             sched_policy=get_scheduler(cfg.scheduler), batched=batched,
             engine_selected=engine_selected, engine_reason=engine_reason,
-            bufs=bufs, n_requests=ex.n_requests,
-            total_read_pages=int(read_mask.sum()),
-            total_attempts=int(attempts_np[read_mask].sum()),
+            bufs=bufs, n_requests=n_requests,
+            total_read_pages=int(host_read.sum()),
+            total_attempts=int(attempts_np[host_read].sum()),
+            schedule=schedule,
         )
 
     def run(
         self,
         trace: RequestTrace,
         expansion: Optional[TraceExpansion] = None,
+        schedule: Optional[FTL.FTLSchedule] = None,
         validate: bool = False,
         shard: bool = False,
     ) -> SimStats:
         """Simulate one trace.
 
-        ``expansion`` may be shared across the mechanisms of a sweep.
-        ``shard=True`` runs the array event core as one loop per channel
-        with a deterministic merge — bit-identical to the monolithic
-        default.  ``validate=True`` turns on the array engine's
-        work-conservation checks (test instrumentation).
+        ``expansion`` (in-place runs) or ``schedule`` (an
+        :class:`~repro_torch.flashsim.ftl.FTLSchedule`, prepass-GC runs)
+        may be shared across the mechanisms of a sweep; under prepass GC
+        without a schedule the run builds one.  ``shard=True`` runs the
+        array event core as one loop per channel with a deterministic
+        merge — bit-identical to the monolithic default.
+        ``validate=True`` turns on the array engine's work-conservation
+        checks (test instrumentation).
         """
-        prep = self._prepare(trace, expansion=expansion, validate=validate)
+        prep = self._prepare(trace, expansion=expansion, schedule=schedule,
+                             validate=validate)
         if prep.batched:
             from repro_torch.flashsim.engine_batched import (
                 run_event_core_batched)
@@ -523,7 +664,22 @@ class SSDSim:
         read_resp = response[trace.is_read]
         span = float(req_done_at.max())
         gc_kw = {}
-        if res.gc_suspensions:
+        if prep.schedule is not None:
+            # GC traffic can outlive the last host completion (an erase
+            # triggered by the final write holds its die past it), so the
+            # utilization span extends to the last die or channel release;
+            # in-place runs keep the host-completion span.
+            span = max(span, max(res.die_busy), max(res.ch_busy))
+            fs = prep.schedule.stats
+            gc_kw = dict(
+                wa=fs.write_amplification,
+                gc_invocations=fs.gc_invocations,
+                gc_page_reads=fs.gc_page_reads,
+                gc_page_progs=fs.gc_page_progs,
+                blocks_erased=fs.blocks_erased,
+                gc_suspensions=res.gc_suspensions,
+            )
+        elif res.gc_suspensions:
             gc_kw = dict(gc_suspensions=res.gc_suspensions)
         # One percentile call shares the partition pass across the three
         # quantiles (bit-identical to three separate calls).
@@ -570,6 +726,7 @@ class _PreparedRun:
     n_requests: int
     total_read_pages: int
     total_attempts: int
+    schedule: Optional[FTL.FTLSchedule] = None
 
 
 def _run_prepared_fused(items, device):
@@ -599,9 +756,10 @@ def _with_knobs(cfg: SSDConfig, scheduler: Optional[str],
                 host_cache=None) -> SSDConfig:
     """Overlay the run-API knobs onto a config and reject the unported
     ones: ``scheduler`` picks the die-queue policy; ``gc="off"`` keeps
-    the in-place FTL-less device; ``faults``, ``ncq_depth``,
-    ``host_cache`` and any enabled GC raise :class:`NotImplementedError`
-    (:class:`SSDSim` rejects the same fields set on the config itself).
+    the in-place FTL-less device and ``gc="prepass"`` turns on the FTL
+    pre-pass; ``gc="online"``, ``faults``, ``ncq_depth`` and
+    ``host_cache`` raise :class:`NotImplementedError` (:class:`SSDSim`
+    rejects the same fields set on the config itself).
     """
     if scheduler is not None:
         cfg = dataclasses.replace(cfg, scheduler=scheduler)
@@ -615,8 +773,12 @@ def _with_knobs(cfg: SSDConfig, scheduler: Optional[str],
         if gc == "off":
             cfg = dataclasses.replace(
                 cfg, gc=dataclasses.replace(cfg.gc, enabled=False))
-        elif gc in ("prepass", "online"):
-            raise _unported(f"gc={gc}")
+        elif gc == "prepass":
+            cfg = dataclasses.replace(
+                cfg, gc=dataclasses.replace(cfg.gc, enabled=True,
+                                            mode=gc))
+        elif gc == "online":
+            raise _unported("gc=online")
         else:
             raise ValueError(
                 f"gc knob must be 'off', 'prepass' or 'online', got {gc!r}"
@@ -641,12 +803,12 @@ def _fuse_resolved(cfg, engine: str, fuse: Optional[bool],
 
 
 def _shared_views(trace, cfg):
-    """(expansion, schedule) pair shared by every mechanism of a sweep.
-
-    The schedule is the FTL pre-pass's, which the port does not have yet
-    (ROADMAP D4), so it is always ``None``.
-    """
-    return expand_trace(trace, cfg), None
+    """(expansion, schedule) pair shared by every mechanism of a sweep:
+    the schedule is the FTL pre-pass's under prepass GC, else ``None``."""
+    expansion = expand_trace(trace, cfg)
+    if not cfg.gc.enabled or cfg.gc.mode != "prepass":
+        return expansion, None
+    return expansion, FTL.build_ftl_schedule(trace, cfg, expansion=expansion)
 
 
 def _make_sim(cfg, condition, mechanism, seed, engine, device):
@@ -715,11 +877,13 @@ def simulate(
     elsewhere; ``engine="auto"`` picks it when eligible;
     ``engine="reference"`` runs the seed closure engine (fcfs only).
     ``shard=True`` runs the array engine as one loop per channel (a
-    no-op for batched; the reference engine rejects it).  ``device``
-    places the characterization and the batched kernel (default: the
-    CUDA card).  ``gc`` other than ``"off"``, ``faults``, ``ncq_depth``
-    and ``host_cache`` are not ported yet and raise
-    :class:`NotImplementedError`.
+    no-op for batched; the reference engine rejects it).  ``gc=
+    "prepass"`` runs the trace through the FTL (:mod:`repro_torch.
+    flashsim.ftl`) and the stats carry WA and GC counters; the reference
+    engine rejects it.  ``device`` places the characterization and the
+    batched kernel (default: the CUDA card).  ``gc="online"``,
+    ``faults``, ``ncq_depth`` and ``host_cache`` are not ported yet and
+    raise :class:`NotImplementedError`.
     """
     engine = cfg.engine if engine is None else engine
     cfg = _with_knobs(cfg, scheduler, gc, faults, ncq_depth, host_cache)
@@ -750,7 +914,9 @@ def compare_mechanisms(
     fuse: Optional[bool] = None,
     device=None,
 ) -> Dict[str, SimStats]:
-    """All mechanisms over ONE shared trace (resolved once, expanded once).
+    """All mechanisms over ONE shared trace (resolved once, expanded once;
+    under prepass GC its FTL schedule is built once and shared too, so
+    every mechanism sees the same GC traffic and block wear).
 
     ``fuse=`` (default ``cfg.fuse``): when the config resolves inside
     the batched matrix, the mechanisms' op tables are stacked along the
@@ -776,14 +942,16 @@ def compare_mechanisms(
                         engine=engine, shard=shard, device=dev)
             for m in mechanisms
         }
-    expansion, _ = _shared_views(trace, cfg)
+    expansion, schedule = _shared_views(trace, cfg)
     sims = [_make_sim(cfg, condition, m, seed + 7, engine, dev)
             for m in mechanisms]
     if _fuse_resolved(cfg, engine, fuse, dev) and len(sims) > 1:
-        items = [(sim, sim._prepare(trace, expansion=expansion))
+        items = [(sim, sim._prepare(trace, expansion=expansion,
+                                    schedule=schedule))
                  for sim in sims]
         return dict(zip(mechanisms, _run_prepared_fused(items, dev)))
-    return {m: sim.run(trace, expansion=expansion, shard=shard)
+    return {m: sim.run(trace, expansion=expansion, schedule=schedule,
+                       shard=shard)
             for m, sim in zip(mechanisms, sims)}
 
 
@@ -810,8 +978,9 @@ def simulate_batch(
 ) -> Dict[Tuple[str, OperatingCondition, int], SimStats]:
     """Sweep (mechanism x condition x seed) cells for one workload.
 
-    Each seed's trace is generated and expanded once and shared by every
-    (mechanism, condition) cell; characterization tables are memoized
+    Each seed's trace is generated and expanded once (and, under prepass
+    GC, run through the FTL once) and shared by every (mechanism,
+    condition) cell; characterization tables are memoized
     per condition.  ``fuse=`` stacks every cell of the grid on the
     kernel's lane axis when the config is batched-eligible (results
     identical for any fusion decision).  ``workers > 1`` schedules seed
@@ -842,20 +1011,21 @@ def simulate_batch(
     out: Dict[Tuple[str, OperatingCondition, int], SimStats] = {}
     for s in seeds:
         trace = resolve_trace(workload, seed=s, n_requests=n_requests)
-        expansion = None
+        expansion = schedule = None
         if engine != "reference":
-            expansion, _ = _shared_views(trace, cfg)
+            expansion, schedule = _shared_views(trace, cfg)
         for cond in conditions:
             for m in mechanisms:
                 sim = _make_sim(cfg, cond, m, s + 7, engine, dev)
                 if fused:
                     keys.append((m, cond, s))
-                    items.append((sim, sim._prepare(trace,
-                                                    expansion=expansion)))
+                    items.append((sim, sim._prepare(
+                        trace, expansion=expansion, schedule=schedule)))
                 elif expansion is None:
                     out[(m, cond, s)] = sim.run(trace)
                 else:
                     out[(m, cond, s)] = sim.run(trace, expansion=expansion,
+                                                schedule=schedule,
                                                 shard=shard)
     if fused:
         return dict(zip(keys, _run_prepared_fused(items, dev)))

@@ -31,7 +31,10 @@ priority lowerings, serial and pipelined, lanes of both kinds in one
 launch, more lanes than the card holds at once, and ``smem_launches``
 counting shared-memory launches only.  A sweep through spawned workers
 (``run_cells`` at workers 2, a CUDA context each) gives workers 1's
-bytes with every cell fused on the card.  ``chip_smoke.py`` holds every
+bytes with every cell fused on the card.  A prepass-GC compare on the
+card launches the shard core once with erases and low-priority GC reads
+in its op table, equal to the array interpreter and, launch for launch,
+to the plain version.  ``chip_smoke.py`` holds every
 kernel at its main path's full-width shapes.
 """
 
@@ -496,3 +499,50 @@ def test_sweep_spawned_workers_launch_on_the_card(monkeypatch, tmp_path):
         blobs[w] = RT.sweep_to_json({k: v for g in groups
                                      for k, v in g.items()})
     assert blobs[1] == blobs[2]
+
+
+def test_prepass_gc_compare_on_the_card(monkeypatch, tmp_path):
+    """A prepass-GC ``compare_mechanisms`` on the card: the shard core's
+    launch holds erases (kind 2) and low-priority GC reads beside the
+    host ops, every cell equals the array interpreter's, and the launch
+    equals the plain version bit for bit."""
+    import dataclasses
+
+    from repro_torch.flashsim import (GCConfig, OperatingCondition,
+                                      SSDConfig, compare_mechanisms,
+                                      make_workloads)
+
+    monkeypatch.setenv("REPRO_TORCH_CHAR_CACHE_DIR", str(tmp_path))
+    w = dataclasses.replace(make_workloads()["prn"], span_pages=512,
+                            n_requests=600)
+    cfg = SSDConfig(gc=GCConfig(enabled=True, pages_per_block=8))
+    cond = OperatingCondition(365.0, 1000.0)
+    mechs = ("baseline", "pr2ar2")
+    launched = []
+    fwd = FC.fcfs_core_fwd
+
+    def recording(ops, timing, steps, **kw):
+        out = fwd(ops, timing, steps, **kw)
+        launched.append((ops, timing, steps, kw, out))
+        return out
+
+    monkeypatch.setattr(FC, "fcfs_core_fwd", recording)
+    for scheduler in ("fcfs", "host_prio_aged:4"):
+        launched.clear()
+        before = FC.launches
+        got = compare_mechanisms(w, cond, mechs, seed=1, cfg=cfg,
+                                 gc="prepass", engine="batched",
+                                 scheduler=scheduler)
+        want = compare_mechanisms(w, cond, mechs, seed=1, cfg=cfg,
+                                  gc="prepass", engine="array",
+                                  scheduler=scheduler, device="cuda")
+        assert FC.launches - before == len(launched) == 1
+        for m in mechs:
+            assert got[m] == want[m]
+            assert got[m].gc_invocations == got[m].blocks_erased > 0
+        ops, timing, steps, kw, out = launched[0]
+        kind, hp = ops[:, :, 1], ops[:, :, 6]
+        assert bool((kind == 2.0).any())
+        assert bool(((kind == 0.0) & (hp == 0.0)).any())
+        plain = fcfs_core_plain(ops, timing, steps, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(out, plain))

@@ -35,23 +35,36 @@ GOLDEN = json.loads((DATA / "golden_workloads.json").read_text())
 AGED = (365.0, 1000.0)
 MODEST = (30.0, 0.0)
 SAFE = {AGED: 0.75, MODEST: 0.8}
+#: The P/E bins a GC-worn block of AGED or MODEST snaps up to, each at
+#: its own safe scale and with a wider attempt span than its condition:
+#: (365, 1500) and (30, 500) are what prepass GC reaches at one P/E a
+#: erase; 300 a erase takes MODEST's blocks to (30, 1000) and (30, 1500).
+WORN = {(365.0, 1500.0): (0.7, 22), (30.0, 500.0): (0.78, 7),
+        (30.0, 1000.0): (0.76, 9), (30.0, 1500.0): (0.72, 12)}
 N = 300
 _REF_PREFIXES = ("repro.kernels.fcfs_core", "repro.flashsim.engine_batched")
 
 
 def _synthetic_tables():
-    """Seeded attempt histograms + safe scales for AGED and MODEST."""
-    rng = np.random.default_rng(2024)
+    """Seeded attempt histograms + safe scales for AGED and MODEST, and
+    for the worn bins of :data:`WORN` (keyed as the simulators' worn-block
+    lookups ask for them: the bin's P/E count, at scale 1 and at the
+    bin's own safe scale)."""
     stats, hists = {}, {}
-    for cond, span in ((AGED, 18), (MODEST, 5)):
+    conds = [(AGED, 18, SAFE[AGED], 2024), (MODEST, 5, SAFE[MODEST], None)]
+    conds += [(c, span, safe, 2025 if i == 0 else None)
+              for i, (c, (safe, span)) in enumerate(WORN.items())]
+    for cond, span, safe, seed in conds:
+        if seed is not None:
+            rng = np.random.default_rng(seed)
         stats[cond] = dict(
             retention_days=cond[0], pec=cond[1], mean_retry_steps=1.0,
             p99_retry_steps=2.0, frac_reads_with_retry=0.5,
             mean_margin_final=0.4, p01_margin_final=0.1,
-            safe_tr_scale=SAFE[cond])
+            safe_tr_scale=safe)
         for pt in ("lsb", "csb", "msb"):
             for sota in (False, True):
-                for scale in (1.0, SAFE[cond]):
+                for scale in (1.0, safe):
                     h = np.zeros(42)
                     lo = 1 if sota else 1 + span // 3
                     h[lo:lo + span] = rng.dirichlet(np.ones(span))
@@ -222,7 +235,6 @@ def test_simulate_batch_matches_reference(tables, engine):
     ("ncq_depth", dict(ncq_depth=8)),
     ("host_cache", dict(host_cache="cfg")),
     ("faults", dict(faults="cfg")),
-    ("gc=prepass", dict(gc="prepass")),
     ("gc=online", dict(gc="online")),
 ])
 def test_unported_knobs_raise(tables, knob, call):
@@ -240,7 +252,7 @@ def test_unported_knobs_raise(tables, knob, call):
 def test_unported_config_fields_raise(tables):
     gc_cfg = dataclasses.replace(
         TF.DEFAULT_SSD, gc=dataclasses.replace(TF.DEFAULT_SSD.gc,
-                                               enabled=True))
+                                               enabled=True, mode="online"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TF.SSDSim(gc_cfg, TF.OperatingCondition(*AGED), device="cpu")
 

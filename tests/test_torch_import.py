@@ -44,6 +44,11 @@ def test_import_and_simulate_without_jax(tmp_path):
         "r = simulate('websearch', OperatingCondition(30.0, 0.0), 'pr2ar2',"
         " n_requests=200, engine='reference', device='cpu')\n"
         "assert r.mean_read_attempts == 3.0, r\n"
+        "from repro_torch.flashsim import GCConfig, SSDConfig\n"
+        "g = simulate('prn', OperatingCondition(30.0, 0.0), 'pr2ar2',"
+        " n_requests=1200, seed=1, gc='prepass', cfg=SSDConfig(gc=GCConfig("
+        "pec_per_erase=0.0)), device='cpu')\n"
+        "assert g.gc_invocations == g.blocks_erased > 0 and g.wa > 1.0, g\n"
         "j = sys.argv[1] + '/sweep.jsonl'\n"
         "kw = dict(n_requests=100, device='cpu', journal=j)\n"
         "a = run_sweep('websearch', [OperatingCondition(30.0, 0.0)],"

@@ -32,6 +32,7 @@ from repro_torch.flashsim import runtime as RT
 from repro_torch.flashsim.workloads import (RequestTrace, TraceSource,
                                             clear_trace_cache)
 from test_torch_flashsim import AGED, MODEST, N, one_thread, tables  # noqa: F401
+from test_torch_ftl import _cfgs as _gc_cfgs, _hot
 
 MECHS = ("baseline", "sota", "pr2", "ar2", "pr2ar2", "sota+pr2ar2")
 SEEDS = (0, 1, 2)
@@ -438,3 +439,133 @@ def test_host_fingerprint_fields():
     assert set(fp) == {"cpu_model", "cpu_count", "platform", "python",
                        "numpy"}
     assert fp["cpu_count"] >= 1
+
+
+# -- prepass GC through the runtime ------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def gc_ref_json(tables):
+    """The reference's inline prepass sweep: 2 conditions x 2 mechanisms
+    x 2 seeds of ``prn`` on its hot span (array engine)."""
+    from repro.flashsim import runtime as RR
+
+    _, rcfg = _gc_cfgs()
+    return RR.sweep_to_json(RR.run_sweep(
+        _hot()[1], _ref_conds(), ("baseline", "pr2ar2"), (0, 1), cfg=rcfg,
+        engine="array"))
+
+
+@pytest.mark.parametrize("engine,workers", [("array", 1), ("batched", 2)])
+def test_prepass_sweep_matches_reference(gc_ref_json, engine, workers):
+    """Each seed group shares one FTL schedule across its cells; the
+    bytes are the reference's at workers 1 and 2 (a fork pool, whose
+    parent warms the worn bins above each condition first)."""
+    if workers > 1:
+        _require_pool()
+    cfg, _ = _gc_cfgs()
+    got = TF.run_sweep(_hot()[0], PORT_CONDS, ("baseline", "pr2ar2"), (0, 1),
+                       cfg=cfg, engine=engine, workers=workers, device="cpu")
+    assert RT.sweep_to_json(got) == gc_ref_json
+    assert all(s.gc_invocations > 0 for s in got.values())
+    if engine == "batched":
+        assert all(s.fused_cells > 0 for s in got.values())
+
+
+def test_prepass_cross_cell_fusion_matches_reference(tables):
+    """Simulate cells of one trace share its FTL schedule and fuse across
+    cells, with the reference's ``fused_cells``."""
+    from repro.flashsim import runtime as RR
+
+    cfg, rcfg = _gc_cfgs()
+    hot, rhot = _hot()
+    mechs = ("pr2", "pr2ar2", "sota+pr2ar2")
+    cells = [TF.Cell("simulate", hot, (PORT_CONDS[0],), (m,), 5, cfg=cfg,
+                     engine="batched", device="cpu") for m in mechs]
+    ref_cells = [RR.Cell("simulate", rhot, (_ref_conds()[0],), (m,), 5,
+                         cfg=rcfg, engine="batched") for m in mechs]
+    got = RT.run_cells(cells, workers=1)
+    want = RR.run_cells(ref_cells, workers=1)
+    assert [RT._stats_payload(s) for s in got] == \
+        [RR._stats_payload(s) for s in want]
+    assert [s.fused_cells for s in got] == [s.fused_cells for s in want]
+    assert max(s.fused_cells for s in got) > 1
+    assert all(s.gc_invocations > 0 for s in got)
+
+
+def test_prewarm_warms_the_worn_bins(tables):
+    """A prepass cell warms, beside its condition's tables, exactly the
+    bins its worn blocks' reads snap up to (read from the reference's
+    FTL schedule of the same trace), at each mechanism's scale; the
+    count is still the reference's (condition, mechanism) pairs."""
+    from repro.core.characterize import snap_pec
+    from repro.flashsim import ftl as RFTL
+    from repro.flashsim import runtime as RR
+    from repro.flashsim.ssd import resolve_trace
+    from repro_torch.core import characterize as TC
+
+    cfg, rcfg = _gc_cfgs(pec_per_erase=300.0)
+    hot, rhot = _hot()
+    mechs = ("baseline", "pr2ar2")
+    cell = TF.Cell("batch", hot, PORT_CONDS, mechs, 0, cfg=cfg,
+                   device="cpu")
+    sched = RFTL.build_ftl_schedule(resolve_trace(rhot, seed=0), rcfg)
+    wear = sched.wear_pec[(sched.kind <= RFTL.OP_GC_READ)
+                          & (sched.wear_pec > 0.0)]
+    want = {c: tuple(sorted({snap_pec(rc.with_wear(float(w)).pec)
+                             for w in wear}))
+            for c, rc in zip(PORT_CONDS, _ref_conds())}
+    got = RT._worn_bins(cell)
+    assert got == want
+    assert got[PORT_CONDS[0]] == (1500.0,)
+    assert len(got[PORT_CONDS[1]]) >= 2
+    off = dataclasses.replace(cell, gc="off")
+    assert RT._worn_bins(off) == {c: () for c in PORT_CONDS}
+    TC._CDF_MEMO.clear()
+    n = RT.prewarm_characterization([cell])
+    assert n == RR.prewarm_characterization(
+        [RR.Cell("batch", rhot, _ref_conds(), mechs, 0, cfg=rcfg)]) == 4
+    warm = {(k[0], k[1], k[3], k[4]) for k in TC._CDF_MEMO}
+    for cond, bins in got.items():
+        for pec in (1000.0, 1500.0) if cond.pec == 1000.0 else \
+                (500.0, 1000.0, 1500.0):
+            safe = TC.characterize_condition(
+                cond.retention_days, pec, device="cpu").safe_tr_scale
+            for scale in (1.0, safe):                  # baseline, pr2ar2
+                key = (cond.retention_days, pec, False, scale)
+                assert (key in warm) == (pec in bins or pec == cond.pec)
+
+
+def test_spawned_workers_read_the_worn_bins(tables, monkeypatch):
+    """Spawned workers get the worn bins' ``load_tables`` tables too (a
+    worker that characterized 365 d / 1500 P/E itself would give other
+    stats)."""
+    _require_pool()
+    monkeypatch.setenv("REPRO_SWEEP_START_METHOD", "spawn")
+    cfg, _ = _gc_cfgs(pec_per_erase=300.0)
+    cells = [TF.Cell("simulate", _hot()[0], (PORT_CONDS[0],), (m,), 0,
+                     cfg=cfg, device="cpu")
+             for m in ("baseline", "pr2ar2")]
+    inline = RT.run_cells(cells, workers=1)
+    assert RT.run_cells(cells, workers=2) == inline
+    assert all(s.gc_invocations > 0 for s in inline)
+
+
+def test_prepass_compare_workers_match_inline_and_reference(tables):
+    """``compare_mechanisms(workers=2)`` hands the forked workers the one
+    FTL schedule it built (its list views materialized first)."""
+    _require_pool()
+    from repro.flashsim import ssd as RS
+
+    cfg, rcfg = _gc_cfgs(pec_per_erase=300.0)
+    hot, rhot = _hot()
+    kw = dict(mechanisms=("baseline", "pr2ar2"), seed=1)
+    inline = TF.compare_mechanisms(hot, PORT_CONDS[1], cfg=cfg, device="cpu",
+                                   **kw)
+    pooled = TF.compare_mechanisms(hot, PORT_CONDS[1], cfg=cfg, workers=2,
+                                   device="cpu", **kw)
+    ref = RS.compare_mechanisms(rhot, _ref_conds()[1], cfg=rcfg, **kw)
+    assert pooled == inline
+    assert [RT._stats_payload(s) for s in pooled.values()] == \
+        [RT._stats_payload(s) for s in ref.values()]
+    assert all(s.gc_invocations > 0 for s in pooled.values())
