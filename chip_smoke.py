@@ -182,13 +182,38 @@ exits non-zero):
                      ``pr2ar2``, seeds 0-3, at 300 P/E an erase (blocks
                      reach the worn P/E bins, characterized on the card)
                      must give the same bytes at workers 1 and 2
-                     (spawned).
+                     (spawned);
+ 12. closed loop  — the open-loop half of the closed loop's contract:
+                     the 12 cells of ``tests/data/golden_closed_loop.json``
+                     that need neither online GC nor faults (``prn`` and
+                     ``websearch`` at 600 requests, 365 d / 1000 P/E) on
+                     the card's characterization, every pinned field
+                     equal except ``die_util`` and ``channel_util``
+                     (within 4 ulps); the 8 whose scheduler has a ring
+                     lowering also through ``engine="batched"`` and
+                     ``"auto"``, the shard-core count set to 0 before
+                     them and the deep queue's open-loop run and read
+                     after, each batched launch held against the plain
+                     version bit for bit and each auto launch equal to
+                     it.  Then a QD ladder (``ncq_depth`` 1-32) of
+                     ``websearch`` at 20 000 requests for ``baseline`` and
+                     ``sota+pr2ar2``: IOPS monotone with a knee,
+                     ``max_inflight <= qd``, ``mean_us`` equal to queue
+                     wait + device time + host overhead, and pipelining
+                     winning IOPS and read p99 at QD 8; ``ncq_depth``
+                     20 000 equal to the open-loop batched run; the
+                     batched engine's refusal and auto's recorded
+                     fallback; and the ``prn`` GC cell closed at QD 32
+                     (``baseline``, ``pr2ar2``, with and without a host
+                     write-back cache), its host wall, IOPS, wait/device
+                     split and cache counters printed.
 
 The line before the last is a JSON object describing each kernel
 (launches on its main path, error against the plain version, and times
 and bound summed over the main path's launches; for the shard core also
-the inline sweep's counted launches and its held launch, and the
-prepass-GC compare's counted launches and its held launch); the last
+the inline sweep's counted launches and its held launch, the
+prepass-GC compare's counted launches and its held launch, and the
+closed-loop phase's counted launches and its held launches); the last
 line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or outside a
 checkout of the repository, it exits non-zero and prints no result.
@@ -282,6 +307,17 @@ GC_PRIO_SCHEDULER = "host_prio_aged:4"
 GC_PRIO_MECHANISMS = ("baseline", "pr2ar2")
 GC_WEAR_SEEDS = (0, 1, 2, 3)
 GC_PEC_PER_ERASE = 300.0
+
+# Phase 12: the closed loop.  The pinned open-loop cells, the
+# schedulers with a ring lowering, the QD ladder and its mechanisms,
+# and the GC cell's queue depth and mechanisms.
+CLOSED_GOLDEN = ROOT / "tests" / "data" / "golden_closed_loop.json"
+CLOSED_RING = ("fcfs", "host_prio", "host_prio_aged:8")
+CLOSED_ULPS = 4
+CLOSED_LADDER = (1, 2, 4, 8, 16, 32)
+CLOSED_MECHANISMS = ("baseline", "sota+pr2ar2")
+CLOSED_GC_QD = 32
+CLOSED_GC_MECHANISMS = ("baseline", "pr2ar2")
 
 
 def phase(name):
@@ -2226,6 +2262,303 @@ def gc_phase(smi, chain_ns):
     return launches, smem_launches, held
 
 
+def _golden_closed_cells():
+    """The pinned open-loop cells of ``golden_closed_loop.json`` the port
+    runs (gc off or prepass, no faults): ``(meta, {key: pinned})``."""
+    g = json.loads(CLOSED_GOLDEN.read_text())
+    cells = {k: v for k, v in g["cells"].items()
+             if k.split("|")[2] != "online" and k.endswith("|none")}
+    cond = g["meta"]["condition"]
+    if len(cells) != 12 or (cond["retention_days"], cond["pec"]) != \
+            CONDITION:
+        raise AssertionError(f"{CLOSED_GOLDEN}: {len(cells)} reachable "
+                             f"cells at {cond}")
+    return g["meta"], cells
+
+
+def _check_pinned(ctx, stats, want):
+    import dataclasses
+    import math
+
+    got = dataclasses.asdict(stats)
+    for field, v in want.items():
+        if field in ("die_util", "channel_util"):
+            ok = abs(got[field] - v) <= CLOSED_ULPS * math.ulp(v)
+        else:
+            ok = got[field] == v
+        if not ok:
+            raise AssertionError(f"{ctx}.{field}: {got[field]!r} against "
+                                 f"the pin {v!r}")
+
+
+def _check_closed(label, s, qd, n):
+    import math
+
+    from repro_torch.flashsim import DEFAULT_SSD
+
+    if s.n_requests != n or not all(math.isfinite(v) for v in (
+            s.mean_us, s.read_p99_us, s.throughput_iops)):
+        raise AssertionError(f"{label}: bad stats {s}")
+    if not 1 <= s.max_inflight <= qd:
+        raise AssertionError(f"{label}: max_inflight {s.max_inflight} "
+                             f"outside [1, {qd}]")
+    split = (s.hostq_wait_mean_us + s.device_mean_us
+             + DEFAULT_SSD.host_overhead_us)
+    if abs(split - s.mean_us) > 1e-9 * abs(s.mean_us):
+        raise AssertionError(f"{label}: mean {s.mean_us!r} != wait "
+                             f"{s.hostq_wait_mean_us!r} + device "
+                             f"{s.device_mean_us!r} + host overhead")
+    if s.engine_selected != "array" or s.fast_path_events != 0:
+        raise AssertionError(f"{label}: a closed cell left the array "
+                             f"interpreter: {s}")
+
+
+@phase("closed loop")
+def closed_loop_phase(smi):
+    import math
+
+    import torch
+
+    from repro_torch.core.retry import RetryPolicy
+    from repro_torch.flashsim import (BatchedUnsupported, DEFAULT_SSD,
+                                      GCConfig, HostCacheConfig,
+                                      OperatingCondition, SSDConfig, SSDSim,
+                                      build_ftl_schedule,
+                                      compare_mechanisms, simulate)
+    from repro_torch.flashsim.ssd import resolve_trace
+    from repro_torch.kernels.fcfs_core import ops as K
+
+    print(smi, flush=True)
+    cond = OperatingCondition(*CONDITION)
+    overhead = DEFAULT_SSD.host_overhead_us
+    meta, cells = _golden_closed_cells()
+    # The golden cells' batched and auto launches and the deep queue's
+    # open-loop launch are this phase's main path: keep each launch to
+    # hold once the counts are read.
+    recorded = []
+    fwd = K.fcfs_core_fwd
+
+    def recording_fwd(ops, timing, steps, **kw):
+        out = fwd(ops, timing, steps, **kw)
+        recorded.append((ops, timing, steps, kw, out))
+        return out
+
+    K.fcfs_core_fwd = recording_fwd
+    K.launches = K.smem_launches = 0
+    try:
+        t0 = time.perf_counter()
+        golden = []
+        for key in sorted(cells):
+            mech, sched, gc, _ = key.split("|")
+            wl = (meta["extra_workload"] if mech in ("baseline",
+                                                     "sota+pr2ar2")
+                  else meta["workload"])
+            engines = (("array", "batched", "auto") if sched in CLOSED_RING
+                       else ("array",))
+            for engine in engines:
+                n_rec = len(recorded)
+                s = simulate(wl, cond, mech, seed=meta["seed"],
+                             n_requests=meta["n_requests"], scheduler=sched,
+                             gc=gc, engine=engine, device=DEVICE)
+                golden.append((key, engine, s, recorded[n_rec:]))
+        torch.cuda.synchronize()
+        golden_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        open_ = compare_mechanisms(WORKLOAD, cond, CLOSED_MECHANISMS,
+                                   n_requests=N_REQUESTS, engine="batched",
+                                   device=DEVICE)
+        torch.cuda.synchronize()
+        open_s = time.perf_counter() - t0
+        launches, smem_launches = K.launches, K.smem_launches
+    finally:
+        K.fcfs_core_fwd = fwd
+    kernel_stats = [s for _, e, s, _ in golden if e != "array"]
+    kernel_stats += list(open_.values())
+    chunks = _launches_of(kernel_stats)
+    if launches <= 0 or launches != chunks or len(recorded) != launches:
+        raise AssertionError(f"closed loop: {launches} launches counted, "
+                             f"{chunks} read from fused_cells, "
+                             f"{len(recorded)} recorded")
+    by_cell = {}
+    for key, engine, s, recs in golden:
+        _check_pinned(f"{key}[{engine}]", s, cells[key])
+        want_engine = "array" if engine == "array" else "batched"
+        if s.engine_selected != want_engine or \
+                (s.fast_path_events > 0) != (engine != "array"):
+            raise AssertionError(f"{key}[{engine}]: ran on "
+                                 f"{s.engine_selected}")
+        if len(recs) != (0 if engine == "array" else 1):
+            raise AssertionError(f"{key}[{engine}]: {len(recs)} launches")
+        by_cell.setdefault(key, {})[engine] = recs
+    n_ring = sum(1 for k in cells if k.split("|")[1] in CLOSED_RING)
+    print(f"closed loop: {len(cells)} pinned open-loop cells of "
+          f"{CLOSED_GOLDEN.name} equal to their pins on the card's "
+          f"characterization ({CLOSED_ULPS} ulps on die_util and "
+          f"channel_util), {n_ring} of them also through engine='batched' "
+          f"and 'auto': {golden_s:.3f} s; {launches} shard-core launches "
+          f"({smem_launches} from shared memory) with the deep queue's "
+          f"open-loop compare ({open_s:.3f} s)", flush=True)
+
+    # Each batched golden launch against the plain version; the auto
+    # launch of the same cell must give the same bits.
+    held = []
+    for key in sorted(by_cell):
+        recs = by_cell[key]
+        if "batched" not in recs:
+            continue
+        ops, timing, steps, kw, out = recs["batched"][0]
+        a_ops, _, _, _, a_out = recs["auto"][0]
+        if not (torch.equal(ops, a_ops) and all(
+                torch.equal(x, y) for x, y in zip(out, a_out))):
+            raise AssertionError(f"{key}: the auto launch differs from the "
+                                 f"batched launch")
+        held.append(_hold(f"golden {key}", ops, timing, steps, kw, got=out))
+
+    # The QD ladder over one trace.  From here on every cell is closed:
+    # host code, no shard-core launch.
+    K.launches = 0
+    ladder, walls = {m: [] for m in CLOSED_MECHANISMS}, {}
+    for qd in CLOSED_LADDER:
+        t0 = time.perf_counter()
+        res = compare_mechanisms(WORKLOAD, cond, CLOSED_MECHANISMS,
+                                 n_requests=N_REQUESTS, ncq_depth=qd,
+                                 device=DEVICE)
+        walls[qd] = time.perf_counter() - t0
+        for m, s in res.items():
+            _check_closed(f"QD {qd} {m}", s, qd, N_REQUESTS)
+            ladder[m].append(s)
+    for m, rungs in ladder.items():
+        iops = [s.throughput_iops for s in rungs]
+        for lo, hi in zip(iops, iops[1:]):
+            if hi < lo * (1 - 1e-9):
+                raise AssertionError(f"{m}: IOPS dropped up the ladder: "
+                                     f"{iops}")
+        if not (iops[1] / iops[0] > 1.7 and iops[-1] / iops[-2] < 1.5):
+            raise AssertionError(f"{m}: no knee in the ladder: {iops}")
+        for qd, s in zip(CLOSED_LADDER, rungs):
+            print(f"{m:>12} QD {qd:>2}: {s.throughput_iops:.3f} IOPS, mean "
+                  f"{s.mean_us:.3f} us = wait {s.hostq_wait_mean_us:.3f} + "
+                  f"device {s.device_mean_us:.3f} + {overhead:g}, "
+                  f"read p99 {s.read_p99_us:.3f} us, read device p99 "
+                  f"{s.read_device_p99_us:.3f} us, max_inflight "
+                  f"{s.max_inflight}, die sense util "
+                  f"{s.die_sense_util:.4f}", flush=True)
+    q8 = CLOSED_LADDER.index(8)
+    base, pipe = ladder["baseline"][q8], ladder["sota+pr2ar2"][q8]
+    if not (pipe.throughput_iops > base.throughput_iops * 1.2
+            and pipe.read_p99_us < base.read_p99_us
+            and pipe.die_sense_util > 0.0):
+        raise AssertionError(f"QD 8: pipelining does not win: {pipe} "
+                             f"against {base}")
+    print(f"QD ladder ({WORKLOAD}, {N_REQUESTS} requests, two mechanisms "
+          f"a rung, host wall by QD on {smi}): " + ", ".join(
+              f"QD {qd} {w:.3f} s" for qd, w in walls.items()), flush=True)
+
+    # The deep queue admits every request at its arrival: the open loop.
+    t0 = time.perf_counter()
+    deep = compare_mechanisms(WORKLOAD, cond, CLOSED_MECHANISMS,
+                              n_requests=N_REQUESTS, ncq_depth=N_REQUESTS,
+                              device=DEVICE)
+    deep_s = time.perf_counter() - t0
+    for m in CLOSED_MECHANISMS:
+        d, o = deep[m], open_[m]
+        _check_closed(f"deep queue {m}", d, N_REQUESTS, N_REQUESTS)
+        if o.engine_selected != "batched" or o.fast_path_events <= 0:
+            raise AssertionError(f"open loop {m}: not on the kernel")
+        if not (math.isclose(d.mean_us, o.mean_us, rel_tol=1e-12)
+                and math.isclose(d.read_p99_us, o.read_p99_us,
+                                 rel_tol=1e-12)
+                and d.hostq_wait_mean_us == 0.0):
+            raise AssertionError(f"deep queue {m}: {d} against the open "
+                                 f"loop {o}")
+        print(f"{m:>12} deep queue: mean {d.mean_us!r} us, read p99 "
+              f"{d.read_p99_us!r} us, wait {d.hostq_wait_mean_us!r} | open "
+              f"loop on the kernel: mean {o.mean_us!r} us, read p99 "
+              f"{o.read_p99_us!r} us", flush=True)
+    try:
+        simulate(WORKLOAD, cond, "pr2ar2", n_requests=200, ncq_depth=8,
+                 engine="batched", device=DEVICE)
+        raise AssertionError("engine='batched' ran a closed-loop cell")
+    except BatchedUnsupported as e:
+        refusal = str(e)
+    auto = simulate(WORKLOAD, cond, "pr2ar2", n_requests=200, ncq_depth=8,
+                    engine="auto", device=DEVICE)
+    if auto.engine_selected != "array" or \
+            auto.engine_fallback_reason != refusal:
+        raise AssertionError(f"auto on a closed cell: {auto}")
+    print(f"deep queue (QD {N_REQUESTS}) {deep_s:.3f} s == open loop on "
+          f"the kernel; engine='batched' refuses the closed loop and auto "
+          f"records: {refusal!r}", flush=True)
+
+    # The GC cell closed: one FTL schedule, two mechanisms, with and
+    # without the host write-back cache.
+    trace = resolve_trace(GC_WORKLOAD, seed=0, n_requests=N_REQUESTS)
+    gc_on = GCConfig(enabled=True)
+    t0 = time.perf_counter()
+    schedule = build_ftl_schedule(trace, SSDConfig(gc=gc_on))
+    ftl_s = time.perf_counter() - t0
+    gc_cells = {}
+    for cache in (None, HostCacheConfig()):
+        cfg = SSDConfig(gc=gc_on, ncq_depth=CLOSED_GC_QD,
+                        host_cache=cache)
+        label = "no cache" if cache is None else "host cache"
+        for m in CLOSED_GC_MECHANISMS:
+            t0 = time.perf_counter()
+            s = SSDSim(cfg, cond, RetryPolicy(m), seed=7,
+                       device=DEVICE).run(trace, schedule=schedule)
+            wall = time.perf_counter() - t0
+            _check_closed(f"GC {m} {label}", s, CLOSED_GC_QD, N_REQUESTS)
+            if not (s.wa > 1.0 and s.gc_invocations > 0):
+                raise AssertionError(f"GC {m} {label}: no GC: {s}")
+            if cache is not None and not (
+                    s.cache_absorbed_writes > 0
+                    and s.cache_flush_pages >= s.cache_absorbed_writes):
+                raise AssertionError(f"GC {m} {label}: cache counters {s}")
+            gc_cells[(m, label)] = (s, wall)
+            print(f"{m:>12} GC closed QD {CLOSED_GC_QD} ({label}): host wall "
+                  f"{wall:.3f} s on {smi}; {s.throughput_iops:.3f} IOPS, "
+                  f"mean {s.mean_us:.3f} us = wait "
+                  f"{s.hostq_wait_mean_us:.3f} + device "
+                  f"{s.device_mean_us:.3f} + {overhead:g}, read p99 "
+                  f"{s.read_p99_us:.3f} us, read device p99 "
+                  f"{s.read_device_p99_us:.3f} us, WA {s.wa:.4f}; cache: "
+                  f"{s.cache_absorbed_writes} writes absorbed, "
+                  f"{s.cache_hit_reads} reads and {s.cache_hit_pages} pages "
+                  f"hit, {s.cache_flush_pages} pages flushed, "
+                  f"{s.cache_stalled_writes} writes stalled", flush=True)
+    for m in CLOSED_GC_MECHANISMS:
+        a, b = gc_cells[(m, "no cache")][0], gc_cells[(m, "host cache")][0]
+        if (a.wa, a.blocks_erased) != (b.wa, b.blocks_erased):
+            raise AssertionError(f"GC {m}: the cache changed the FTL's work")
+    if K.launches != 0:
+        raise AssertionError(f"closed cells launched the shard core "
+                             f"{K.launches} times")
+    print(f"GC cell ({GC_WORKLOAD}, {N_REQUESTS} requests): "
+          f"build_ftl_schedule {ftl_s:.3f} s on {smi}; the closed cells "
+          f"launched no kernel", flush=True)
+    print(smi)
+    summary = dict(
+        golden_s=golden_s, open_s=open_s, launches=launches,
+        smem_launches=smem_launches,
+        held_ms=sum(r["ms"] for r in held),
+        held_plain_ms=sum(r["plain_ms"] for r in held),
+        ladder_walls_s=walls,
+        ladder_iops={m: [s.throughput_iops for s in r]
+                     for m, r in ladder.items()},
+        deep_s=deep_s, gc_ftl_s=ftl_s,
+        gc={f"{m} {label}": dict(
+            wall_s=w, iops=s.throughput_iops, mean_us=s.mean_us,
+            wait_us=s.hostq_wait_mean_us, device_us=s.device_mean_us,
+            read_p99_us=s.read_p99_us,
+            absorbed=s.cache_absorbed_writes, hit_pages=s.cache_hit_pages,
+            flush_pages=s.cache_flush_pages,
+            stalled=s.cache_stalled_writes)
+            for (m, label), (s, w) in gc_cells.items()},
+        card=smi)
+    print("closed loop summary: " + json.dumps(summary), flush=True)
+    return launches, held
+
+
 def _print_held(name, rs):
     """One line for the launches of one run, held and re-timed."""
     bound_ms, bound_by = _bound(sum(r["t_bytes"] for r in rs),
@@ -2306,6 +2639,7 @@ def main() -> int:
     sweep_launches, sweep_held = sweep_phase(smi)
     torch.cuda.empty_cache()
     gc_launches, gc_smem_launches, gc_held = gc_phase(smi, chain_ns)
+    closed_launches, closed_held = closed_loop_phase(smi)
 
     # Times and bounds are sums over each main path's launches, each
     # re-run on the inputs it had there.
@@ -2320,7 +2654,13 @@ def main() -> int:
             sweep_bound_ms=sweep_held["bound_ms"],
             gc_launches=gc_launches, gc_smem_launches=gc_smem_launches,
             gc_ms=gc_held["ms"], gc_plain_ms=gc_held["plain_ms"],
-            gc_bound_ms=gc_held["bound_ms"]),
+            gc_bound_ms=gc_held["bound_ms"],
+            closed_launches=closed_launches,
+            closed_ms=sum(r["ms"] for r in closed_held),
+            closed_plain_ms=sum(r["plain_ms"] for r in closed_held),
+            closed_bound_ms=_bound(
+                sum(r["t_bytes"] for r in closed_held),
+                sum(r["t_ops"] for r in closed_held))[0]),
         _kernel_line("flash_attention",
                      f"{kernels}/flash_attention/csrc/flash_attention.cu",
                      "src/repro/kernels/flash_attention/kernel.py:34",

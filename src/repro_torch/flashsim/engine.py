@@ -7,10 +7,14 @@ This module is the bottom layer of the simulator's layered architecture:
   * **this module** — the heap, the busy-until channel collapse, and the
     op-kind dispatch.
 
-It is the host interpreter behind ``engine="array"`` and the open-loop
-counterpart of the reference's; the closed-loop frontend, online GC and
-fault-recovery continuations are not part of this port yet (see
-ROADMAP.md), so this loop carries none of their hooks.
+It is the host interpreter behind ``engine="array"``, the reference's
+open-loop core and, below it, its closed-loop interpreter
+(:func:`run_closed_loop`: bounded NCQ admission, the host write-back
+cache of :mod:`repro_torch.flashsim.hostcache`, an explicit channel
+transfer phase).  Online GC and faults are not part of this port yet
+(see ROADMAP.md): the open loop carries none of their hooks, and the
+closed loop's fault-recovery tails (``OpBuffers.xa``/``xtr``) stay
+dormant until a fault plan fills them.
 
 Heap records are 2-tuples ``(time, seq << 40 | op_id << 2 | opcode)``: the
 packed integer both tie-breaks FIFO (``seq`` in the high bits — push-order
@@ -112,6 +116,13 @@ class OpBuffers:
     resid: List[float]        # residual duration of a suspended op
     susp: List[bool]          # suspended flag (preempt)
     host_read: Optional[List[bool]] = None
+    #: Fault recovery (None without a fault model): extra full-strength
+    #: re-reads appended after the op's last sampled attempt, executed
+    #: by the closed loop as a serial continuation at ``xtr`` (nominal
+    #: tR) with the die held throughout.  No run fills them until the
+    #: fault model is ported.
+    xa: Optional[List[int]] = None
+    xtr: Optional[List[float]] = None
 
 
 @dataclasses.dataclass
@@ -569,6 +580,540 @@ def merge_shard_results(cfg, results: List[EngineResult]) -> EngineResult:
         ch_busy=ch_busy,
         n_events=n_events,
         gc_suspensions=gc_susp,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Closed-loop interpreter (ncq_depth set): bounded NCQ admission, host
+# write-back cache, and an explicit channel transfer phase.
+# ---------------------------------------------------------------------------
+
+#: Closed-loop event kinds (tuple field, not packed — this loop favors
+#: legibility; the open-loop packed encoding above stays untouched).
+_CL_ARRIVE = 0   # a queued request reaches the device boundary
+_CL_SENSE = 1    # a read attempt's sense finished on the die
+_CL_XFER = 2     # a channel DMA transfer finished
+_CL_REL = 3      # scheduled die release (program end / speculative sense)
+_CL_RDONE = 4    # request complete -> free its NCQ slot
+
+#: Tail state of a pipelined read once its last sampled attempt copied.
+_TAIL_NONE = 0
+_TAIL_FIN = 1    # final transfer in flight; decode tail completes the op
+_TAIL_XA = 2     # final decode fails; serial recovery ladder follows
+
+
+@dataclasses.dataclass
+class ClosedLoopResult:
+    """Raw outcome of one closed-loop run (stats assembled by ssd.py)."""
+
+    req_done: List[float]         # completion time per request
+    req_admit: List[float]        # device-admission time per request
+    die_tot: List[float]          # die-held time (same meaning as open loop)
+    die_sense_tot: List[float]    # time each die spent actually sensing
+    ch_tot: List[float]           # channel transfer occupancy
+    die_busy: List[float]         # final busy-until (span accounting)
+    ch_busy: List[float]
+    n_events: int
+    attempts_issued: int          # host-read attempts sent to the device
+    read_pages_issued: int        # host-read page-ops sent to the device
+    max_inflight: int             # peak admitted-and-incomplete requests
+    full_hit_reads: int           # reads served entirely from the cache
+    hit_pages: int                # read page-ops served from dirty lines
+    absorbed_writes: int          # writes absorbed by the cache
+    flush_pages: int              # page programs issued by cache flushes
+    stalled_writes: int           # writes that waited on cache capacity
+    #: Only with ``trace_phases=True``: ``(op, kind, resource, start,
+    #: end)`` tuples, kind in {"sense", "xfer", "prog", "erase"} —
+    #: the raw material for the interval-invariant property tests.
+    phases: Optional[list] = None
+
+
+def run_closed_loop(
+    cfg,
+    pipelined: bool,
+    policy: SchedulerPolicy,
+    bufs: OpBuffers,
+    n_requests: int,
+    req_arrival: List[float],
+    req_is_read: List[bool],
+    ncq_depth: int,
+    op_lpn: Optional[List[int]] = None,
+    cache=None,
+    validate: bool = False,
+    trace_phases: bool = False,
+) -> ClosedLoopResult:
+    """Closed-loop run: NCQ-gated admission over an admission stream.
+
+    The stream in ``bufs`` is the same one the open-loop core executes
+    (expansion / FTL prepass / fault plan — attempt counts pre-sampled),
+    but requests are admitted **on completion**, not at trace time: ops
+    are grouped by owning request (each request's ops plus the GC/fault
+    ops interleaved at its trigger point form one *group*), at most
+    ``ncq_depth`` requests occupy slots at once, and a group's ops enter
+    the device only when its slot frees and every earlier group has been
+    admitted (stream order — exactly the order the FTL prepass and fault
+    plan assumed, so their precomputed mappings stay valid; only times
+    shift).
+
+    Unlike the open-loop core's busy-until collapse, the channel here is
+    an explicit single-server FIFO: transfers are *requested* at sense
+    end (or program issue) and *granted* when the wire frees, which keeps
+    the same FCFS timing while making the sense/transfer split — the
+    die/DMA overlap that CACHE READ pipelining (PR²) exploits —
+    observable per phase (``trace_phases``) and per die
+    (``die_sense_tot``).
+
+    With a :class:`~repro_torch.flashsim.hostcache.WriteCache` attached, write
+    groups that fit are absorbed (completing at ``cache.cfg.hit_us``),
+    their programs parked until a watermark flush re-issues them as
+    low-priority device traffic; reads that hit a resident dirty line
+    are served from the cache.  Not supported here: ``preempt``
+    scheduling and online GC (both raise upstream in ssd.py).
+    """
+    if policy.preemptive:
+        raise NotImplementedError(
+            "closed-loop frontend does not support the preempt scheduler"
+        )
+    t = cfg.timing
+    tdma, tecc = t.tdma_us, t.tecc_us
+    hit_us = cache.cfg.hit_us if cache is not None else 0.0
+
+    op_rid, op_die, op_ch = bufs.rid, bufs.die, bufs.ch
+    op_read, op_erase, op_dur = bufs.read, bufs.erase, bufs.dur
+    op_a, op_tr = bufs.a, bufs.tr
+    op_xa = bufs.xa if bufs.xa is not None else None
+    op_xtr = bufs.xtr
+    P = len(bufs.arrival)
+
+    host_read = None
+    if policy.prioritized:
+        host_read = [op_read[i] and op_rid[i] >= 0 for i in range(P)]
+    bufs.host_read = host_read
+
+    # ---- request groups: contiguous runs of the admission stream ------
+    # Each group is one request's ops plus every rid = -1 op interleaved
+    # at its trigger point (GC traffic, fault relocations) and the
+    # stripe-peer rebuild reads (which carry the request's own rid).
+    grp_lo: List[int] = []
+    grp_hi: List[int] = []
+    grp_rid: List[int] = []
+    cur_rid = None
+    for i in range(P):
+        r = op_rid[i]
+        if r >= 0 and r != cur_rid:
+            if cur_rid is None and grp_lo:
+                raise AssertionError("admission stream starts with GC ops")
+            grp_lo.append(i)
+            grp_rid.append(r)
+            if len(grp_lo) > 1:
+                grp_hi.append(i)
+            cur_rid = r
+        elif not grp_lo:
+            raise AssertionError("admission stream starts with GC ops")
+    grp_hi.append(P)
+    n_groups = len(grp_lo)
+    # Each request must own exactly one contiguous run.  Rids need not be
+    # sorted (unsorted traces admit in stream order, a permutation of
+    # 0..n-1) — only uniqueness and completeness are required.
+    if n_groups != n_requests or len(set(grp_rid)) != n_requests:
+        raise AssertionError(
+            "closed-loop grouping expects one contiguous op run per "
+            "request in the admission stream"
+        )
+
+    # ---- per-op state --------------------------------------------------
+    o_rem = op_a[:]               # serial: attempts left (incl. in flight)
+    o_left = [0] * P              # pipelined: attempts not yet sensed
+    o_tr = op_tr[:]               # live sense time (xa swaps in xtr)
+    o_xa = op_xa[:] if op_xa is not None else [0] * P
+    o_serial = [not pipelined] * P
+    o_regfree = [True] * P        # pipelined: cache register drained
+    o_sense_t = [-1.0] * P        # pipelined: sense done, waiting on reg
+    o_tail = [_TAIL_NONE] * P
+    o_held = [0.0] * P
+    o_defer = [False] * P         # cache-deferred op (no request account)
+    o_fver = [0] * P              # flush version of a deferred program
+
+    n_dies, n_ch = cfg.n_dies, cfg.n_channels
+    die_cur = [-1] * n_dies
+    die_busy = [0.0] * n_dies
+    die_tot = [0.0] * n_dies
+    die_sense = [0.0] * n_dies
+    dieq = policy.make_queues(n_dies, host_read)
+    ch_cur = [-1] * n_ch
+    ch_q = [[] for _ in range(n_ch)]      # FIFO via index cursor
+    ch_head = [0] * n_ch
+    ch_busy = [0.0] * n_ch
+    ch_tot = [0.0] * n_ch
+
+    req_done = [0.0] * n_requests
+    req_admit = [0.0] * n_requests
+    req_pend = [0] * n_requests
+
+    heap: list = []
+    push = heapq.heappush
+    seq = 0
+    n_events = 0
+    attempts_issued = 0
+    read_pages_issued = 0
+    inflight = 0
+    max_inflight = 0
+    full_hit_reads = 0
+    stalled_writes = 0
+    phases: Optional[list] = [] if trace_phases else None
+
+    def emit(tm, ev, idx):
+        nonlocal seq
+        push(heap, (tm, seq, ev, idx))
+        seq += 1
+
+    # ---- channel: explicit single-server FIFO transfer phase -----------
+    def start_transfer(c, o, tm):
+        ch_cur[c] = o
+        ch_tot[c] += tdma
+        ch_busy[c] = tm + tdma
+        emit(tm + tdma, _CL_XFER, o)
+        if phases is not None:
+            phases.append((o, "xfer", c, tm, tm + tdma))
+
+    def request_transfer(o, tm):
+        c = op_ch[o]
+        if ch_cur[c] < 0:
+            start_transfer(c, o, tm)
+        else:
+            ch_q[c].append(o)
+
+    # ---- die: grant / release ------------------------------------------
+    def start_sense(o, tm):
+        d = op_die[o]
+        die_sense[d] += o_tr[o]
+        emit(tm + o_tr[o], _CL_SENSE, o)
+        if phases is not None:
+            phases.append((o, "sense", d, tm, tm + o_tr[o]))
+
+    def grant_die(o, tm):
+        d = op_die[o]
+        die_cur[d] = o
+        die_busy[d] = _INF
+        o_held[o] = tm
+        if op_read[o]:
+            if not o_serial[o]:
+                o_left[o] = op_a[o] - 1
+            start_sense(o, tm)
+        else:
+            emit(tm + op_dur[o], _CL_REL, o)
+            if phases is not None:
+                kind = "erase" if op_erase[o] else "prog"
+                phases.append((o, kind, d, tm, tm + op_dur[o]))
+
+    def admit_to_die(o, tm):
+        d = op_die[o]
+        if die_cur[d] < 0 and not dieq[d]:
+            grant_die(o, tm)
+        else:
+            dieq[d].append(o)
+
+    def release_die(o, tm):
+        d = op_die[o]
+        die_tot[d] += tm - o_held[o]
+        die_cur[d] = -1
+        die_busy[d] = tm
+        if dieq[d]:
+            grant_die(dieq[d].pop_next(), tm)
+
+    # ---- request completion bookkeeping --------------------------------
+    def complete_page(o, fin):
+        r = op_rid[o]
+        if r < 0 or o_defer[o]:
+            return
+        if fin > req_done[r]:
+            req_done[r] = fin
+        req_pend[r] -= 1
+        if req_pend[r] == 0:
+            emit(req_done[r], _CL_RDONE, r)
+
+    def finish_at_host(r, tm):
+        """Complete a request host-side (cache absorb / full cache hit)."""
+        req_done[r] = tm + hit_us
+        emit(tm + hit_us, _CL_RDONE, r)
+
+    # ---- read state machines (mirror the open-loop timing exactly) -----
+    def _copy(o, tm):
+        """Pipelined: sense data lands in the cache register at ``tm`` —
+        issue its DMA and (CACHE READ) start the next sense under it."""
+        o_regfree[o] = False
+        request_transfer(o, tm)
+        if o_left[o] > 0:
+            o_left[o] -= 1
+            start_sense(o, tm)            # overlaps the transfer: the PR² win
+        elif o_xa[o] > 0:
+            o_tail[o] = _TAIL_XA          # recovery ladder; die stays held
+        else:
+            o_tail[o] = _TAIL_FIN
+            if op_a[o] > 1:
+                # The speculatively-started next sense occupies the die
+                # until tm + tr even though its data is never needed.
+                die_sense[op_die[o]] += o_tr[o]
+                if phases is not None:
+                    phases.append((o, "sense", op_die[o], tm, tm + o_tr[o]))
+                emit(tm + o_tr[o], _CL_REL, o)
+            else:
+                release_die(o, tm)
+
+    def _pipelined_xfer(o, tm):
+        """Pipelined read transfer drained at ``tm``."""
+        o_regfree[o] = True
+        tail = o_tail[o]
+        if tail == _TAIL_XA:
+            # Decode of the final sampled attempt failed (known at
+            # tm + tecc): serial full-strength re-reads, die held.
+            o_tail[o] = _TAIL_NONE
+            o_serial[o] = True
+            o_rem[o] = o_xa[o]
+            o_xa[o] = 0
+            o_tr[o] = op_xtr[o]
+            start_sense(o, tm + tecc)
+        elif tail == _TAIL_FIN:
+            complete_page(o, tm + tecc)   # decode tail is off-die
+        elif o_sense_t[o] >= 0.0:
+            o_sense_t[o] = -1.0
+            _copy(o, tm)                  # a sense was waiting on the reg
+
+    def _serial_xfer(o, tm):
+        """Serial read transfer drained at ``tm`` -> decode at tm + tecc."""
+        rem = o_rem[o] - 1
+        if rem > 0:
+            o_rem[o] = rem
+            start_sense(o, tm + tecc)     # decode failed: next table entry
+        elif o_xa[o] > 0:
+            o_rem[o] = o_xa[o]            # recovery: full-strength ladder
+            o_xa[o] = 0
+            o_tr[o] = op_xtr[o]
+            start_sense(o, tm + tecc)
+        else:
+            complete_page(o, tm + tecc)
+            release_die(o, tm)            # die freed at last transfer end
+
+    # ---- write-back cache ----------------------------------------------
+    blocked_group = -1            # group waiting on cache capacity
+
+    def host_page_ops(g):
+        r = grp_rid[g]
+        return [o for o in range(grp_lo[g], grp_hi[g])
+                if op_rid[o] == r and not op_read[o] and not op_erase[o]]
+
+    def issue_entry(entry, tm):
+        """Issue one flushed cache entry's device ops (low priority)."""
+        g = entry.payload
+        pages = iter(entry.versions)
+        r = grp_rid[g]
+        for o in range(grp_lo[g], grp_hi[g]):
+            if op_rid[o] == r and not op_read[o] and not op_erase[o]:
+                o_fver[o] = next(pages)
+            issue_op(o, tm)
+
+    def maybe_flush(tm):
+        if cache.need_flush():
+            while not cache.flushed_enough():
+                entry = cache.pop_entry()
+                if entry is None:
+                    break
+                issue_entry(entry, tm)
+
+    def drain_cache(tm):
+        for entry in cache.drain():
+            issue_entry(entry, tm)
+
+    # ---- admission ------------------------------------------------------
+    def issue_op(o, tm):
+        nonlocal attempts_issued, read_pages_issued
+        if op_read[o]:
+            if op_rid[o] >= 0 and not o_defer[o]:
+                attempts_issued += op_a[o]
+                read_pages_issued += 1
+            admit_to_die(o, tm)
+        elif op_erase[o]:
+            admit_to_die(o, tm)
+        else:
+            request_transfer(o, tm)   # program: DMA first, then the die
+
+    def admit_group(g, tm):
+        """Issue (or absorb) group ``g`` now.  False = blocked on cache."""
+        nonlocal blocked_group, stalled_writes, full_hit_reads, inflight
+        nonlocal max_inflight
+        r = grp_rid[g]
+        if cache is not None and not req_is_read[r]:
+            pages = host_page_ops(g)
+            if cache.fits(len(pages)):
+                if not cache.can_absorb(len(pages)):
+                    # Backpressure: hold the slot, force the oldest dirty
+                    # entries out, retry as their programs land.
+                    stalled_writes += 1
+                    blocked_group = g
+                    while (cache.dirty_pages >
+                           cache.capacity - len(pages)):
+                        entry = cache.pop_entry()
+                        if entry is None:
+                            break
+                        issue_entry(entry, tm)
+                    return False
+                req_admit[r] = tm
+                inflight += 1
+                if inflight > max_inflight:
+                    max_inflight = inflight
+                entry = cache.absorb([op_lpn[o] for o in pages], payload=g)
+                for o in range(grp_lo[g], grp_hi[g]):
+                    o_defer[o] = True
+                finish_at_host(r, tm)
+                maybe_flush(tm)
+                return True
+            # Oversized write: fall through to write-through.
+        req_admit[r] = tm
+        inflight += 1
+        if inflight > max_inflight:
+            max_inflight = inflight
+        for o in range(grp_lo[g], grp_hi[g]):
+            if (cache is not None and op_read[o] and op_rid[o] == r
+                    and op_lpn is not None and op_lpn[o] >= 0
+                    and cache.contains(op_lpn[o])):
+                cache.note_hit()
+                cache.touch(op_lpn[o])
+                continue
+            if op_rid[o] == r:
+                req_pend[r] += 1
+            issue_op(o, tm)
+        if req_pend[r] == 0:
+            # Every page hit the cache (reads) — no device traffic.
+            full_hit_reads += 1
+            finish_at_host(r, tm)
+        return True
+
+    # NCQ slots: reserve a slot per queued request up front (SNIPPETS
+    # FTL-SIM discipline — an arrival is *scheduled* the moment a slot
+    # frees, firing at max(trace arrival, now)); admission additionally
+    # waits for stream order so the prepass/fault mappings stay valid.
+    free_slots = ncq_depth
+    next_sched = 0                # next group to receive a slot
+    adm_head = 0                  # next group to admit (stream order)
+    arrived = [False] * n_groups
+
+    def schedule_arrivals(tm):
+        nonlocal free_slots, next_sched
+        while free_slots > 0 and next_sched < n_groups:
+            g = next_sched
+            next_sched += 1
+            free_slots -= 1
+            ta = req_arrival[grp_rid[g]]
+            emit(ta if ta > tm else tm, _CL_ARRIVE, g)
+
+    def pump_admissions(tm):
+        nonlocal adm_head
+        while (adm_head < n_groups and arrived[adm_head]
+               and blocked_group < 0):
+            if not admit_group(adm_head, tm):
+                break
+            adm_head += 1
+        if cache is not None and adm_head == n_groups and blocked_group < 0:
+            drain_cache(tm)
+
+    schedule_arrivals(0.0)
+
+    # ---- the loop -------------------------------------------------------
+    while heap:
+        tm, _, ev, idx = heapq.heappop(heap)
+        n_events += 1
+
+        if ev == _CL_ARRIVE:
+            arrived[idx] = True
+            pump_admissions(tm)
+
+        elif ev == _CL_SENSE:
+            o = idx
+            if o_serial[o]:
+                request_transfer(o, tm)     # die stays held through DMA
+            elif o_regfree[o]:
+                _copy(o, tm)
+            else:
+                o_sense_t[o] = tm           # wait for the register
+
+        elif ev == _CL_XFER:
+            o = idx
+            c = op_ch[o]
+            q = ch_q[c]
+            h = ch_head[c]
+            if h < len(q):                  # grant the next transfer
+                nxt = q[h]
+                ch_head[c] = h + 1
+                if ch_head[c] > 64 and ch_head[c] * 2 > len(q):
+                    del q[:ch_head[c]]
+                    ch_head[c] = 0
+                start_transfer(c, nxt, tm)
+            else:
+                ch_cur[c] = -1
+            if op_read[o]:
+                if o_serial[o]:
+                    _serial_xfer(o, tm)
+                else:
+                    _pipelined_xfer(o, tm)
+            else:
+                admit_to_die(o, tm)         # program transfer landed
+
+        elif ev == _CL_REL:
+            o = idx
+            release_die(o, tm)
+            if not op_read[o]:
+                if o_defer[o] and not op_erase[o] and op_rid[o] >= 0:
+                    # A flushed cache page became durable: free its slot,
+                    # retry a blocked write, keep draining if done.
+                    cache.page_durable(op_lpn[o], o_fver[o])
+                    if blocked_group >= 0:
+                        g = blocked_group
+                        need = len(host_page_ops(g))
+                        if cache.can_absorb(need):
+                            blocked_group = -1
+                            pump_admissions(tm)
+                    elif adm_head == n_groups:
+                        pass    # end-of-trace drain already issued
+                else:
+                    complete_page(o, tm)
+
+        else:                               # _CL_RDONE
+            inflight -= 1
+            free_slots += 1
+            schedule_arrivals(tm)
+
+        if validate:
+            if inflight > ncq_depth:
+                raise AssertionError(
+                    f"NCQ violated: {inflight} > depth {ncq_depth}"
+                )
+            # A granted die's busy-until is _INF, a free one's its
+            # release time: the open loop's check reads the same state.
+            _check_work_conserving(die_busy, dieq)
+
+    if adm_head != n_groups or blocked_group >= 0:
+        raise AssertionError("closed loop finished with unadmitted groups")
+    if cache is not None and cache.pending_pages:
+        raise AssertionError("closed loop finished with undrained cache")
+
+    return ClosedLoopResult(
+        req_done=req_done,
+        req_admit=req_admit,
+        die_tot=die_tot,
+        die_sense_tot=die_sense,
+        ch_tot=ch_tot,
+        die_busy=die_busy,
+        ch_busy=ch_busy,
+        n_events=n_events,
+        attempts_issued=attempts_issued,
+        read_pages_issued=read_pages_issued,
+        max_inflight=max_inflight,
+        full_hit_reads=full_hit_reads,
+        hit_pages=cache.hit_pages if cache is not None else 0,
+        absorbed_writes=cache.absorbed_writes if cache is not None else 0,
+        flush_pages=cache.flush_pages if cache is not None else 0,
+        stalled_writes=stalled_writes,
+        phases=phases,
     )
 
 

@@ -28,12 +28,14 @@ than silently falling back to the interpreter:
 
 Prepass GC is inside the matrix: its schedule's GC copy-back reads
 (``rid = -1``, the low scheduling class), GC programs and erases (op
-kind 2) are ordinary rows of the op table.  Online GC, faults and the
-closed-loop frontend are not ported yet; the run APIs of
-:mod:`repro_torch.flashsim.ssd` reject them for every engine before a
-batched run is prepared, so :func:`check_batched_config` has no gate of
-its own for them (the reference's online-GC and fault gates return with
-ROADMAP D3 and D2).
+kind 2) are ordinary rows of the op table.  The closed-loop frontend
+(``ncq_depth``) is outside it: :func:`check_batched_config` raises
+:class:`BatchedUnsupported` for it, so ``engine="auto"`` records the
+reason and runs the array interpreter.  Online GC and faults are not
+ported yet; the run APIs of :mod:`repro_torch.flashsim.ssd` reject them
+for every engine before a batched run is prepared, so
+:func:`check_batched_config` has no gate of its own for them (the
+reference's online-GC and fault gates return with ROADMAP D3 and D2).
 
 ``engine="auto"`` resolution lives here too (:func:`resolve_engine`):
 it runs the same checks non-fatally and returns ``("batched", "")``
@@ -69,9 +71,10 @@ def check_batched_config(cfg, device=None) -> None:
     """Config-level eligibility for ``engine='batched'`` on ``device``
     (``None`` is the CUDA card, as for every entry point; fail fast at
     construction; run-time state is checked again by
-    :func:`check_batched_supported`).  On a CUDA device a channel holds
-    at most the shard-core kernel's ``MAX_DIES`` dies; the CPU's plain
-    core has no cap."""
+    :func:`check_batched_supported`).  The closed-loop frontend is
+    outside the matrix.  On a CUDA device a channel holds at most the
+    shard-core kernel's ``MAX_DIES`` dies; the CPU's plain core has no
+    cap."""
     from repro_torch.flashsim.sched import get_scheduler
     from repro_torch.kernels.fcfs_core.ops import MAX_DIES
 
@@ -81,6 +84,11 @@ def check_batched_config(cfg, device=None) -> None:
             f"engine='batched' supports ring-lowerable schedulers only "
             f"(fcfs, host_prio, host_prio_aged[:bound]), got "
             f"{cfg.scheduler!r}; use engine='array'"
+        )
+    if cfg.ncq_depth is not None:
+        raise BatchedUnsupported(
+            "engine='batched' is open-loop only (ncq_depth=None); the "
+            "closed-loop frontend requires engine='array'"
         )
     dies = dies_per_lane(cfg)
     if resolve_device(device).type == "cuda" and dies > MAX_DIES:

@@ -38,10 +38,18 @@ ops, GC copy-back reads and programs, and erases is shared by every
 mechanism, and worn blocks sample their attempts and AR² scale from the
 characterization of their own P/E bin.
 
+``ncq_depth=`` runs the trace through the closed-loop frontend
+(:func:`repro_torch.flashsim.engine.run_closed_loop`): at most
+``ncq_depth`` requests in flight, admitted as earlier ones complete, on
+the array interpreter; ``host_cache=`` adds the host write-back cache
+(:mod:`repro_torch.flashsim.hostcache`).  The batched engine is
+open-loop only, so ``engine="auto"`` runs closed cells on the array
+interpreter and records why.
+
 Every run API takes ``device=`` and runs on the CUDA card unless told
 otherwise; ``device=None`` without CUDA raises.  Knobs whose subsystems
-are not ported yet (online GC, faults, the closed-loop frontend and host
-cache) raise :class:`NotImplementedError` naming their ROADMAP item.
+are not ported yet (online GC and faults) raise
+:class:`NotImplementedError` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -82,10 +90,8 @@ WorkloadLike = Union[Workload, str, TraceSource]
 
 #: Deferred parts of this slice, as numbered in ROADMAP.md.
 _DEFERRED = {
-    "ncq_depth": "D1 (closed-loop frontend: run_closed_loop)",
     "faults": "D2 (faults)",
     "gc=online": "D3 (gc_online)",
-    "host_cache": "D5 (hostcache)",
 }
 
 
@@ -97,10 +103,6 @@ def _unported(knob: str) -> NotImplementedError:
 
 def _check_ported(cfg: SSDConfig) -> None:
     """Raise for a configuration that needs an unported subsystem."""
-    if cfg.ncq_depth is not None:
-        raise _unported("ncq_depth")
-    if cfg.host_cache is not None:
-        raise _unported("host_cache")
     if cfg.faults is not None:
         raise _unported("faults")
     if cfg.gc.enabled and cfg.gc.mode == "online":
@@ -179,10 +181,10 @@ class SimStats:
 
     All times are microseconds; utilizations are fractions of the trace
     span.  The field set is the reference's, so the two packages' stats
-    compare field by field.  The GC block is filled by prepass-GC runs;
-    the fault and closed-loop blocks keep their defaults (the
-    failure-free, open-loop facts): the fault model and the closed-loop
-    frontend are not ported yet.  ``gc_suspensions`` counts
+    compare field by field.  The GC block is filled by prepass-GC runs
+    and the closed-loop block by ``ncq_depth`` runs (zero on open-loop
+    runs); the fault block keeps its defaults (the failure-free facts):
+    the fault model is not ported yet.  ``gc_suspensions`` counts
     preempt-scheduler suspend events.
     """
 
@@ -548,11 +550,14 @@ class SSDSim:
         Resolves the engine, builds the FTL schedule under prepass GC when
         none is given, samples the attempt schedule (consuming
         ``self.rng`` in admission order) and builds the admission
-        buffers.  Split out so the fused sweep path can prepare many
+        buffers, with the per-op logical pages a closed run's host cache
+        reads.  Split out so the fused sweep path can prepare many
         cells, run them in one kernel launch, and :meth:`_finalize` each.
         """
         cfg, t = self.cfg, self.cfg.timing
         tprog = t.tprog_us
+        sched_policy = get_scheduler(cfg.scheduler)
+        closed = cfg.ncq_depth is not None
         engine_selected = self.engine
         engine_reason = ""
         if self.engine == "auto":
@@ -561,6 +566,17 @@ class SSDSim:
             engine_selected, engine_reason = resolve_engine(cfg, validate,
                                                            self.device)
         batched = engine_selected == "batched"
+        if closed:
+            if cfg.gc.enabled and cfg.gc.mode == "online":
+                raise NotImplementedError(
+                    "closed-loop frontend (ncq_depth) does not support "
+                    "online GC yet — use gc='prepass'"
+                )
+            if sched_policy.preemptive:
+                raise NotImplementedError(
+                    "closed-loop frontend (ncq_depth) does not support "
+                    "the preempt scheduler"
+                )
         if schedule is None and cfg.gc.enabled and cfg.gc.mode == "prepass":
             schedule = FTL.build_ftl_schedule(trace, cfg)
 
@@ -582,6 +598,8 @@ class SSDSim:
                                     attempts_np.tolist(), tr_np.tolist())
             host_read = schedule.kind == FTL.OP_READ
             n_requests = schedule.n_requests
+            op_lpn = (schedule.lpn.tolist()
+                      if closed and schedule.lpn is not None else None)
         else:
             ex = (expansion if expansion is not None
                   else expand_trace(trace, cfg))
@@ -605,14 +623,15 @@ class SSDSim:
                                     [tprog] * P,    # write-like ops: tPROG
                                     attempts_np.tolist(), tr_np.tolist())
             n_requests = ex.n_requests
+            op_lpn = ex.page_id.tolist() if closed else None
         return _PreparedRun(
             trace=trace, validate=validate, pipelined=self.policy.pipelined,
-            sched_policy=get_scheduler(cfg.scheduler), batched=batched,
+            sched_policy=sched_policy, closed=closed, batched=batched,
             engine_selected=engine_selected, engine_reason=engine_reason,
             bufs=bufs, n_requests=n_requests,
             total_read_pages=int(host_read.sum()),
             total_attempts=int(attempts_np[host_read].sum()),
-            schedule=schedule,
+            schedule=schedule, op_lpn=op_lpn,
         )
 
     def run(
@@ -622,6 +641,7 @@ class SSDSim:
         schedule: Optional[FTL.FTLSchedule] = None,
         validate: bool = False,
         shard: bool = False,
+        trace_phases: bool = False,
     ) -> SimStats:
         """Simulate one trace.
 
@@ -633,18 +653,43 @@ class SSDSim:
         merge — bit-identical to the monolithic default.
         ``validate=True`` turns on the array engine's work-conservation
         checks (test instrumentation).
+
+        With ``cfg.ncq_depth`` set the run goes through the closed-loop
+        frontend (:func:`repro_torch.flashsim.engine.run_closed_loop`):
+        NCQ-gated admission, the optional write-back cache
+        (``cfg.host_cache``), an explicit channel transfer phase.  It
+        takes prepass GC but not the preempt scheduler; ``shard=`` is
+        ignored (the NCQ couples channels through the shared slot pool).
+        ``trace_phases=True`` (closed loop only) records each op's
+        sense, transfer, program and erase intervals in
+        ``self.last_phases``.
         """
+        cfg = self.cfg
         prep = self._prepare(trace, expansion=expansion, schedule=schedule,
                              validate=validate)
-        if prep.batched:
+        if prep.closed:
+            from repro_torch.flashsim.engine import run_closed_loop
+
+            cache = None
+            if cfg.host_cache is not None:
+                from repro_torch.flashsim.hostcache import WriteCache
+
+                cache = WriteCache(cfg.host_cache)
+            res = run_closed_loop(
+                cfg, prep.pipelined, prep.sched_policy, prep.bufs,
+                prep.n_requests, trace.arrival_us.tolist(),
+                trace.is_read.tolist(), cfg.ncq_depth, op_lpn=prep.op_lpn,
+                cache=cache, validate=validate, trace_phases=trace_phases,
+            )
+        elif prep.batched:
             from repro_torch.flashsim.engine_batched import (
                 run_event_core_batched)
 
             res = run_event_core_batched(
-                self.cfg, prep.pipelined, prep.sched_policy, prep.bufs,
+                cfg, prep.pipelined, prep.sched_policy, prep.bufs,
                 prep.n_requests, validate=validate, device=self.device)
         else:
-            res = run_event_core(self.cfg, prep.pipelined,
+            res = run_event_core(cfg, prep.pipelined,
                                  prep.sched_policy, prep.bufs,
                                  prep.n_requests, validate=validate,
                                  shard=shard)
@@ -654,8 +699,20 @@ class SSDSim:
         """Assemble :class:`SimStats` from one engine result."""
         cfg = self.cfg
         trace = prep.trace
+        total_attempts = prep.total_attempts
+        total_read_pages = prep.total_read_pages
+        closed_kw = {}
+        if prep.closed:
+            gc_suspensions = 0
+            # Reads a cache hit served never reached the device.
+            total_attempts = res.attempts_issued
+            total_read_pages = res.read_pages_issued
+            self.last_phases = res.phases
+        else:
+            gc_suspensions = res.gc_suspensions
+            self.last_phases = None
         self.events_processed = res.n_events
-        self.last_gc_suspensions = res.gc_suspensions
+        self.last_gc_suspensions = gc_suspensions
         self.last_die_busy_us = float(sum(res.die_tot))
 
         req_done_at = np.asarray(res.req_done)
@@ -663,6 +720,31 @@ class SSDSim:
         response = req_done_at - trace.arrival_us + cfg.host_overhead_us
         read_resp = response[trace.is_read]
         span = float(req_done_at.max())
+        if prep.closed:
+            # Closed-loop span: the makespan of everything the device did
+            # (flush programs and GC can outlive the last host completion).
+            span = max(span, max(res.die_busy), max(res.ch_busy))
+            admit_at = np.asarray(res.req_admit)
+            wait = admit_at - trace.arrival_us
+            device = req_done_at - admit_at
+            read_dev = device[trace.is_read]
+            closed_kw = dict(
+                hostq_wait_mean_us=float(wait.mean()),
+                hostq_wait_p99_us=float(np.percentile(wait, 99)),
+                device_mean_us=float(device.mean()),
+                read_device_p99_us=(
+                    float(np.percentile(read_dev, 99))
+                    if read_dev.size else 0.0
+                ),
+                throughput_iops=prep.n_requests / span * 1e6,
+                max_inflight=res.max_inflight,
+                cache_hit_reads=res.full_hit_reads,
+                cache_hit_pages=res.hit_pages,
+                cache_absorbed_writes=res.absorbed_writes,
+                cache_flush_pages=res.flush_pages,
+                cache_stalled_writes=res.stalled_writes,
+                die_sense_util=sum(res.die_sense_tot) / (span * cfg.n_dies),
+            )
         gc_kw = {}
         if prep.schedule is not None:
             # GC traffic can outlive the last host completion (an erase
@@ -677,10 +759,10 @@ class SSDSim:
                 gc_page_reads=fs.gc_page_reads,
                 gc_page_progs=fs.gc_page_progs,
                 blocks_erased=fs.blocks_erased,
-                gc_suspensions=res.gc_suspensions,
+                gc_suspensions=gc_suspensions,
             )
-        elif res.gc_suspensions:
-            gc_kw = dict(gc_suspensions=res.gc_suspensions)
+        elif gc_suspensions:
+            gc_kw = dict(gc_suspensions=gc_suspensions)
         # One percentile call shares the partition pass across the three
         # quantiles (bit-identical to three separate calls).
         p50, p95, p99 = _pctl(response, (50.0, 95.0, 99.0))
@@ -692,8 +774,8 @@ class SSDSim:
             read_mean_us=float(read_resp.mean()) if read_resp.size else 0.0,
             n_requests=prep.n_requests,
             mean_read_attempts=(
-                prep.total_attempts / prep.total_read_pages
-                if prep.total_read_pages else 0.0
+                total_attempts / total_read_pages if total_read_pages
+                else 0.0
             ),
             die_util=sum(res.die_tot) / (span * cfg.n_dies),
             channel_util=sum(res.ch_tot) / (span * cfg.n_channels),
@@ -701,11 +783,12 @@ class SSDSim:
                 float(_pctl(read_resp, (99.0,))[0]) if read_resp.size
                 else 0.0
             ),
-            fast_path_events=res.fast_path_events,
+            fast_path_events=getattr(res, "fast_path_events", 0),
             engine_selected=prep.engine_selected,
             engine_fallback_reason=prep.engine_reason,
-            fused_cells=res.fused_cells,
+            fused_cells=getattr(res, "fused_cells", 0),
             **gc_kw,
+            **closed_kw,
         )
 
 
@@ -719,6 +802,7 @@ class _PreparedRun:
     validate: bool
     pipelined: bool
     sched_policy: object
+    closed: bool
     batched: bool
     engine_selected: str
     engine_reason: str
@@ -727,6 +811,8 @@ class _PreparedRun:
     total_read_pages: int
     total_attempts: int
     schedule: Optional[FTL.FTLSchedule] = None
+    #: Logical page of every op (closed runs only: the host cache's key).
+    op_lpn: Optional[list] = None
 
 
 def _run_prepared_fused(items, device):
@@ -757,18 +843,19 @@ def _with_knobs(cfg: SSDConfig, scheduler: Optional[str],
     """Overlay the run-API knobs onto a config and reject the unported
     ones: ``scheduler`` picks the die-queue policy; ``gc="off"`` keeps
     the in-place FTL-less device and ``gc="prepass"`` turns on the FTL
-    pre-pass; ``gc="online"``, ``faults``, ``ncq_depth`` and
-    ``host_cache`` raise :class:`NotImplementedError` (:class:`SSDSim`
-    rejects the same fields set on the config itself).
+    pre-pass; ``ncq_depth`` / ``host_cache`` switch on the closed-loop
+    frontend (:class:`~repro_torch.flashsim.config.HostCacheConfig`);
+    ``gc="online"`` and ``faults`` raise :class:`NotImplementedError`
+    (:class:`SSDSim` rejects the same fields set on the config itself).
     """
     if scheduler is not None:
         cfg = dataclasses.replace(cfg, scheduler=scheduler)
     if faults is not None:
         raise _unported("faults")
     if ncq_depth is not None:
-        raise _unported("ncq_depth")
+        cfg = dataclasses.replace(cfg, ncq_depth=ncq_depth)
     if host_cache is not None:
-        raise _unported("host_cache")
+        cfg = dataclasses.replace(cfg, host_cache=host_cache)
     if gc is not None:
         if gc == "off":
             cfg = dataclasses.replace(
@@ -881,9 +968,13 @@ def simulate(
     "prepass"`` runs the trace through the FTL (:mod:`repro_torch.
     flashsim.ftl`) and the stats carry WA and GC counters; the reference
     engine rejects it.  ``device`` places the characterization and the
-    batched kernel (default: the CUDA card).  ``gc="online"``,
-    ``faults``, ``ncq_depth`` and ``host_cache`` are not ported yet and
-    raise :class:`NotImplementedError`.
+    batched kernel (default: the CUDA card).  ``ncq_depth=`` switches
+    on the closed-loop frontend (bounded NCQ admission, explicit channel
+    transfer phase; array engine only: ``"batched"`` raises
+    :class:`~repro_torch.flashsim.engine_batched.BatchedUnsupported` and
+    ``"auto"`` records the fallback); ``host_cache=`` adds the host
+    write-back cache.  ``gc="online"`` and ``faults`` are not ported yet
+    and raise :class:`NotImplementedError`.
     """
     engine = cfg.engine if engine is None else engine
     cfg = _with_knobs(cfg, scheduler, gc, faults, ncq_depth, host_cache)
@@ -925,6 +1016,8 @@ def compare_mechanisms(
     over a forked pool (:func:`repro_torch.flashsim.runtime.run_compare`,
     results identical to the inline run) for the array, batched and auto
     engines; ``engine="reference"`` runs its mechanisms one by one.
+    ``ncq_depth=`` / ``host_cache=`` run every mechanism through the
+    closed-loop frontend on the array interpreter (never fused).
     """
     engine = cfg.engine if engine is None else engine
     cfg = _with_knobs(cfg, scheduler, gc, faults, ncq_depth, host_cache)
@@ -987,7 +1080,9 @@ def simulate_batch(
     groups across a process pool and ``journal=`` names a checkpoint
     file a re-run resumes from
     (:func:`repro_torch.flashsim.runtime.run_sweep`); cell values and
-    dict order are identical for every worker count.  Returns
+    dict order are identical for every worker count.  ``ncq_depth=`` /
+    ``host_cache=`` run every cell through the closed-loop frontend on
+    the array interpreter (never fused).  Returns
     ``{(mechanism, condition, seed): SimStats}`` in seed-major order.
     """
     engine = cfg.engine if engine is None else engine

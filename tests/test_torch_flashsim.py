@@ -232,8 +232,9 @@ def test_simulate_batch_matches_reference(tables, engine):
 
 
 @pytest.mark.parametrize("knob,call", [
-    ("ncq_depth", dict(ncq_depth=8)),
-    ("host_cache", dict(host_cache="cfg")),
+    # The closed loop is ported: with it, the unported knobs still raise.
+    ("ncq_depth", dict(ncq_depth=8, faults="cfg")),
+    ("host_cache", dict(ncq_depth=8, host_cache="cfg", gc="online")),
     ("faults", dict(faults="cfg")),
     ("gc=online", dict(gc="online")),
 ])

@@ -49,6 +49,14 @@ def test_import_and_simulate_without_jax(tmp_path):
         " n_requests=1200, seed=1, gc='prepass', cfg=SSDConfig(gc=GCConfig("
         "pec_per_erase=0.0)), device='cpu')\n"
         "assert g.gc_invocations == g.blocks_erased > 0 and g.wa > 1.0, g\n"
+        "from repro_torch.flashsim import HostCacheConfig, hostcache\n"
+        "assert hostcache.WriteCache(HostCacheConfig()).pending_pages == 0\n"
+        "c = simulate('prn', OperatingCondition(30.0, 0.0), 'pr2ar2',"
+        " n_requests=1200, seed=1, gc='prepass', ncq_depth=8,"
+        " host_cache=HostCacheConfig(),"
+        " cfg=SSDConfig(gc=GCConfig(pec_per_erase=0.0)), device='cpu')\n"
+        "assert 1 <= c.max_inflight <= 8 and c.cache_absorbed_writes > 0, c\n"
+        "assert c.gc_invocations == g.gc_invocations, c\n"
         "j = sys.argv[1] + '/sweep.jsonl'\n"
         "kw = dict(n_requests=100, device='cpu', journal=j)\n"
         "a = run_sweep('websearch', [OperatingCondition(30.0, 0.0)],"
@@ -147,6 +155,8 @@ def _entry_points():
         "SSDSim": lambda: rt.SSDSim(condition=cond),
         "simulate": lambda: rt.simulate("websearch", cond, "baseline",
                                         n_requests=50),
+        "simulate-closed": lambda: rt.simulate(
+            "websearch", cond, "baseline", n_requests=50, ncq_depth=8),
         "compare_mechanisms": lambda: rt.compare_mechanisms(
             "websearch", cond, n_requests=50),
         "simulate_batch": lambda: rt.simulate_batch(
@@ -168,7 +178,7 @@ def _entry_points():
     "ServeEngine", "build_model", "build_model-mamba2", "params_from_jax",
     "kv_read_with_retry", "flash_attention", "ssd_scan", "rber_table",
     "characterize_condition", "attempt_histogram", "attempt_cdf", "SSDSim",
-    "simulate", "compare_mechanisms", "simulate_batch", "SSDSimRef",
+    "simulate", "simulate-closed", "compare_mechanisms", "simulate_batch", "SSDSimRef",
     "run_sweep", "run_cells", "fcfs_core", "fused_core",
 ])
 def test_entry_point_without_cuda_raises(name, monkeypatch, tmp_path):

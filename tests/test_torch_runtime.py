@@ -569,3 +569,142 @@ def test_prepass_compare_workers_match_inline_and_reference(tables):
     assert [RT._stats_payload(s) for s in pooled.values()] == \
         [RT._stats_payload(s) for s in ref.values()]
     assert all(s.gc_invocations > 0 for s in pooled.values())
+
+
+# -- the closed loop through the runtime -------------------------------------
+
+
+#: The closed-loop fields of SimStats, zero on open-loop runs.
+CLOSED_FIELDS = (
+    "hostq_wait_mean_us", "hostq_wait_p99_us", "device_mean_us",
+    "read_device_p99_us", "throughput_iops", "max_inflight",
+    "cache_hit_reads", "cache_hit_pages", "cache_absorbed_writes",
+    "cache_flush_pages", "cache_stalled_writes", "die_sense_util",
+)
+CL_CACHE = dict(capacity_pages=64)
+
+
+def _closed_kw(port=True, **kw):
+    """A closed-loop prepass sweep of ``prn`` on its hot span, with a
+    64-page host cache, in the port or the reference."""
+    cfg, rcfg = _gc_cfgs()
+    hot, rhot = _hot()
+    if port:
+        return dict(workload=hot, conditions=PORT_CONDS, cfg=cfg,
+                    mechanisms=("baseline", "pr2ar2"), seeds=(0, 1),
+                    ncq_depth=8, host_cache=TF.HostCacheConfig(**CL_CACHE),
+                    device="cpu", **kw)
+    from repro.flashsim.config import HostCacheConfig
+
+    return dict(workload=rhot, conditions=_ref_conds(), cfg=rcfg,
+                mechanisms=("baseline", "pr2ar2"), seeds=(0, 1),
+                ncq_depth=8, host_cache=HostCacheConfig(**CL_CACHE), **kw)
+
+
+@pytest.fixture(scope="module")
+def closed_ref_json(tables):
+    from repro.flashsim import runtime as RR
+
+    return RR.sweep_to_json(RR.run_sweep(**_closed_kw(port=False)))
+
+
+@pytest.mark.parametrize("engine,workers", [("array", 1), ("array", 2),
+                                            ("auto", 2)])
+def test_closed_loop_sweep_matches_reference(closed_ref_json, engine,
+                                             workers):
+    """GC, the write cache and the NCQ through seed groups: the bytes
+    are the reference's at workers 1 and 2, and ``auto`` never fuses a
+    closed cell into a shard-core launch."""
+    if workers > 1:
+        _require_pool()
+    got = TF.run_sweep(**_closed_kw(engine=engine, workers=workers))
+    assert RT.sweep_to_json(got) == closed_ref_json
+    for s in got.values():
+        assert s.gc_invocations > 0 and s.cache_absorbed_writes > 0
+        assert 1 <= s.max_inflight <= 8
+        assert s.engine_selected == "array" and s.fused_cells == 0
+        assert ("open-loop only" in s.engine_fallback_reason) == \
+            (engine == "auto")
+
+
+def test_closed_simulate_cells_are_never_fused(tables):
+    """Fusable-looking ``simulate`` cells with ``ncq_depth`` run one by
+    one on the array interpreter, as the reference runs them."""
+    from repro.flashsim import runtime as RR
+
+    mechs = ("pr2", "pr2ar2", "sota+pr2ar2")
+    cells = [TF.Cell("simulate", "websearch", (PORT_CONDS[0],), (m,), 5,
+                     n_requests=200, engine="auto", fuse=True, ncq_depth=16,
+                     device="cpu") for m in mechs]
+    ref_cells = [RR.Cell("simulate", "websearch", (_ref_conds()[0],), (m,),
+                         5, n_requests=200, engine="auto", fuse=True,
+                         ncq_depth=16) for m in mechs]
+    got = RT.run_cells(cells, workers=1)
+    want = RR.run_cells(ref_cells, workers=1)
+    assert [RT._stats_payload(s) for s in got] == \
+        [RR._stats_payload(s) for s in want]
+    assert all(s.fused_cells == 0 and s.engine_selected == "array"
+               and s.max_inflight >= 1 for s in got)
+
+
+def test_prewarm_covers_closed_prepass_cells(tables):
+    """A closed prepass cell reads the same worn bins as its open-loop
+    twin (the closed loop runs the same FTL schedule), and the prewarm
+    count is the reference's."""
+    from repro.flashsim import runtime as RR
+
+    cfg, rcfg = _gc_cfgs(pec_per_erase=300.0)
+    hot, rhot = _hot()
+    kw = dict(ncq_depth=4, host_cache=TF.HostCacheConfig(**CL_CACHE))
+    closed = TF.Cell("batch", hot, PORT_CONDS, ("baseline", "pr2ar2"), 0,
+                     cfg=cfg, device="cpu", **kw)
+    open_ = dataclasses.replace(closed, ncq_depth=None, host_cache=None)
+    bins = RT._worn_bins(closed)
+    assert bins == RT._worn_bins(open_)
+    assert bins[PORT_CONDS[0]] == (1500.0,)
+    from repro.flashsim.config import HostCacheConfig
+
+    ref = RR.Cell("batch", rhot, _ref_conds(), ("baseline", "pr2ar2"), 0,
+                  cfg=rcfg, ncq_depth=4,
+                  host_cache=HostCacheConfig(**CL_CACHE))
+    assert RT.prewarm_characterization([closed]) == \
+        RR.prewarm_characterization([ref]) == 4
+
+
+def test_closed_loop_journal_resume_round_trips(tables, tmp_path):
+    j = tmp_path / "sweep.jsonl"
+    kw = _closed_kw(journal=j)
+    first = TF.run_sweep(**kw)
+    resumed = TF.run_sweep(**kw)            # replayed entirely
+    assert RT.sweep_to_json(first) == RT.sweep_to_json(resumed)
+    lines = j.read_text().splitlines()
+    j.write_text("\n".join(lines[:2]) + "\n")   # header + first seed group
+    partial = TF.run_sweep(**kw)
+    assert RT.sweep_to_json(partial) == RT.sweep_to_json(first)
+    assert all(s.cache_flush_pages > 0 for s in partial.values())
+
+
+def test_journal_decode_tolerates_old_schema(tables):
+    """A journal written before the closed-loop fields existed still
+    decodes (missing keys take their zero defaults)."""
+    full = dataclasses.asdict(TF.simulate(
+        "websearch", PORT_CONDS[0], "pr2ar2", n_requests=100, ncq_depth=8,
+        device="cpu"))
+    assert full["max_inflight"] > 0
+    old = {k: v for k, v in full.items() if k not in CLOSED_FIELDS}
+    stats = RT._stats_from_journal(old)
+    assert isinstance(stats, TF.SimStats)
+    assert stats.max_inflight == 0 and stats.throughput_iops == 0.0
+    assert stats.mean_us == full["mean_us"]
+    assert RT._stats_from_journal(full) == TF.SimStats(**full)
+
+
+def test_journal_decode_tolerates_future_schema(tables):
+    """...and one written by a later build drops the keys it does not
+    know."""
+    full = dataclasses.asdict(TF.simulate(
+        "websearch", PORT_CONDS[0], "pr2ar2", n_requests=100, device="cpu"))
+    full["some_future_counter"] = 7
+    stats = RT._stats_from_journal(full)
+    assert stats.mean_us == full["mean_us"]
+    assert not hasattr(stats, "some_future_counter")
