@@ -206,15 +206,43 @@ exits non-zero):
                      fallback; and the ``prn`` GC cell closed at QD 32
                      (``baseline``, ``pr2ar2``, with and without a host
                      write-back cache), its host wall, IOPS, wait/device
-                     split and cache counters printed.
+                     split and cache counters printed;
+ 13. online GC    — the other 20 cells of ``golden_closed_loop.json``
+     and faults      (online|none, online|fc, off|fc, prepass|fc) on the
+                     card's characterization through ``engine="array"``
+                     and ``"auto"`` (equal, fallback recorded, no
+                     shard-core launch), each refused by
+                     ``engine="batched"``; ``compare_mechanisms`` of
+                     ``prn`` at 20 000 requests, all six mechanisms,
+                     ``gc="online"``: WA, GC passes, write stalls,
+                     prefill skips, read mean and p99 printed beside
+                     phase 11's prepass and in-place cells, and
+                     ``pr2ar2`` with ``shard=True`` equal to it; the
+                     golden ``fc`` faults on ``prn`` (``pr2ar2``) online,
+                     prepass, and prepass closed at QD 32 (its fault
+                     counters equal to the open loop's); the reference's
+                     recovery-ladder cell (``rsrch``, 2 000 requests,
+                     ``uncorrectable_prob=0.6``, one escalation): parity
+                     rebuilds, rebuild reads and retired blocks > 0, and
+                     ``shard=True`` equal; AR²'s reliability guard
+                     (``websearch``, six mechanisms, ``FaultConfig()``):
+                     mispredictions and read mean/p99 beside
+                     ``faults=None``, none for the non-adaptive
+                     mechanisms; a pooled online sweep with faults
+                     (``prn``, 600 requests, seeds 0-1) byte-identical at
+                     workers 1 and 2 (spawned); every run's host wall,
+                     the fault model's derived rates on the card's
+                     characterization, and the phase's seconds against
+                     its 150 s budget.  The shard-core count over the
+                     whole phase must be 0.
 
 The line before the last is a JSON object describing each kernel
 (launches on its main path, error against the plain version, and times
 and bound summed over the main path's launches; for the shard core also
 the inline sweep's counted launches and its held launch, the
-prepass-GC compare's counted launches and its held launch, and the
-closed-loop phase's counted launches and its held launches); the last
-line is
+prepass-GC compare's counted launches and its held launch, the
+closed-loop phase's counted launches and its held launches, and the
+online/fault phase's launches, which must be 0); the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or outside a
 checkout of the repository, it exits non-zero and prints no result.
 """
@@ -318,6 +346,23 @@ CLOSED_LADDER = (1, 2, 4, 8, 16, 32)
 CLOSED_MECHANISMS = ("baseline", "sota+pr2ar2")
 CLOSED_GC_QD = 32
 CLOSED_GC_MECHANISMS = ("baseline", "pr2ar2")
+
+# Phase 13: online GC and faults.  The golden matrix's cells the batched
+# engine refuses; online GC at the paper's size; the golden ``fc`` fault
+# configuration at the paper's size (online, prepass, and prepass closed
+# at this queue depth); the reference's recovery-ladder cell; AR²'s
+# reliability guard on ``websearch``; a small pooled sweep; the phase's
+# host budget in seconds.
+FAULT_MECHANISM = "pr2ar2"
+FAULT_QD = 32
+RECOVERY_CELL = dict(workload="rsrch", n_requests=2000, seed=3)
+RECOVERY_FAULTS = dict(uncorrectable_prob=0.6, escalation_attempts=1)
+ONLINE_SWEEP_N = 600
+ONLINE_SWEEP_SEEDS = (0, 1)
+ONLINE_BUDGET_S = 150.0
+FAULT_FIELDS = ("mispredicted_reads", "rescued_reads", "parity_rebuilds",
+                "rebuild_reads", "retired_blocks", "program_fails",
+                "erase_fails", "unrecoverable")
 
 
 def phase(name):
@@ -2259,7 +2304,7 @@ def gc_phase(smi, chain_ns):
                    unfused_s=unfused_s, wa=wa, gc_invocations=gc_inv,
                    worn_sweep_s=walls, worn_sweep_launches=sweep_launches)
     print("prepass GC summary: " + _json.dumps(summary), flush=True)
-    return launches, smem_launches, held
+    return launches, smem_launches, held, res, inplace
 
 
 def _golden_closed_cells():
@@ -2559,6 +2604,276 @@ def closed_loop_phase(smi):
     return launches, held
 
 
+# -- online GC and faults: host interpreter runs on the card's tables -------
+
+
+def _golden_host_cells():
+    """The pinned cells of ``golden_closed_loop.json`` the batched engine
+    refuses for online GC or faults: ``(meta, {key: pinned})``."""
+    g = json.loads(CLOSED_GOLDEN.read_text())
+    cells = {k: v for k, v in g["cells"].items()
+             if k.split("|")[2] == "online" or not k.endswith("|none")}
+    if len(cells) != 20:
+        raise AssertionError(f"{CLOSED_GOLDEN}: {len(cells)} online or "
+                             f"fault cells")
+    return g["meta"], cells
+
+
+def _online_fault_runs(device):
+    """The paper-size runs of phase 13 on ``device``'s characterization:
+    ``{name: (stats, host seconds)}``, with the prefill skips of each
+    online run's controller under ``name + " prefill_skips"``.  Every run is
+    host interpreter work; the card characterizes the worn bins and the
+    fault model's condition records."""
+    from repro_torch.flashsim import (FaultConfig, OperatingCondition,
+                                      compare_mechanisms, simulate)
+    from repro_torch.flashsim import ssd as S
+
+    meta, _ = _golden_host_cells()
+    cond = OperatingCondition(*CONDITION)
+    fc = FaultConfig(**meta["fault_configs"]["fc"])
+    controllers = []
+    controller = S.OnlineGC
+
+    class RecordingGC(controller):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            controllers.append(self)
+
+    runs = {}
+
+    def timed(name, fn):
+        n = len(controllers)
+        t0 = time.perf_counter()
+        out = fn()
+        runs[name] = (out, time.perf_counter() - t0)
+        runs[name + " prefill_skips"] = [d.prefill_skips
+                                         for d in controllers[n:]]
+        return out
+
+    S.OnlineGC = RecordingGC
+    try:
+        kw = dict(n_requests=N_REQUESTS, device=device)
+        timed("online compare", lambda: compare_mechanisms(
+            GC_WORKLOAD, cond, MECHANISMS, gc="online", engine="auto",
+            **kw))
+        timed("online shard", lambda: simulate(
+            GC_WORKLOAD, cond, FAULT_MECHANISM, gc="online", shard=True,
+            **kw))
+        for gc in ("online", "prepass"):
+            timed(f"fc {gc}", lambda gc=gc: simulate(
+                GC_WORKLOAD, cond, FAULT_MECHANISM, gc=gc, faults=fc, **kw))
+        timed(f"fc prepass QD {FAULT_QD}", lambda: simulate(
+            GC_WORKLOAD, cond, FAULT_MECHANISM, gc="prepass", faults=fc,
+            ncq_depth=FAULT_QD, **kw))
+        rc = dict(RECOVERY_CELL)
+        rkw = dict(seed=rc.pop("seed"), gc="online", device=device,
+                   faults=FaultConfig(**RECOVERY_FAULTS), **rc)
+        wl = rkw.pop("workload")
+        for shard in (False, True):
+            timed(f"recovery shard={shard}", lambda shard=shard: simulate(
+                wl, cond, FAULT_MECHANISM, shard=shard, **rkw))
+        for name, faults in (("guard faults", FaultConfig()),
+                             ("guard none", None)):
+            timed(name, lambda faults=faults: compare_mechanisms(
+                WORKLOAD, cond, MECHANISMS, faults=faults, engine="array",
+                **kw))
+    finally:
+        S.OnlineGC = controller
+    return runs
+
+
+def _online_fault_digits(runs):
+    """The simulated numbers of :func:`_online_fault_runs`, one line a
+    run (what PERF.md predicts and the card must print)."""
+    lines = []
+    for m, s in runs["online compare"][0].items():
+        lines.append(f"online {m}: WA {s.wa!r}, {s.gc_invocations} GC "
+                     f"passes, {s.write_stalls} write stalls, read mean "
+                     f"{s.read_mean_us!r} us, read p99 {s.read_p99_us!r} us")
+    lines.append(f"online prefill skips by mechanism: "
+                 f"{runs['online compare prefill_skips']}")
+    for name in ("fc online", "fc prepass", f"fc prepass QD {FAULT_QD}",
+                 "recovery shard=False"):
+        s = runs[name][0]
+        lines.append(f"{name}: " + ", ".join(
+            f"{f} {getattr(s, f)}" for f in FAULT_FIELDS)
+            + f", recovery p99 {s.recovery_p99_us!r} us, read mean "
+            f"{s.read_mean_us!r} us, read p99 {s.read_p99_us!r} us, WA "
+            f"{s.wa!r}")
+    for m, s in runs["guard faults"][0].items():
+        n = runs["guard none"][0][m]
+        lines.append(f"guard {m}: {s.mispredicted_reads} mispredicted, "
+                     f"read mean {s.read_mean_us!r} us (no faults "
+                     f"{n.read_mean_us!r}), read p99 {s.read_p99_us!r} us "
+                     f"(no faults {n.read_p99_us!r})")
+    return lines
+
+
+@phase("online GC and faults")
+def online_faults_phase(smi, prepass, inplace):
+    import torch
+
+    from repro_torch.core import characterize as CH
+    from repro_torch.core.retry import RetryPolicy
+    from repro_torch.flashsim import (BatchedUnsupported, FaultConfig,
+                                      FaultModel, OperatingCondition,
+                                      SSDConfig, SSDSim, runtime as RT,
+                                      simulate)
+    from repro_torch.kernels.fcfs_core import ops as K
+
+    print(smi, flush=True)
+    t_phase = time.perf_counter()
+    cond = OperatingCondition(*CONDITION)
+    meta, cells = _golden_host_cells()
+    K.launches = 0
+    t0 = time.perf_counter()
+    for key in sorted(cells):
+        mech, sched, gc, fname = key.split("|")
+        fcfg = meta["fault_configs"][fname]
+        kw = dict(seed=meta["seed"], n_requests=meta["n_requests"],
+                  scheduler=sched, gc=gc, device=DEVICE,
+                  faults=None if fcfg is None else FaultConfig(**fcfg))
+        wl = (meta["extra_workload"] if mech in ("baseline", "sota+pr2ar2")
+              else meta["workload"])
+        array = simulate(wl, cond, mech, engine="array", **kw)
+        auto = simulate(wl, cond, mech, engine="auto", **kw)
+        _check_pinned(f"{key}[array]", array, cells[key])
+        if _outcome(auto) != _outcome(array) or \
+                auto.engine_selected != "array" or \
+                not auto.engine_fallback_reason or auto.fast_path_events:
+            raise AssertionError(f"{key}[auto]: {auto} against the array "
+                                 f"run {array}")
+        try:
+            simulate(wl, cond, mech, engine="batched", **kw)
+            raise AssertionError(f"{key}: engine='batched' ran")
+        except BatchedUnsupported as e:
+            if str(e) != auto.engine_fallback_reason:
+                raise AssertionError(f"{key}: batched refused with {e!r}, "
+                                     f"auto recorded "
+                                     f"{auto.engine_fallback_reason!r}")
+    golden_s = time.perf_counter() - t0
+    golden_launches = K.launches
+    if golden_launches != 0:
+        raise AssertionError(f"golden online/fault cells launched the shard "
+                             f"core {golden_launches} times")
+    print(f"online GC and faults: {len(cells)} pinned cells of "
+          f"{CLOSED_GOLDEN.name} (online|none, online|fc, off|fc, "
+          f"prepass|fc) equal to their pins on the card's characterization "
+          f"({CLOSED_ULPS} ulps on die_util and channel_util) through "
+          f"engine='array' and 'auto' (fallback recorded, "
+          f"{golden_launches} shard-core launches); engine='batched' "
+          f"refuses each: {golden_s:.3f} s", flush=True)
+
+    runs = _online_fault_runs(DEVICE)
+    torch.cuda.synchronize()
+    if K.launches != 0:
+        raise AssertionError(f"online/fault runs launched the shard core "
+                             f"{K.launches} times")
+    online, online_s = runs["online compare"]
+    skips = runs["online compare prefill_skips"]
+    for m in MECHANISMS:
+        o, g, p = online[m], prepass[m], inplace[m]
+        if not (o.wa > 1.0 and o.gc_invocations > 0 and o.blocks_erased > 0
+                and o.engine_selected == "array"
+                and "online GC" in o.engine_fallback_reason):
+            raise AssertionError(f"online {m}: {o}")
+        print(f"{m:>12}: online WA {o.wa:.4f}, {o.gc_invocations} GC passes, "
+              f"{o.write_stalls} write stalls, {skips[MECHANISMS.index(m)]} "
+              f"prefill skips, read mean {o.read_mean_us:.3f} us, read p99 "
+              f"{o.read_p99_us:.3f} us | prepass WA {g.wa:.4f}, "
+              f"{g.gc_invocations} GC passes, read mean "
+              f"{g.read_mean_us:.3f} us, read p99 {g.read_p99_us:.3f} us | "
+              f"in place read mean {p.read_mean_us:.3f} us, read p99 "
+              f"{p.read_p99_us:.3f} us", flush=True)
+    shard, shard_s = runs["online shard"]
+    if _outcome(shard) != _outcome(online[FAULT_MECHANISM]):
+        raise AssertionError(f"online {FAULT_MECHANISM}: shard=True differs "
+                             f"from the monolithic run")
+    print(f"online compare ({GC_WORKLOAD}, {N_REQUESTS} requests, six "
+          f"mechanisms): host wall {online_s:.3f} s on {smi}; "
+          f"{FAULT_MECHANISM} shard=True == monolithic ({shard_s:.3f} s)",
+          flush=True)
+
+    fo, fp, fq = (runs[k][0] for k in ("fc online", "fc prepass",
+                                       f"fc prepass QD {FAULT_QD}"))
+    for f in FAULT_FIELDS:
+        if getattr(fq, f) != getattr(fp, f):
+            raise AssertionError(f"fc prepass QD {FAULT_QD}: {f} "
+                                 f"{getattr(fq, f)} against the open loop's "
+                                 f"{getattr(fp, f)}")
+    if not (fq.max_inflight <= FAULT_QD and fp.mispredicted_reads > 0
+            and fo.mispredicted_reads > 0 and fo.write_stalls > 0):
+        raise AssertionError(f"fc runs: online {fo}, prepass {fp}, closed "
+                             f"{fq}")
+    rec, rec_s = runs["recovery shard=False"]
+    if not (rec.parity_rebuilds > 0 and rec.rebuild_reads > 0
+            and rec.retired_blocks > 0):
+        raise AssertionError(f"recovery cell: no rebuild or retirement: {rec}")
+    if _outcome(runs["recovery shard=True"][0]) != _outcome(rec):
+        raise AssertionError("recovery cell: shard=True differs")
+    guard = runs["guard faults"][0]
+    for m, s in guard.items():
+        if not RetryPolicy(m).adaptive_tr and s.mispredicted_reads:
+            raise AssertionError(f"guard {m}: a non-adaptive mechanism "
+                                 f"mispredicted {s.mispredicted_reads} reads")
+    if not any(s.mispredicted_reads for s in guard.values()):
+        raise AssertionError("guard: no adaptive mechanism mispredicted")
+    for line in _online_fault_digits(runs):
+        print(line, flush=True)
+    # The derived rates rest on the card's characterization record (its
+    # float32 margin mean, ROADMAP C10), not on the simulation.
+    st = CH.characterize_condition(*CONDITION, device=DEVICE)
+    fm = FaultModel(FaultConfig(), SSDConfig(), cond,
+                    RetryPolicy(FAULT_MECHANISM), 7,
+                    SSDSim(SSDConfig(), cond, RetryPolicy(FAULT_MECHANISM),
+                           device=DEVICE))
+    print(f"fault model at {CONDITION[0]:g} d / {CONDITION[1]:g} P/E on the "
+          f"card: mean_margin_final {st.mean_margin_final!r}, "
+          f"{FAULT_MECHANISM} p_mis {fm.p_mis(0.0)!r}, p_unc "
+          f"{fm.p_unc(0.0)!r}", flush=True)
+    walls = {k: v[1] for k, v in runs.items() if not k.endswith("skips")}
+    print(f"host wall by run on {smi}: " + ", ".join(
+        f"{k} {v:.3f} s" for k, v in walls.items()), flush=True)
+
+    conds = tuple(OperatingCondition(*c) for c in SWEEP_CONDITIONS)
+    blobs, sweep_s = {}, {}
+    for w in (1, 2):
+        t0 = time.perf_counter()
+        out = RT.run_sweep(GC_WORKLOAD, conds, GC_PRIO_MECHANISMS,
+                           ONLINE_SWEEP_SEEDS, n_requests=ONLINE_SWEEP_N,
+                           gc="online",
+                           faults=FaultConfig(**meta["fault_configs"]["fc"]),
+                           workers=w, device=DEVICE)
+        sweep_s[w] = time.perf_counter() - t0
+        if any(s.fused_cells or s.fast_path_events or s.n_requests !=
+               ONLINE_SWEEP_N for s in out.values()):
+            raise AssertionError(f"online sweep workers={w}: {out}")
+        blobs[w] = RT.sweep_to_json(out)
+    if blobs[1] != blobs[2]:
+        raise AssertionError("online/fault sweep: sweep_to_json differs "
+                             "between workers 1 and 2")
+    phase_s = time.perf_counter() - t_phase
+    print(f"online/fault sweep ({GC_WORKLOAD}, {ONLINE_SWEEP_N} requests, "
+          f"{len(conds)} conditions x {len(GC_PRIO_MECHANISMS)} mechanisms x "
+          f"seeds {ONLINE_SWEEP_SEEDS}, fc): workers 1 {sweep_s[1]:.3f} s, "
+          f"workers 2 (spawned) {sweep_s[2]:.3f} s, sweep_to_json "
+          f"byte-identical ({len(blobs[1])} bytes); phase {phase_s:.3f} s "
+          f"of its {ONLINE_BUDGET_S:g} s budget", flush=True)
+    if phase_s > ONLINE_BUDGET_S:
+        print(f"online GC and faults: {phase_s:.1f} s, OVER the "
+              f"{ONLINE_BUDGET_S:g} s budget", flush=True)
+    print(smi)
+    summary = dict(golden_s=golden_s, golden_launches=golden_launches,
+                   walls_s=walls, sweep_s=sweep_s, phase_s=phase_s,
+                   online_wa={m: online[m].wa for m in MECHANISMS},
+                   online_write_stalls={m: online[m].write_stalls
+                                        for m in MECHANISMS},
+                   card=smi)
+    print("online GC and faults summary: " + json.dumps(summary), flush=True)
+    return K.launches + golden_launches
+
+
 def _print_held(name, rs):
     """One line for the launches of one run, held and re-timed."""
     bound_ms, bound_by = _bound(sum(r["t_bytes"] for r in rs),
@@ -2638,8 +2953,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     sweep_launches, sweep_held = sweep_phase(smi)
     torch.cuda.empty_cache()
-    gc_launches, gc_smem_launches, gc_held = gc_phase(smi, chain_ns)
+    gc_launches, gc_smem_launches, gc_held, gc_res, gc_inplace = gc_phase(
+        smi, chain_ns)
     closed_launches, closed_held = closed_loop_phase(smi)
+    online_fault_launches = online_faults_phase(smi, gc_res, gc_inplace)
 
     # Times and bounds are sums over each main path's launches, each
     # re-run on the inputs it had there.
@@ -2660,7 +2977,8 @@ def main() -> int:
             closed_plain_ms=sum(r["plain_ms"] for r in closed_held),
             closed_bound_ms=_bound(
                 sum(r["t_bytes"] for r in closed_held),
-                sum(r["t_ops"] for r in closed_held))[0]),
+                sum(r["t_ops"] for r in closed_held))[0],
+            online_fault_launches=online_fault_launches),
         _kernel_line("flash_attention",
                      f"{kernels}/flash_attention/csrc/flash_attention.cu",
                      "src/repro/kernels/flash_attention/kernel.py:34",

@@ -4,17 +4,16 @@ This module is the bottom layer of the simulator's layered architecture:
 
   * :mod:`repro_torch.flashsim.ssd` (run orchestration: attempt sampling, stats)
   * :mod:`repro_torch.flashsim.sched` (die-queue policies: fcfs / host_prio / preempt)
+  * :mod:`repro_torch.flashsim.gc_online` (completion-time-triggered GC, optional)
   * **this module** — the heap, the busy-until channel collapse, and the
     op-kind dispatch.
 
 It is the host interpreter behind ``engine="array"``, the reference's
-open-loop core and, below it, its closed-loop interpreter
-(:func:`run_closed_loop`: bounded NCQ admission, the host write-back
-cache of :mod:`repro_torch.flashsim.hostcache`, an explicit channel
-transfer phase).  Online GC and faults are not part of this port yet
-(see ROADMAP.md): the open loop carries none of their hooks, and the
-closed loop's fault-recovery tails (``OpBuffers.xa``/``xtr``) stay
-dormant until a fault plan fills them.
+open-loop core with its online-GC and fault-recovery hooks and, below
+it, its closed-loop interpreter (:func:`run_closed_loop`: bounded NCQ
+admission, the host write-back cache of
+:mod:`repro_torch.flashsim.hostcache`, an explicit channel transfer
+phase, and the recovery tails of a fault plan).
 
 Heap records are 2-tuples ``(time, seq << 40 | op_id << 2 | opcode)``: the
 packed integer both tie-breaks FIFO (``seq`` in the high bits — push-order
@@ -25,7 +24,7 @@ channel state collapses to a cumulative busy-until scalar (a transfer's
 grant and completion times are exact at issue) — one heap event per read
 attempt instead of two.  Each handler schedules at most one successor
 event on its own behalf, so pop+push collapses into a ``heapreplace``
-sift.
+sift; online-GC injections may push extra events mid-handler.
 
 Scheduler integration
 ---------------------
@@ -57,8 +56,8 @@ different channels never share a die queue, a channel busy-until scalar,
 or a scheduler instance.  ``run_event_core(..., shard=True)`` exploits
 this by running one *shard loop* per channel — the same interpreter
 (:func:`_run_shard`) over the admission substream of that channel's ops,
-owning that channel's dies, queues and busy-until scalar — and then
-combining the per-shard
+owning that channel's dies, queues, busy-until scalar, and (online mode)
+its slice of the per-die GC state — and then combining the per-shard
 completion streams with a thin deterministic merge
 (:func:`merge_shard_results`): ``req_done`` is an elementwise max (a
 request's pages may span channels), die/channel vectors take each
@@ -68,8 +67,24 @@ The sharded run is **bit-identical** to the monolithic run: within one
 shard, events are pushed in the same relative order as the monolithic
 loop's events restricted to that channel (push-order tie-breaking is a
 per-shard property), and cross-shard state is limited to the commutative
-``req_done`` max and additive counters.  The shard loops run
-sequentially in-process.
+``req_done`` max and additive counters.  Online GC keeps this exact
+because the FTL is die-partitioned (see :mod:`repro_torch.flashsim.ftl`) and
+its attempt draws come from per-die RNG substreams
+(:mod:`repro_torch.flashsim.gc_online`), so the draw sequence of a die does
+not depend on how loops interleave across channels.  The shard loops
+run sequentially in-process; cross-*run* parallelism lives a layer up in
+:mod:`repro_torch.flashsim.runtime`.
+
+Online-GC integration
+---------------------
+With an :class:`repro_torch.flashsim.gc_online.OnlineGC` controller
+attached, the loop calls back at three points: host-read admission (FTL map + lazy
+pre-fill + per-block attempt/tR resolution), host-program start (page
+allocation at the *simulated* instant the die takes the program — the
+free-block watermark trigger), and erase completion (the erased block
+re-enters the free pool; stalled writes re-dispatch).  GC page-ops the
+controller emits are admitted immediately at the current sim time through
+the same queues as everything else.
 """
 
 from __future__ import annotations
@@ -95,10 +110,12 @@ _OPSHIFT_MASK = (1 << 40) - 1
 class OpBuffers:
     """Flat per-op state driving one engine run (plain Python lists).
 
-    The entries are the admission stream (pre-sorted by arrival time).
-    ``host_read`` is built by the engine when the scheduler classifies
-    ops (None under fcfs).  The batched engine takes numpy columns in
-    the same fields.
+    The first ``len(arrival)`` entries are the admission stream (pre-
+    sorted by arrival time); online GC appends further ops mid-run, so
+    every consumer that needs per-op state holds a reference to these
+    *growing* lists.  ``host_read`` is built by the engine when the
+    scheduler classifies ops (None under fcfs).  The batched engine
+    takes numpy columns in the same fields.
     """
 
     arrival: List[float]      # admission times of the initial stream
@@ -117,10 +134,10 @@ class OpBuffers:
     susp: List[bool]          # suspended flag (preempt)
     host_read: Optional[List[bool]] = None
     #: Fault recovery (None without a fault model): extra full-strength
-    #: re-reads appended after the op's last sampled attempt, executed
-    #: by the closed loop as a serial continuation at ``xtr`` (nominal
-    #: tR) with the die held throughout.  No run fills them until the
-    #: fault model is ported.
+    #: re-reads appended after the op's last sampled attempt — the AR²
+    #: misprediction re-read and/or uncorrectable-escalation attempts —
+    #: executed as a serial continuation at ``xtr`` (nominal tR) with the
+    #: die held throughout.
     xa: Optional[List[int]] = None
     xtr: Optional[List[float]] = None
 
@@ -136,6 +153,8 @@ class EngineResult:
     ch_busy: List[float]
     n_events: int
     gc_suspensions: int       # preempt: suspend events (duration + boundary)
+    online_attempts: int      # online mode: total host-read attempts
+    online_read_pages: int    # online mode: host read pages admitted
     #: Events retired by the batched lockstep kernel (0 for interpreter
     #: runs) — the "kernel fast path actually ran" observability counter.
     fast_path_events: int = 0
@@ -161,6 +180,7 @@ def run_event_core(
     policy: SchedulerPolicy,
     bufs: OpBuffers,
     n_requests: int,
+    online=None,
     validate: bool = False,
     shard: bool = False,
 ) -> EngineResult:
@@ -179,23 +199,36 @@ def run_event_core(
         op_read, op_rid = bufs.read, bufs.rid
         host_read = [op_read[i] and op_rid[i] >= 0 for i in range(P)]
     bufs.host_read = host_read
+    if online is not None:
+        online.bind(bufs)
 
     if not shard or cfg.n_channels == 1:
-        return _run_shard(cfg, pipelined, policy, bufs, n_requests,
-                          host_read, validate, None)
+        res = _run_shard(cfg, pipelined, policy, bufs, n_requests,
+                         host_read, online, validate, None)
+        if online is not None:
+            online.assert_drained()
+        return res
 
     # Per-channel decomposition: partition the admission stream by the
-    # static die -> channel stripe.
+    # static die -> channel stripe.  Online injections never enter these
+    # lists (they are admitted mid-loop at the current sim time) and are
+    # die-local by the gc_online shard-scope contract, so the partition
+    # computed up front stays exhaustive.
     n_ch = cfg.n_channels
     shard_ops: List[List[int]] = [[] for _ in range(n_ch)]
     for i, c in enumerate(bufs.ch[:P]):
         shard_ops[c].append(i)
     results = []
     for c in range(n_ch):
+        if online is not None:
+            online.set_shard_scope(range(c, cfg.n_dies, n_ch))
         results.append(
             _run_shard(cfg, pipelined, policy, bufs, n_requests,
-                       host_read, validate, shard_ops[c])
+                       host_read, online, validate, shard_ops[c])
         )
+    if online is not None:
+        online.set_shard_scope(None)
+        online.assert_drained()
     return merge_shard_results(cfg, results)
 
 
@@ -206,6 +239,7 @@ def _run_shard(
     bufs: OpBuffers,
     n_requests: int,
     host_read: Optional[List[bool]],
+    online,
     validate: bool,
     shard_ops: Optional[List[int]],
 ) -> EngineResult:
@@ -227,6 +261,7 @@ def _run_shard(
     op_held, op_end, op_resid, op_susp = (
         bufs.held, bufs.end, bufs.resid, bufs.susp
     )
+    op_xa, op_xtr = bufs.xa, bufs.xtr
     P = len(adm_t)
 
     preempt = policy.preemptive
@@ -248,8 +283,50 @@ def _run_shard(
     seqc = 0                      # already-shifted seq (increments 1<<40)
     n_events = 0
     gc_susp = 0
+    online_attempts = 0
+    online_read_pages = 0
 
     read_start_ev = _EV_COPY if pipelined else _EV_NEXT
+
+    def admit_gc(o: int, tm: float) -> None:
+        """Admit an online-injected GC page-op at the current instant."""
+        nonlocal seqc
+        if op_read[o]:
+            d = op_die[o]
+            if tm >= die_busy[d] and not dieq[d]:
+                die_busy[d] = _INF
+                op_held[o] = tm
+                die_cur[d] = o
+                if pipelined:
+                    op_rem[o] = 0
+                push(heap, (tm + op_tr[o], seqc | o << 2 | read_start_ev))
+                seqc += _SEQ1
+            else:
+                dieq[d].append(o)
+        elif op_erase[o]:
+            d = op_die[o]
+            if tm >= die_busy[d] and not dieq[d]:
+                die_busy[d] = _INF
+                op_held[o] = tm
+                die_cur[d] = o
+                rel = tm + op_dur[o]
+                op_end[o] = rel
+                push(heap, (rel, seqc | o << 2 | _EV_REL))
+                seqc += _SEQ1
+            else:
+                dieq[d].append(o)
+        else:
+            c = op_ch[o]
+            b = ch_busy[c]
+            done = (b if b > tm else tm) + tdma
+            ch_busy[c] = done
+            ch_tot[c] += tdma
+            push(heap, (done, seqc | o << 2 | _EV_ACQ))
+            seqc += _SEQ1
+
+    def drain_online(tm: float) -> None:
+        for o in online.take_injected():
+            admit_gc(o, tm)
 
     # Admission cursor merged with the heap (admits never enter it).  The
     # event sequence under fcfs is byte-for-byte the pre-refactor loop's.
@@ -286,6 +363,15 @@ def _run_shard(
             # the channel (program happens after the transfer);
             # erases hold their die with no channel traffic.
             if op_read[op]:
+                if online is not None:
+                    a_, tr_ = online.on_read_admit(op, tm)
+                    op_a[op] = a_
+                    op_rem[op] = a_
+                    op_tr[op] = tr_
+                    online_attempts += a_
+                    online_read_pages += 1
+                    if online.injected:
+                        drain_online(tm)
                 d = op_die[op]
                 if tm >= die_busy[d] and not dieq[d]:
                     die_busy[d] = _INF
@@ -389,6 +475,16 @@ def _run_shard(
                     if done > tnext:
                         tnext = done
                     replace(heap, (tnext, seqc | op << 2 | _EV_COPY))
+            elif op_xa is not None and op_xa[op] > 0:
+                # Recovery continuation: this attempt's decode *failed*
+                # (misprediction or uncorrectable — known at done+tecc).
+                # The firmware re-senses serially at full strength; the
+                # die stays held for the whole ladder.
+                op_rem[op] = op_xa[op]
+                op_xa[op] = 0
+                op_tr[op] = op_xtr[op]
+                replace(heap, (done + tecc + op_tr[op],
+                               seqc | op << 2 | _EV_NEXT))
             else:
                 rid = op_rid[op]
                 if rid >= 0:            # GC reads complete no request
@@ -432,6 +528,14 @@ def _run_shard(
                 else:
                     replace(heap, (done + tecc + op_tr[op],
                                    seqc | op << 2 | _EV_NEXT))
+            elif op_xa is not None and op_xa[op] > 0:
+                # Recovery continuation (see _EV_COPY): extra serial
+                # full-strength re-reads after the failed final attempt.
+                op_rem[op] = op_xa[op]
+                op_xa[op] = 0
+                op_tr[op] = op_xtr[op]
+                replace(heap, (done + tecc + op_tr[op],
+                               seqc | op << 2 | _EV_NEXT))
             else:
                 rid = op_rid[op]
                 if rid >= 0:            # GC reads complete no request
@@ -455,8 +559,34 @@ def _run_shard(
             d = op_die[op]
             die_tot[d] += tm - op_held[op]
             die_busy[d] = tm
+            if online is not None and op_erase[op]:
+                # The erased block re-enters the free pool *now* —
+                # writes stalled on this die become runnable again.
+                online.on_erase_complete(op, tm)
+                unstalled = online.take_unstalled()
+                if unstalled:
+                    dq0 = dieq[d]
+                    for o in unstalled:
+                        dq0.append(o)
             dq = dieq[d]
-            op2 = dq.pop_next() if dq else -1
+            op2 = -1
+            while dq:
+                cand = dq.pop_next()
+                if (online is not None and not op_read[cand]
+                        and not op_erase[cand] and op_rid[cand] >= 0):
+                    # Host program start: the FTL maps the page at the
+                    # simulated instant the die takes the program.
+                    die_busy[d] = _INF    # reserve while the FTL maps
+                    if online.on_program_start(cand, tm):
+                        if online.injected:
+                            drain_online(tm)
+                        op2 = cand
+                        break
+                    die_busy[d] = tm      # no free page: stall, try next
+                    online.stall(cand)
+                    continue
+                op2 = cand
+                break
             if op2 >= 0:
                 die_busy[d] = _INF
                 op_held[op2] = tm
@@ -504,14 +634,26 @@ def _run_shard(
             # _EV_ACQ — write transfer landed: acquire the die.
             d = op_die[op]
             if tm >= die_busy[d] and not dieq[d]:
-                die_busy[d] = _INF
-                op_held[op] = tm
-                die_cur[d] = op
-                rel = tm + op_dur[op]
-                if preempt:
-                    op_end[op] = rel
-                replace(heap, (rel, seqc | op << 2 | _EV_REL))
-                seqc += _SEQ1
+                granted = True
+                if online is not None and op_rid[op] >= 0:
+                    die_busy[d] = _INF    # reserve while the FTL maps
+                    granted = online.on_program_start(op, tm)
+                    if granted:
+                        if online.injected:
+                            drain_online(tm)
+                    else:
+                        die_busy[d] = tm
+                        online.stall(op)
+                        pop(heap)
+                if granted:
+                    die_busy[d] = _INF
+                    op_held[op] = tm
+                    die_cur[d] = op
+                    rel = tm + op_dur[op]
+                    if preempt:
+                        op_end[op] = rel
+                    replace(heap, (rel, seqc | op << 2 | _EV_REL))
+                    seqc += _SEQ1
             else:
                 dieq[d].append(op)
                 pop(heap)
@@ -526,6 +668,8 @@ def _run_shard(
         ch_busy=ch_busy,
         n_events=n_events,
         gc_suspensions=gc_susp,
+        online_attempts=online_attempts,
+        online_read_pages=online_read_pages,
     )
 
 
@@ -542,7 +686,7 @@ def merge_shard_results(cfg, results: List[EngineResult]) -> EngineResult:
         (``die % n_channels == channel``), so the merge selects the
         owner's entries;
       * channel vectors — shard ``c`` owns exactly channel ``c``;
-      * event/suspension counters — sums.
+      * event/suspension/attempt counters — sums.
 
     The merge is independent of shard execution order, which is what
     makes the decomposition safe to parallelize at a higher layer.
@@ -560,7 +704,7 @@ def merge_shard_results(cfg, results: List[EngineResult]) -> EngineResult:
     die_busy = [0.0] * n_dies
     ch_tot = [0.0] * n_ch
     ch_busy = [0.0] * n_ch
-    n_events = gc_susp = 0
+    n_events = gc_susp = attempts = read_pages = 0
     for c, r in enumerate(results):
         for i, v in enumerate(r.req_done):
             if v > req_done[i]:
@@ -572,6 +716,8 @@ def merge_shard_results(cfg, results: List[EngineResult]) -> EngineResult:
         ch_busy[c] = r.ch_busy[c]
         n_events += r.n_events
         gc_susp += r.gc_suspensions
+        attempts += r.online_attempts
+        read_pages += r.online_read_pages
     return EngineResult(
         req_done=req_done,
         die_tot=die_tot,
@@ -580,6 +726,8 @@ def merge_shard_results(cfg, results: List[EngineResult]) -> EngineResult:
         ch_busy=ch_busy,
         n_events=n_events,
         gc_suspensions=gc_susp,
+        online_attempts=attempts,
+        online_read_pages=read_pages,
     )
 
 
@@ -1118,7 +1266,11 @@ def run_closed_loop(
 
 
 def _check_work_conserving(die_busy, dieq) -> None:
-    """Raise when any die sits idle while its queue holds a runnable op."""
+    """Raise when any die sits idle while its queue holds a runnable op.
+
+    Stalled writes are parked *outside* the die queues (gc_online), so
+    everything queued here is runnable by construction.
+    """
     for d, q in enumerate(dieq):
         if q and die_busy[d] != _INF:
             raise AssertionError(

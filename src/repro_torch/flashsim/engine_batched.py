@@ -22,6 +22,11 @@ than silently falling back to the interpreter:
                        (dual priority rings, per-lane aging
                        bound); ``tokens`` and ``preempt`` have
                        none and are rejected
+  GC                   ``none`` or ``prepass`` (the prepass
+                       schedule is just a longer admission
+                       stream); ``online`` injects ops mid-loop
+  faults               ``None`` (recovery ladders are serial
+                       continuations the kernel doesn't model)
   validate             ``False`` (work-conservation asserts are
                        interpreter instrumentation)
   ===================  ========================================
@@ -31,11 +36,11 @@ Prepass GC is inside the matrix: its schedule's GC copy-back reads
 kind 2) are ordinary rows of the op table.  The closed-loop frontend
 (``ncq_depth``) is outside it: :func:`check_batched_config` raises
 :class:`BatchedUnsupported` for it, so ``engine="auto"`` records the
-reason and runs the array interpreter.  Online GC and faults are not
-ported yet; the run APIs of :mod:`repro_torch.flashsim.ssd` reject them
-for every engine before a batched run is prepared, so
-:func:`check_batched_config` has no gate of its own for them (the
-reference's online-GC and fault gates return with ROADMAP D3 and D2).
+reason and runs the array interpreter.  So are online GC (its ops are
+injected mid-loop) and faults (recovery ladders are serial continuations
+the kernel does not model): both packages run them on the host
+interpreter, and :func:`check_batched_config` refuses them in the
+reference's words.
 
 ``engine="auto"`` resolution lives here too (:func:`resolve_engine`):
 it runs the same checks non-fatally and returns ``("batched", "")``
@@ -71,8 +76,8 @@ def check_batched_config(cfg, device=None) -> None:
     """Config-level eligibility for ``engine='batched'`` on ``device``
     (``None`` is the CUDA card, as for every entry point; fail fast at
     construction; run-time state is checked again by
-    :func:`check_batched_supported`).  The closed-loop frontend is
-    outside the matrix.  On a CUDA device a channel holds at most the
+    :func:`check_batched_supported`).  Online GC, faults and the
+    closed-loop frontend are outside the matrix.  On a CUDA device a channel holds at most the
     shard-core kernel's ``MAX_DIES`` dies; the CPU's plain core has no
     cap."""
     from repro_torch.flashsim.sched import get_scheduler
@@ -84,6 +89,16 @@ def check_batched_config(cfg, device=None) -> None:
             f"engine='batched' supports ring-lowerable schedulers only "
             f"(fcfs, host_prio, host_prio_aged[:bound]), got "
             f"{cfg.scheduler!r}; use engine='array'"
+        )
+    if cfg.gc.enabled and cfg.gc.mode == "online":
+        raise BatchedUnsupported(
+            "engine='batched' does not support online GC (ops are "
+            "injected mid-loop); use gc='prepass' or engine='array'"
+        )
+    if cfg.faults is not None:
+        raise BatchedUnsupported(
+            "engine='batched' does not support fault injection; use "
+            "engine='array'"
         )
     if cfg.ncq_depth is not None:
         raise BatchedUnsupported(
@@ -99,13 +114,28 @@ def check_batched_config(cfg, device=None) -> None:
         )
 
 
-def check_batched_supported(policy: SchedulerPolicy, validate: bool) -> None:
+def check_batched_supported(
+    policy: SchedulerPolicy,
+    bufs,
+    online,
+    validate: bool,
+) -> None:
     """Raise :class:`BatchedUnsupported` unless this run is eligible."""
     if policy.ring_lowering is None:
         raise BatchedUnsupported(
             f"engine='batched' supports ring-lowerable schedulers only "
             f"(fcfs, host_prio, host_prio_aged[:bound]), got "
             f"{policy.name!r}; run this scheduler with engine='array'"
+        )
+    if online is not None:
+        raise BatchedUnsupported(
+            "engine='batched' does not support online GC (ops are "
+            "injected mid-loop); use gc='prepass' or engine='array'"
+        )
+    if bufs.xa is not None:
+        raise BatchedUnsupported(
+            "engine='batched' does not support fault injection "
+            "(recovery-ladder continuations); use engine='array'"
         )
     if validate:
         raise BatchedUnsupported(
@@ -167,7 +197,8 @@ def _lane_tables(cfg, bufs):
     kind = np.where(read, 0.0, np.where(erase, 2.0, 1.0))
     die_local = (die // n_ch).astype(np.float64)
     # Scheduling class: the interpreter's host_read table is
-    # ``read and rid >= 0`` (GC copy-back reads carry rid = -1).
+    # ``read and rid >= 0`` (GC copy-back reads carry rid = -1; the
+    # fault ladder's parity reads are excluded from this matrix).
     hp = (read & (rid >= 0)).astype(np.float64)
     table = np.stack([arrival, kind, die_local, dur, att, tr, hp],
                      axis=1)
@@ -209,6 +240,8 @@ def _assemble_result(cfg, rid, lane_idx, fin, diestat, lane,
         ch_busy=lane[:, 0].tolist(),
         n_events=n_events,
         gc_suspensions=0,
+        online_attempts=0,
+        online_read_pages=0,
         fast_path_events=n_events,
         fused_cells=fused_cells,
     )
@@ -220,6 +253,7 @@ def run_event_core_batched(
     policy: SchedulerPolicy,
     bufs,
     n_requests: int,
+    online=None,
     validate: bool = False,
     device=None,
 ) -> EngineResult:
@@ -230,7 +264,7 @@ def run_event_core_batched(
     supported matrix: one lane per channel, results merged exactly as
     :func:`repro_torch.flashsim.engine.merge_shard_results` would.
     """
-    check_batched_supported(policy, validate)
+    check_batched_supported(policy, bufs, online, validate)
 
     t = cfg.timing
     tables, lane_idx, rid = _lane_tables(cfg, bufs)
@@ -356,7 +390,7 @@ def run_event_cores_fused(runs, device=None) -> list:
     card = dev.type == "cuda"
     prepped = []
     for r in runs:
-        check_batched_supported(r.policy, False)
+        check_batched_supported(r.policy, r.bufs, None, False)
         tables, lane_idx, rid = _lane_tables(r.cfg, r.bufs)
         mode, bound = r.policy.ring_lowering
         widest = max((t.shape[0] for t in tables), default=0)

@@ -71,9 +71,10 @@ those are additive.  This is what makes the per-channel sharded event
 core (:mod:`repro_torch.flashsim.engine` ``shard=True``) exact: a channel
 shard owns its dies' FTL slice outright, and the two cross-shard-looking
 couplings — page allocation and host-write stalls — are in fact die-local
-(the online GC controller, not ported yet — ROADMAP D3 — keeps its stall lists
-per die too).  Code extending the FTL must preserve this partitioning or
-the sharded engine's bit-equality contract breaks.
+(the stall lists in :mod:`repro_torch.flashsim.gc_online` are per-die too).
+Code extending the FTL must preserve this partitioning or the sharded
+engine's bit-equality contract breaks; the online controller's
+``set_shard_scope`` guard fails fast on violations.
 
 Approximation notes (documented, deliberate):
 
@@ -214,7 +215,7 @@ class PageMapFTL:
     never touches simulated time.
 
     Two construction flags adapt the same state machine to the *online*
-    GC controller (the reference's ``gc_online``; ROADMAP D3 ports it):
+    GC controller (:mod:`repro_torch.flashsim.gc_online`):
 
     ``auto_gc=False``
         host ops never trigger collection themselves; the controller calls

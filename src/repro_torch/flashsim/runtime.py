@@ -316,17 +316,24 @@ def _worn_bins(cell: Cell, schedules: Optional[Dict] = None
 
     A read (host or GC copy-back) of a block that GC erased before is
     sampled at the condition's P/E count plus the block's added wear,
-    snapped up to the characterization grid (``SSDSim._cdf_for``).  The
-    wear comes from the cell's FTL schedule, host code with no RNG,
-    built here as the run builds it; ``schedules`` shares it between
-    cells of one trace and config.  No bins without prepass GC or at
-    ``pec_per_erase`` 0.
+    snapped up to the characterization grid (``SSDSim._cdf_for``).
+    Under prepass GC the wear comes from the cell's FTL schedule, host
+    code with no RNG, built here as the run builds it; ``schedules``
+    shares it between cells of one trace and config, and only the bins
+    its reads reach are listed.  Online GC wears blocks at simulated
+    instants no pre-pass can see, so every bin a worn block can snap to
+    is listed: each grid P/E count above the condition's (the top bin
+    when none is).  No bins with GC off or at ``pec_per_erase`` 0.
     """
     gc = cell.cfg.gc
-    prepass = (cell.gc == "prepass" if cell.gc is not None
-               else gc.enabled and gc.mode == "prepass")
-    if not prepass or gc.pec_per_erase <= 0.0:
+    mode = cell.gc if cell.gc is not None else (
+        gc.mode if gc.enabled else "off")
+    if mode == "off" or gc.pec_per_erase <= 0.0:
         return {cond: () for cond in cell.conditions}
+    if mode == "online":
+        return {cond: tuple(float(p) for p in CH.PEC_GRID if p > cond.pec)
+                or (float(CH.PEC_GRID[-1]),)
+                for cond in cell.conditions}
     from repro_torch.flashsim import ftl as FTL
     from repro_torch.flashsim.ssd import _with_knobs, resolve_trace
 
@@ -348,8 +355,11 @@ def _worn_bins(cell: Cell, schedules: Optional[Dict] = None
 
 def prewarm_characterization(cells: Iterable[Cell]) -> int:
     """Build every (condition, mechanism) table the cells will touch, on
-    each cell's device, the worn-block bins of prepass-GC cells
-    included (:func:`_worn_bins`: only the bins their reads reach).
+    each cell's device: the worn-block bins of GC cells included
+    (:func:`_worn_bins`: the bins a prepass schedule's reads reach, every
+    bin above the condition under online GC), and for cells with
+    ``faults`` the condition record of each bin the fault model derives
+    its rates from (the condition's own bin and the worn ones).
 
     Called in the parent before the pool is created; the pool hands the
     resulting memos to every worker (see the module docstring), so a
@@ -365,6 +375,10 @@ def prewarm_characterization(cells: Iterable[Cell]) -> int:
     for cell in cells:
         bins = _worn_bins(cell, schedules)
         for cond in cell.conditions:
+            if cell.faults is not None or cell.cfg.faults is not None:
+                for pec in {CH.snap_pec(cond.pec), *bins[cond]}:
+                    CH.characterize_condition(cond.retention_days, pec,
+                                              device=cell.device)
             for mech in cell.mechanisms:
                 sim = None
                 if (cond, mech) not in seen:

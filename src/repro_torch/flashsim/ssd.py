@@ -36,7 +36,17 @@ and ``journal=`` hand the sweep to :mod:`repro_torch.flashsim.runtime`.
 (:mod:`repro_torch.flashsim.ftl`) once per trace; its schedule of host
 ops, GC copy-back reads and programs, and erases is shared by every
 mechanism, and worn blocks sample their attempts and AR² scale from the
-characterization of their own P/E bin.
+characterization of their own P/E bin.  ``gc="online"`` advances the
+FTL inside the run instead (:mod:`repro_torch.flashsim.gc_online`):
+pages map when the die takes the program, collection starts when a
+die's free pool falls to the watermark, and an erased block returns
+only when its erase completes.
+
+``faults=`` attaches the fault model and its recovery ladder
+(:mod:`repro_torch.flashsim.faults`): AR² mispredictions, escalation
+re-reads, parity rebuilds and block retirement, planned before the run
+in place and under prepass GC, drawn at the simulated instants under
+online GC.
 
 ``ncq_depth=`` runs the trace through the closed-loop frontend
 (:func:`repro_torch.flashsim.engine.run_closed_loop`): at most
@@ -46,10 +56,13 @@ the array interpreter; ``host_cache=`` adds the host write-back cache
 open-loop only, so ``engine="auto"`` runs closed cells on the array
 interpreter and records why.
 
+Online GC and faults run on the host interpreter, as in the reference:
+``engine="batched"`` raises
+:class:`~repro_torch.flashsim.engine_batched.BatchedUnsupported` for
+them and ``engine="auto"`` records why it ran the array interpreter.
+
 Every run API takes ``device=`` and runs on the CUDA card unless told
-otherwise; ``device=None`` without CUDA raises.  Knobs whose subsystems
-are not ported yet (online GC and faults) raise
-:class:`NotImplementedError` naming their ROADMAP item.
+otherwise; ``device=None`` without CUDA raises.
 """
 
 from __future__ import annotations
@@ -70,6 +83,8 @@ from repro_torch.flashsim.config import (
 )
 from repro_torch.flashsim import ftl as FTL
 from repro_torch.flashsim.engine import make_buffers, run_event_core
+from repro_torch.flashsim.faults import FaultModel, plan_faults
+from repro_torch.flashsim.gc_online import OnlineGC
 from repro_torch.flashsim.sched import get_scheduler
 from repro_torch.flashsim.workloads import (
     RequestTrace,
@@ -87,27 +102,6 @@ PAGE_TYPE_ORDER = ("lsb", "csb", "msb")
 #: registry spec string ("websearch", "msr:web_0?rescale=0.5", ...), or
 #: any TraceSource.
 WorkloadLike = Union[Workload, str, TraceSource]
-
-#: Deferred parts of this slice, as numbered in ROADMAP.md.
-_DEFERRED = {
-    "faults": "D2 (faults)",
-    "gc=online": "D3 (gc_online)",
-}
-
-
-def _unported(knob: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{knob} is not ported to repro_torch yet "
-        f"(ROADMAP.md, deferred item {_DEFERRED[knob]})")
-
-
-def _check_ported(cfg: SSDConfig) -> None:
-    """Raise for a configuration that needs an unported subsystem."""
-    if cfg.faults is not None:
-        raise _unported("faults")
-    if cfg.gc.enabled and cfg.gc.mode == "online":
-        raise _unported("gc=online")
-
 
 def _pctl(a: np.ndarray, qs) -> np.ndarray:
     """``np.percentile(a, qs)`` for 1-D float64 without the per-call
@@ -181,11 +175,11 @@ class SimStats:
 
     All times are microseconds; utilizations are fractions of the trace
     span.  The field set is the reference's, so the two packages' stats
-    compare field by field.  The GC block is filled by prepass-GC runs
-    and the closed-loop block by ``ncq_depth`` runs (zero on open-loop
-    runs); the fault block keeps its defaults (the failure-free facts):
-    the fault model is not ported yet.  ``gc_suspensions`` counts
-    preempt-scheduler suspend events.
+    compare field by field.  The GC block is filled by prepass- and
+    online-GC runs, the fault block by runs with ``faults=`` (its
+    defaults are the failure-free facts) and the closed-loop block by
+    ``ncq_depth`` runs (zero on open-loop runs).  ``gc_suspensions``
+    counts preempt-scheduler suspend events.
     """
 
     mean_us: float            # mean response time over ALL requests (us)
@@ -377,7 +371,6 @@ class SSDSim:
                 f"SSDSim engine must be 'array', 'batched' or 'auto', got "
                 f"{engine!r} (engine='reference' is SSDSimRef)"
             )
-        _check_ported(cfg)
         if engine == "batched":
             from repro_torch.flashsim.engine_batched import (
                 check_batched_config)
@@ -549,7 +542,9 @@ class SSDSim:
 
         Resolves the engine, builds the FTL schedule under prepass GC when
         none is given, samples the attempt schedule (consuming
-        ``self.rng`` in admission order) and builds the admission
+        ``self.rng`` in admission order), plans the faults of a run with
+        ``cfg.faults`` (:func:`repro_torch.flashsim.faults.plan_faults`)
+        or attaches the online-GC controller, and builds the admission
         buffers, with the per-op logical pages a closed run's host cache
         reads.  Split out so the fused sweep path can prepare many
         cells, run them in one kernel launch, and :meth:`_finalize` each.
@@ -557,6 +552,7 @@ class SSDSim:
         cfg, t = self.cfg, self.cfg.timing
         tprog = t.tprog_us
         sched_policy = get_scheduler(cfg.scheduler)
+        gc_mode = cfg.gc.mode if cfg.gc.enabled else None
         closed = cfg.ncq_depth is not None
         engine_selected = self.engine
         engine_reason = ""
@@ -567,7 +563,7 @@ class SSDSim:
                                                            self.device)
         batched = engine_selected == "batched"
         if closed:
-            if cfg.gc.enabled and cfg.gc.mode == "online":
+            if gc_mode == "online":
                 raise NotImplementedError(
                     "closed-loop frontend (ncq_depth) does not support "
                     "online GC yet — use gc='prepass'"
@@ -577,29 +573,60 @@ class SSDSim:
                     "closed-loop frontend (ncq_depth) does not support "
                     "the preempt scheduler"
                 )
-        if schedule is None and cfg.gc.enabled and cfg.gc.mode == "prepass":
+        if schedule is None and gc_mode == "prepass":
             schedule = FTL.build_ftl_schedule(trace, cfg)
 
+        fm = None
+        if cfg.faults is not None:
+            # Fresh model per run: per-die fault substreams seeded
+            # (run seed, salt, die), separate from the attempt streams.
+            fm = FaultModel(cfg.faults, cfg, self.cond, self.policy,
+                            self.seed, self)
+
+        online = None
         if schedule is not None:
             # Prepass FTL path: host and GC page-ops, attempts and AR² tR
             # scale resolved per block wear.
             P = schedule.n_ops
             read_like = schedule.kind <= FTL.OP_GC_READ
+            host_read = schedule.kind == FTL.OP_READ
             attempts_np = np.ones(P, np.int64)
             attempts_np[read_like] = self._sample_attempts(
                 schedule.ptype[read_like], schedule.wear_pec[read_like])
             tr_np = (self._tr_base[schedule.ptype]
                      * self._tr_scales_for_schedule(schedule, read_like))
-            if batched:
+            n_requests = schedule.n_requests
+            op_lpn = (schedule.lpn.tolist()
+                      if closed and schedule.lpn is not None else None)
+            if fm is not None:
+                bufs, op_lpn = self._plan(
+                    fm, schedule.admission_lists, attempts_np, tr_np,
+                    schedule.ptype, schedule.wear_pec.tolist(), op_lpn)
+            elif batched:
                 bufs = make_buffers(*schedule.admission_arrays,
                                     attempts_np, tr_np)
             else:
                 bufs = make_buffers(*schedule.admission_lists,
                                     attempts_np.tolist(), tr_np.tolist())
-            host_read = schedule.kind == FTL.OP_READ
-            n_requests = schedule.n_requests
-            op_lpn = (schedule.lpn.tolist()
-                      if closed and schedule.lpn is not None else None)
+        elif gc_mode == "online":
+            # Online FTL path: host ops only in the admission stream;
+            # attempt counts and tR resolve at admission, GC injects live.
+            ex = (expansion if expansion is not None
+                  else expand_trace(trace, cfg))
+            P = ex.n_ops
+            adm_t, op_rid, op_die, op_ch, op_read = ex.admission_lists
+            # The buffers grow (GC injection): copy the shared views.
+            bufs = make_buffers(
+                adm_t, list(op_rid), list(op_die), list(op_ch),
+                list(op_read), [False] * P, [tprog] * P,
+                [1] * P, [0.0] * P,
+            )
+            if fm is not None:
+                bufs.xa = [0] * P
+                bufs.xtr = [0.0] * P
+            online = OnlineGC(cfg, ex, self, faults=fm)
+            n_requests = ex.n_requests
+            op_lpn = None
         else:
             ex = (expansion if expansion is not None
                   else expand_trace(trace, cfg))
@@ -609,7 +636,13 @@ class SSDSim:
             attempts_np[host_read] = self._sample_attempts(
                 ex.ptype[host_read])
             tr_np = (self._tr_base * self.tr_scale)[ex.ptype]
-            if batched:
+            n_requests = ex.n_requests
+            op_lpn = ex.page_id.tolist() if closed else None
+            if fm is not None:
+                bufs, op_lpn = self._plan(
+                    fm, ex.admission_lists + ([False] * P, [tprog] * P),
+                    attempts_np, tr_np, ex.ptype, None, op_lpn)
+            elif batched:
                 # Batched runs read whole columns: hand them numpy views.
                 adm_a, rid_a, die_a, ch_a, read_a = ex.admission_arrays
                 bufs = make_buffers(adm_a, rid_a, die_a, ch_a, read_a,
@@ -622,17 +655,35 @@ class SSDSim:
                                     [False] * P,    # no erases without FTL
                                     [tprog] * P,    # write-like ops: tPROG
                                     attempts_np.tolist(), tr_np.tolist())
-            n_requests = ex.n_requests
-            op_lpn = ex.page_id.tolist() if closed else None
+        # Online reads draw their attempts at admission: the engine counts.
+        total_read_pages = total_attempts = 0
+        if online is None:
+            total_read_pages = int(host_read.sum())
+            total_attempts = int(attempts_np[host_read].sum())
         return _PreparedRun(
             trace=trace, validate=validate, pipelined=self.policy.pipelined,
             sched_policy=sched_policy, closed=closed, batched=batched,
             engine_selected=engine_selected, engine_reason=engine_reason,
             bufs=bufs, n_requests=n_requests,
-            total_read_pages=int(host_read.sum()),
-            total_attempts=int(attempts_np[host_read].sum()),
-            schedule=schedule, op_lpn=op_lpn,
+            total_read_pages=total_read_pages,
+            total_attempts=total_attempts,
+            schedule=schedule, online=online, fm=fm, op_lpn=op_lpn,
         )
+
+    @staticmethod
+    def _plan(fm, admission, attempts_np, tr_np, ptype, wear, op_lpn):
+        """Run the fault pre-pass over an admission stream (the
+        ``admission_lists`` 7-tuple) and build the engine buffers from
+        its plan, recovery tails included.  Returns ``(bufs, op_lpn)``:
+        the plan's per-op logical pages when ``op_lpn`` was given."""
+        plan = plan_faults(fm, *admission, attempts_np.tolist(),
+                           tr_np.tolist(), ptype.tolist(), wear,
+                           lpn=op_lpn)
+        bufs = make_buffers(plan.arrival, plan.rid, plan.die, plan.ch,
+                            plan.read, plan.erase, plan.dur, plan.a,
+                            plan.tr)
+        bufs.xa, bufs.xtr = plan.xa, plan.xtr
+        return bufs, plan.lpn
 
     def run(
         self,
@@ -645,12 +696,16 @@ class SSDSim:
     ) -> SimStats:
         """Simulate one trace.
 
-        ``expansion`` (in-place runs) or ``schedule`` (an
+        ``expansion`` (in-place and online-GC runs) or ``schedule`` (an
         :class:`~repro_torch.flashsim.ftl.FTLSchedule`, prepass-GC runs)
         may be shared across the mechanisms of a sweep; under prepass GC
-        without a schedule the run builds one.  ``shard=True`` runs the
-        array event core as one loop per channel with a deterministic
-        merge — bit-identical to the monolithic default.
+        without a schedule the run builds one, and under online GC an
+        :class:`~repro_torch.flashsim.gc_online.OnlineGC` controller rides in
+        the event core.  ``cfg.faults`` draws the recovery ladder: planned
+        before the run (in place, prepass) or at the simulated instants
+        (online).  ``shard=True`` runs the array event core as one loop
+        per channel with a deterministic merge — bit-identical to the
+        monolithic default.
         ``validate=True`` turns on the array engine's work-conservation
         checks (test instrumentation).
 
@@ -658,7 +713,8 @@ class SSDSim:
         frontend (:func:`repro_torch.flashsim.engine.run_closed_loop`):
         NCQ-gated admission, the optional write-back cache
         (``cfg.host_cache``), an explicit channel transfer phase.  It
-        takes prepass GC but not the preempt scheduler; ``shard=`` is
+        takes prepass GC and faults but not online GC or the preempt
+        scheduler; ``shard=`` is
         ignored (the NCQ couples channels through the shared slot pool).
         ``trace_phases=True`` (closed loop only) records each op's
         sense, transfer, program and erase intervals in
@@ -687,18 +743,20 @@ class SSDSim:
 
             res = run_event_core_batched(
                 cfg, prep.pipelined, prep.sched_policy, prep.bufs,
-                prep.n_requests, validate=validate, device=self.device)
+                prep.n_requests, online=prep.online, validate=validate,
+                device=self.device)
         else:
             res = run_event_core(cfg, prep.pipelined,
                                  prep.sched_policy, prep.bufs,
-                                 prep.n_requests, validate=validate,
-                                 shard=shard)
+                                 prep.n_requests, online=prep.online,
+                                 validate=validate, shard=shard)
         return self._finalize(prep, res)
 
     def _finalize(self, prep: "_PreparedRun", res) -> SimStats:
         """Assemble :class:`SimStats` from one engine result."""
         cfg = self.cfg
         trace = prep.trace
+        online, fm = prep.online, prep.fm
         total_attempts = prep.total_attempts
         total_read_pages = prep.total_read_pages
         closed_kw = {}
@@ -711,6 +769,10 @@ class SSDSim:
         else:
             gc_suspensions = res.gc_suspensions
             self.last_phases = None
+            if online is not None:
+                # Online reads draw their attempts at admission.
+                total_attempts = res.online_attempts
+                total_read_pages = res.online_read_pages
         self.events_processed = res.n_events
         self.last_gc_suspensions = gc_suspensions
         self.last_die_busy_us = float(sum(res.die_tot))
@@ -746,13 +808,14 @@ class SSDSim:
                 die_sense_util=sum(res.die_sense_tot) / (span * cfg.n_dies),
             )
         gc_kw = {}
-        if prep.schedule is not None:
+        if prep.schedule is not None or online is not None:
             # GC traffic can outlive the last host completion (an erase
             # triggered by the final write holds its die past it), so the
             # utilization span extends to the last die or channel release;
             # in-place runs keep the host-completion span.
             span = max(span, max(res.die_busy), max(res.ch_busy))
-            fs = prep.schedule.stats
+            fs = (prep.schedule.stats if prep.schedule is not None
+                  else online.stats())
             gc_kw = dict(
                 wa=fs.write_amplification,
                 gc_invocations=fs.gc_invocations,
@@ -760,9 +823,29 @@ class SSDSim:
                 gc_page_progs=fs.gc_page_progs,
                 blocks_erased=fs.blocks_erased,
                 gc_suspensions=gc_suspensions,
+                write_stalls=online.write_stalls if online is not None else 0,
             )
         elif gc_suspensions:
             gc_kw = dict(gc_suspensions=gc_suspensions)
+        fault_kw = {}
+        if fm is not None:
+            oc = fm.outcome
+            rec_p99 = 0.0
+            if oc.affected_rids:
+                idx = np.fromiter(oc.affected_rids, np.int64,
+                                  len(oc.affected_rids))
+                rec_p99 = float(np.percentile(response[idx], 99))
+            fault_kw = dict(
+                mispredicted_reads=oc.mispredicted_reads,
+                rescued_reads=oc.rescued_reads,
+                parity_rebuilds=oc.parity_rebuilds,
+                rebuild_reads=oc.rebuild_reads,
+                retired_blocks=oc.retired_blocks,
+                program_fails=oc.program_fails,
+                erase_fails=oc.erase_fails,
+                unrecoverable=oc.unrecoverable,
+                recovery_p99_us=rec_p99,
+            )
         # One percentile call shares the partition pass across the three
         # quantiles (bit-identical to three separate calls).
         p50, p95, p99 = _pctl(response, (50.0, 95.0, 99.0))
@@ -788,6 +871,7 @@ class SSDSim:
             engine_fallback_reason=prep.engine_reason,
             fused_cells=getattr(res, "fused_cells", 0),
             **gc_kw,
+            **fault_kw,
             **closed_kw,
         )
 
@@ -811,6 +895,10 @@ class _PreparedRun:
     total_read_pages: int
     total_attempts: int
     schedule: Optional[FTL.FTLSchedule] = None
+    #: The online-GC controller of an online run.
+    online: Optional[OnlineGC] = None
+    #: The fault model of a run with ``cfg.faults``.
+    fm: Optional[FaultModel] = None
     #: Logical page of every op (closed runs only: the host cache's key).
     op_lpn: Optional[list] = None
 
@@ -840,36 +928,33 @@ def _with_knobs(cfg: SSDConfig, scheduler: Optional[str],
                 gc: Optional[str], faults=None,
                 ncq_depth: Optional[int] = None,
                 host_cache=None) -> SSDConfig:
-    """Overlay the run-API knobs onto a config and reject the unported
-    ones: ``scheduler`` picks the die-queue policy; ``gc="off"`` keeps
-    the in-place FTL-less device and ``gc="prepass"`` turns on the FTL
-    pre-pass; ``ncq_depth`` / ``host_cache`` switch on the closed-loop
-    frontend (:class:`~repro_torch.flashsim.config.HostCacheConfig`);
-    ``gc="online"`` and ``faults`` raise :class:`NotImplementedError`
-    (:class:`SSDSim` rejects the same fields set on the config itself).
+    """Overlay the run-API knobs onto a config: ``scheduler`` picks the
+    die-queue policy; ``gc`` is ``"off"`` (the in-place FTL-less
+    device), ``"prepass"`` or ``"online"`` (both imply
+    ``gc.enabled=True``); ``faults`` attaches a
+    :class:`~repro_torch.flashsim.config.FaultConfig`; ``ncq_depth`` /
+    ``host_cache`` switch on the closed-loop frontend
+    (:class:`~repro_torch.flashsim.config.HostCacheConfig`).  None leaves
+    the config untouched.
     """
     if scheduler is not None:
         cfg = dataclasses.replace(cfg, scheduler=scheduler)
     if faults is not None:
-        raise _unported("faults")
+        cfg = dataclasses.replace(cfg, faults=faults)
     if ncq_depth is not None:
         cfg = dataclasses.replace(cfg, ncq_depth=ncq_depth)
     if host_cache is not None:
         cfg = dataclasses.replace(cfg, host_cache=host_cache)
     if gc is not None:
         if gc == "off":
-            cfg = dataclasses.replace(
-                cfg, gc=dataclasses.replace(cfg.gc, enabled=False))
-        elif gc == "prepass":
-            cfg = dataclasses.replace(
-                cfg, gc=dataclasses.replace(cfg.gc, enabled=True,
-                                            mode=gc))
-        elif gc == "online":
-            raise _unported("gc=online")
+            gcc = dataclasses.replace(cfg.gc, enabled=False)
+        elif gc in ("prepass", "online"):
+            gcc = dataclasses.replace(cfg.gc, enabled=True, mode=gc)
         else:
             raise ValueError(
                 f"gc knob must be 'off', 'prepass' or 'online', got {gc!r}"
             )
+        cfg = dataclasses.replace(cfg, gc=gcc)
     return cfg
 
 
@@ -891,7 +976,9 @@ def _fuse_resolved(cfg, engine: str, fuse: Optional[bool],
 
 def _shared_views(trace, cfg):
     """(expansion, schedule) pair shared by every mechanism of a sweep:
-    the schedule is the FTL pre-pass's under prepass GC, else ``None``."""
+    the schedule is the FTL pre-pass's under prepass GC, else ``None``
+    (online GC advances the FTL inside each run, so only the expansion
+    is shared there)."""
     expansion = expand_trace(trace, cfg)
     if not cfg.gc.enabled or cfg.gc.mode != "prepass":
         return expansion, None
@@ -965,16 +1052,19 @@ def simulate(
     ``engine="reference"`` runs the seed closure engine (fcfs only).
     ``shard=True`` runs the array engine as one loop per channel (a
     no-op for batched; the reference engine rejects it).  ``gc=
-    "prepass"`` runs the trace through the FTL (:mod:`repro_torch.
-    flashsim.ftl`) and the stats carry WA and GC counters; the reference
-    engine rejects it.  ``device`` places the characterization and the
+    "prepass"`` or ``"online"`` runs the trace through the FTL
+    (:mod:`repro_torch.flashsim.ftl`, :mod:`repro_torch.flashsim.
+    gc_online`) and the stats carry WA and GC counters; the reference
+    engine rejects both.  ``device`` places the characterization and the
     batched kernel (default: the CUDA card).  ``ncq_depth=`` switches
     on the closed-loop frontend (bounded NCQ admission, explicit channel
     transfer phase; array engine only: ``"batched"`` raises
     :class:`~repro_torch.flashsim.engine_batched.BatchedUnsupported` and
     ``"auto"`` records the fallback); ``host_cache=`` adds the host
-    write-back cache.  ``gc="online"`` and ``faults`` are not ported yet
-    and raise :class:`NotImplementedError`.
+    write-back cache.  ``faults=`` attaches a
+    :class:`~repro_torch.flashsim.config.FaultConfig`
+    (:mod:`repro_torch.flashsim.faults`; the array engine only, as for
+    online GC: ``"batched"`` raises and ``"auto"`` records why).
     """
     engine = cfg.engine if engine is None else engine
     cfg = _with_knobs(cfg, scheduler, gc, faults, ncq_depth, host_cache)
@@ -1007,7 +1097,9 @@ def compare_mechanisms(
 ) -> Dict[str, SimStats]:
     """All mechanisms over ONE shared trace (resolved once, expanded once;
     under prepass GC its FTL schedule is built once and shared too, so
-    every mechanism sees the same GC traffic and block wear).
+    every mechanism sees the same GC traffic and block wear; online GC
+    advances the FTL inside each run, so its GC timing answers each
+    mechanism's latencies).
 
     ``fuse=`` (default ``cfg.fuse``): when the config resolves inside
     the batched matrix, the mechanisms' op tables are stacked along the

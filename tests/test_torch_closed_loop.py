@@ -5,12 +5,16 @@ Three parts:
 
 * **The open-loop half of the contract.** ``tests/data/golden_closed_loop
   .json`` pins the open-loop output (``ncq_depth=None``) of ``prn`` at 600
-  requests, 365 d / 1000 P/E.  Its 12 cells without online GC or faults
-  are held on the port's own CPU characterization: every pinned field
-  equal, except ``die_util`` and ``channel_util``, held to 4 ulps (the
-  reference's own output drifts from those pins by 1-2 ulps: ROADMAP
-  C4).  The 8 cells whose scheduler has a ring lowering are held through
-  ``engine="batched"`` and ``"auto"`` too.
+  requests, 365 d / 1000 P/E.  All 32 cells (5 schedulers x gc off,
+  prepass and online x no faults and the ``fc`` fault configuration, and
+  2 extra mechanism cells) are held on the port's own CPU
+  characterization: every pinned field equal, except ``die_util`` and
+  ``channel_util``, held to 4 ulps (the reference's own output drifts
+  from those pins by 1-2 ulps: ROADMAP C4).  The 8 fault-free cells with
+  gc off or prepass whose scheduler has a ring lowering are held through
+  ``engine="batched"`` and ``"auto"`` too; every other cell through
+  ``"auto"``, which records why it ran the array interpreter, and the
+  online and fault cells are refused by ``"batched"``.
 * **Closed-loop parity.** With the synthetic tables of
   ``tests/test_torch_flashsim.py`` in both packages, closed-loop SimStats
   (and ``last_phases`` under ``trace_phases=True``) equal the
@@ -20,9 +24,9 @@ Three parts:
 * **Semantics.** The reference's closed-loop behaviour tests
   (``tests/test_closed_loop.py``: validation, NCQ admission, the
   wait/device decomposition, the deep queue, determinism, ``shard=``
-  ignored, the saturation ladder, the write cache's integration) restated
-  on the port, on its own characterization; and the batched engine's
-  closed-loop gate.
+  ignored, the saturation ladder, the write cache's integration, faults
+  under the closed loop) restated on the port, on its own
+  characterization; and the batched engine's closed-loop gate.
 """
 
 import dataclasses
@@ -42,12 +46,16 @@ GOLDEN = json.loads((Path(__file__).parent / "data"
 COND = TF.OperatingCondition(*AGED)
 N = GOLDEN["meta"]["n_requests"]
 
-#: The pinned cells the port can run: gc off or prepass, no faults.
-REACHABLE = sorted(k for k in GOLDEN["cells"]
-                   if k.split("|")[2] != "online" and k.endswith("|none"))
-#: Of those, the cells whose scheduler has a ring lowering.
+#: Every pinned cell: the port runs them all.
+REACHABLE = sorted(GOLDEN["cells"])
+#: The cells inside the batched matrix: a scheduler with a ring
+#: lowering, gc off or prepass, no faults.
 RING = [k for k in REACHABLE
-        if k.split("|")[1] in ("fcfs", "host_prio", "host_prio_aged:8")]
+        if k.split("|")[1] in ("fcfs", "host_prio", "host_prio_aged:8")
+        and k.split("|")[2] != "online" and k.endswith("|none")]
+#: The cells the batched engine refuses for online GC or faults.
+HOST_ONLY = [k for k in REACHABLE
+             if k.split("|")[2] == "online" or not k.endswith("|none")]
 
 #: Fields that only the closed loop fills.
 CLOSED_FIELDS = (
@@ -66,10 +74,11 @@ CACHES = {
 
 
 def _cell_args(key):
-    mech, sched, gc, _ = key.split("|")
+    mech, sched, gc, fname = key.split("|")
     wl = GOLDEN["meta"]["extra_workload"] if mech in (
         "baseline", "sota+pr2ar2") else GOLDEN["meta"]["workload"]
-    return wl, mech, sched, gc
+    fc = GOLDEN["meta"]["fault_configs"][fname]
+    return wl, mech, sched, gc, None if fc is None else TF.FaultConfig(**fc)
 
 
 def _assert_pinned(stats, want, ctx):
@@ -85,25 +94,33 @@ def _assert_pinned(stats, want, ctx):
 
 
 def test_reachable_cells():
-    """12 cells: 5 schedulers x gc off/prepass, and the 2 extra
-    mechanism cells; 8 of them ring-lowerable."""
-    assert len(REACHABLE) == 12 and len(RING) == 8
+    """32 cells: 5 schedulers x gc off/prepass/online x faults none/fc,
+    and the 2 extra mechanism cells; 8 of them inside the batched
+    matrix, 20 refused by it for online GC or faults."""
+    assert len(REACHABLE) == 32 and len(RING) == 8 and len(HOST_ONLY) == 20
 
 
 @pytest.mark.parametrize("key", REACHABLE)
 def test_golden_cell_on_the_ports_own_characterization(own_tables, key):
-    wl, mech, sched, gc = _cell_args(key)
+    wl, mech, sched, gc, fc = _cell_args(key)
     kw = dict(seed=GOLDEN["meta"]["seed"], n_requests=N, scheduler=sched,
-              gc=gc, device="cpu")
-    engines = ("array", "batched", "auto") if key in RING else ("array",)
+              gc=gc, faults=fc, device="cpu")
+    engines = ("array", "batched", "auto") if key in RING else ("array",
+                                                                "auto")
     for engine in engines:
         stats = TF.simulate(wl, COND, mech, engine=engine, **kw)
         _assert_pinned(stats, GOLDEN["cells"][key], f"{key}[{engine}]")
-        assert stats.engine_selected == (
-            "array" if engine == "array" else "batched")
-        assert (stats.fast_path_events > 0) == (engine != "array")
+        batched = key in RING and engine != "array"
+        assert stats.engine_selected == ("batched" if batched else "array")
+        assert (stats.fast_path_events > 0) == batched
+        assert (stats.engine_fallback_reason != "") == (
+            engine == "auto" and not batched)
         for f in CLOSED_FIELDS:
             assert getattr(stats, f) == 0, f
+    if key in HOST_ONLY:
+        with pytest.raises(TF.BatchedUnsupported) as refusal:
+            TF.simulate(wl, COND, mech, engine="batched", **kw)
+        assert str(refusal.value) == stats.engine_fallback_reason
 
 
 # -- closed-loop parity on shared tables -------------------------------------
@@ -243,20 +260,6 @@ def test_auto_records_the_closed_loop_fallback(tables):
     array = TF.simulate("websearch", COND, "pr2ar2", device="cpu",
                         **dict(kw, engine="array"))
     _same(got, array)
-
-
-def test_unported_knobs_still_raise_with_the_closed_loop(tables):
-    """Online GC and faults keep naming their ROADMAP items with
-    ``ncq_depth`` set; the reference engine keeps its refusal."""
-    with pytest.raises(NotImplementedError, match="D3"):
-        TF.simulate("prn", COND, "pr2ar2", n_requests=100, gc="online",
-                    ncq_depth=8, device="cpu")
-    with pytest.raises(NotImplementedError, match="D2"):
-        TF.simulate("prn", COND, "pr2ar2", n_requests=100, ncq_depth=8,
-                    faults=TF.FaultConfig(), device="cpu")
-    with pytest.raises(NotImplementedError, match="array engine"):
-        TF.simulate("websearch", COND, "pr2ar2", n_requests=50,
-                    engine="reference", ncq_depth=8, device="cpu")
 
 
 # -- the reference's semantics tests, on the port (tests/test_closed_loop.py)
@@ -412,6 +415,66 @@ class TestWriteCacheIntegration:
                      host_cache=hc, validate=True)
         assert stats.cache_absorbed_writes > 0
         assert stats.cache_flush_pages >= stats.cache_absorbed_writes
+
+
+FAULT_FIELDS = (
+    "mispredicted_reads", "rescued_reads", "parity_rebuilds",
+    "rebuild_reads", "retired_blocks", "program_fails", "erase_fails",
+    "unrecoverable",
+)
+
+
+class TestFaultsClosedLoop:
+    FC = TF.FaultConfig(**GOLDEN["meta"]["fault_configs"]["fc"])
+
+    def test_failure_set_is_queue_depth_invariant(self, own_tables):
+        """The fault plan is drawn per (seed, die) in admission order:
+        the NCQ changes when ops run, never which ones fail."""
+        open_ = _sim("prn", n_requests=600, gc="prepass", faults=self.FC)
+        assert open_.mispredicted_reads > 0
+        for qd in (2, 16):
+            closed = _sim("prn", n_requests=600, gc="prepass",
+                          faults=self.FC, ncq_depth=qd)
+            for f in FAULT_FIELDS:
+                assert getattr(closed, f) == getattr(open_, f), f
+
+    def test_faults_with_cache(self, own_tables):
+        stats = _sim("prn", n_requests=400, gc="prepass", faults=self.FC,
+                     ncq_depth=8,
+                     host_cache=TF.HostCacheConfig(capacity_pages=64),
+                     validate=True)
+        assert stats.unrecoverable == 0
+        assert stats.cache_absorbed_writes > 0
+
+
+@pytest.mark.parametrize("cache", ["none", "lru"])
+@pytest.mark.parametrize("gc", ["off", "prepass"])
+def test_faults_closed_loop_match_reference(tables, gc, cache):
+    """The fault plan's recovery tails run live in the closed loop: QD 8,
+    the golden ``fc`` configuration and the recovery configuration of
+    the reference's ``TestOnlineRecovery``, on the hot-span cell."""
+    from repro.flashsim import config as RCFG
+    from repro.flashsim import ssd as RS
+
+    cfg, rcfg = _cfgs()
+    hot, rhot = _hot()
+    hc, rhc = _host_caches(cache)
+    for fkw in (GOLDEN["meta"]["fault_configs"]["fc"],
+                dict(uncorrectable_prob=0.6, escalation_attempts=1)):
+        kw = dict(mechanisms=("baseline", "pr2ar2"), seed=0, gc=gc,
+                  ncq_depth=8)
+        ref = RS.compare_mechanisms(rhot, _ref_cond(AGED), cfg=rcfg,
+                                    host_cache=rhc,
+                                    faults=RCFG.FaultConfig(**fkw), **kw)
+        got = TF.compare_mechanisms(hot, COND, cfg=cfg, host_cache=hc,
+                                    faults=TF.FaultConfig(**fkw),
+                                    device="cpu", **kw)
+        for m in ref:
+            _same(got[m], ref[m])
+            assert got[m].max_inflight <= 8
+            if fkw.get("uncorrectable_prob") == 0.6:
+                assert got[m].parity_rebuilds > 0
+        assert got["pr2ar2"].recovery_p99_us > 0.0
 
 
 def test_compare_and_batch_take_the_knob(own_tables):

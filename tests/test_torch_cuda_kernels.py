@@ -34,8 +34,10 @@ counting shared-memory launches only.  A sweep through spawned workers
 bytes with every cell fused on the card.  A prepass-GC compare on the
 card launches the shard core once with erases and low-priority GC reads
 in its op table, equal to the array interpreter and, launch for launch,
-to the plain version.  ``chip_smoke.py`` holds every
-kernel at its main path's full-width shapes.
+to the plain version.  Online GC and faults characterize on the card
+and run on the host interpreter, equal to the same runs characterized
+on the CPU, and the batched engine refuses both.  ``chip_smoke.py``
+holds every kernel at its main path's full-width shapes.
 """
 
 import numpy as np
@@ -546,3 +548,52 @@ def test_prepass_gc_compare_on_the_card(monkeypatch, tmp_path):
         assert bool(((kind == 0.0) & (hp == 0.0)).any())
         plain = fcfs_core_plain(ops, timing, steps, **kw)
         assert all(torch.equal(a, b) for a, b in zip(out, plain))
+
+
+def test_online_gc_and_faults_on_the_card(monkeypatch, tmp_path):
+    """Online GC and faults on the card: the characterization (worn bins
+    and the fault model's condition records) runs on the card, the runs
+    themselves on the host interpreter, and every cell equals the same
+    run characterized on the CPU.  ``engine="auto"`` records why and
+    launches nothing; ``engine="batched"`` refuses both knobs."""
+    import dataclasses
+
+    from repro_torch.core import characterize as TC
+    from repro_torch.flashsim import (BatchedUnsupported, FaultConfig,
+                                      GCConfig, OperatingCondition,
+                                      SSDConfig, compare_mechanisms,
+                                      make_workloads, simulate)
+
+    w = dataclasses.replace(make_workloads()["prn"], span_pages=512,
+                            n_requests=200)
+    cfg = SSDConfig(dies_per_channel=1,
+                    gc=GCConfig(enabled=True, pages_per_block=8))
+    cond = OperatingCondition(365.0, 1000.0)
+    fc = FaultConfig(uncorrectable_prob=0.6, escalation_attempts=1,
+                     mispredict_scale=4.0)
+    runs = {}
+    try:
+        for dev in ("cuda", "cpu"):
+            monkeypatch.setenv("REPRO_TORCH_CHAR_CACHE_DIR",
+                               str(tmp_path / dev))
+            TC.clear_tables()
+            before = FC.launches
+            runs[dev] = [compare_mechanisms(
+                w, cond, ("baseline", "pr2ar2"), seed=1, cfg=cfg, gc=gc,
+                faults=faults, engine="auto", device=dev)
+                for gc, faults in (("online", None), ("online", fc),
+                                   ("prepass", fc))]
+            assert FC.launches == before
+    finally:
+        TC.clear_tables()
+    assert runs["cuda"] == runs["cpu"]
+    online, online_fc, prepass_fc = runs["cuda"]
+    for s in online.values():
+        assert s.gc_invocations > 0 and s.write_stalls > 0
+        assert s.engine_selected == "array"
+        assert "online GC" in s.engine_fallback_reason
+    for s in (*online_fc.values(), *prepass_fc.values()):
+        assert s.parity_rebuilds > 0
+    for knobs in (dict(gc="online"), dict(gc="prepass", faults=fc)):
+        with pytest.raises(BatchedUnsupported):
+            simulate(w, cond, "pr2ar2", cfg=cfg, engine="batched", **knobs)

@@ -114,28 +114,29 @@ def _raising_calls(pkg, cond, config, **device):
 
 
 @pytest.mark.parametrize("case,match", [
-    ("faults knob", None),
+    ("faults knob", "array engine"),
     ("faults cfg", "array engine"),
-    ("ncq_depth knob", None),
+    ("ncq_depth knob", "array engine"),
     ("ncq_depth cfg", "array engine"),
     ("shard simulate", "shard"),
     ("shard simulate_batch", "shard"),
     ("scheduler", "scheduler"),
 ])
 def test_raises_as_the_reference_does(tables, case, match):
-    """The same calls raise ``NotImplementedError`` in both packages.
-    Through a knob, the port refuses faults and the closed loop for
-    every engine (ROADMAP D1, D2) before the engine is chosen."""
+    """The same calls raise the same ``NotImplementedError`` in both
+    packages: faults and the closed loop, by knob or by config, take the
+    reference engine's own refusal."""
     from repro.flashsim import config as RCFG
     from repro.flashsim import ssd as RS
 
     port = _raising_calls(TF, TF.OperatingCondition(*AGED), TF,
                           device="cpu")
     ref = _raising_calls(RS, _ref_cond(AGED), RCFG)
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(NotImplementedError, match=match) as want:
         ref[case]()
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(NotImplementedError, match=match) as got:
         port[case]()
+    assert str(got.value) == str(want.value)
 
 
 def test_ssdsim_names_ssdsimref(tables):

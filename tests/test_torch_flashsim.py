@@ -231,33 +231,6 @@ def test_simulate_batch_matches_reference(tables, engine):
         _same(gv, rv)
 
 
-@pytest.mark.parametrize("knob,call", [
-    # The closed loop is ported: with it, the unported knobs still raise.
-    ("ncq_depth", dict(ncq_depth=8, faults="cfg")),
-    ("host_cache", dict(ncq_depth=8, host_cache="cfg", gc="online")),
-    ("faults", dict(faults="cfg")),
-    ("gc=online", dict(gc="online")),
-])
-def test_unported_knobs_raise(tables, knob, call):
-    cond = TF.OperatingCondition(*AGED)
-    kw = dict(call)
-    if kw.get("host_cache") == "cfg":
-        kw["host_cache"] = TF.HostCacheConfig()
-    if kw.get("faults") == "cfg":
-        kw["faults"] = TF.FaultConfig()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TF.simulate("websearch", cond, "baseline", n_requests=50,
-                    device="cpu", **kw)
-
-
-def test_unported_config_fields_raise(tables):
-    gc_cfg = dataclasses.replace(
-        TF.DEFAULT_SSD, gc=dataclasses.replace(TF.DEFAULT_SSD.gc,
-                                               enabled=True, mode="online"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TF.SSDSim(gc_cfg, TF.OperatingCondition(*AGED), device="cpu")
-
-
 def _trace_sha(t) -> str:
     h = hashlib.sha256()
     for a in (t.arrival_us, t.is_read, t.n_pages, t.start_page):

@@ -363,18 +363,6 @@ def test_prepass_simulate_batch_matches_reference(tables, engine):
     assert all(s.gc_invocations > 0 for s in got.values())
 
 
-def test_online_gc_and_other_knobs_still_raise(tables):
-    """Only prepass GC is ported: online GC names ROADMAP D3."""
-    cond = TF.OperatingCondition(*AGED)
-    with pytest.raises(NotImplementedError, match="D3"):
-        TF.simulate("prn", cond, "baseline", n_requests=50, gc="online",
-                    device="cpu")
-    online = dataclasses.replace(TF.DEFAULT_SSD, gc=TF.GCConfig(
-        enabled=True, mode="online"))
-    with pytest.raises(NotImplementedError, match="D3"):
-        TF.SSDSim(online, cond, device="cpu")
-
-
 # -- the reference's behaviour tests (tests/test_ftl.py) ---------------------
 
 

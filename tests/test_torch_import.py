@@ -57,6 +57,13 @@ def test_import_and_simulate_without_jax(tmp_path):
         " cfg=SSDConfig(gc=GCConfig(pec_per_erase=0.0)), device='cpu')\n"
         "assert 1 <= c.max_inflight <= 8 and c.cache_absorbed_writes > 0, c\n"
         "assert c.gc_invocations == g.gc_invocations, c\n"
+        "from repro_torch.flashsim import FaultConfig\n"
+        "o = simulate('prn', OperatingCondition(30.0, 0.0), 'pr2ar2',"
+        " n_requests=1200, seed=1, gc='online', engine='auto',"
+        " faults=FaultConfig(uncorrectable_prob=0.3, escalation_attempts=1),"
+        " cfg=SSDConfig(gc=GCConfig(pec_per_erase=0.0)), device='cpu')\n"
+        "assert o.gc_invocations > 0 and o.parity_rebuilds > 0, o\n"
+        "assert o.engine_selected == 'array' and o.engine_fallback_reason, o\n"
         "j = sys.argv[1] + '/sweep.jsonl'\n"
         "kw = dict(n_requests=100, device='cpu', journal=j)\n"
         "a = run_sweep('websearch', [OperatingCondition(30.0, 0.0)],"

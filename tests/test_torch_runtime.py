@@ -708,3 +708,118 @@ def test_journal_decode_tolerates_future_schema(tables):
     stats = RT._stats_from_journal(full)
     assert stats.mean_us == full["mean_us"]
     assert not hasattr(stats, "some_future_counter")
+
+
+# -- online GC and faults through the runtime --------------------------------
+
+
+def _online_kw(port=True, **kw):
+    """``prn`` on its hot span under online GC, with the golden matrix's
+    ``fc`` faults: 2 conditions x 2 mechanisms x 2 seeds."""
+    fkw = dict(uncorrectable_prob=0.02, mispredict_scale=4.0,
+               escalation_attempts=2)
+    cfg, rcfg = _gc_cfgs(pec_per_erase=300.0)
+    hot, rhot = _hot()
+    if port:
+        return dict(workload=hot, conditions=PORT_CONDS, cfg=cfg,
+                    mechanisms=("baseline", "pr2ar2"), seeds=(0, 1),
+                    gc="online", faults=TF.FaultConfig(**fkw), device="cpu",
+                    **kw)
+    from repro.flashsim.config import FaultConfig
+
+    return dict(workload=rhot, conditions=_ref_conds(), cfg=rcfg,
+                mechanisms=("baseline", "pr2ar2"), seeds=(0, 1),
+                gc="online", faults=FaultConfig(**fkw), **kw)
+
+
+@pytest.fixture(scope="module")
+def online_ref_json(tables):
+    from repro.flashsim import runtime as RR
+
+    return RR.sweep_to_json(RR.run_sweep(**_online_kw(port=False)))
+
+
+@pytest.mark.parametrize("engine,workers", [("array", 1), ("array", 2),
+                                            ("auto", 2)])
+def test_online_fault_sweep_matches_reference(online_ref_json, engine,
+                                              workers):
+    """Online GC with faults through seed groups: the bytes are the
+    reference's at workers 1 and 2 (the parent warms every bin above
+    each condition, since online wear is known only at run time), and
+    ``auto`` records why it never fuses such a cell."""
+    if workers > 1:
+        _require_pool()
+    got = TF.run_sweep(**_online_kw(engine=engine, workers=workers))
+    assert RT.sweep_to_json(got) == online_ref_json
+    for s in got.values():
+        assert s.gc_invocations > 0 and s.write_stalls > 0
+        assert s.engine_selected == "array" and s.fused_cells == 0
+        assert ("online GC" in s.engine_fallback_reason) == \
+            (engine == "auto")
+    assert any(s.mispredicted_reads > 0 for s in got.values())
+
+
+def test_online_fault_sweep_in_spawned_workers(tables, monkeypatch):
+    """Spawned workers read the parent's tables for every bin above the
+    condition (a worker that characterized one itself would give other
+    stats than the synthetic tables')."""
+    _require_pool()
+    monkeypatch.setenv("REPRO_SWEEP_START_METHOD", "spawn")
+    kw = _online_kw(workers=1)
+    inline = TF.run_sweep(**kw)
+    spawned = TF.run_sweep(**dict(kw, workers=2))
+    assert RT.sweep_to_json(spawned) == RT.sweep_to_json(inline)
+
+
+def test_prewarm_warms_every_bin_above_an_online_condition(tables):
+    """Online GC: every grid P/E count above the condition's, each at
+    every mechanism's scale, and the fault model's condition records."""
+    from repro_torch.core import characterize as TC
+
+    cell = TF.Cell("batch", _hot()[0], PORT_CONDS, ("baseline", "pr2ar2"),
+                   0, cfg=_gc_cfgs()[0], gc="online",
+                   faults=TF.FaultConfig(), device="cpu")
+    bins = RT._worn_bins(cell)
+    assert bins == {PORT_CONDS[0]: (1500.0,),
+                    PORT_CONDS[1]: (500.0, 1000.0, 1500.0)}
+    TC._CDF_MEMO.clear()
+    assert RT.prewarm_characterization([cell]) == 4
+    warm = {(k[0], k[1], k[3], k[4]) for k in TC._CDF_MEMO}
+    for cond, pecs in bins.items():
+        for pec in pecs:
+            safe = TC.characterize_condition(
+                cond.retention_days, pec, device="cpu").safe_tr_scale
+            assert {(cond.retention_days, pec, False, s)
+                    for s in (1.0, safe)} <= warm
+    assert RT._worn_bins(dataclasses.replace(
+        cell, cfg=_gc_cfgs(pec_per_erase=0.0)[0])) == {
+            c: () for c in PORT_CONDS}
+
+
+def test_online_fault_journal_resume_round_trips(tables, tmp_path):
+    j = tmp_path / "sweep.jsonl"
+    kw = _online_kw(journal=j)
+    first = TF.run_sweep(**kw)
+    lines = j.read_text().splitlines()
+    j.write_text("\n".join(lines[:2]) + "\n")   # header + first seed group
+    partial = TF.run_sweep(**kw)
+    assert RT.sweep_to_json(partial) == RT.sweep_to_json(first)
+    assert all(s.write_stalls > 0 for s in partial.values())
+
+
+def test_fault_sweep_matches_reference_in_place(ref_json, tables):
+    """Faults on the in-place grid of this module (``websearch``, six
+    mechanisms, two conditions, three seeds), at workers 2: AR²'s
+    mispredictions move the bytes off the fault-free reference's, onto
+    the faulty reference's."""
+    _require_pool()
+    from repro.flashsim import runtime as RR
+    from repro.flashsim.config import FaultConfig
+
+    got = _port_sweep(workers=2, faults=TF.FaultConfig())
+    want = RR.sweep_to_json(RR.run_sweep(
+        "websearch", _ref_conds(), MECHS, SEEDS, n_requests=N,
+        engine="array", faults=FaultConfig()))
+    assert RT.sweep_to_json(got) == want != ref_json("fcfs")
+    assert all(s.mispredicted_reads == 0 for (m, _, _), s in got.items()
+               if "ar2" not in m)
