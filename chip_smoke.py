@@ -16,7 +16,12 @@ exits non-zero):
                      report (registers and spills of every instance);
   3. characterize  — the 160-chip characterization of 365 d / 1000 P/E and
                      the attempt histograms of all six mechanisms, on the
-                     card, held against the port's own CPU run;
+                     card, bit for bit the CPU's: the margin arrays'
+                     digest equal to this host's CPU run and to the pin
+                     of a CPU run (which equals the JAX reference's), the
+                     histograms' digest and the record's exact fields to
+                     the pins, ``mean_margin_final`` to this host's mean
+                     of the CPU's margins;
   4. kernels       — the shard-core kernel against its plain torch version
                      on the same card tensors, bit for bit, on the padded
                      op tables of ``websearch`` at 20 000 requests
@@ -234,7 +239,23 @@ exits non-zero):
                      the fault model's derived rates on the card's
                      characterization, and the phase's seconds against
                      its 150 s budget.  The shard-core count over the
-                     whole phase must be 0.
+                     whole phase must be 0.  The fault model's ``p_mis``
+                     and ``p_unc`` on the card equal the pinned CPU run's.
+ 14. calibrate     — ``core.calibrate.evaluate(DEFAULT_NAND)`` on the
+                     card equal to this host's CPU run and the pinned
+                     metrics, and, when it fits its budget, the 108-set
+                     grid with the pinned CPU best; no kernel launch;
+ 15. train         — llama3.2-3b at its published widths, all 28 layers,
+                     batch 2 x 1024, six steps of ``launch.train.train``
+                     (flash tier, prefetch, loss, backward, AdamW): the
+                     loss finite and falling, the flash tier's stats the
+                     CPU's, one step profiled (device-busy share, kernels
+                     by time), peak memory; then a 1-layer copy at full
+                     widths saves a checkpoint at step 3, a corrupted
+                     shard is rebuilt on restore, the restore equals the
+                     saved state bit for bit, and the resumed steps 4-6
+                     equal the uninterrupted run's losses bit for bit
+                     (deterministic algorithms); no kernel launch.
 
 The line before the last is a JSON object describing each kernel
 (launches on its main path, error against the plain version, and times
@@ -250,6 +271,7 @@ checkout of the repository, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -265,7 +287,6 @@ WORKLOAD = "websearch"
 N_REQUESTS = 20000
 CONDITION = (365.0, 1000.0)
 MECHANISMS = ("baseline", "sota", "pr2", "ar2", "pr2ar2", "sota+pr2ar2")
-HIST_TOL = 1e-3          # L-inf, as in tests/test_torch_core.py
 KERNEL_REPS = 5
 CHAIN_PROBE_STEPS = 1 << 21
 DEVICE = "cuda"
@@ -364,6 +385,76 @@ FAULT_FIELDS = ("mispredicted_reads", "rescued_reads", "parity_rebuilds",
                 "rebuild_reads", "retired_blocks", "program_fails",
                 "erase_fails", "unrecoverable")
 
+# Pins of the characterization at CONDITION from a CPU run of the port
+# (``characterize_condition(365, 1000, device="cpu")`` with the disk cache
+# off, torch 2.13 CPU, numpy 2.0.2, x86-64), which equal the JAX
+# reference's (``tests/test_torch_xla_math.py``): the sha256 of the
+# float32 margin arrays at the success entry (lsb, csb, msb in turn,
+# 160 x 8 x 16 each), the record's fields that are exact functions of
+# them, and phase 13's fault rates.  ``mean_margin_final`` and
+# ``p01_margin_final`` are reduced by the host's numpy (a float32 mean,
+# a percentile), whose summation order differs between numpy versions,
+# so they are held card against CPU on the same host, not against a pin.
+PIN_MARGIN_SHA256 = ("04da380e1dcef006858392994b6493b2"
+                     "de4af49539078cab19747f810ee698cf")
+# sha256 over the 12 attempt histograms of the six mechanisms (sorted
+# keys, each key's repr then its float64 bytes), the same CPU run.
+PIN_HIST_SHA256 = ("ef1c2c0b81c3c01c4b623df4df9cafa4"
+                   "3622c0eb52dbe3e15b2bd1e35936697b")
+PIN_STATS = dict(mean_retry_steps=12.723372395833334, p99_retry_steps=16.0,
+                 frac_reads_with_retry=1.0, safe_tr_scale=0.75)
+PIN_P_MIS = 0.013897299766540527
+PIN_P_UNC = 5.054473876953125e-05
+
+# Phase 14: the calibration fit.  The nine metrics of
+# evaluate(DEFAULT_NAND) and of the 108-set grid's best, as a CPU run of
+# the port gives them (torch 2.13 CPU, numpy 2.0.2, x86-64; equal to the
+# reference's ``core/calibrate.py`` under jax 0.9.0).  The two margin
+# metrics are float32 means and percentiles by the host's numpy, whose
+# summation order changes between versions: they are held through their
+# input (the worst-condition margins' sha256, pinned from the same run)
+# and to the host's numpy reduction of it, and printed beside the pins.
+# The 108-set grid runs when this many seconds cover it.
+HOST_NUMPY_METRICS = ("t2_margin_mean", "t2_margin_p01")
+PIN_EVALUATE = {
+    "t1_mean_steps_3mo": 4.603971354166666,
+    "t2_worst_mean_steps": 15.756901041666667, "t2_worst_fail_frac": 0.0,
+    "t2_margin_mean": 0.3879348039627075,
+    "t2_margin_p01": 0.011046426370739937,
+    "t3_ratio_075": 1.016428162564396, "t3_ratio_070": 1.0240412135088723,
+    "t4_fresh_steps": 0.0, "t5_sota_aged_steps": 5.737369791666667}
+PIN_EVALUATE_MARGINS = ("cc8c97724abd055c8dbf2e0503b0ad75"
+                        "227d779986c8144e4dcf2d14a13d967e")
+CALIBRATE_GRID_BUDGET_S = 150.0
+PIN_GRID_BEST = dict(alpha_r=0.082, sigma_r=0.003, sense_eta=0.16,
+                     retry_step_v=0.05)
+PIN_GRID_SCORE = 102.17419287982851
+PIN_GRID_METRICS = {
+    "t1_mean_steps_3mo": 4.2662109375,
+    "t2_worst_mean_steps": 16.041731770833334, "t2_worst_fail_frac": 0.0,
+    "t2_margin_mean": 0.3422516882419586,
+    "t2_margin_p01": 0.00907350517809391,
+    "t3_ratio_075": 1.0355935744560227, "t3_ratio_070": 1.0657880977086425,
+    "t4_fresh_steps": 0.0, "t5_sota_aged_steps": 5.824674479166666}
+PIN_GRID_MARGINS = ("3573185585a14bc45cfaf83edd7c6c7b"
+                    "ec8e0c09981eb11af4231a6e254aa07f")
+
+# Phase 15: training llama3.2-3b at its published widths, all 28 layers,
+# batch 2 x 1024 tokens, pr2ar2 flash tier at CONDITION; the checkpoint
+# round trip and the resume on a depth-cut copy (full widths, this many
+# layers: the full state is 51 GB); the flash tier's stats over
+# TRAIN_STEPS batches as the CPU gives them (same seed and corpus).
+TRAIN_ARCH = "llama3.2-3b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 1024, 6
+# AdamW at 3e-4 (the optimizer's default) with 2 warmup steps diverges
+# from a random 3B initialization (losses 12.1 -> 18.8 -> 22.4 in six
+# steps on an H100 80GB HBM3 at 700 W); a few steps of a smoke run take
+# a smaller rate.
+TRAIN_LR = 2e-5
+CKPT_LAYERS, CKPT_STEPS, CKPT_AT = 1, 6, 3
+PIN_FLASH_STATS = dict(batches=6, pages=6, attempts=81,
+                       sim_read_us=3715.1249999999995)
+
 
 def phase(name):
     def wrap(fn):
@@ -447,36 +538,90 @@ def _fresh_cache(name):
     TC.clear_tables()
 
 
-@phase("characterize")
-def characterize_phase():
+def _margins(device):
+    """(sha256, numpy array) of the float32 ECC margins at the success
+    entry of the 160-chip population at CONDITION (lsb, csb, msb), as
+    ``characterize_condition`` computes them, on ``device``."""
+    import hashlib
+
+    import numpy as np
     import torch
 
-    _fresh_cache("cpu")
-    t0 = time.perf_counter()
-    cpu_stats, cpu_hists = _char_tables("cpu")
-    cpu_s = time.perf_counter() - t0
+    from repro_torch.core import characterize as TC
+    from repro_torch.core import constants as C
+    from repro_torch.core import ecc, prng
+    from repro_torch.core import retry as R
+
+    parts = []
+    for i, pt in enumerate(C.PAGE_TYPES):
+        key = prng.fold_in(prng.PRNGKey(0, device=device), i)
+        rber = TC._population_rber(key, *CONDITION, pt, C.N_CHIPS, N_BLOCKS,
+                                   N_PAGES, 1.0, C.DEFAULT_NAND)
+        k = R.first_success_step(rber)
+        final = torch.take_along_dim(rber, k[..., None], dim=-1)[..., 0]
+        parts.append(ecc.capability_margin(final).cpu().numpy().ravel())
+    h = hashlib.sha256()
+    for m in parts:
+        h.update(m.tobytes())
+    return h.hexdigest(), np.concatenate(parts)
+
+
+def _hist_digest(hists):
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in sorted(hists):
+        h.update(repr(k).encode())
+        h.update(hists[k].tobytes())
+    return h.hexdigest()
+
+
+@phase("characterize")
+def characterize_phase():
+    """The card's characterization equals the CPU's bit for bit (C10):
+    the margin arrays' digest equals this host's CPU run and the pinned
+    CPU run, the record's mean margin equals this host's mean of the
+    CPU's margins, its exact fields and the 12 histograms the pins."""
+    import numpy as np
+    import torch
+
     _fresh_cache(DEVICE)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     stats, hists = _char_tables(DEVICE)
     torch.cuda.synchronize()
     card_s = time.perf_counter() - t0
-    if stats.safe_tr_scale != cpu_stats.safe_tr_scale:
-        raise AssertionError(f"safe_tr_scale card {stats.safe_tr_scale} "
-                             f"!= cpu {cpu_stats.safe_tr_scale}")
-    if set(hists) != set(cpu_hists):
-        raise AssertionError("histogram keys differ between card and cpu")
-    err = max(float(abs(hists[k] - cpu_hists[k]).max()) for k in hists)
-    if err > HIST_TOL:
-        raise AssertionError(f"attempt histograms differ by {err} > "
-                             f"{HIST_TOL} between card and cpu")
+    digest, _ = _margins(DEVICE)
+    t0 = time.perf_counter()
+    cpu_digest, cpu_margins = _margins("cpu")
+    cpu_s = time.perf_counter() - t0
+    cpu_mean = float(cpu_margins.mean())
+    hist_digest = _hist_digest(hists)
+    print(f"card record {stats}; margin digests card {digest}, cpu "
+          f"{cpu_digest}; histograms {hist_digest}", flush=True)
+    if not digest == cpu_digest == PIN_MARGIN_SHA256:
+        raise AssertionError(f"margin digests card {digest}, cpu "
+                             f"{cpu_digest}, pinned {PIN_MARGIN_SHA256}")
+    if stats.mean_margin_final != cpu_mean:
+        raise AssertionError(f"mean_margin_final card "
+                             f"{stats.mean_margin_final!r} != cpu {cpu_mean!r}")
+    for name, want in PIN_STATS.items():
+        if getattr(stats, name) != want:
+            raise AssertionError(f"{name} {getattr(stats, name)!r} != "
+                                 f"pinned {want!r}")
+    if hist_digest != PIN_HIST_SHA256:
+        raise AssertionError(f"histogram digest {hist_digest} != pinned "
+                             f"{PIN_HIST_SHA256}")
     print(f"characterization {CONDITION[0]:g} d / {CONDITION[1]:g} P/E, "
-          f"160 chips, {len(hists)} histograms: card {card_s:.3f} s, "
-          f"cpu {cpu_s:.3f} s, max |hist card - cpu| = {err:.3g}")
+          f"160 chips, {len(hists)} histograms: card {card_s:.3f} s "
+          f"(the CPU's margins {cpu_s:.3f} s); margins, histograms and "
+          f"exact fields equal the pinned CPU run, mean_margin_final "
+          f"{stats.mean_margin_final!r} the CPU's on this host (numpy "
+          f"{np.__version__})")
     print(f"safe_tr_scale = {stats.safe_tr_scale}, mean_retry_steps = "
           f"{stats.mean_retry_steps}, p99_retry_steps = "
           f"{stats.p99_retry_steps}")
-    return dict(card_s=card_s, cpu_s=cpu_s, hist_err=err)
+    return dict(card_s=card_s, cpu_s=cpu_s)
 
 
 def _main_path_tables():
@@ -2831,7 +2976,10 @@ def online_faults_phase(smi, prepass, inplace):
     print(f"fault model at {CONDITION[0]:g} d / {CONDITION[1]:g} P/E on the "
           f"card: mean_margin_final {st.mean_margin_final!r}, "
           f"{FAULT_MECHANISM} p_mis {fm.p_mis(0.0)!r}, p_unc "
-          f"{fm.p_unc(0.0)!r}", flush=True)
+          f"{fm.p_unc(0.0)!r} (pinned CPU values {PIN_P_MIS!r}, "
+          f"{PIN_P_UNC!r})", flush=True)
+    if (fm.p_mis(0.0), fm.p_unc(0.0)) != (PIN_P_MIS, PIN_P_UNC):
+        raise AssertionError("the card's fault rates differ from the CPU's")
     walls = {k: v[1] for k, v in runs.items() if not k.endswith("skips")}
     print(f"host wall by run on {smi}: " + ", ".join(
         f"{k} {v:.3f} s" for k, v in walls.items()), flush=True)
@@ -2872,6 +3020,295 @@ def online_faults_phase(smi, prepass, inplace):
                    card=smi)
     print("online GC and faults summary: " + json.dumps(summary), flush=True)
     return K.launches + golden_launches
+
+
+def _kernel_counts():
+    """Every kernel wrapper's launch count in this process (B1-B5)."""
+    from repro_torch.kernels.fcfs_core import ops as B1
+    from repro_torch.kernels.flash_attention import ops as B4
+    from repro_torch.kernels.kv_retry import ops as B5
+    from repro_torch.kernels.rber import ops as B3
+    from repro_torch.kernels.ssd_scan import ops as B2
+
+    return dict(fcfs_core=B1.launches, flash_attention=B4.launches,
+                kv_retry=B5.launches, ssd_scan=B2.launches,
+                rber=B3.launches)
+
+
+def _launched_since(before):
+    now = _kernel_counts()
+    return {k: now[k] - before[k] for k in now}
+
+
+def _hold_metrics(what, m, pins, margins, margins_sha):
+    """Hold the card's metrics ``m`` (already equal to this host's CPU
+    run's) to the pinned CPU run: every metric but the two numpy ones
+    exactly; the numpy ones through their input, ``margins`` (the card's
+    worst-condition margins), whose digest must be the pin's and whose
+    host numpy mean and 1st percentile must be ``m``'s.  Returns the
+    metrics that differ from their pins, as (host value, pin)."""
+    import hashlib
+
+    import numpy as np
+
+    bad = {k: (v, pins[k]) for k, v in m.items()
+           if v != pins[k] and k not in HOST_NUMPY_METRICS}
+    if bad or set(m) != set(pins):
+        raise AssertionError(f"{what} differs from the pinned CPU run: "
+                             f"{bad}")
+    sha = hashlib.sha256(margins.tobytes()).hexdigest()
+    if margins.dtype != np.float32 or sha != margins_sha:
+        raise AssertionError(f"{what}: worst margins {margins.dtype} "
+                             f"sha256 {sha} != pinned {margins_sha}")
+    host = dict(t2_margin_mean=float(margins.mean()),
+                t2_margin_p01=float(np.percentile(margins, 1)))
+    if host != {k: m[k] for k in HOST_NUMPY_METRICS}:
+        raise AssertionError(f"{what}: host numpy reduces the margins to "
+                             f"{host}, evaluate gave {m}")
+    return {k: (m[k], pins[k]) for k in HOST_NUMPY_METRICS
+            if m[k] != pins[k]}
+
+
+@phase("calibrate")
+def calibrate_phase(smi):
+    """``evaluate(DEFAULT_NAND)`` on the card equals the CPU's on this
+    host and the pinned CPU metrics (the two numpy-reduced ones through
+    their input margins); the 108-set grid runs when it fits its budget,
+    and its best set and metrics are the pinned CPU run's."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import calibrate as CAL
+    from repro_torch.core import constants as C
+
+    before = _kernel_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m = CAL.evaluate(C.DEFAULT_NAND, device=DEVICE)
+    eval_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    m_cpu = CAL.evaluate(C.DEFAULT_NAND, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    m, m_cpu = ({k: float(v) for k, v in d.items()} for d in (m, m_cpu))
+    if m != m_cpu:
+        raise AssertionError(f"evaluate card {m} != cpu {m_cpu}")
+    off = _hold_metrics("evaluate(DEFAULT_NAND)", m, PIN_EVALUATE,
+                        CAL.worst_margins(C.DEFAULT_NAND, device=DEVICE),
+                        PIN_EVALUATE_MARGINS)
+    print(f"evaluate(DEFAULT_NAND): card {eval_s:.3f} s, cpu {cpu_s:.3f} s "
+          f"on {smi}; 9 metrics equal card to cpu, 7 to the pins, the "
+          f"worst margins' digest to the pin; host numpy {np.__version__}: "
+          + ", ".join(f"{k} {m[k]!r} (pinned {PIN_EVALUATE[k]!r})"
+                      for k in HOST_NUMPY_METRICS)
+          + f"; differing from the pins: {off or 'none'}", flush=True)
+    out = dict(evaluate_s=eval_s, cpu_s=cpu_s, grid_s=None)
+    if 108 * eval_s <= CALIBRATE_GRID_BUDGET_S:
+        t0 = time.perf_counter()
+        score, best, bm = CAL.main(device=DEVICE, verbose=False)
+        out["grid_s"] = time.perf_counter() - t0
+        score = float(score)
+        got = dict(alpha_r=best.alpha_r, sigma_r=best.sigma_r,
+                   sense_eta=best.sense_eta, retry_step_v=best.retry_step_v)
+        if got != PIN_GRID_BEST:
+            raise AssertionError(f"grid best {got} != CPU's {PIN_GRID_BEST}")
+        bm = {k: float(v) for k, v in bm.items()}
+        bm_cpu = {k: float(v) for k, v in
+                  CAL.evaluate(best, device="cpu").items()}
+        if bm != bm_cpu or score != CAL.score(bm_cpu):
+            raise AssertionError(f"grid best card {score!r} {bm} != this "
+                                 f"host's cpu {bm_cpu}")
+        off = _hold_metrics("grid best", bm, PIN_GRID_METRICS,
+                            CAL.worst_margins(best, device=DEVICE),
+                            PIN_GRID_MARGINS)
+        if CAL.score(PIN_GRID_METRICS) != PIN_GRID_SCORE or \
+                (not off and score != PIN_GRID_SCORE):
+            raise AssertionError(f"grid score {score!r}, pinned "
+                                 f"{PIN_GRID_SCORE!r}")
+        print(f"108-set grid on the card: {out['grid_s']:.3f} s; best "
+              f"{got}, the pinned CPU's; 9 metrics equal card to this "
+              f"host's cpu, 7 to the pins, the worst margins' digest to "
+              f"the pin; score {score!r} (pinned {PIN_GRID_SCORE!r}); "
+              f"differing from the pins (host numpy {np.__version__}'s "
+              f"reduction of the pinned margins, value vs pin): "
+              f"{off or 'none'}", flush=True)
+    else:
+        print(f"108-set grid skipped: about {108 * eval_s:.0f} s > "
+              f"{CALIBRATE_GRID_BUDGET_S:.0f} s budget", flush=True)
+    launched = _launched_since(before)
+    print(f"kernel launches in the phase: {launched}", flush=True)
+    if any(launched.values()):
+        raise AssertionError("calibration launched a kernel")
+    return out
+
+
+def _device_busy(fn, top=6):
+    """(wall s, device-busy s, top kernels, skew ms) of ``fn()`` under
+    ``torch.profiler``.  Busy is the union of the intervals of the
+    device's kernels, copies and sets, None when the profiler sees none;
+    the profiler's user annotations, which it mirrors onto the device's
+    timeline across whole ranges (a ``record_function`` around ``fn``
+    marks the window), are not device work.  Top is the ``top`` kernels
+    by summed device time as (name, ms, count); skew the device events'
+    first start and last end relative to the window's on the profiler's
+    clock.  Raises when busy exceeds the wall: the device cannot be busy
+    longer than the window it ran in."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    window = "chip_smoke.window"
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function(window):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    spans, by_name, win = [], {}, None
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            if ev.name == window:
+                win = ev.time_range
+            continue
+        if getattr(ev, "is_user_annotation", False) or ev.name == window:
+            continue
+        spans.append((ev.time_range.start, ev.time_range.end))
+        ms, n = by_name.get(ev.name, (0.0, 0))
+        by_name[ev.name] = (ms + ev.time_range.elapsed_us() / 1e3, n + 1)
+    busy, end = 0.0, None
+    for a, b in sorted(spans):
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    busy = busy / 1e6 if spans else None
+    if busy is not None and busy > wall:
+        raise AssertionError(f"device busy {busy:.6f} s > wall {wall:.6f} s"
+                             f": the profiler's intervals are not the "
+                             f"device's")
+    skew = None
+    if spans and win is not None:
+        skew = ((min(a for a, _ in spans) - win.start) / 1e3,
+                (max(b for _, b in spans) - win.end) / 1e3)
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    return wall, busy, [(name[:60], ms, n) for name, (ms, n) in ranked], \
+        skew
+
+
+@phase("train")
+def train_phase(smi):
+    """llama3.2-3b trained at its published widths on the card: the loss
+    is finite and falls; a depth-cut copy saves with a corrupt shard,
+    restores bit for bit, and resumes to the uninterrupted run's losses
+    (deterministic algorithms on); the flash tier's stats equal the
+    CPU's; no kernel launches."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.checkpoint import corrupt_shard, restore
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as TL
+    from repro_torch.optim.adamw import AdamWConfig, tree_leaves
+
+    before = _kernel_counts()
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    quiet = lambda *_: None      # noqa: E731
+    cfg = get_config(TRAIN_ARCH)
+    n_params = cfg.n_params()
+    print(f"{TRAIN_ARCH}: {cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads, hd {cfg.resolved_head_dim}"
+          f", ff {cfg.d_ff}, vocab {cfg.vocab}: {n_params / 1e9:.3f} B "
+          f"parameters, {16 * n_params / 1e9:.1f} GB of f32 parameters, "
+          f"gradients and moments", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    opt = AdamWConfig(lr=TRAIN_LR, moment_dtype=cfg.moment_dtype)
+    run = TL.train(cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                   device=DEVICE, opt=opt, log=quiet)
+    wall = time.perf_counter() - t0
+    losses = [run.losses[i] for i in sorted(run.losses)]
+    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"training losses {losses}")
+    stats = dataclasses.asdict(run.reader.stats)
+    if stats != PIN_FLASH_STATS:
+        raise AssertionError(f"flash tier stats {stats} != CPU's "
+                             f"{PIN_FLASH_STATS}")
+    batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in
+             run.reader.corpus.batch(TRAIN_STEPS).items()}
+    model_loss = TL.build_model(cfg, DEVICE).train_loss
+    step_wall, busy, top, skew = _device_busy(lambda: TL.train_step(
+        model_loss, run.state, batch, opt, 0.1))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    steady = run.step_s[1:]
+    busy_txt = "not measured" if busy is None else \
+        f"{busy:.3f} s ({busy / step_wall:.1%})"
+    if skew is not None:
+        busy_txt += (f" (device events from {skew[0]:+.3f} ms after the "
+                     f"window starts to {skew[1]:+.3f} ms after it ends, "
+                     f"on the profiler clock)")
+    print(f"train {TRAIN_ARCH} full depth, batch {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ}, {TRAIN_STEPS} steps on {smi}: losses {losses}; "
+          f"{wall:.3f} s in all, step {sum(steady) / len(steady):.3f} s "
+          f"(steps 2-{TRAIN_STEPS}; first {run.step_s[0]:.3f} s), profiled "
+          f"step {step_wall:.3f} s with device busy {busy_txt}, peak {peak:.1f} GB allocated; input stall "
+          f"{run.pipeline.stall_s:.3f} s; flash tier {stats}, the CPU's",
+          flush=True)
+    print("  profiled step's device time by kernel: " + "; ".join(
+        f"{n} {ms:.1f} ms x{c}" for n, ms, c in top), flush=True)
+    out = dict(losses=losses, step_s=sum(steady) / len(steady),
+               busy=busy, step_wall=step_wall, peak_gb=peak)
+    del run, batch, model_loss
+    torch.cuda.empty_cache()
+
+    ccfg = dataclasses.replace(cfg, n_layers=CKPT_LAYERS)
+    kw = dict(steps=CKPT_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+              device=DEVICE, opt=opt, log=quiet)
+    whole = TL.train(ccfg, **kw)
+    whole.state = None
+    ckdir = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    first = TL.train(ccfg, ckpt_dir=ckdir, save_every=CKPT_AT,
+                     stop_after=CKPT_AT, **kw)
+    d = ckdir / f"step_{CKPT_AT:09d}"
+    n_shards = len(list(d.glob("shard_*.bin")))
+    corrupt_shard(d, n_shards // 2)
+    restored, rst = restore(d, first.state, device=DEVICE)
+    pairs = list(zip(tree_leaves(restored), tree_leaves(first.state)))
+    if rst.n_reconstructed < 1 or not all(
+            torch.equal(a, b.detach()) for a, b in pairs):
+        raise AssertionError(f"restore not bitwise or nothing "
+                             f"reconstructed: {rst}")
+    del restored, pairs, first.state
+    torch.cuda.empty_cache()
+    resumed = TL.train(ccfg, ckpt_dir=ckdir, save_every=10 ** 9, **kw)
+    want = [whole.losses[i] for i in range(1, CKPT_STEPS + 1)]
+    got = [first.losses[i] if i <= CKPT_AT else resumed.losses[i]
+           for i in range(1, CKPT_STEPS + 1)]
+    if resumed.start_step != CKPT_AT or got != want or \
+            resumed.restore_stats.n_reconstructed < 1:
+        raise AssertionError(f"resume from step {resumed.start_step}: "
+                             f"losses {got} != uninterrupted {want}")
+    gb = sum(f.stat().st_size for f in d.iterdir()) / 1e9
+    print(f"checkpoint round trip at {CKPT_LAYERS} layer(s), full widths "
+          f"({gb:.2f} GB on disk, {n_shards} shards, shard {n_shards // 2} "
+          f"corrupted): save {first.save_s[0]:.3f} s, restore wall "
+          f"{rst.wall_s:.3f} s (read {rst.read_s:.3f} s, verify "
+          f"{rst.verify_s:.3f} s, {rst.n_reconstructed} reconstructed), "
+          f"bitwise; resume at step {CKPT_AT}: losses {got} equal the "
+          f"uninterrupted run's bit for bit", flush=True)
+    shutil.rmtree(ckdir, ignore_errors=True)
+    torch.use_deterministic_algorithms(False)
+    launched = _launched_since(before)
+    print(f"kernel launches in the phase: {launched} (none expected: "
+          f"training attention is blockwise autograd)", flush=True)
+    if any(launched.values()):
+        raise AssertionError("the training path launched a kernel")
+    out.update(save_s=first.save_s[0], restore=dataclasses.asdict(rst))
+    return out
 
 
 def _print_held(name, rs):
@@ -2957,6 +3394,9 @@ def main() -> int:
         smi, chain_ns)
     closed_launches, closed_held = closed_loop_phase(smi)
     online_fault_launches = online_faults_phase(smi, gc_res, gc_inplace)
+    torch.cuda.empty_cache()
+    calibrate_phase(smi)
+    train_phase(smi)
 
     # Times and bounds are sums over each main path's launches, each
     # re-run on the inputs it had there.

@@ -53,7 +53,10 @@ TR_SCALE_FLOOR = 0.7
 
 # -- on-disk characterization cache ----------------------------------------
 
-_CHAR_CACHE_VERSION = 1
+#: Version 2: the float32 math is XLA's (``core/xla_math.py``), so tables
+#: of version 1 (torch's transcendentals) differ in their ulps and must
+#: never be served.
+_CHAR_CACHE_VERSION = 2
 
 
 def _char_cache_dir() -> Optional[str]:
@@ -180,6 +183,14 @@ def load_tables(stats: Mapping, hists: Mapping) -> None:
         _CDF_MEMO.pop(key, None)
 
 
+def mean32(counts: torch.Tensor) -> float:
+    """float32 mean of integer counts as ``jnp.mean`` gives it on XLA's
+    CPU backend: the exact sum (below 2^24) times the float32 reciprocal
+    of the count, on the host for every device."""
+    inv = np.float32(1.0) / np.float32(counts.numel())
+    return float(np.float32(int(counts.sum())) * inv)
+
+
 def _population_rber(key, retention_days, pec, page_type, n_chips, n_blocks,
                      n_pages, tr_scale, params) -> torch.Tensor:
     """(chips, blocks, pages, steps) RBER tensor for one page type."""
@@ -235,7 +246,7 @@ def characterize_condition(retention_days: float, pec: float,
         # scale; a scale is admissible if the expected attempt count
         # stays within EXTRA_ATTEMPT_BUDGET of full-tR, and the
         # admissible scale of least expected pipelined latency wins.
-        mean_attempts_1 = float((k + 1).to(torch.float32).mean())
+        mean_attempts_1 = mean32(k + 1)
         best_s, best_lat = 1.0, None
         for s in TR_SCALE_GRID:
             if s < TR_SCALE_FLOOR:
@@ -244,7 +255,7 @@ def characterize_condition(retention_days: float, pec: float,
                                       n_blocks, n_pages, float(s), params)
             k_s = R.first_success_step(rber_s,
                                        max_steps=params.max_retry_steps)
-            mean_attempts_s = float((k_s + 1).to(torch.float32).mean())
+            mean_attempts_s = mean32(k_s + 1)
             if mean_attempts_s > mean_attempts_1 + EXTRA_ATTEMPT_BUDGET:
                 continue
             lat = float(np.mean(T.pipelined_read_latency(

@@ -19,10 +19,11 @@ Covered draws (what the characterization path makes):
 ``uniform`` and the raw bits are bitwise equal to ``jax.random``.
 ``normal`` is ``sqrt(2) * erfinv(u)`` with XLA's float32 ``erf_inv``
 polynomial (Giles' single-precision approximation) restated below, its
-Horner steps rounded once each as XLA's fused multiply-adds are; its
-``log1p`` is torch's, so normals agree to a few float32 ulps, not
-bitwise.  (``torch.erfinv`` is a different, more exact approximation
-and differs from ``jax.random.normal`` by up to ~90 ulps.)
+Horner steps rounded once each as XLA's fused multiply-adds are, and its
+``log1p`` and ``sqrt`` from :mod:`repro_torch.core.xla_math`: normals are
+bitwise equal to ``jax.random.normal`` on every device.
+(``torch.erfinv`` is a different, more exact approximation and differs
+from ``jax.random.normal`` by up to ~90 ulps.)
 """
 
 from __future__ import annotations
@@ -31,6 +32,8 @@ import math
 from typing import Sequence, Union
 
 import torch
+
+from repro_torch.core.xla_math import fma32, log1p32, sqrt32
 
 _M32 = 0xFFFFFFFF
 _ROT0 = (13, 15, 26, 6)
@@ -131,23 +134,22 @@ _ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
 def erfinv32(x: torch.Tensor) -> torch.Tensor:
     """float32 inverse error function, XLA's polynomial.
 
-    Each Horner step ``c + p * w`` is evaluated in float64 and rounded
-    once to float32 (the product of two float32 values is exact in
-    float64), which is what a fused multiply-add gives.
+    Each Horner step ``c + p * w`` is a fused multiply-add (one
+    rounding), ``log1p`` and ``sqrt`` are XLA's.
     """
-    w = -torch.log1p(-x * x)
+    w = -log1p32(-x * x)
     lt = w < 5.0
-    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0).double()
+    w = torch.where(lt, w - 2.5, sqrt32(w) - 3.0)
 
     def coef(i):
         return torch.where(lt, torch.tensor(_ERFINV_LT5[i], device=x.device),
                            torch.tensor(_ERFINV_GE5[i], device=x.device)
-                           ).float().double()
+                           ).float()
 
     p = coef(0)
     for i in range(1, len(_ERFINV_LT5)):
-        p = (coef(i) + p * w).float().double()
-    out = p.float() * x
+        p = fma32(p, w, coef(i))
+    out = p * x
     edge = x.abs() == 1.0
     return torch.where(edge, x * torch.finfo(torch.float32).max, out)
 

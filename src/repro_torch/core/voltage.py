@@ -14,7 +14,11 @@ The same analytical device model as the reference:
 Every function is float32 and broadcasts over leading batch dims, so the
 160-chip characterization runs as one batched call on whatever device
 its inputs live on.  Python constants enter the arithmetic as float32
-scalars, as JAX's weakly typed constants do.
+scalars, as JAX's weakly typed constants do.  The transcendentals are
+XLA's CPU expansions (:mod:`repro_torch.core.xla_math`), divisions are
+true divisions on every device, squares are products and sums run in
+the reference's order, with denormals flushed where the tails make
+them: the arrays are bitwise the reference's, on the CPU and the card.
 """
 
 from __future__ import annotations
@@ -26,6 +30,8 @@ import torch
 from repro_torch.core import constants as C
 from repro_torch.core import prng
 from repro_torch.core.constants import NandParams, DEFAULT_NAND
+from repro_torch.core.xla_math import (div32, erfc32, exp32, log1p32, log32,
+                                       mul32, powf, sqrt32)
 
 _F32 = torch.float32
 
@@ -38,24 +44,35 @@ def _f32(x, device=None) -> torch.Tensor:
 
 def qfunc(x: torch.Tensor) -> torch.Tensor:
     """Gaussian tail probability Q(x) = P[N(0,1) > x]."""
-    return 0.5 * torch.special.erfc(x / _f32(math.sqrt(2.0), x.device))
+    return mul32(erfc32(div32(x, math.sqrt(2.0))), 0.5)
 
 
 def charge_fraction(params: NandParams = DEFAULT_NAND,
                     device=None) -> torch.Tensor:
     """Charge stored in each level, as a fraction of the top level."""
     mu0 = _f32(params.mu0, device)
-    return torch.clamp(mu0, min=0.0) / mu0[-1]
+    return div32(torch.clamp(mu0, min=0.0), mu0[-1])
 
 
 def degradation_scale(retention_days, pec,
                       params: NandParams = DEFAULT_NAND,
                       device=None) -> torch.Tensor:
-    """Dimensionless degradation magnitude g(t, c) = ln(1+t/t0)*(1+c/K)^beta."""
+    """Dimensionless degradation magnitude g(t, c) = ln(1+t/t0)*(1+c/K)^beta.
+
+    The power is the C library's ``powf``, as on XLA's CPU backend, so
+    it is taken on the host, element by element of the (scalar)
+    operating condition."""
     t = _f32(retention_days, device)
     c = _f32(pec, device)
-    return torch.log1p(t / params.t0_days) * \
-        (1.0 + c / params.pec_knee) ** params.pec_beta
+    return log1p32(div32(t, params.t0_days)) * \
+        _powf(1.0 + div32(c, params.pec_knee), params.pec_beta)
+
+
+def _powf(base: torch.Tensor, exponent: float) -> torch.Tensor:
+    """float32 ``base ** exponent`` by the C library's ``powf``, on the
+    host, returned on ``base``'s device."""
+    vals = [powf(b, exponent) for b in base.cpu().reshape(-1).tolist()]
+    return torch.tensor(vals, dtype=_F32).reshape(base.shape).to(base.device)
 
 
 def degraded_distributions(retention_days, pec, rate_factor=1.0,
@@ -76,8 +93,8 @@ def degraded_distributions(retention_days, pec, rate_factor=1.0,
     c = _f32(pec, device)[..., None]
     sig_ret = params.sigma_r * q * g
     sig_wear = params.sigma_w * torch.where(q > 0, 1.0, 0.0) * \
-        (c / 1000.0) ** 0.7
-    sigma = torch.sqrt(sigma0 ** 2 + sig_ret ** 2 + sig_wear ** 2)
+        _powf(div32(c, 1000.0), 0.7)
+    sigma = sqrt32(sigma0 * sigma0 + sig_ret * sig_ret + sig_wear * sig_wear)
     return mu, sigma
 
 
@@ -87,16 +104,17 @@ def optimal_boundaries(mu: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
     two sigmas are equal."""
     m1, m2 = mu[..., :-1], mu[..., 1:]
     s1, s2 = sigma[..., :-1], sigma[..., 1:]
-    a = s2 ** 2 - s1 ** 2
-    b = 2.0 * (s1 ** 2 * m2 - s2 ** 2 * m1)
-    c = s2 ** 2 * m1 ** 2 - s1 ** 2 * m2 ** 2 - \
-        2.0 * (s1 * s2) ** 2 * torch.log(s2 / s1)
+    s1sq, s2sq, s12 = s1 * s1, s2 * s2, s1 * s2
+    a = s2sq - s1sq
+    b = 2.0 * (s1sq * m2 - s2sq * m1)
+    c = s2sq * (m1 * m1) - s1sq * (m2 * m2) - \
+        2.0 * (s12 * s12) * log32(s2 / s1)
     midpoint = 0.5 * (m1 + m2)
-    disc = torch.clamp(b ** 2 - 4.0 * a * c, min=0.0)
+    disc = torch.clamp(b * b - 4.0 * a * c, min=0.0)
     flat = torch.abs(a) < 1e-9
     safe_a = torch.where(flat, 1.0, a)
-    r1 = (-b + torch.sqrt(disc)) / (2.0 * safe_a)
-    r2 = (-b - torch.sqrt(disc)) / (2.0 * safe_a)
+    r1 = (-b + sqrt32(disc)) / (2.0 * safe_a)
+    r2 = (-b - sqrt32(disc)) / (2.0 * safe_a)
     root = torch.where((r1 > m1) & (r1 < m2), r1, r2)
     return torch.where(flat, midpoint, root)
 
@@ -133,7 +151,8 @@ def sensing_sigma(sigma: torch.Tensor, tr_scale=1.0,
     """Effective sigma when sensing with reduced tR (AR² trade-off)."""
     s = _f32(tr_scale, sigma.device)
     extra = params.sense_eta * torch.clamp(1.0 - s, min=0.0)
-    return torch.sqrt(sigma ** 2 + extra[..., None] ** 2)
+    extra = extra[..., None]
+    return sqrt32(sigma * sigma + extra * extra)
 
 
 def boundary_error_rates(mu, sigma, read_levels, tr_scale=1.0,
@@ -145,7 +164,7 @@ def boundary_error_rates(mu, sigma, read_levels, tr_scale=1.0,
     s_lo, s_hi = sig[..., :-1], sig[..., 1:]
     up = qfunc((read_levels - m_lo) / s_lo)     # lower level read as upper
     dn = qfunc((m_hi - read_levels) / s_hi)     # upper level read as lower
-    return (up + dn) / 8.0
+    return mul32(up + dn, 0.125)                # (up + dn) / 8
 
 
 _PAGE_MASKS = {
@@ -166,7 +185,16 @@ def rber_from_distributions(mu, sigma, read_levels, page_type: str,
     """RBER of one page type under the given distributions and read levels."""
     per_boundary = boundary_error_rates(mu, sigma, read_levels, tr_scale,
                                         params)
-    return torch.sum(per_boundary * page_mask(page_type, mu.device), dim=-1)
+    return sum_last(per_boundary * page_mask(page_type, mu.device))
+
+
+def sum_last(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis left to right, XLA's order on the CPU for a
+    short row (torch's reductions order the adds by device)."""
+    acc = x[..., 0]
+    for i in range(1, x.shape[-1]):
+        acc = acc + x[..., i]
+    return acc
 
 
 def sample_process_variation(key: torch.Tensor, n_chips: int, n_blocks: int,
@@ -174,6 +202,6 @@ def sample_process_variation(key: torch.Tensor, n_chips: int, n_blocks: int,
     """Lognormal per-chip x per-block degradation-rate factors,
     ``(n_chips, n_blocks)`` around 1.0."""
     k1, k2 = prng.split(key)
-    chip = torch.exp(C.CHIP_VAR_SIGMA * prng.normal(k1, (n_chips, 1)))
-    block = torch.exp(C.BLOCK_VAR_SIGMA * prng.normal(k2, (n_chips, n_blocks)))
+    chip = exp32(C.CHIP_VAR_SIGMA * prng.normal(k1, (n_chips, 1)))
+    block = exp32(C.BLOCK_VAR_SIGMA * prng.normal(k2, (n_chips, n_blocks)))
     return chip * block

@@ -3,7 +3,8 @@
 The port builds the decoder family: global and sliding-window attention
 with a dense MLP, and Mamba-2 SSD blocks.  Encoder-decoder and VLM
 families raise ``NotImplementedError`` (ROADMAP D12); ``input_specs`` is
-JAX dry-run tooling and waits for ROADMAP item 13.
+JAX dry-run tooling and waits for ROADMAP item 13.  ``train_loss`` trains
+the attention blocks (Mamba-2 blocks: ROADMAP D14b).
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from repro_torch.models import lm as LM
 class Model:
     cfg: ModelConfig
     init: Callable                # () -> params, drawn from the generator
+    train_loss: Callable          # (params, batch) -> scalar loss
     prefill: Callable             # (params, batch) -> (logits, cache)
     decode_step: Callable         # (params, batch{token,pos,cache}) -> (logits, cache)
 
@@ -46,5 +48,6 @@ def build_model(cfg: ModelConfig, device=None,
         generator = torch.Generator(dev).manual_seed(0)
     return Model(cfg=cfg,
                  init=functools.partial(LM.lm_init, cfg, generator),
+                 train_loss=functools.partial(LM.train_loss, cfg),
                  prefill=functools.partial(LM.prefill, cfg),
                  decode_step=functools.partial(LM.decode_step, cfg))

@@ -163,3 +163,134 @@ def attention_decode(cfg: ModelConfig, p: dict, x, cache: dict, pos: int,
     o = torch.matmul(w, cv[:, :, None])                   # (B,K,G,1,hd)
     y = _merge_out(cfg, p, o.permute(0, 3, 1, 2, 4))
     return y, {"k": ck, "v": cv}
+
+
+# -- training: the reference's blockwise and windowed attention -----------------
+
+
+def _pad_to(x, mult: int, dim: int):
+    pad = (-x.shape[dim]) % mult
+    if pad == 0:
+        return x
+    shape = list(x.shape)
+    shape[dim] = pad
+    return torch.cat([x, x.new_zeros(shape)], dim=dim)
+
+
+def _online_softmax_block(q, kb, vb, bias, scale, cap):
+    """One (q-block, kv-block) tile; q (B,K,G,bq,hd), kb/vb (B,bk,K,hd).
+    Scores are products of the activation dtype's values summed in
+    float32; the probabilities meet V in V's dtype."""
+    kf = kb.float().permute(0, 2, 3, 1)[:, :, None]         # (B,K,1,hd,bk)
+    s = torch.matmul(q.float(), kf) * scale                  # (B,K,G,bq,bk)
+    s = softcap(s, cap) + bias
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    lsum = p.sum(dim=-1)
+    o = torch.matmul(p.to(vb.dtype), vb.permute(0, 2, 1, 3)[:, :, None])
+    return m, lsum, o
+
+
+def _bias(valid):
+    return torch.where(valid, 0.0, NEG)
+
+
+def blockwise_attention(cfg: ModelConfig, q, k, v, q_positions,
+                        kv_positions, causal: bool, window=None,
+                        bq: int = 512, bk: int = 1024):
+    """Online-softmax attention over (bq, bk) tiles, the reference's
+    ``blockwise_attention``: q (B,T,K,G,hd), k/v (B,S,K,hd), already
+    roped; positions (T,), (S,) (negative: masked).  -> (B,T,K,G,hd)."""
+    B, T, K, G, hd = q.shape
+    S = k.shape[1]
+    scale = hd ** -0.5
+    bq, bk = min(bq, max(T, 1)), min(bk, max(S, 1))
+    qp = _pad_to(q_positions, bq, 0)
+    kp = _pad_to(torch.where(kv_positions < 0, -1, kv_positions), bk, 0)
+    kp = torch.where(torch.arange(kp.shape[0], device=kp.device) < S, kp, -1)
+    q_pad, k_pad, v_pad = _pad_to(q, bq, 1), _pad_to(k, bk, 1), \
+        _pad_to(v, bk, 1)
+    outs = []
+    for i in range(q_pad.shape[1] // bq):
+        qb = q_pad[:, i * bq:(i + 1) * bq].permute(0, 2, 3, 1, 4)
+        qpos = qp[i * bq:(i + 1) * bq]
+        m = torch.full((B, K, G, bq), NEG, device=q.device)
+        lsum = torch.zeros((B, K, G, bq), device=q.device)
+        acc = torch.zeros((B, K, G, bq, hd), device=q.device)
+        for j in range(k_pad.shape[1] // bk):
+            kpos = kp[j * bk:(j + 1) * bk]
+            bias = _bias(kpos[None, :] >= 0)
+            if causal:
+                bias = bias + _bias(kpos[None, :] <= qpos[:, None])
+            if window is not None:
+                bias = bias + _bias(qpos[:, None] - kpos[None, :] < window)
+            mb, lb, ob = _online_softmax_block(
+                qb, k_pad[:, j * bk:(j + 1) * bk], v_pad[:, j * bk:(j + 1) * bk],
+                bias, scale, cfg.attn_softcap)
+            m_new = torch.maximum(m, mb)
+            c_old, c_blk = torch.exp(m - m_new), torch.exp(mb - m_new)
+            lsum = lsum * c_old + lb * c_blk
+            acc = acc * c_old[..., None] + ob * c_blk[..., None]
+            m = m_new
+        out = acc / torch.clamp(lsum, min=1e-30)[..., None]
+        outs.append(out.to(q.dtype).permute(0, 3, 1, 2, 4))
+    return torch.cat(outs, dim=1)[:, :T]
+
+
+def windowed_attention(cfg: ModelConfig, q, k, v, q_positions,
+                       causal_window: int, bq: int = 256):
+    """Sliding-window attention, the reference's ``windowed_attention``:
+    q block i attends to the slice [i bq, i bq + window + bq) of the
+    window-left-padded K/V, O(T window) work."""
+    B, T, K, G, hd = q.shape
+    w = causal_window
+    scale = hd ** -0.5
+    bq = min(bq, T)
+    q_pad = _pad_to(q, bq, 1)
+    qp = _pad_to(q_positions, bq, 0)
+    zeros = k.new_zeros((B, w, K, hd))
+    k_pad, v_pad = torch.cat([zeros, k], dim=1), torch.cat([zeros, v], dim=1)
+    kpos_full = torch.cat([
+        torch.full((w,), -1, dtype=torch.int32, device=q.device),
+        torch.arange(T, dtype=torch.int32, device=q.device)])
+    span = w + bq
+    outs = []
+    for i in range(q_pad.shape[1] // bq):
+        qb = q_pad[:, i * bq:(i + 1) * bq].permute(0, 2, 3, 1, 4)
+        qpos = qp[i * bq:(i + 1) * bq]
+        start = i * bq
+        kb, vb = k_pad[:, start:start + span], v_pad[:, start:start + span]
+        kpos = kpos_full[start:start + span]
+        if kb.shape[1] < span:    # the reference's dynamic_slice clamps
+            start = k_pad.shape[1] - span
+            kb, vb = k_pad[:, start:], v_pad[:, start:]
+            kpos = kpos_full[start:]
+        bias = _bias(kpos[None, :] >= 0) + \
+            _bias(kpos[None, :] <= qpos[:, None]) + \
+            _bias(qpos[:, None] - kpos[None, :] < w)
+        _, lsum, o = _online_softmax_block(qb, kb, vb, bias, scale,
+                                           cfg.attn_softcap)
+        out = o / torch.clamp(lsum, min=1e-30)[..., None]
+        outs.append(out.to(q.dtype).permute(0, 3, 1, 2, 4))
+    return torch.cat(outs, dim=1)[:, :T]
+
+
+def attention_train(cfg: ModelConfig, p: dict, x, positions, kind: str):
+    """Training attention of ``kind`` "causal" or "local" over x (B,T,d):
+    the reference's training path, blockwise (global) or windowed
+    (local) online softmax, differentiable by autograd.  No kernel runs
+    here: flash attention stays the prefill's."""
+    if kind not in ("causal", "local"):
+        raise NotImplementedError(
+            f"{kind!r} attention (encoder-decoder) is not ported: "
+            f"ROADMAP D12")
+    q, k, v = _project_qkv(cfg, p, x)
+    q = rope(q.reshape(q.shape[:2] + (-1, q.shape[-1])), positions,
+             cfg.rope_theta).reshape(q.shape)
+    k = rope(k, positions, cfg.rope_theta)
+    if kind == "local":
+        o = windowed_attention(cfg, q, k, v, positions, cfg.window)
+    else:
+        o = blockwise_attention(cfg, q, k, v, positions, positions,
+                                causal=True)
+    return _merge_out(cfg, p, o)

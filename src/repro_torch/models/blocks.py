@@ -73,6 +73,24 @@ def block_fullseq(cfg: ModelConfig, kind: str, p: dict, x,
     return x + _mlp(cfg, p, x), {"attn": c}
 
 
+def block_train_check(kind: str) -> None:
+    """Raise unless blocks of ``kind`` can train in the port."""
+    check_kind(kind)
+    if kind == SSM:
+        raise NotImplementedError(
+            "training through Mamba-2 SSD blocks is not ported: "
+            "ROADMAP D14b")
+
+
+def block_train(cfg: ModelConfig, kind: str, p: dict, x, positions):
+    """Training block application (no cache): the reference's
+    ``block_fullseq(..., "train")`` for the attention kinds."""
+    block_train_check(kind)
+    h = apply_norm(cfg, p["ln1"], x)
+    x = x + A.attention_train(cfg, p["attn"], h, positions, _attn_kind(kind))
+    return x + _mlp(cfg, p, x)
+
+
 def block_decode(cfg: ModelConfig, kind: str, p: dict, x, cache: dict,
                  pos: int) -> Tuple[torch.Tensor, dict]:
     check_kind(kind)

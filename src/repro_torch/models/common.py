@@ -2,8 +2,7 @@
 
 Plain functions on tensors with the reference's parameter names and
 layouts.  Every init draws from an explicit ``torch.Generator`` on the
-device the parameters live on.  ``cross_entropy`` waits for the training
-slice (ROADMAP D14).
+device the parameters live on.
 """
 
 from __future__ import annotations
@@ -146,3 +145,21 @@ def logits_apply(cfg: ModelConfig, p, x):
     w = p["embed"].T if cfg.tie_embeddings else p["unembed"]
     logits = x.float() @ w.to(x.dtype).float()
     return softcap(logits, cfg.final_softcap)
+
+
+def cross_entropy(logits, labels, mask=None):
+    """Mean token cross-entropy in float32; ``mask`` 1.0 counts a
+    position.  The reference's form: ``log sum exp(logits - m) + m``
+    with the max ``m`` held constant, minus the gold logit (picked by a
+    select and a sum, whose backward is deterministic on the card)."""
+    logits = logits.float()
+    m = logits.amax(dim=-1, keepdim=True).detach()
+    logz = torch.log(torch.exp(logits - m).sum(dim=-1)) + m[..., 0]
+    vocab = torch.arange(logits.shape[-1], device=logits.device)
+    onehot = labels[..., None].long() == vocab
+    gold = torch.where(onehot, logits, 0.0).sum(dim=-1)
+    nll = logz - gold
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)

@@ -7,16 +7,22 @@ store sees the same pages in the same order as the reference does.  The
 reference scans over units; here a Python loop indexes them.  A pattern
 remainder (the reference's unscanned tail) occurs only with RG-LRU
 blocks, and waits for them (ROADMAP D10).
+
+``train_loss`` rematerializes each unit in the backward pass
+(``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` of its
+scan body), so only the unit inputs are kept.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import blocks as B
 from repro_torch.models.common import (
     apply_norm,
+    cross_entropy,
     embed_apply,
     embed_init,
     logits_apply,
@@ -119,6 +125,27 @@ def decode_step(cfg: ModelConfig, params, batch):
     return logits_apply(cfg, params["embed_p"], x), new_cache
 
 
+def _unit_train(cfg: ModelConfig, unit_p, x, positions):
+    for i, kind in enumerate(cfg.block_pattern):
+        x = B.block_train(cfg, kind, unit_p[f"b{i}"], x, positions)
+    return x
+
+
 def train_loss(cfg: ModelConfig, params, batch):
-    raise NotImplementedError("training (train_loss, cross_entropy) is not "
-                              "ported: ROADMAP D14")
+    """batch {"tokens", "labels": (B, T) int}: -> scalar float32 mean
+    next-token cross-entropy, differentiable in ``params``."""
+    _check_family(cfg)
+    if cfg.moe is not None:
+        raise NotImplementedError("MoE training (the load-balance aux "
+                                  "loss) is not ported: ROADMAP D11")
+    for kind in cfg.block_pattern:
+        B.block_train_check(kind)
+    x = embed_apply(cfg, params["embed_p"], batch["tokens"])
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    for u in range(cfg.unit_count()):
+        x = torch.utils.checkpoint.checkpoint(
+            _unit_train, cfg, _index(params["units"], u), x, positions,
+            use_reentrant=False)
+    x = apply_norm(cfg, params["final_norm"], x)
+    logits = logits_apply(cfg, params["embed_p"], x)
+    return cross_entropy(logits[:, :-1], batch["labels"][:, 1:])

@@ -1,12 +1,12 @@
 """Port's NAND characterization against the JAX reference.
 
 Each voltage/ecc/retry function of the port is held allclose to the
-reference on the same numpy inputs (float32, rtol 1e-5: the two
-frameworks' erfc/log/pow differ in the last ulps).  Functions with
+reference on the same numpy inputs (float32, rtol 1e-5).  Functions with
 integer outputs are held equal given equal inputs.  Where the port draws
-its own population (same threefry keys, but normals agree only to a few
-ulps), per-page first-success entries may flip for pages sitting on the
-ECC threshold: every flip is listed and at most 0.1% may flip.
+its own population, per-page first-success entries are listed if they
+flip, and at most 0.1% may.  (These bounds date from before the port's
+float32 math was XLA's; ``test_torch_xla_math.py`` now holds the
+population and the records bit for bit.)
 
 The reference runs in JAX's non-partitionable threefry mode (the mode
 its goldens were pinned with), with its on-disk cache off and its

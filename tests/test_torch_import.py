@@ -90,6 +90,23 @@ def test_import_and_simulate_without_jax(tmp_path):
         "t = rber_table(np.zeros((2, 8)), np.ones((2, 8)), np.zeros((3, 7)),"
         " device='cpu')\n"
         "assert t.shape == (3, 2, 3), t.shape\n"
+        "import torch\n"
+        "from repro_torch.core import calibrate, xla_math\n"
+        "assert xla_math.log1p32(torch.zeros(3)).eq(0).all()\n"
+        "from repro_torch.checkpoint import CheckpointManager, restore, save\n"
+        "from repro_torch.data import FlashTierReader, PrefetchPipeline\n"
+        "from repro_torch.optim import AdamWConfig, adamw_update\n"
+        "from repro_torch.launch import train as TL\n"
+        "cfg = reduced_config(get_config('llama3.2-3b'))\n"
+        "st = TL.make_state(cfg, 'cpu')\n"
+        "b = {'tokens': torch.ones(1, 8, dtype=torch.int32),"
+        " 'labels': torch.ones(1, 8, dtype=torch.int32)}\n"
+        "loss = TL.train_step(TL.build_model(cfg, 'cpu').train_loss, st, b,"
+        " AdamWConfig())\n"
+        "assert torch.isfinite(loss), loss\n"
+        "d = save(sys.argv[1] + '/ck', st)\n"
+        "r, rs = restore(d)\n"
+        "assert rs.n_shards >= 1 and int(r['opt']['step']) == 1, rs\n"
         "assert sys.modules['jax'] is None\n"
         "print('ok', s.mean_us)\n"
     )
@@ -134,6 +151,10 @@ def _entry_points():
     from repro_torch.kernels.kv_retry import kv_read_with_retry
     from repro_torch.kernels.rber import rber_table
     from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.core import calibrate
+    from repro_torch.core import constants as C
+    from repro_torch.data import CorpusConfig, FlashTierReader, SyntheticCorpus
+    from repro_torch.launch import train as TL
     from repro_torch.models.convert import params_from_jax
 
     cfg = reduced_config(rt.get_config("llama3.2-3b"))
@@ -175,6 +196,10 @@ def _entry_points():
             "simulate", "websearch", (cond,), ("baseline",), 0,
             n_requests=50)]),
         "fcfs_core": lambda: rt.fcfs_core(_ops_table(), 2, False, 3.0, 5.0),
+        "calibrate.evaluate": lambda: calibrate.evaluate(C.DEFAULT_NAND),
+        "FlashTierReader": lambda: FlashTierReader(SyntheticCorpus(
+            CorpusConfig(vocab=64, seq_len=8, batch=1))),
+        "train": lambda: TL.train(cfg, steps=1, batch=1, seq=8),
         "fused_core": lambda: rt.fused_core(
             _ops_table(), 2, False, np.tile([[3.0, 5.0, 0.0]], (2, 1)),
             prio=False),
@@ -187,6 +212,7 @@ def _entry_points():
     "characterize_condition", "attempt_histogram", "attempt_cdf", "SSDSim",
     "simulate", "simulate-closed", "compare_mechanisms", "simulate_batch", "SSDSimRef",
     "run_sweep", "run_cells", "fcfs_core", "fused_core",
+    "calibrate.evaluate", "FlashTierReader", "train",
 ])
 def test_entry_point_without_cuda_raises(name, monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
