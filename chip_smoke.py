@@ -255,11 +255,41 @@ exits non-zero):
                      shard is rebuilt on restore, the restore equals the
                      saved state bit for bit, and the resumed steps 4-6
                      equal the uninterrupted run's losses bit for bit
-                     (deterministic algorithms); no kernel launch.
+                     (deterministic algorithms); no kernel launch;
+ 16. recurrent and MoE serve path — the RG-LRU and MoE families:
+                     ``ServeEngine`` at the reduced width on the card
+                     against the CPU as in phase 7 (recurrentgemma at 8
+                     layers, two units and a tail of two RG-LRU layers;
+                     olmoe; llama4-maverick with its sigmoid router,
+                     shared expert and MoE every second layer), each
+                     router call's picks compared and a differing token
+                     printed with its k-th and (k+1)-th probabilities;
+                     then recurrentgemma-2b (26 layers) and olmoe-1b-7b
+                     (16 layers, 64 experts, top-8) at full width and
+                     depth with seeded weights, each served as
+                     llama3.2-3b is in phase 7 (short and long sets under
+                     pr2ar2 and baseline, the short set at tau 0.01),
+                     every prefill launching flash attention once an
+                     attention layer (8 local MQA layers at hd 256; 16
+                     MHA layers with qk-norm at hd 128) and every
+                     pr2ar2 decode step the KV retry read once a KV leaf,
+                     all on the tensor-core and vector kernels, each
+                     launch held against its plain version and timed;
+                     the all-zero pages of recurrentgemma's local ring
+                     (prompts shorter than its window) read by the KV
+                     retry kernel and its plain version alike, margins
+                     finite; parameters, memory, prefill and decode
+                     times and token agreement printed; then a few
+                     training steps of each at full widths and cut
+                     depths (recurrentgemma one unit and its tail, olmoe
+                     two layers with its aux loss): losses finite, no
+                     kernel launch.
 
 The line before the last is a JSON object describing each kernel
 (launches on its main path, error against the plain version, and times
-and bound summed over the main path's launches; for the shard core also
+and bound summed over the main path's launches; for flash attention and
+the KV retry read, phases 7 and 16 together, with phase 16's launches
+also apart (``family_launches``); for the shard core also
 the inline sweep's counted launches and its held launch, the
 prepass-GC compare's counted launches and its held launch, the
 closed-loop phase's counted launches and its held launches, and the
@@ -454,6 +484,18 @@ TRAIN_LR = 2e-5
 CKPT_LAYERS, CKPT_STEPS, CKPT_AT = 1, 6, 3
 PIN_FLASH_STATS = dict(batches=6, pages=6, attempts=81,
                        sim_read_us=3715.1249999999995)
+
+# Phase 16: the RG-LRU and MoE families.  At the reduced width, card
+# against CPU (recurrentgemma with a tail: 2 units + 2 tail layers; the
+# flash-attention kernel takes head dims 64/128/256); at published
+# widths and depths through ServeEngine; and trained at published widths
+# and these depths (recurrentgemma one unit and the tail of 2).
+FAMILY_SMALL = (("recurrentgemma-2b", dict(n_layers=8, head_dim=64)),
+                ("olmoe-1b-7b", dict(head_dim=64)),
+                ("llama4-maverick-400b-a17b", dict(head_dim=64)))
+FAMILY_ARCHS = ("recurrentgemma-2b", "olmoe-1b-7b")
+FAMILY_TRAIN = (("recurrentgemma-2b", 5), ("olmoe-1b-7b", 2))
+FAMILY_TRAIN_STEPS = 3
 
 
 def phase(name):
@@ -1006,23 +1048,37 @@ def _fa_bound_ms(q, k, v, out, kw):
 
 def _sdpa_ms(q, k, v, kw, reps):
     """``scaled_dot_product_attention`` on the same inputs (kernel layout
-    viewed as (BK, G, T, hd) queries over (BK, 1, S, hd) keys), or None
-    where it does not compute the same function (softcap, window,
-    kv_valid)."""
+    viewed as (BK, G, T, hd) queries over (BK, 1, S, hd) keys; a window
+    or ``kv_valid`` that hides keys beyond the causal mask as a boolean
+    mask built outside the timed call, else ``is_causal``, which keeps
+    the flash backend), or None where it does not compute the same
+    function (softcap)."""
     import torch
     import torch.nn.functional as F
 
-    if kw.get("softcap") is not None or kw.get("window") is not None \
-            or kw.get("kv_valid") is not None:
+    from repro_torch.kernels.flash_attention.plain import attention_mask
+
+    if kw.get("softcap") is not None:
         return None, None
     BH, T, hd = q.shape
     BK, S, _ = k.shape
     qq = q.view(BK, BH // BK, T, hd)
     kk, vv = k.view(BK, 1, S, hd), v.view(BK, 1, S, hd)
+    causal = kw.get("causal", True)
+    mask = None
+    if kw.get("window") is not None or kw.get("kv_valid") is not None:
+        mask = attention_mask(T, S, causal, kw.get("window"),
+                              kw.get("kv_valid"), q.device)
+        if torch.equal(mask, attention_mask(T, S, causal, None, None,
+                                            q.device)):
+            mask = None
 
     def call():
-        return F.scaled_dot_product_attention(
-            qq, kk, vv, is_causal=kw.get("causal", True), enable_gqa=True)
+        if mask is None:
+            return F.scaled_dot_product_attention(
+                qq, kk, vv, is_causal=causal, enable_gqa=True)
+        return F.scaled_dot_product_attention(qq, kk, vv, attn_mask=mask,
+                                              enable_gqa=True)
 
     call()
     ms, out = _cuda_ms(call, reps)
@@ -1255,18 +1311,30 @@ def serve_kernel_phase():
     return fa, kv, controls
 
 
-def _tree_to(tree, device):
-    if isinstance(tree, dict):
-        return {k: _tree_to(v, device) for k, v in tree.items()}
-    return tree.to(device)
+def _routing_flips(arch, calls, k):
+    """Compare the MoE router's picks of the card's calls with the CPU's
+    (``calls``: the recorded ``route`` calls of both, in order); print
+    each token whose picks differ with its k-th and (k+1)-th CPU
+    probabilities and their gap.  Returns (tokens compared, flips)."""
+    import torch
 
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for k in sorted(tree):
-            yield from _leaves(tree[k])
-    else:
-        yield tree
+    card = [out for _, out in calls if out[0].device.type == "cuda"]
+    cpu = [out for _, out in calls if out[0].device.type == "cpu"]
+    if len(card) != len(cpu):
+        raise AssertionError(f"{arch}: {len(card)} router calls on the card, "
+                             f"{len(cpu)} on the CPU")
+    n = flips = 0
+    for (_, _, ic), (pp, _, ip) in zip(card, cpu):
+        n += ip.shape[0]
+        for row in (ic.cpu() != ip).any(dim=-1).nonzero()[:, 0].tolist():
+            flips += 1
+            top = torch.sort(pp[row], descending=True).values
+            nxt = float(top[k]) if k < top.numel() else float("nan")
+            print(f"  {arch} routing flip at token row {row}: card "
+                  f"{ic[row].tolist()} cpu {ip[row].tolist()}; k-th "
+                  f"probability {float(top[k - 1]):.9g}, (k+1)-th {nxt:.9g}, "
+                  f"gap {float(top[k - 1]) - nxt:.3g}", flush=True)
+    return n, flips
 
 
 def _small_width_check(arch, min_agree, **overrides):
@@ -1275,7 +1343,10 @@ def _small_width_check(arch, min_agree, **overrides):
     in float32 (with ``overrides``), with the same weights: prefill and
     two decode steps' logits within 1e-4 of the largest, and the served
     tokens and KV read stats of 8 new tokens compared (at least
-    ``min_agree`` of the tokens equal, and equal page counts)."""
+    ``min_agree`` of the tokens equal, and equal page counts).  For MoE
+    configs each router call's picks are compared too, and a token whose
+    picks differ is printed with its probabilities."""
+    import contextlib
     import dataclasses
 
     import numpy as np
@@ -1284,6 +1355,8 @@ def _small_width_check(arch, min_agree, **overrides):
     from repro_torch.configs import get_config, reduced_config
     from repro_torch.core.retry import RetryPolicy
     from repro_torch.launch.serve import default_prompts
+    from repro_torch.models import moe as MOE
+    from repro_torch.optim.adamw import tree_map
     from repro_torch.serving import ServeEngine
 
     cfg = dataclasses.replace(reduced_config(get_config(arch)),
@@ -1295,11 +1368,14 @@ def _small_width_check(arch, min_agree, **overrides):
         rng.integers(2, cfg.vocab, size=n).astype(np.int32) for n in (40, 33)]
     card = ServeEngine(cfg, policy=RetryPolicy("pr2ar2"), tau=0.01, seed=0,
                        device=DEVICE)
-    cpu = ServeEngine(cfg, params=_tree_to(card.params, "cpu"),
+    cpu = ServeEngine(cfg, params=tree_map(lambda t: t.to("cpu"),
+                                           card.params),
                       policy=RetryPolicy("pr2ar2"), tau=0.01, device="cpu")
     toks = torch.as_tensor(card._pad_batch(prompts))
     gap = 0.0
-    with torch.inference_mode():
+    routes = _Recorder(MOE, "route") if cfg.moe is not None else \
+        contextlib.nullcontext()
+    with torch.inference_mode(), routes:
         outs = [(e.model.prefill(e.params, {"tokens": toks.to(e.device)}))
                 for e in (card, cpu)]
         for step in range(3):
@@ -1314,15 +1390,20 @@ def _small_width_check(arch, min_agree, **overrides):
             outs = [e.model.decode_step(e.params, {
                 "token": tok.to(e.device), "pos": toks.shape[1] + step,
                 "cache": c}) for e, c in ((card, cc), (cpu, cp))]
+    routing = ""
+    if cfg.moe is not None:
+        n, flips = _routing_flips(arch, routes.calls, cfg.moe.top_k)
+        routing = f"; router picks of {n} tokens, {flips} differ"
     if gap > 1e-4:
         raise AssertionError(f"{arch} small width: card logits differ from "
-                             f"the CPU's by {gap:.3g} of the largest")
+                             f"the CPU's by {gap:.3g} of the largest"
+                             f"{routing}")
     g_card, s_card = card.generate(prompts, max_new_tokens=8)
     g_cpu, s_cpu = cpu.generate(prompts, max_new_tokens=8)
     agree = float((g_card == g_cpu).mean())
     print(f"small-width {arch} ({overrides or 'reduced'}, float32, tau "
           f"0.01): logits gap {gap:.3g} of the largest (prefill, 2 decode "
-          f"steps); served tokens card == cpu {agree:.4f}; kv_fast card "
+          f"steps{routing}); served tokens card == cpu {agree:.4f}; kv_fast card "
           f"{100 * s_card.kv.fast_fraction:.2f}% cpu "
           f"{100 * s_cpu.kv.fast_fraction:.2f}% of {s_card.kv.pages} pages",
           flush=True)
@@ -1509,25 +1590,29 @@ def _first_leaf_ratio(store):
     return "".join(f"[{k!r}]" for k in path), ratio
 
 
-@phase("serve path")
-def serve_path_phase():
+def _serve_full_width(arch, prefix=""):
+    """``ServeEngine`` for ``arch`` at its published widths with seeded
+    weights, as pr2ar2 at SERVE_TAU, baseline, and pr2ar2 at RETRY_TAU,
+    driven (``_drive``) over the short and long request sets and the short
+    set at the retrying tau, with run labels starting ``prefix``.  pr2ar2
+    must serve some pages fast and baseline none, and the retrying run
+    must retry some page reads and serve others fast.  Returns (engines,
+    parameter count, launches, held launches, runs)."""
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.core.retry import RetryPolicy
+    from repro_torch.optim.adamw import tree_leaves
     from repro_torch.serving import ServeEngine
 
-    _small_width_check("llama3.2-3b", 0.9, head_dim=64)
-    _small_width_check("gemma2-2b", 0.9, head_dim=64)
-
-    cfg = get_config(SERVE_ARCH)
+    cfg = get_config(arch)
     t0 = time.perf_counter()
     eng = ServeEngine(cfg, policy=RetryPolicy("pr2ar2"), tau=SERVE_TAU,
                       seed=0, device=DEVICE)
     torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in _leaves(eng.params))
-    print(f"{SERVE_ARCH}: {n_params} seeded float32 parameters on the card "
-          f"in {time.perf_counter() - t0:.3f} s; "
+    n_params = sum(t.numel() for t in tree_leaves(eng.params))
+    print(f"{arch}: {n_params} seeded float32 parameters on the card in "
+          f"{time.perf_counter() - t0:.3f} s; "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated",
           flush=True)
     engines = {
@@ -1543,13 +1628,36 @@ def serve_path_phase():
     sets = _request_sets(cfg.vocab)
     for e in engines.values():            # warm-up: library loads, cuBLAS
         e.generate(sets[0][1], max_new_tokens=2)
-    retry_label = f"short pr2ar2 tau {RETRY_TAU}"
-    runs = [(f"{s} {m}", engines[m], p) for s, p in sets
+    retry_label = f"{prefix}short pr2ar2 tau {RETRY_TAU}"
+    runs = [(f"{prefix}{s} {m}", engines[m], p) for s, p in sets
             for m in ("pr2ar2", "baseline")]
     runs.append((retry_label, engines["retry"], sets[0][1]))
     launches, held, out = _drive(runs, ("flash_attention", "kv_retry"),
                                  finite)
+    for set_name, _ in sets:
+        p_gen, p_st, _ = out[f"{prefix}{set_name} pr2ar2"]
+        b_gen, b_st, _ = out[f"{prefix}{set_name} baseline"]
+        if not p_st.kv.fast_fraction > 0 or b_st.kv.fast_fraction != 0:
+            raise AssertionError(f"{prefix}{set_name}: kv_fast pr2ar2 "
+                                 f"{p_st.kv.fast_fraction}, baseline "
+                                 f"{b_st.kv.fast_fraction}")
+        agree = float((p_gen == b_gen).mean())
+        print(f"{prefix}{set_name}: pr2ar2/baseline token agreement "
+              f"{agree:.4f} ({int((p_gen == b_gen).sum())} of {p_gen.size})")
+    # The retrying run: B3's backing-read branch on the main path.
+    r_st = out[retry_label][1]
+    if not (r_st.kv.retried_pages > 0 and r_st.kv.fast_pages > 0):
+        raise AssertionError(f"{retry_label}: no page retried, or none was "
+                             f"fast: {r_st.kv}")
+    return engines, n_params, launches, held, out
 
+
+@phase("serve path")
+def serve_path_phase():
+    _small_width_check("llama3.2-3b", 0.9, head_dim=64)
+    _small_width_check("gemma2-2b", 0.9, head_dim=64)
+
+    engines, _, launches, held, out = _serve_full_width(SERVE_ARCH)
     for name in ("flash_attention", "kv_retry"):
         if launches[name] <= 0:
             raise AssertionError(f"the serve path never launched {name}")
@@ -1558,18 +1666,8 @@ def serve_path_phase():
           f"tensor-core kernel (tc_launches); kv_retry: "
           f"{launches['kv_retry']}, {launches['kv_retry_vec']} of them "
           f"through the vector kernel (vec_launches)", flush=True)
-    for set_name, _ in sets:
-        p_gen, p_st, _ = out[f"{set_name} pr2ar2"]
-        b_gen, b_st, _ = out[f"{set_name} baseline"]
-        if not p_st.kv.fast_fraction > 0 or b_st.kv.fast_fraction != 0:
-            raise AssertionError(f"{set_name}: kv_fast pr2ar2 "
-                                 f"{p_st.kv.fast_fraction}, baseline "
-                                 f"{b_st.kv.fast_fraction}")
-        agree = float((p_gen == b_gen).mean())
-        print(f"{set_name}: pr2ar2/baseline token agreement {agree:.4f} "
-              f"({int((p_gen == b_gen).sum())} of {p_gen.size})")
-    # The retrying run: B3's backing-read branch on the main path.
-    _, r_st, _ = out[retry_label]
+    retry_label = f"short pr2ar2 tau {RETRY_TAU}"
+    r_st = out[retry_label][1]
     key, ratio = _first_leaf_ratio(engines["retry"].store)
     ratio = ratio.sort().values
     q = [float(ratio[int(f * (ratio.numel() - 1))]) for f in (0.1, 0.5, 0.9)]
@@ -1577,9 +1675,6 @@ def serve_path_phase():
           f"reads retried, {r_st.kv.fast_pages} fast; first KV leaf {key}: "
           f"max|v| / rms p10 {q[0]:.4f} p50 {q[1]:.4f} p90 {q[2]:.4f}, so "
           f"half its pages retry below tau {q[1] / 254:.5f}", flush=True)
-    if not (r_st.kv.retried_pages > 0 and r_st.kv.fast_pages > 0):
-        raise AssertionError(f"{retry_label}: no page retried, or none was "
-                             f"fast: {r_st.kv}")
     return launches, held["flash_attention"], held["kv_retry"], out
 
 
@@ -1922,6 +2017,7 @@ def mamba_serve_phase():
 
     from repro_torch.configs import get_config
     from repro_torch.core.retry import RetryPolicy
+    from repro_torch.optim.adamw import tree_leaves
     from repro_torch.serving import ServeEngine
 
     _small_width_check(SSM_ARCH, 1.0)
@@ -1931,7 +2027,7 @@ def mamba_serve_phase():
     eng = ServeEngine(cfg, policy=RetryPolicy("pr2ar2"), tau=SERVE_TAU,
                       seed=0, device=DEVICE)
     torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in _leaves(eng.params))
+    n_params = sum(t.numel() for t in tree_leaves(eng.params))
     print(f"{SSM_ARCH}: {n_params} seeded float32 parameters on the card "
           f"in {time.perf_counter() - t0:.3f} s", flush=True)
     engines = {"pr2ar2": eng,
@@ -3311,6 +3407,152 @@ def train_phase(smi):
     return out
 
 
+def _zero_pages(store):
+    """All-zero pages of a store's KV leaves (a local layer's ring, left
+    padded below its window): B3's read of each such leaf against its
+    plain version, margins finite and equal within the hold's rtol, the
+    same decisions.  Returns (zero pages, of them fast, margin)."""
+    import torch
+
+    from repro_torch.kernels.kv_retry import ops as KV
+    from repro_torch.kernels.kv_retry.plain import kv_retry_plain
+    from repro_torch.serving.kv_store import _leaves as store_leaves
+    from repro_torch.serving.kv_store import keystr
+
+    n = fast = 0
+    margins = []
+    for path, leaf in store_leaves(store.backing):
+        if keystr(path) not in store.fast:
+            continue
+        q, sc = store.fast[keystr(path)]
+        backing = leaf.reshape(-1, leaf.shape[-1])
+        zero = ~backing.any(dim=-1)
+        if not bool(zero.any()):
+            continue
+        out, m = KV.kv_retry_fwd(q, sc, backing, store.tau)
+        want, wm = kv_retry_plain(q, sc, backing, store.tau)
+        m, wm = m[zero, 0], wm[zero, 0]
+        gap = float(((m.double() - wm.double()).abs() / torch.maximum(
+            wm.abs(), (1 - wm).abs()).double()).max())
+        if not bool(torch.isfinite(m).all()) or gap > KV_MARGIN_RTOL or \
+                not torch.equal(m >= 0, wm >= 0) or bool(out[zero].any()):
+            raise AssertionError(f"{keystr(path)}: B3 on all-zero pages: "
+                                 f"margins {m.unique().tolist()} against "
+                                 f"{wm.unique().tolist()}")
+        n += int(zero.sum())
+        fast += int((m >= 0).sum())
+        margins.append(m)
+    return n, fast, (torch.cat(margins).unique().tolist() if margins else [])
+
+
+@phase("recurrent and MoE serve path")
+def family_phase(smi):
+    """recurrentgemma-2b and olmoe-1b-7b served at full width and depth
+    (each B4 and B3 launch held), the small-width card-against-CPU checks
+    of the RG-LRU and MoE configs, and a few training steps of each at
+    full widths and cut depths."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ATTN, LOCAL
+    from repro_torch.launch import train as TL
+    from repro_torch.launch.serve import default_prompts
+    from repro_torch.optim.adamw import AdamWConfig, tree_leaves
+
+    for arch, kw in FAMILY_SMALL:
+        _small_width_check(arch, 0.9, **kw)
+
+    launches = dict.fromkeys(("flash_attention", "flash_attention_tc",
+                              "kv_retry", "kv_retry_vec"), 0)
+    held = {"flash_attention": [], "kv_retry": []}
+    for arch in FAMILY_ARCHS:
+        torch.cuda.reset_peak_memory_stats()
+        cfg = get_config(arch)
+        print(f"{arch}: {cfg.n_layers} layers, {cfg.unit_count()} units of "
+              f"{cfg.block_pattern} and a tail of {cfg.tail_pattern()}",
+              flush=True)
+        kinds = list(cfg.block_pattern) * cfg.unit_count() + list(
+            cfg.tail_pattern())
+        n_attn = sum(k in (ATTN, LOCAL) for k in kinds)
+        engines, n_params, got, got_held, out = _serve_full_width(
+            arch, prefix=f"{arch} ")
+        for label, (_, st, counts) in out.items():
+            kv_want = 0 if label.endswith("baseline") else \
+                2 * (SERVE_MAX_NEW - 1)
+            if counts["flash_attention"] != n_attn or \
+                    counts["kv_retry"] != kv_want or counts["ssd_scan"]:
+                raise AssertionError(f"{label}: launches {counts}; one "
+                                     f"prefill of {n_attn} attention "
+                                     f"layers and {kv_want} KV leaf reads "
+                                     f"expected")
+        for k in launches:
+            launches[k] += got[k]
+        for k in held:
+            held[k] += got_held[k]
+        r_st = out[f"{arch} short pr2ar2 tau {RETRY_TAU}"][1]
+        zero, zero_fast, zero_m = _zero_pages(engines["retry"].store)
+        short = max(len(p) for p in default_prompts(cfg.vocab, 4))
+        if LOCAL in kinds and short < cfg.window and not zero > 0:
+            raise AssertionError(f"{arch}: no all-zero KV pages in the "
+                                 f"retry store, though its short prompts "
+                                 f"({short} tokens at most) leave a local "
+                                 f"ring of window {cfg.window} padded")
+        print(f"{arch} on {smi}: {n_params} parameters, "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated "
+              f"(peak {torch.cuda.max_memory_allocated() / 2**30:.2f}); "
+              + "; ".join(f"{lab.split(' ', 1)[1]} prefill "
+                          f"{st.prefill_s * 1e3:.1f} ms decode "
+                          f"{st.decode_s * 1e3:.1f} ms"
+                          for lab, (_, st, _) in out.items())
+              + f"; B4 {got['flash_attention']} launches "
+              f"(tc_launches {got['flash_attention_tc']}), B3 "
+              f"{got['kv_retry']} (vec_launches {got['kv_retry_vec']}); "
+              f"retry run {r_st.kv.retried_pages} of {r_st.kv.pages} page "
+              f"reads retried; {zero} all-zero KV pages in the retry "
+              f"store, {zero_fast} of them fast on B3 and its plain version "
+              f"alike (margins {zero_m})", flush=True)
+        del engines, out, got_held
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    before = _kernel_counts()
+    quiet = lambda *_: None      # noqa: E731
+    train = {}
+    for arch, n_layers in FAMILY_TRAIN:
+        cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
+        opt = AdamWConfig(lr=TRAIN_LR, moment_dtype=cfg.moment_dtype)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        run = TL.train(cfg, steps=FAMILY_TRAIN_STEPS, batch=TRAIN_BATCH,
+                       seq=TRAIN_SEQ, device=DEVICE, opt=opt, log=quiet)
+        wall = time.perf_counter() - t0
+        losses = [run.losses[i] for i in sorted(run.losses)]
+        if not all(map(math.isfinite, losses)):
+            raise AssertionError(f"train {arch}: losses {losses}")
+        n_params = sum(t.numel() for t in tree_leaves(run.state["params"]))
+        print(f"train {arch} at full widths, {n_layers} layers "
+              f"({cfg.unit_count()} unit(s), tail {cfg.tail_pattern()}), "
+              f"{n_params} parameters, batch {TRAIN_BATCH} x {TRAIN_SEQ}, "
+              f"{FAMILY_TRAIN_STEPS} steps on {smi}: losses {losses}"
+              f"{' (with 0.01 x the aux loss)' if cfg.moe else ''}; "
+              f"{wall:.3f} s in all, steps "
+              f"{[round(t, 3) for t in run.step_s]} s, peak "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB allocated",
+              flush=True)
+        train[arch] = dict(losses=losses, step_s=run.step_s)
+        del run
+        gc.collect()
+        torch.cuda.empty_cache()
+    launched = _launched_since(before)
+    if any(launched.values()):
+        raise AssertionError(f"the training path launched a kernel: "
+                             f"{launched}")
+    return launches, held, train
+
+
 def _print_held(name, rs):
     """One line for the launches of one run, held and re-timed."""
     bound_ms, bound_by = _bound(sum(r["t_bytes"] for r in rs),
@@ -3397,6 +3639,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     calibrate_phase(smi)
     train_phase(smi)
+    torch.cuda.empty_cache()
+    family_launches, family_held, _ = family_phase(smi)
+    for k, n in family_launches.items():
+        serve_launches[k] += n
+    held_fa += family_held["flash_attention"]
+    held_kv += family_held["kv_retry"]
 
     # Times and bounds are sums over each main path's launches, each
     # re-run on the inputs it had there.
@@ -3419,16 +3667,19 @@ def main() -> int:
                 sum(r["t_bytes"] for r in closed_held),
                 sum(r["t_ops"] for r in closed_held))[0],
             online_fault_launches=online_fault_launches),
-        _kernel_line("flash_attention",
-                     f"{kernels}/flash_attention/csrc/flash_attention.cu",
-                     "src/repro/kernels/flash_attention/kernel.py:34",
-                     serve_launches["flash_attention"], fa_cases, held_fa,
-                     library=True),
+        dict(_kernel_line("flash_attention",
+                          f"{kernels}/flash_attention/csrc/flash_attention.cu",
+                          "src/repro/kernels/flash_attention/kernel.py:34",
+                          serve_launches["flash_attention"], fa_cases,
+                          held_fa, library=True),
+             tc_launches=serve_launches["flash_attention_tc"],
+             family_launches=family_launches["flash_attention"]),
         dict(_kernel_line("kv_retry", f"{kernels}/kv_retry/csrc/kv_retry.cu",
                           "src/repro/kernels/kv_retry/kernel.py:26",
                           serve_launches["kv_retry"], kv_cases, held_kv,
                           library=False),
-             vec_launches=serve_launches["kv_retry_vec"]),
+             vec_launches=serve_launches["kv_retry_vec"],
+             family_launches=family_launches["kv_retry"]),
         _kernel_line("ssd_scan", f"{kernels}/ssd_scan/csrc/ssd_scan.cu",
                      "src/repro/kernels/ssd_scan/kernel.py:40",
                      ssd_launches, ssd_cases, held_ssd, library=False),

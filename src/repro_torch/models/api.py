@@ -1,10 +1,12 @@
 """Public model API: ``build_model(cfg, device, generator)`` -> Model bundle.
 
-The port builds the decoder family: global and sliding-window attention
-with a dense MLP, and Mamba-2 SSD blocks.  Encoder-decoder and VLM
-families raise ``NotImplementedError`` (ROADMAP D12); ``input_specs`` is
-JAX dry-run tooling and waits for ROADMAP item 13.  ``train_loss`` trains
-the attention blocks (Mamba-2 blocks: ROADMAP D14b).
+The port builds the decoder family: global and sliding-window attention,
+Mamba-2 SSD blocks and RG-LRU blocks (with the pattern tail of
+recurrentgemma), each attention or RG-LRU layer with a dense MLP or the
+MoE FFN (olmoe, llama4).  Encoder-decoder and VLM families raise
+``NotImplementedError`` (ROADMAP D12); ``input_specs`` is JAX dry-run
+tooling and waits for ROADMAP item 13.  ``train_loss`` trains every
+block kind but Mamba-2's (ROADMAP D14b).
 """
 
 from __future__ import annotations

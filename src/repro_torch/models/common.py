@@ -100,9 +100,14 @@ def mlp_init(gen: torch.Generator, cfg: ModelConfig, d: int, ff: int) -> dict:
     return {"wi": init_dense(gen, (d, ff)), "wd": init_dense(gen, (ff, d))}
 
 
-def _gelu(x):
+def gelu(x):
     # jax.nn.gelu defaults to the tanh approximation.
     return F.gelu(x, approximate="tanh")
+
+
+def softplus(x):
+    """``jax.nn.softplus``: logaddexp(x, 0)."""
+    return torch.clamp(x, min=0.0) + torch.log1p(torch.exp(-x.abs()))
 
 
 def mlp_apply(cfg: ModelConfig, p, x):
@@ -110,10 +115,10 @@ def mlp_apply(cfg: ModelConfig, p, x):
     h = x @ p["wi"].to(dt)
     if cfg.mlp in ("swiglu", "geglu"):
         g = x @ p["wg"].to(dt)
-        act = F.silu if cfg.mlp == "swiglu" else _gelu
+        act = F.silu if cfg.mlp == "swiglu" else gelu
         h = act(g) * h
     else:
-        h = _gelu(h)
+        h = gelu(h)
     return h @ p["wd"].to(dt)
 
 

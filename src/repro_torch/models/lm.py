@@ -5,12 +5,16 @@ leaf of ``params["units"]`` and ``cache["units"]`` carries a leading
 unit dim U (one unit is one repeat of the block pattern), so the KV
 store sees the same pages in the same order as the reference does.  The
 reference scans over units; here a Python loop indexes them.  A pattern
-remainder (the reference's unscanned tail) occurs only with RG-LRU
-blocks, and waits for them (ROADMAP D10).
+remainder (recurrentgemma: 26 = 8 * 3 + 2) runs after the units as the
+reference's unscanned tail: ``params["tail"]`` and ``cache["tail"]`` are
+plain lists of per-layer trees, not stacked.
 
 ``train_loss`` rematerializes each unit in the backward pass
 (``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` of its
-scan body), so only the unit inputs are kept.
+scan body), so only the unit inputs are kept; the tail runs without
+remat.  MoE configs add 0.01 x the load-balance aux loss summed over the
+units' MoE layers: the reference drops the tail's aux, and so does the
+port (ROADMAP D15 notes the quirk).
 """
 
 from __future__ import annotations
@@ -58,9 +62,6 @@ def _check_family(cfg: ModelConfig) -> None:
             f"the {cfg.family!r} family is not ported: ROADMAP D12")
     for kind in cfg.block_pattern + cfg.tail_pattern():
         B.check_kind(kind)
-    if cfg.tail_pattern():
-        raise NotImplementedError("pattern remainders (tails) are not "
-                                  "ported: ROADMAP D10")
 
 
 def lm_init(cfg: ModelConfig, generator: torch.Generator) -> dict:
@@ -70,8 +71,13 @@ def lm_init(cfg: ModelConfig, generator: torch.Generator) -> dict:
     units = [{f"b{i}": B.block_init(generator, cfg, kind, _moe_here(cfg, i))
               for i, kind in enumerate(cfg.block_pattern)}
              for _ in range(cfg.unit_count())]
-    return {"embed_p": embed_p, "units": _stack(units),
-            "final_norm": norm_init(cfg, cfg.d_model, generator.device)}
+    params = {"embed_p": embed_p, "units": _stack(units),
+              "final_norm": norm_init(cfg, cfg.d_model, generator.device)}
+    tail = cfg.tail_pattern()
+    if tail:
+        params["tail"] = [B.block_init(generator, cfg, kind, _moe_here(cfg, i))
+                          for i, kind in enumerate(tail)]
+    return params
 
 
 def backbone_fullseq(cfg: ModelConfig, params, x, positions):
@@ -84,7 +90,14 @@ def backbone_fullseq(cfg: ModelConfig, params, x, positions):
             x, unit_c[f"b{i}"] = B.block_fullseq(
                 cfg, kind, unit_p[f"b{i}"], x, positions)
         caches.append(unit_c)
-    return x, {"units": _stack(caches)}
+    cache = {"units": _stack(caches)}
+    tail = cfg.tail_pattern()
+    if tail:
+        cache["tail"] = []
+        for i, kind in enumerate(tail):
+            x, c = B.block_fullseq(cfg, kind, params["tail"][i], x, positions)
+            cache["tail"].append(c)
+    return x, cache
 
 
 def backbone_decode(cfg: ModelConfig, params, x, cache, pos: int):
@@ -97,7 +110,14 @@ def backbone_decode(cfg: ModelConfig, params, x, cache, pos: int):
             x, new_c[f"b{i}"] = B.block_decode(
                 cfg, kind, unit_p[f"b{i}"], x, unit_c[f"b{i}"], pos)
         new_units.append(new_c)
-    return x, {"units": _stack(new_units)}
+    new_cache = {"units": _stack(new_units)}
+    if "tail" in cache:
+        new_cache["tail"] = []
+        for i, kind in enumerate(cfg.tail_pattern()):
+            x, c = B.block_decode(cfg, kind, params["tail"][i], x,
+                                  cache["tail"][i], pos)
+            new_cache["tail"].append(c)
+    return x, new_cache
 
 
 # -- entry points ---------------------------------------------------------------
@@ -126,26 +146,36 @@ def decode_step(cfg: ModelConfig, params, batch):
 
 
 def _unit_train(cfg: ModelConfig, unit_p, x, positions):
+    """One unit in training: (x, the sum of its MoE layers' aux losses
+    from 0, in layer order)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, kind in enumerate(cfg.block_pattern):
-        x = B.block_train(cfg, kind, unit_p[f"b{i}"], x, positions)
-    return x
+        x, a = B.block_train(cfg, kind, unit_p[f"b{i}"], x, positions)
+        if a is not None:
+            aux = aux + a
+    return x, aux
 
 
 def train_loss(cfg: ModelConfig, params, batch):
     """batch {"tokens", "labels": (B, T) int}: -> scalar float32 mean
-    next-token cross-entropy, differentiable in ``params``."""
+    next-token cross-entropy (plus 0.01 x the units' load-balance aux
+    loss for MoE configs), differentiable in ``params``."""
     _check_family(cfg)
-    if cfg.moe is not None:
-        raise NotImplementedError("MoE training (the load-balance aux "
-                                  "loss) is not ported: ROADMAP D11")
-    for kind in cfg.block_pattern:
+    for kind in cfg.block_pattern + cfg.tail_pattern():
         B.block_train_check(kind)
     x = embed_apply(cfg, params["embed_p"], batch["tokens"])
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for u in range(cfg.unit_count()):
-        x = torch.utils.checkpoint.checkpoint(
+        x, aux = torch.utils.checkpoint.checkpoint(
             _unit_train, cfg, _index(params["units"], u), x, positions,
             use_reentrant=False)
+        aux_total = aux_total + aux
+    for i, kind in enumerate(cfg.tail_pattern()):   # tail aux dropped
+        x, _ = B.block_train(cfg, kind, params["tail"][i], x, positions)
     x = apply_norm(cfg, params["final_norm"], x)
     logits = logits_apply(cfg, params["embed_p"], x)
-    return cross_entropy(logits[:, :-1], batch["labels"][:, 1:])
+    loss = cross_entropy(logits[:, :-1], batch["labels"][:, 1:])
+    if cfg.moe is not None:
+        loss = loss + 0.01 * aux_total   # load-balance coefficient (OLMoE)
+    return loss

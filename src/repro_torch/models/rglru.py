@@ -1,0 +1,137 @@
+"""RG-LRU recurrent block (Griffin / RecurrentGemma, arXiv:2402.19427).
+
+The reference's ``models/rglru.py`` restated in torch.  Block structure:
+
+    x -> [gate branch: Linear(d->w) -> GeLU]
+      -> [rec branch:  Linear(d->w) -> causal conv1d(K) -> RG-LRU]
+    y = gate * rglru_out -> Linear(w->d)
+
+The recurrence h_t = a_t h_{t-1} + b_t (a_t = exp(-c softplus(Lambda)
+r_t), c = 8) runs in float32.  Prefill scans it with the reference's
+``lax.associative_scan`` recursion restated on strided slices (pairs
+combined, the halved sequence scanned, the odd results combined with
+the even inputs, then interleaved): about 2 log2 T tensor steps, rounding
+where the reference rounds.  Decode carries ``{"conv": (B, K-1, w),
+"h": float32 (B, w)}`` and costs O(1) a token.  Dtypes and summation
+orders are the reference's: the prefill conv sums its K products in the
+activation dtype, left to right from 0; the decode conv is a product
+summed in float32 and rounded once; the gates' w x w products are
+float32.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.common import gelu, init_dense, softplus
+
+_C = 8.0
+
+
+def rglru_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    d = cfg.d_model
+    w = cfg.rglru.lru_width or d
+    K = cfg.rglru.d_conv
+    dev = gen.device
+    # Lambda so that a^c spans ~(0.9, 0.999) (Griffin appendix).
+    u = torch.empty((w,), dtype=torch.float32, device=dev).uniform_(
+        0.9 ** 2, 0.999 ** 2, generator=gen)
+    lam = torch.log(torch.expm1(-torch.log(u) / (2.0 * _C)))  # inv-softplus
+    conv_w = torch.empty((K, w), dtype=torch.float32, device=dev).normal_(
+        0.0, 1.0, generator=gen) * 0.1
+    return {
+        "w_gate": init_dense(gen, (d, w)),
+        "w_rec": init_dense(gen, (d, w)),
+        "w_out": init_dense(gen, (w, d)),
+        "conv_w": conv_w,
+        "conv_b": torch.zeros((w,), device=dev),
+        "lambda_p": lam,
+        "a_gate": init_dense(gen, (w, w)),
+        "x_gate": init_dense(gen, (w, w)),
+        "a_gate_b": torch.zeros((w,), device=dev),
+        "x_gate_b": torch.zeros((w,), device=dev),
+    }
+
+
+def _conv(x, w, b):
+    """Causal depthwise conv; x (B, T, w), w (K, w).  Returns (conv + b,
+    the last K - 1 inputs as the conv state)."""
+    K = w.shape[0]
+    T = x.shape[1]
+    pad = torch.zeros(x.shape[:1] + (K - 1,) + x.shape[2:], dtype=x.dtype,
+                      device=x.device)
+    xp = torch.cat([pad, x], dim=1)
+    out = 0
+    for i in range(K):                   # Python's sum: 0 + p0 + p1 + ...
+        out = out + xp[:, i:i + T] * w[i].to(x.dtype)
+    return out + b.to(x.dtype), xp[:, -(K - 1):]
+
+
+def _gates(p, x):
+    """x (B, T, w) -> (log_a, b) of the recurrence h = a h + b, float32."""
+    xf = x.float()
+    r = torch.sigmoid(xf @ p["a_gate"] + p["a_gate_b"])
+    i = torch.sigmoid(xf @ p["x_gate"] + p["x_gate_b"])
+    log_a = -_C * softplus(p["lambda_p"]) * r
+    beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-9))
+    return log_a, beta * (i * xf)
+
+
+def _combine(a1, b1, a2, b2):
+    return a1 * a2, b1 * a2 + b2
+
+
+def _interleave(x, y):
+    """Along dim 1: x at the even positions, y at the odd ones (x has as
+    many entries as y or one more)."""
+    n = y.shape[1]
+    pairs = torch.stack([x[:, :n], y], dim=2).flatten(1, 2)
+    return torch.cat([pairs, x[:, n:]], dim=1)
+
+
+def linear_scan(a, b):
+    """Inclusive scan of h_t = a_t h_{t-1} + b_t along dim 1 (h_{-1} = 0),
+    by ``lax.associative_scan``'s recursion: returns (prod a, h)."""
+    n = a.shape[1]
+    if n < 2:
+        return a, b
+    ra, rb = _combine(a[:, 0:-1:2], b[:, 0:-1:2], a[:, 1::2], b[:, 1::2])
+    oa, ob = linear_scan(ra, rb)
+    if n % 2 == 0:
+        ea, eb = _combine(oa[:, :-1], ob[:, :-1], a[:, 2::2], b[:, 2::2])
+    else:
+        ea, eb = _combine(oa, ob, a[:, 2::2], b[:, 2::2])
+    ea = torch.cat([a[:, :1], ea], dim=1)
+    eb = torch.cat([b[:, :1], eb], dim=1)
+    return _interleave(ea, oa), _interleave(eb, ob)
+
+
+def rglru_fullseq(cfg: ModelConfig, p: dict, x, return_cache: bool = True):
+    """x (B, T, d) -> (y, cache or None)."""
+    dt = x.dtype
+    gate = gelu(x @ p["w_gate"].to(dt))
+    u = x @ p["w_rec"].to(dt)
+    u, conv_state = _conv(u, p["conv_w"], p["conv_b"])
+    log_a, b = _gates(p, u)
+    _, h = linear_scan(torch.exp(log_a), b)
+    h = h.to(dt)
+    y = (gate * h) @ p["w_out"].to(dt)
+    if not return_cache:
+        return y, None
+    return y, {"conv": conv_state, "h": h[:, -1].float()}
+
+
+def rglru_decode(cfg: ModelConfig, p: dict, x, cache: dict):
+    """x (B, 1, d); one O(1) recurrent step."""
+    dt = x.dtype
+    gate = gelu(x @ p["w_gate"].to(dt))
+    u = x @ p["w_rec"].to(dt)
+    window = torch.cat([cache["conv"].to(dt), u], dim=1)      # (B, K, w)
+    # The reference's einsum over the K taps, summed in float32.
+    u_t = (window.float() * p["conv_w"].to(dt).float()).sum(dim=1).to(dt) \
+        + p["conv_b"].to(dt)
+    log_a, b = _gates(p, u_t[:, None, :])
+    h = cache["h"] * torch.exp(log_a[:, 0]) + b[:, 0]
+    y = (gate * h[:, None, :].to(dt)) @ p["w_out"].to(dt)
+    return y, {"conv": window[:, 1:], "h": h}

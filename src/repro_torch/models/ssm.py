@@ -25,7 +25,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ssd_scan.ops import ssd_scan
-from repro_torch.models.common import init_dense, rmsnorm
+from repro_torch.models.common import init_dense, rmsnorm, softplus
 
 
 def ssm_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
@@ -53,11 +53,6 @@ def ssm_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
         "norm_scale": torch.zeros((di,), device=dev),
         "out_proj": init_dense(gen, (di, d)),
     }
-
-
-def _softplus(x):
-    """``jax.nn.softplus``: logaddexp(x, 0)."""
-    return torch.clamp(x, min=0.0) + torch.log1p(torch.exp(-x.abs()))
 
 
 def _split_proj(cfg: ModelConfig, p, u):
@@ -90,7 +85,7 @@ def _heads(cfg: ModelConfig, xBC, dt, p):
     Bm = xBC[..., di:di + ds]                         # (B, T, ds)
     Cm = xBC[..., di + ds:]                           # (B, T, ds)
     x = x.reshape(x.shape[0], x.shape[1], nh, s.head_dim)
-    dt = _softplus(dt.float() + p["dt_bias"])         # (B, T, nh)
+    dt = softplus(dt.float() + p["dt_bias"])         # (B, T, nh)
     A = -torch.exp(p["a_log"])                        # (nh,) negative
     return x, Bm, Cm, dt, A
 

@@ -19,8 +19,10 @@ reference's is.  Mechanism "baseline" keeps no fast tier and always reads
 backing; the AR² mechanisms enable it; ``tau`` plays the role of the
 characterized safe-tR table entry.
 
-Caches are nested dicts of tensors.  A leaf's key is the
-reference's key string (``"['units']['b0']['attn']['k']"``), so both
+Caches are nested dicts and lists of tensors (a pattern tail is a
+list of per-layer caches).  A leaf's key is the reference's key string
+(``"['units']['b0']['attn']['k']"``, ``"['tail'][0]['rglru']['h']"``),
+and leaves are walked in the reference's flattening order, so both
 packages read the same pages in the same order.  Read statistics are
 counted on the device and read back once per ``materialize``.
 """
@@ -60,21 +62,31 @@ class KVReadStats:
 
 def _leaves(tree, path=()):
     """(path, leaf) pairs in the reference's flattening order (dict keys
-    sorted)."""
-    if not isinstance(tree, dict):
+    sorted, list items in order)."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k], path + (k,))
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, path + (i,))
+    else:
         yield path, tree
-        return
-    for k in sorted(tree):
-        yield from _leaves(tree[k], path + (k,))
 
 
 def _map_with_path(fn, tree, path=()):
+    """``fn(path, leaf)`` over every leaf, in the reference's order."""
     if isinstance(tree, dict):
-        return {k: _map_with_path(fn, v, path + (k,)) for k, v in tree.items()}
+        return {k: _map_with_path(fn, tree[k], path + (k,))
+                for k in sorted(tree)}
+    if isinstance(tree, list):
+        return [_map_with_path(fn, v, path + (i,))
+                for i, v in enumerate(tree)]
     return fn(path, tree)
 
 
 def keystr(path) -> str:
+    """``jax.tree_util.keystr``: ``['key']`` for a dict key, ``[i]`` for a
+    list index."""
     return "".join(f"[{k!r}]" for k in path)
 
 

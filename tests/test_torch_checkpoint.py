@@ -94,6 +94,39 @@ class TestAgainstReference:
         out, _ = restore(d)
         _assert_tree_equal(out, {"p": ttree["b"], "q": ttree["a"]})
 
+    def test_tailed_model_state_byte_identical(self, tmp_path):
+        """A tailed recurrentgemma's parameters (stacked units plus the
+        tail's plain list, from the reference's init through
+        ``params_from_jax``): the same leaf order as jax's and
+        byte-identical files, restored bit for bit."""
+        import dataclasses
+
+        import jax
+
+        from repro.configs import get_config as ref_get_config
+        from repro.configs.base import reduced_config as ref_reduced_config
+        from repro.models import build_model as ref_build_model
+        from repro_torch.models.convert import params_from_jax
+        from repro_torch.optim.adamw import tree_leaves
+
+        rcfg = dataclasses.replace(ref_reduced_config(
+            ref_get_config("recurrentgemma-2b")), n_layers=8)
+        params = jax.tree.map(np.asarray, ref_build_model(rcfg).init(
+            jax.random.PRNGKey(0)))
+        tparams = params_from_jax(params, "cpu")
+        assert isinstance(tparams["tail"], list) and len(tparams["tail"]) == 2
+        for a, b in zip(jax.tree.leaves(params), tree_leaves(tparams),
+                        strict=True):
+            np.testing.assert_array_equal(a, b.numpy())
+        RCK.save(tmp_path / "ref", params, shard_bytes=1 << 18)
+        d = save(tmp_path / "port", tparams, shard_bytes=1 << 18)
+        names = _files(tmp_path / "ref")
+        assert names == _files(d) and names
+        for n in names:
+            assert (tmp_path / "ref" / n).read_bytes() == (d / n).read_bytes()
+        out, _ = restore(d, tparams)
+        _assert_tree_equal(out, tparams)
+
     def test_bfloat16_leaves_round_trip(self, tmp_path):
         x = torch.randn(64, 33).to(torch.bfloat16)
         out, _ = restore(save(tmp_path / "ck", {"x": x}), {"x": x})

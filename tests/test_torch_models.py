@@ -1,10 +1,14 @@
-"""Port's decoder LM (configs, common, attention, blocks, lm, api) against
-the JAX reference.
+"""Port's decoder LM (configs, common, attention, rglru, moe, blocks, lm,
+api) against the JAX reference.
 
-Reduced ``llama3.2-3b`` (global attention, swiglu; also with ``qk_norm``)
-and ``gemma2-2b`` (alternating local/global, both softcaps, geglu,
-scaled embeddings), with prompts longer than gemma2's reduced window
-of 32.  Parameters come
+Reduced ``llama3.2-3b`` (global attention, swiglu; also with ``qk_norm``),
+``gemma2-2b`` (alternating local/global, both softcaps, geglu, scaled
+embeddings), ``recurrentgemma-2b`` at 8 layers (two units of RG-LRU,
+RG-LRU, local MQA attention, then a tail of two RG-LRU layers),
+``olmoe-1b-7b`` (softmax-routed MoE in every layer, qk-norm) and
+``llama4-maverick-400b-a17b`` (sigmoid-routed MoE with a shared expert
+in every second layer), with prompts longer than the reduced window of
+32.  Parameters come
 from the reference's ``init`` through ``params_from_jax``; tokens are
 made with numpy from a seed.  The reference's CPU prefill runs its
 blockwise/windowed scans; the port's runs the flash-attention wrapper
@@ -36,6 +40,10 @@ from repro_torch.models import build_model
 from repro_torch.models.convert import params_from_jax
 
 MODEL_ARCHS = ("llama3.2-3b", "gemma2-2b")
+#: The RG-LRU and MoE families; recurrentgemma at a depth with a tail
+#: (its reduced config has 6 layers, two whole units).
+NEW_ARCHS = ("recurrentgemma-2b", "olmoe-1b-7b", "llama4-maverick-400b-a17b")
+_OVERRIDES = {"recurrentgemma-2b": dict(n_layers=8)}
 F32_TOL = 1e-4
 BF16_REL_TOL = 0.05
 B, T = 2, 40          # T > gemma2's reduced window (32)
@@ -50,8 +58,12 @@ def one_thread():
     torch.set_num_threads(prev)
 
 
-def _cfgs(arch, act, qk_norm=False):
-    kw = dict(activation_dtype=act, qk_norm=qk_norm)
+def _cfgs(arch, act, qk_norm=None):
+    """Reference and port configs of ``arch`` reduced, in ``act``
+    (``qk_norm`` None: the config's own)."""
+    kw = dict(activation_dtype=act, **_OVERRIDES.get(arch, {}))
+    if qk_norm is not None:
+        kw["qk_norm"] = qk_norm
     ref = dataclasses.replace(ref_reduced_config(ref_get_config(arch)), **kw)
     port = dataclasses.replace(reduced_config(get_config(arch)), **kw)
     return ref, port
@@ -60,7 +72,7 @@ def _cfgs(arch, act, qk_norm=False):
 _PARAMS = {}
 
 
-def _models(arch, act, qk_norm=False):
+def _models(arch, act, qk_norm=None):
     """Reference and port models over the same (reference-drawn) weights."""
     ref_cfg, cfg = _cfgs(arch, act, qk_norm)
     ref = ref_build_model(ref_cfg)
@@ -109,7 +121,8 @@ def test_configs_equal(arch):
 
 
 @pytest.mark.parametrize("arch,qk_norm", [(a, False) for a in MODEL_ARCHS]
-                         + [("llama3.2-3b", True)])
+                         + [("llama3.2-3b", True)]
+                         + [(a, None) for a in NEW_ARCHS])
 def test_prefill_and_greedy_decode_float32(arch, qk_norm):
     ref, ref_params, port, params = _models(arch, "float32", qk_norm)
     toks = _tokens(ref.cfg.vocab)
@@ -141,15 +154,17 @@ def test_prefill_and_greedy_decode_float32(arch, qk_norm):
     _assert_caches_close(cache, want_cache, F32_TOL)
 
 
-@pytest.mark.parametrize("arch", MODEL_ARCHS)
+@pytest.mark.parametrize("arch", MODEL_ARCHS + NEW_ARCHS)
 def test_prefill_and_first_decode_bfloat16(arch):
     ref, ref_params, port, params = _models(arch, "bfloat16")
     toks = _tokens(ref.cfg.vocab, seed=1)
     want_logits, want_cache = jax.jit(ref.prefill)(
         ref_params, {"tokens": jnp.asarray(toks)})
     logits, cache = port.prefill(params, {"tokens": torch.from_numpy(toks)})
-    for _, leaf in _leaves(cache):
-        assert leaf.dtype == torch.bfloat16
+    for path, leaf in _leaves(cache):
+        # The RG-LRU state is float32 in both packages.
+        want = torch.float32 if path[-1] == "h" else torch.bfloat16
+        assert leaf.dtype == want, path
     want = np.asarray(want_logits)
     gaps = [float(np.abs(logits.numpy() - want).max() / np.abs(want).max())]
     tok = np.array(jnp.argmax(want_logits[:, -1], -1))
@@ -188,11 +203,48 @@ def test_seeded_init_is_reproducible():
     assert not a["final_norm"]["scale"].any()
 
 
-@pytest.mark.parametrize("arch,item", [("recurrentgemma-2b", "D10"),
-                                       ("olmoe-1b-7b", "D11"),
-                                       ("whisper-large-v3", "D12"),
+@pytest.mark.parametrize("arch,item", [("whisper-large-v3", "D12"),
                                        ("internvl2-1b", "D12")])
 def test_unported_families_raise(arch, item):
     cfg = reduced_config(get_config(arch))
     with pytest.raises(NotImplementedError, match=item):
         build_model(cfg, "cpu").init()
+
+
+@pytest.mark.parametrize("arch", MODEL_ARCHS + NEW_ARCHS)
+def test_kv_int8_names_its_item(arch, monkeypatch):
+    """``REPRO_KV_INT8=1`` (the in-model int8 KV cache) raises naming
+    ROADMAP D13 in every family with attention."""
+    _, _, port, params = _models(arch, "float32")
+    monkeypatch.setenv("REPRO_KV_INT8", "1")
+    with pytest.raises(NotImplementedError, match="D13"):
+        port.prefill(params, {"tokens": torch.from_numpy(
+            _tokens(port.cfg.vocab))})
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_full_configs_build(arch):
+    """``build_model`` takes the published RG-LRU and MoE configs (no
+    parameters drawn at full size here)."""
+    cfg = get_config(arch)
+    model = build_model(cfg, "cpu")
+    assert model.cfg is cfg
+    assert bool(cfg.tail_pattern()) == (arch == "recurrentgemma-2b")
+
+
+def test_pattern_tail_layout():
+    """A tailed recurrentgemma keeps the reference's tree: stacked units
+    plus plain lists for the tail's parameters and caches."""
+    ref, ref_params, port, params = _models("recurrentgemma-2b", "float32")
+    cfg = port.cfg
+    assert cfg.unit_count() == 2 and cfg.tail_pattern() == ("rglru",) * 2
+    assert isinstance(params["tail"], list) and len(params["tail"]) == 2
+    _, cache = port.prefill(params, {"tokens": torch.from_numpy(
+        _tokens(cfg.vocab))})
+    assert [sorted(c) for c in cache["tail"]] == [["rglru"], ["rglru"]]
+    assert cache["tail"][1]["rglru"]["h"].shape == (B, cfg.rglru.lru_width)
+    assert cache["units"]["b2"]["attn"]["k"].shape == (
+        2, B, cfg.n_kv_heads, cfg.window, cfg.resolved_head_dim)
+    own = build_model(cfg, "cpu").init()
+    assert [sorted(t) for t in own["tail"]] == [
+        sorted(t) for t in ref_params["tail"]]

@@ -3,7 +3,9 @@ against the JAX reference.
 
 Both engines serve the prompts of ``tests/test_serving_data.py`` with the
 same (reference-drawn) weights of the reduced ``llama3.2-3b``, in
-float32.  The port runs on the CPU, where its kernels run their plain
+float32; the RG-LRU and MoE families (``recurrentgemma-2b`` at 8 layers,
+with its tail; ``olmoe-1b-7b``; ``llama4-maverick-400b-a17b``) serve
+longer prompts, past the reduced window of 32.  The port runs on the CPU, where its kernels run their plain
 versions.  Held: equal generated tokens under pr2ar2 (tau 0.2, 0.05
 and 0.01, where some pages retry) and baseline, equal ``KVReadStats``
 fields, and the reference test's own assertions.  One test shows ROADMAP C6: the engines prefill without
@@ -75,6 +77,84 @@ def test_engine_matches_reference(setup, mechanism, tau):
     assert (st.n_requests, st.prompt_tokens, st.generated_tokens) == (
         want_st.n_requests, want_st.prompt_tokens, want_st.generated_tokens)
     print(f"{mechanism} tau={tau}: {st.summary()}")
+
+
+#: The RG-LRU and MoE families, reduced (recurrentgemma with its tail).
+FAMILY_ARCHS = {"recurrentgemma-2b": dict(n_layers=8), "olmoe-1b-7b": {},
+                "llama4-maverick-400b-a17b": {}}
+FAMILY_PROMPTS = [np.arange(3, 43, dtype=np.int32) % 500 + 2,
+                  np.array([7, 3, 9], np.int32)]
+_FAMILY = {}
+
+
+def _family(arch):
+    if arch not in _FAMILY:
+        kw = dict(activation_dtype="float32", **FAMILY_ARCHS[arch])
+        ref_cfg = dataclasses.replace(
+            ref_reduced_config(ref_get_config(arch)), **kw)
+        cfg = dataclasses.replace(reduced_config(get_config(arch)), **kw)
+        ref_params = ref_build_model(ref_cfg).init(jax.random.PRNGKey(1))
+        _FAMILY[arch] = (ref_cfg, ref_params, cfg, params_from_jax(
+            jax.tree.map(np.asarray, ref_params), "cpu"))
+    return _FAMILY[arch]
+
+
+@pytest.mark.parametrize("arch", sorted(FAMILY_ARCHS))
+@pytest.mark.parametrize("mechanism,tau", [("pr2ar2", 0.05),
+                                           ("baseline", 0.05),
+                                           ("pr2ar2", 0.01)])
+def test_families_engine_matches_reference(arch, mechanism, tau):
+    ref_cfg, ref_params, cfg, params = _family(arch)
+    ref = RefEngine(ref_cfg, params=ref_params, policy=RefPolicy(mechanism),
+                    tau=tau)
+    port = ServeEngine(cfg, params=params, policy=RetryPolicy(mechanism),
+                       tau=tau, device="cpu")
+    want, want_st = ref.generate(FAMILY_PROMPTS, max_new_tokens=MAX_NEW)
+    got, st = port.generate(FAMILY_PROMPTS, max_new_tokens=MAX_NEW)
+    np.testing.assert_array_equal(got, want)
+    assert dataclasses.asdict(st.kv) == dataclasses.asdict(want_st.kv)
+    # Baseline keeps no fast tier and reads through it 0 pages.
+    assert (st.kv.fast_pages > 0) == (mechanism != "baseline")
+    print(f"{arch} {mechanism} tau={tau}: {st.summary()}")
+
+
+def test_store_walks_lists_in_the_references_order():
+    """A cache with a list (a pattern tail), holding attention leaves
+    too: the same fast-tier keys, int8 pages, stats and reads as the
+    reference's store, in the reference's flattening order."""
+    rng = np.random.default_rng(4)
+
+    def leaf(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+
+    tree = {"units": {"b0": {"attn": {"k": leaf(2, 2, 1, 8, 16),
+                                      "v": leaf(2, 2, 1, 8, 16)}}},
+            "tail": [{"rglru": {"conv": leaf(2, 3, 16), "h": leaf(2, 16)}},
+                     {"attn": {"k": leaf(2, 1, 8, 16),
+                               "v": leaf(2, 1, 8, 16)}}]}
+    tree["tail"][1]["attn"]["k"][:, :, 3, 0] *= 60.0   # pages that retry
+    ref_store, store = RefStore(RefPolicy("pr2ar2"), tau=0.01), \
+        QuantizedKVStore(RetryPolicy("pr2ar2"), tau=0.01)
+    ref_store.pack(jax.tree.map(jnp.asarray, tree))
+    store.pack(params_from_jax(tree, "cpu"))
+    assert list(store.fast) == list(ref_store.fast) == [
+        "['tail'][1]['attn']['k']", "['tail'][1]['attn']['v']",
+        "['units']['b0']['attn']['k']", "['units']['b0']['attn']['v']"]
+    for key, (q, sc) in store.fast.items():
+        assert np.array_equal(q.numpy(), np.asarray(ref_store.fast[key][0]))
+        assert np.array_equal(sc.numpy(), np.asarray(ref_store.fast[key][1]))
+    got, want = store.materialize(), ref_store.materialize()
+    assert dataclasses.asdict(store.stats) == dataclasses.asdict(
+        ref_store.stats)
+    assert 0 < store.stats.retried_pages < store.stats.pages
+    assert isinstance(got["tail"], list)
+    for a, b in zip(jax.tree.leaves(want),
+                    [got["tail"][0]["rglru"]["conv"],
+                     got["tail"][0]["rglru"]["h"],
+                     got["tail"][1]["attn"]["k"], got["tail"][1]["attn"]["v"],
+                     got["units"]["b0"]["attn"]["k"],
+                     got["units"]["b0"]["attn"]["v"]]):
+        assert np.array_equal(b.numpy(), np.asarray(a))
 
 
 def test_reference_assertions_hold(setup):

@@ -1,8 +1,10 @@
 """The port's single-device training path against the reference's.
 
-Reduced ``llama3.2-3b`` (and ``gemma2-2b`` for the windowed attention)
-in float32, with the reference's initial parameters carried across by
-``params_from_jax``:
+Reduced ``llama3.2-3b`` (and ``gemma2-2b`` for the windowed attention,
+``recurrentgemma-2b`` at 8 layers for the RG-LRU scan and the pattern
+tail, ``olmoe-1b-7b`` for the MoE dispatch and its load-balance aux
+loss) in float32, with the reference's initial parameters carried
+across by ``params_from_jax``:
 
   * ``train_loss`` and every gradient against ``jax.value_and_grad`` of
     the reference's: the loss within rtol 1e-5, each gradient leaf
@@ -18,7 +20,8 @@ in float32, with the reference's initial parameters carried across by
     AdamW, cosine schedule) against the reference's functions driven the
     same way: losses within 1e-4;
   * the command line runs its steps, saves, and resumes: the resumed
-    losses equal the uninterrupted run's bit for bit on the CPU.
+    losses equal the uninterrupted run's bit for bit on the CPU; it
+    trains the RG-LRU and MoE families too.
 """
 
 import dataclasses
@@ -54,8 +57,12 @@ def one_thread():
     torch.set_num_threads(prev)
 
 
+#: Depths other than the reduced config's: recurrentgemma with a tail.
+_OVERRIDES = {"recurrentgemma-2b": dict(n_layers=8)}
+
+
 def _cfgs(arch):
-    kw = dict(activation_dtype="float32")
+    kw = dict(activation_dtype="float32", **_OVERRIDES.get(arch, {}))
     return (dataclasses.replace(ref_reduced_config(ref_get_config(arch)), **kw),
             dataclasses.replace(reduced_config(get_config(arch)), **kw))
 
@@ -88,7 +95,8 @@ def synthetic_tables():
     TC.clear_tables()
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-3b", "gemma2-2b"])
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "gemma2-2b",
+                                  "recurrentgemma-2b", "olmoe-1b-7b"])
 def test_train_loss_and_gradients_match_reference(arch):
     rcfg, cfg = _cfgs(arch)
     params = _ref_params(rcfg)
@@ -228,6 +236,42 @@ def test_command_line_smoke_saves_and_resumes(tmp_path, capsys,
     assert "resumed from step 3" in out and "step    6" in out
 
 
+def test_moe_tail_aux_is_dropped_as_in_the_reference():
+    """olmoe cut to a pattern of two layers over three: one unit and an
+    MoE tail layer.  The reference adds 0.01 x the units' aux losses and
+    drops the tail's; the port mirrors it (loss within rtol 1e-5 of the
+    reference's), and the tail's aux it drops is not 0."""
+    from repro.configs.base import ATTN
+    from repro_torch.models import blocks as TB
+
+    kw = dict(block_pattern=(ATTN, ATTN), n_layers=3)
+    rcfg, cfg = (dataclasses.replace(c, **kw) for c in _cfgs("olmoe-1b-7b"))
+    params = _ref_params(rcfg)
+    batch = _batch(cfg.vocab)
+    want = ref_build_model(rcfg).train_loss(params, batch)
+    tp = params_from_jax(params, device="cpu")
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    with torch.no_grad():
+        got = build_model(cfg, device="cpu").train_loss(tp, tb)
+        x = torch.randn(B, T, cfg.d_model, generator=torch.Generator()
+                        .manual_seed(0))
+        _, tail_aux = TB.block_train(cfg, ATTN, tp["tail"][0], x,
+                                     torch.arange(T, dtype=torch.int32))
+    assert len(tp["tail"]) == 1 and "moe" in tp["tail"][0]
+    assert float(tail_aux) > 0
+    np.testing.assert_allclose(got.item(), float(want), rtol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "olmoe-1b-7b"])
+def test_command_line_smoke_trains_the_new_families(arch, tmp_path, capsys,
+                                                    synthetic_tables):
+    TL.main(["--smoke", "--device", "cpu", "--arch", arch, "--steps", "2",
+             "--save-every", "2", "--ckpt-dir", str(tmp_path)])
+    out = capsys.readouterr().out
+    assert f"arch {arch}-smoke" in out and "step    2" in out
+    assert "checkpoint @ 2" in out and "training run complete" in out
+
+
 def test_restore_reconstructs_a_corrupt_shard(tmp_path):
     from repro_torch.checkpoint import corrupt_shard, restore, save
 
@@ -242,8 +286,8 @@ def test_restore_reconstructs_a_corrupt_shard(tmp_path):
 
 
 @pytest.mark.parametrize("arch,item", [("mamba2-130m", "D14b"),
-                                       ("olmoe-1b-7b", "D11"),
-                                       ("whisper-large-v3", "D12")])
+                                       ("whisper-large-v3", "D12"),
+                                       ("internvl2-1b", "D12")])
 def test_untrainable_families_name_their_item(arch, item):
     cfg = reduced_config(get_config(arch))
     with pytest.raises(NotImplementedError, match=item):
