@@ -283,13 +283,44 @@ exits non-zero):
                      training steps of each at full widths and cut
                      depths (recurrentgemma one unit and its tail, olmoe
                      two layers with its aux loss): losses finite, no
-                     kernel launch.
+                     kernel launch;
+ 17. encoder-decoder and VLM serve path — whisper-large-v3 and
+                     internvl2-1b: at the reduced width (head dim 64) the
+                     card against the CPU, prefill and two decode steps
+                     over seeded random frame or patch embeddings (logits
+                     within 1e-4 of the largest) and ``ServeEngine``'s
+                     tokens and KV read stats equal; then both at full
+                     width and depth with seeded weights, served as in
+                     phase 16 with long sets of 224-432 tokens (whisper's
+                     decoder context of 448 with 16 new tokens) and
+                     768-1792 (internvl's 2048 with 256 patches): every
+                     whisper prefill launches flash attention 96 times
+                     (32 bidirectional encoder layers at T = S = 1500,
+                     32 causal and 32 cross decoder layers) and every
+                     internvl prefill 24 times (causal, 14 heads over 2
+                     KV heads), every pr2ar2 decode step the KV retry
+                     read once a KV leaf (whisper's self and cross k and
+                     v, internvl's k and v), all on the tensor-core and
+                     vector kernels; each flash-attention launch held
+                     and timed (summed by mode: bidirectional, causal,
+                     cross), each internvl KV read held, and whisper's of
+                     the first and last decode step (the others counted:
+                     its cross leaves are 491.5 MB); then a few training
+                     steps of each at full widths through the launcher
+                     (whisper 2 + 2 layers over 448 tokens and 1500
+                     frames: losses finite; internvl all 24 layers: the
+                     first loss finite, the rest as ROADMAP C12 makes
+                     them on its zero patches) and internvl's steps on
+                     seeded random patches (losses finite); no kernel
+                     launch.
 
 The line before the last is a JSON object describing each kernel
 (launches on its main path, error against the plain version, and times
-and bound summed over the main path's launches; for flash attention and
-the KV retry read, phases 7 and 16 together, with phase 16's launches
-also apart (``family_launches``); for the shard core also
+and bound summed over the main path's held launches; for flash attention
+and the KV retry read, phases 7, 16 and 17 together, with phase 16's
+launches also apart (``family_launches``) and phase 17's
+(``encdec_launches``; ``encdec_held`` KV reads of them held); for the
+shard core also
 the inline sweep's counted launches and its held launch, the
 prepass-GC compare's counted launches and its held launch, the
 closed-loop phase's counted launches and its held launches, and the
@@ -496,6 +527,19 @@ FAMILY_SMALL = (("recurrentgemma-2b", dict(n_layers=8, head_dim=64)),
 FAMILY_ARCHS = ("recurrentgemma-2b", "olmoe-1b-7b")
 FAMILY_TRAIN = (("recurrentgemma-2b", 5), ("olmoe-1b-7b", 2))
 FAMILY_TRAIN_STEPS = 3
+
+# Phase 17: the encoder-decoder and VLM families.  At the reduced width
+# (head dim 64, as the flash-attention kernel takes), card against CPU;
+# at published widths and depths through ServeEngine, with long sets of
+# whisper's decoder context (448 positions = 432 + 16 new tokens) and of
+# internvl's 2048 (256 patches + T); trained at published widths, whisper
+# cut to 2 + 2 layers over its 448-token context, internvl at full depth.
+ENCDEC_SMALL = (("whisper-large-v3", dict(head_dim=64)),
+                ("internvl2-1b", dict(head_dim=64)))
+ENCDEC_LONG = {"whisper-large-v3": (224, 432, 300, 380),
+               "internvl2-1b": (768, 1792, 1024, 1536)}
+ENCDEC_TRAIN = (("whisper-large-v3", dict(n_layers=2, n_enc_layers=2), 448),
+                ("internvl2-1b", {}, TRAIN_SEQ))
 
 
 def phase(name):
@@ -1125,7 +1169,8 @@ def _hold_fa(name, q, k, v, kw, got=None, reps=3, library=True, quiet=False):
               flush=True)
     return dict(case=name, ms=ms, plain_ms=plain_ms, t_bytes=t_bytes,
                 t_ops=t_ops, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=lib_ms, max_abs_err=err, tol_ratio=ratio)
+                library_ms=lib_ms, max_abs_err=err, tol_ratio=ratio,
+                causal=kw.get("causal", True), T=q.shape[1], S=k.shape[1])
 
 
 def _check_controls(q, k, v):
@@ -1166,11 +1211,18 @@ def _hold_kv(name, data_q, scale, backing, tau, got=None, reps=3,
              quiet=False):
     """Hold one KV retry launch against the plain version on the same
     card tensors: margins within rtol 1e-6 of the larger of the margin
-    and its ratio term, decisions counted (flips must be 0), outputs bit
-    for bit where decisions agree."""
+    and its ratio term, decisions counted, outputs bit for bit where
+    decisions agree.  A decision may differ from the plain version's
+    (a flip) only where the vector kernel took it: its margins and
+    outputs must then equal, bit for bit, ``kv_retry_emulate`` on the
+    card (the plain formula in the kernel's summation order), so a flip
+    is a page whose margin lies within the rtol of 0, where the two sum
+    orders round to opposite signs; any other launch must have 0
+    flips."""
     import torch
 
     from repro_torch.kernels.kv_retry import ops as KV
+    from repro_torch.kernels.kv_retry.emulate import kv_retry_emulate
     from repro_torch.kernels.kv_retry.plain import kv_retry_plain
 
     KV.kv_retry_fwd(data_q, scale, backing, tau)          # warm-up
@@ -1186,24 +1238,33 @@ def _hold_kv(name, data_q, scale, backing, tau, got=None, reps=3,
     agree = fast == (want_m[:, 0] >= 0)
     err = float((out[agree].float() - want[agree].float()).abs().max()) \
         if bool(agree.any()) else 0.0
-    if gap > KV_MARGIN_RTOL or flips or err != 0.0 or not (
+    own_order = True
+    if flips:
+        own_order = KV.uses_vector(data_q.shape[1])
+        if own_order:
+            emu, emu_m = kv_retry_emulate(data_q, scale, backing, tau)
+            own_order = torch.equal(margin, emu_m) and torch.equal(out, emu)
+            del emu, emu_m
+    if gap > KV_MARGIN_RTOL or not own_order or err != 0.0 or not (
             torch.equal(out, again[0]) and torch.equal(margin, again[1])):
         raise AssertionError(f"{name}: kv_retry differs from its plain "
                              f"version: margin gap {gap:.3g}, {flips} "
-                             f"flips, max abs {err}")
+                             f"flips (equal to its own order's emulation: "
+                             f"{own_order}), max abs {err}")
     t_bytes, t_ops, retried = _kv_bound_ms(data_q, scale, backing, out, margin)
     bound_ms, bound_by = _bound(t_bytes, t_ops)
     P, E = data_q.shape
     if not quiet:
         print(f"{name}: {P} pages of {E} {backing.dtype}, tau {tau}: "
               f"{P - retried} fast, {retried} retried; margin gap {gap:.3g} "
-              f"(rtol {KV_MARGIN_RTOL}), 0 flips, max_abs_err {err} kernel "
+              f"(rtol {KV_MARGIN_RTOL}), {flips} flips, max_abs_err {err} "
+              f"kernel "
               f"{ms:.3f} ms plain {plain_ms:.3f} ms bound {bound_ms:.4f} ms "
               f"({bound_by}; kernel at {t_bytes / ms * 100:.1f}% of the "
               f"bytes bound)", flush=True)
     return dict(case=name, ms=ms, plain_ms=plain_ms, t_bytes=t_bytes,
                 t_ops=t_ops, bound_ms=bound_ms, bound_by=bound_by,
-                max_abs_err=err, pages=P, retried=retried,
+                max_abs_err=err, pages=P, retried=retried, flips=flips,
                 moved=t_bytes * HBM_BYTES_PER_S * 1e-3,
                 leaf=backing.numel() * backing.element_size())
 
@@ -1337,15 +1398,18 @@ def _routing_flips(arch, calls, k):
     return n, flips
 
 
-def _small_width_check(arch, min_agree, **overrides):
+def _small_width_check(arch, min_agree, exact=False, **overrides):
     """The serve path on the card against itself on the CPU (where the
     kernels run their plain versions), at the reduced width of ``arch``
     in float32 (with ``overrides``), with the same weights: prefill and
     two decode steps' logits within 1e-4 of the largest, and the served
     tokens and KV read stats of 8 new tokens compared (at least
-    ``min_agree`` of the tokens equal, and equal page counts).  For MoE
-    configs each router call's picks are compared too, and a token whose
-    picks differ is printed with its probabilities."""
+    ``min_agree`` of the tokens equal, and equal page counts; ``exact``:
+    equal tokens and equal stats).  The VLM's prefill takes seeded random
+    patch embeddings and the encoder-decoder's seeded random frame
+    embeddings (the engine feeds zeros).  For MoE configs each router
+    call's picks are compared too, and a token whose picks differ is
+    printed with its probabilities."""
     import contextlib
     import dataclasses
 
@@ -1356,6 +1420,7 @@ def _small_width_check(arch, min_agree, **overrides):
     from repro_torch.core.retry import RetryPolicy
     from repro_torch.launch.serve import default_prompts
     from repro_torch.models import moe as MOE
+    from repro_torch.models.api import frontend_zeros
     from repro_torch.optim.adamw import tree_map
     from repro_torch.serving import ServeEngine
 
@@ -1372,12 +1437,17 @@ def _small_width_check(arch, min_agree, **overrides):
                                            card.params),
                       policy=RetryPolicy("pr2ar2"), tau=0.01, device="cpu")
     toks = torch.as_tensor(card._pad_batch(prompts))
+    front = {k: torch.as_tensor(rng.standard_normal(tuple(v.shape)),
+                                dtype=torch.float32)
+             for k, v in frontend_zeros(cfg, len(prompts), "cpu").items()}
+    pos0 = toks.shape[1] + (cfg.n_patches if cfg.family == "vlm" else 0)
     gap = 0.0
     routes = _Recorder(MOE, "route") if cfg.moe is not None else \
         contextlib.nullcontext()
     with torch.inference_mode(), routes:
-        outs = [(e.model.prefill(e.params, {"tokens": toks.to(e.device)}))
-                for e in (card, cpu)]
+        outs = [e.model.prefill(e.params, {
+            k: v.to(e.device) for k, v in dict(tokens=toks, **front).items()})
+            for e in (card, cpu)]
         for step in range(3):
             (lc, cc), (lp, cp) = outs
             lc = lc.cpu()
@@ -1388,7 +1458,7 @@ def _small_width_check(arch, min_agree, **overrides):
                 break
             tok = lp[:, -1].argmax(-1)[:, None]
             outs = [e.model.decode_step(e.params, {
-                "token": tok.to(e.device), "pos": toks.shape[1] + step,
+                "token": tok.to(e.device), "pos": pos0 + step,
                 "cache": c}) for e, c in ((card, cc), (cpu, cp))]
     routing = ""
     if cfg.moe is not None:
@@ -1407,19 +1477,21 @@ def _small_width_check(arch, min_agree, **overrides):
           f"{100 * s_card.kv.fast_fraction:.2f}% cpu "
           f"{100 * s_cpu.kv.fast_fraction:.2f}% of {s_card.kv.pages} pages",
           flush=True)
-    if agree < min_agree or s_card.kv.pages != s_cpu.kv.pages:
+    if agree < min_agree or s_card.kv.pages != s_cpu.kv.pages or (
+            exact and s_card.kv != s_cpu.kv):
         raise AssertionError(f"{arch} small width: served tokens "
-                             f"{g_card.tolist()} vs {g_cpu.tolist()}")
+                             f"{g_card.tolist()} vs {g_cpu.tolist()}, KV "
+                             f"stats {s_card.kv} vs {s_cpu.kv}")
 
 
-def _request_sets(vocab):
+def _request_sets(vocab, long_lengths=LONG_LENGTHS):
     import numpy as np
 
     from repro_torch.launch.serve import default_prompts
 
     rng = np.random.default_rng(1)
     long = [rng.integers(2, vocab, size=n).astype(np.int32)
-            for n in LONG_LENGTHS]
+            for n in long_lengths]
     return (("short", default_prompts(vocab, 4)), ("long", long))
 
 
@@ -1459,21 +1531,27 @@ _HOLDERS = {
 
 
 class _Recorder:
-    """Wraps ``module.<name>`` while entered, keeping each call's bound
-    arguments and output, so that every launch of a main-path run can be
-    held against the plain version afterwards."""
+    """Wraps ``module.<name>`` while entered, counting its calls (``n``)
+    and keeping each call's bound arguments and output (``calls``; with
+    ``keep``, only the calls whose index it accepts), so that the
+    launches of a main-path run can be held against the plain version
+    afterwards."""
 
-    def __init__(self, module, name):
+    def __init__(self, module, name, keep=None):
         import inspect
 
-        self.module, self.name = module, name
+        self.module, self.name, self.keep = module, name, keep
         self.orig = getattr(module, name)
         self.sig = inspect.signature(self.orig)
         self.calls = []
+        self.n = 0
 
     def __enter__(self):
         def record(*a, **kw):
             out = self.orig(*a, **kw)
+            self.n += 1
+            if self.keep is not None and not self.keep(self.n - 1):
+                return out
             bound = self.sig.bind(*a, **kw)
             bound.apply_defaults()
             self.calls.append((dict(bound.arguments), out))
@@ -1509,13 +1587,14 @@ def _finite_checked(engines):
     return finite
 
 
-def _drive(runs, kernels, finite):
+def _drive(runs, kernels, finite, keep=None):
     """Serve each run ``(label, engine, prompts)`` with every kernel's
     launch count set to 0 just before and read just after, recording the
-    launches of ``kernels``; then hold each recorded launch against the
-    plain version on its inputs, and time it beside its bound.  Returns
-    ({kernel: launches over the runs}, {kernel: held launches}, {label:
-    (tokens, ServeStats, launch counts)})."""
+    launches of ``kernels`` (``keep``: {kernel: which launch indices of a
+    run to keep}, the others counted only); then hold each recorded
+    launch against the plain version on its inputs, and time it beside
+    its bound.  Returns ({kernel: launches over the runs}, {kernel: held
+    launches}, {label: (tokens, ServeStats, launch counts)})."""
     import contextlib
 
     import torch
@@ -1533,7 +1612,8 @@ def _drive(runs, kernels, finite):
             m.launches = 0
         for k, (attr, _) in _VARIANTS.items():
             setattr(mods[k.rsplit("_", 1)[0]], attr, 0)
-        recs = {k: _Recorder(mods[k], _HOLDERS[k][0]) for k in kernels}
+        recs = {k: _Recorder(mods[k], _HOLDERS[k][0],
+                             (keep or {}).get(k)) for k in kernels}
         with contextlib.ExitStack() as stack:
             for r in recs.values():
                 stack.enter_context(r)
@@ -1545,7 +1625,7 @@ def _drive(runs, kernels, finite):
             if counts[k] != counts[name]:
                 raise AssertionError(f"{label}: {counts[name]} {name} "
                                      f"launches, {counts[k]} of them {what}")
-        if any(len(r.calls) != counts[k] for k, r in recs.items()):
+        if any(r.n != counts[k] for k, r in recs.items()):
             raise AssertionError(f"{label}: recorded calls != launches "
                                  f"{counts}")
         if not bool(torch.stack(finite).all()):
@@ -1559,6 +1639,9 @@ def _drive(runs, kernels, finite):
         for k, r in recs.items():
             rs = [_HOLDERS[k][1](f"{label} launch {i}", a, o)
                   for i, (a, o) in enumerate(r.calls)]
+            if rs and r.n != len(rs):
+                print(f"  {label} {k}: {len(rs)} of {r.n} launches kept "
+                      f"and held, the rest counted", flush=True)
             if rs:
                 _print_held(f"  {label} {k}", rs)
             held[k] += rs
@@ -1590,11 +1673,13 @@ def _first_leaf_ratio(store):
     return "".join(f"[{k!r}]" for k in path), ratio
 
 
-def _serve_full_width(arch, prefix=""):
+def _serve_full_width(arch, prefix="", long_lengths=LONG_LENGTHS,
+                      keep=None):
     """``ServeEngine`` for ``arch`` at its published widths with seeded
     weights, as pr2ar2 at SERVE_TAU, baseline, and pr2ar2 at RETRY_TAU,
-    driven (``_drive``) over the short and long request sets and the short
-    set at the retrying tau, with run labels starting ``prefix``.  pr2ar2
+    driven (``_drive``, which keeps the launches ``keep`` accepts) over
+    the short and long (``long_lengths``) request sets and the short set
+    at the retrying tau, with run labels starting ``prefix``.  pr2ar2
     must serve some pages fast and baseline none, and the retrying run
     must retry some page reads and serve others fast.  Returns (engines,
     parameter count, launches, held launches, runs)."""
@@ -1625,7 +1710,7 @@ def _serve_full_width(arch, prefix=""):
                              device=DEVICE),
     }
     finite = _finite_checked(engines)
-    sets = _request_sets(cfg.vocab)
+    sets = _request_sets(cfg.vocab, long_lengths)
     for e in engines.values():            # warm-up: library loads, cuBLAS
         e.generate(sets[0][1], max_new_tokens=2)
     retry_label = f"{prefix}short pr2ar2 tau {RETRY_TAU}"
@@ -1633,7 +1718,7 @@ def _serve_full_width(arch, prefix=""):
             for m in ("pr2ar2", "baseline")]
     runs.append((retry_label, engines["retry"], sets[0][1]))
     launches, held, out = _drive(runs, ("flash_attention", "kv_retry"),
-                                 finite)
+                                 finite, keep)
     for set_name, _ in sets:
         p_gen, p_st, _ = out[f"{prefix}{set_name} pr2ar2"]
         b_gen, b_st, _ = out[f"{prefix}{set_name} baseline"]
@@ -3553,6 +3638,213 @@ def family_phase(smi):
     return launches, held, train
 
 
+def _encdec_launches(cfg):
+    """Flash-attention launches a prefill and KV leaves a decode step of
+    an encoder-decoder or VLM config: whisper runs its encoder's
+    bidirectional layers and each decoder layer's causal and cross
+    attention, and reads the self and cross k and v leaves; internvl one
+    causal launch a layer, and the k and v leaves."""
+    if cfg.family == "encdec":
+        return cfg.n_enc_layers + 2 * cfg.n_layers, 4
+    return cfg.n_layers, 2
+
+
+def _cross_leaf_report(store):
+    """``quantize_pages`` of one static cross leaf, which the KV store
+    re-runs on it every decode step (a measurement beside B3, not a
+    kernel of the port), and B3's read of it, timed on the card."""
+    from repro_torch.kernels.kv_retry import ops as KV
+    from repro_torch.kernels.kv_retry.plain import quantize_pages
+
+    leaf = store.backing["units"]["b0"]["xattn"]["k"]
+    pages = leaf.reshape(-1, leaf.shape[-1])
+    quantize_pages(pages)                                 # warm-up
+    quant_ms, (q, sc) = _cuda_ms(lambda: quantize_pages(pages), KERNEL_REPS)
+    KV.kv_retry_fwd(q, sc, pages, store.tau)              # warm-up
+    read_ms, _ = _cuda_ms(lambda: KV.kv_retry_fwd(q, sc, pages, store.tau),
+                          KERNEL_REPS)
+    print(f"cross leaf {tuple(leaf.shape)} {leaf.dtype} "
+          f"({pages.numel() * pages.element_size() / 1e6:.1f} MB, "
+          f"{pages.shape[0]} pages): quantize_pages {quant_ms:.4f} ms, B3's "
+          f"read {read_ms:.4f} ms", flush=True)
+
+
+def _fa_modes(held):
+    """Held flash-attention launches summed by mode: bidirectional (T =
+    S), cross (T != S) and causal."""
+    modes = {}
+    for r in held:
+        mode = "causal" if r["causal"] else (
+            "bidir" if r["T"] == r["S"] else "cross")
+        modes.setdefault(mode, []).append(r)
+    return modes
+
+
+def _train_random_patches(cfg, opt, seq):
+    """The launcher's train step on the corpus's batches with seeded
+    random patch embeddings in place of its zeros: (losses, step
+    seconds)."""
+    import torch
+
+    from repro_torch.data import CorpusConfig, SyntheticCorpus
+    from repro_torch.launch import train as TL
+    from repro_torch.models import build_model
+
+    state = TL.make_state(cfg, DEVICE, seed=0, opt=opt)
+    model = build_model(cfg, DEVICE)
+    corpus = SyntheticCorpus(CorpusConfig(vocab=cfg.vocab, seq_len=seq,
+                                          batch=TRAIN_BATCH))
+    gen = torch.Generator(DEVICE).manual_seed(0)
+    losses, step_s = [], []
+    for i in range(FAMILY_TRAIN_STEPS):
+        b = {k: torch.as_tensor(v, device=DEVICE)
+             for k, v in corpus.batch(i).items()}
+        b["patches"] = torch.randn((TRAIN_BATCH, cfg.n_patches, cfg.d_model),
+                                   generator=gen, device=DEVICE)
+        t0 = time.perf_counter()
+        loss = TL.train_step(model.train_loss, state, b, opt,
+                             TL.cosine_schedule(i + 1, FAMILY_TRAIN_STEPS,
+                                                TL.WARMUP))
+        losses.append(float(loss))
+        step_s.append(time.perf_counter() - t0)
+    return losses, step_s
+
+
+@phase("encoder-decoder and VLM serve path")
+def encdec_phase(smi):
+    """whisper-large-v3 and internvl2-1b served at full width and depth
+    (each B4 launch and the held B3 launches against the plain version),
+    their small-width card-against-CPU checks, and a few training steps
+    of each at full widths."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as TL
+    from repro_torch.optim.adamw import AdamWConfig, tree_leaves
+
+    for arch, kw in ENCDEC_SMALL:
+        _small_width_check(arch, 1.0, exact=True, **kw)
+
+    launches = dict.fromkeys(("flash_attention", "flash_attention_tc",
+                              "kv_retry", "kv_retry_vec"), 0)
+    held = {"flash_attention": [], "kv_retry": []}
+    for arch in ENCDEC_LONG:
+        torch.cuda.reset_peak_memory_stats()
+        cfg = get_config(arch)
+        n_fa, n_leaves = _encdec_launches(cfg)
+        keep = None
+        if cfg.family == "encdec":
+            # A whisper decode step reads 4 leaves, two of them the
+            # static cross leaves of (32, 4, 20, 1500, 64) bf16, 491.5
+            # MB each: keeping every launch's int8 pages, scales, backing
+            # and output would take ~3.3 GB a step, ~49 GB for the long
+            # pr2ar2 run.  So the launches of the first and last decode
+            # step are kept and held, the others counted.
+            last = (SERVE_MAX_NEW - 2) * n_leaves
+            keep = {"kv_retry": lambda i: i < n_leaves or i >= last}
+        print(f"{arch}: {cfg.family}, {cfg.n_enc_layers} encoder and "
+              f"{cfg.n_layers} decoder layers, d {cfg.d_model}, "
+              f"{cfg.n_heads} heads over {cfg.n_kv_heads} of hd "
+              f"{cfg.resolved_head_dim}; B4 {n_fa} launches a prefill, B3 "
+              f"{n_leaves} a decode step", flush=True)
+        engines, n_params, got, got_held, out = _serve_full_width(
+            arch, prefix=f"{arch} ", long_lengths=ENCDEC_LONG[arch],
+            keep=keep)
+        for label, (_, st, counts) in out.items():
+            kv_want = 0 if label.endswith("baseline") else \
+                n_leaves * (SERVE_MAX_NEW - 1)
+            if counts["flash_attention"] != n_fa or \
+                    counts["kv_retry"] != kv_want or counts["ssd_scan"]:
+                raise AssertionError(f"{label}: launches {counts}; one "
+                                     f"prefill of {n_fa} attention "
+                                     f"launches and {kv_want} KV leaf "
+                                     f"reads expected")
+        for k in launches:
+            launches[k] += got[k]
+        for k in held:
+            held[k] += got_held[k]
+        for mode, rs in _fa_modes(got_held["flash_attention"]).items():
+            _print_held(f"{arch} B4 {mode} (T {min(r['T'] for r in rs)}-"
+                        f"{max(r['T'] for r in rs)}, S "
+                        f"{min(r['S'] for r in rs)}-"
+                        f"{max(r['S'] for r in rs)})", rs)
+        r_st = out[f"{arch} short pr2ar2 tau {RETRY_TAU}"][1]
+        steps = SERVE_MAX_NEW - 1
+        if cfg.family == "encdec":
+            _cross_leaf_report(engines["pr2ar2"].store)
+        print(f"{arch} on {smi}: {n_params} parameters, "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated "
+              f"(peak {torch.cuda.max_memory_allocated() / 2**30:.2f}); "
+              + "; ".join(f"{lab.split(' ', 1)[1]} prefill "
+                          f"{st.prefill_s * 1e3:.1f} ms decode "
+                          f"{st.decode_s * 1e3 / steps:.1f} ms a step"
+                          for lab, (_, st, _) in out.items())
+              + f"; B4 {got['flash_attention']} launches "
+              f"(tc_launches {got['flash_attention_tc']}), B3 "
+              f"{got['kv_retry']} (vec_launches {got['kv_retry_vec']}); "
+              f"retry run {r_st.kv.retried_pages} of {r_st.kv.pages} page "
+              f"reads retried", flush=True)
+        del engines, out, got_held
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    before = _kernel_counts()
+    quiet = lambda *_: None      # noqa: E731
+    train = {}
+    for arch, cut, seq in ENCDEC_TRAIN:
+        cfg = dataclasses.replace(get_config(arch), **cut)
+        opt = AdamWConfig(lr=TRAIN_LR, moment_dtype=cfg.moment_dtype)
+        what = (f"{cfg.n_enc_layers} encoder and {cfg.n_layers} decoder "
+                f"layers, batch {TRAIN_BATCH} x {seq} tokens"
+                f"{' + 1500 frames' if cfg.family == 'encdec' else ''}"
+                f"{' + 256 patches' if cfg.family == 'vlm' else ''}")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        run = TL.train(cfg, steps=FAMILY_TRAIN_STEPS, batch=TRAIN_BATCH,
+                       seq=seq, device=DEVICE, opt=opt, log=quiet)
+        wall = time.perf_counter() - t0
+        losses = [run.losses[i] for i in sorted(run.losses)]
+        n_params = sum(t.numel() for t in tree_leaves(run.state["params"]))
+        print(f"train {arch} at full widths through the launcher (zero "
+              f"frontend inputs), {what}, {n_params} parameters, "
+              f"{FAMILY_TRAIN_STEPS} steps on {smi}: losses {losses}; "
+              f"{wall:.3f} s in all, steps "
+              f"{[round(t, 3) for t in run.step_s]} s, peak "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB allocated",
+              flush=True)
+        del run
+        gc.collect()
+        torch.cuda.empty_cache()
+        if cfg.family == "vlm":
+            # ROADMAP C12: the zero patch rows stay exactly 0 through every
+            # layer, each RMSNorm's backward scales their gradient by
+            # 1/sqrt(1e-6), and at 24 layers it overflows, in the
+            # reference as here: the first loss is finite, the step
+            # writes NaN.  The training path itself is held on seeded
+            # random patches.
+            if not math.isfinite(losses[0]):
+                raise AssertionError(f"train {arch}: losses {losses}")
+            losses, step_s = _train_random_patches(cfg, opt, seq)
+            print(f"train {arch} at full widths on seeded random patches, "
+                  f"{what}, {FAMILY_TRAIN_STEPS} steps: losses {losses}; "
+                  f"steps {[round(t, 3) for t in step_s]} s, peak "
+                  f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB "
+                  f"allocated", flush=True)
+            gc.collect()
+            torch.cuda.empty_cache()
+        if not all(map(math.isfinite, losses)):
+            raise AssertionError(f"train {arch}: losses {losses}")
+        train[arch] = losses
+    launched = _launched_since(before)
+    if any(launched.values()):
+        raise AssertionError(f"the training path launched a kernel: "
+                             f"{launched}")
+    return launches, held, train
+
+
 def _print_held(name, rs):
     """One line for the launches of one run, held and re-timed."""
     bound_ms, bound_by = _bound(sum(r["t_bytes"] for r in rs),
@@ -3561,6 +3853,8 @@ def _print_held(name, rs):
     if "pages" in rs[0]:
         extra = (f", {sum(r['retried'] for r in rs)} of "
                  f"{sum(r['pages'] for r in rs)} pages retried, "
+                 f"{sum(r['flips'] for r in rs)} decisions the plain "
+                 f"version's sum order rounds the other way, "
                  f"{sum(r['moved'] for r in rs) / 1e9:.3f} GB moved (int8 "
                  f"pages, scales, margins, output, retried backing) for "
                  f"{sum(r['leaf'] for r in rs) / 1e9:.3f} GB of backing "
@@ -3600,6 +3894,21 @@ def _kernel_line(name, source, replaces, launches, cases, held, library):
     }
 
 
+def setup() -> None:
+    """The process state every phase expects: the checkout's sources on
+    the path, checkout-local characterization caches (fresh for each
+    device, so the card does its own work and nothing outside the
+    checkout is read or written), and float32 products without TF32.
+    A script that runs single phases calls it, then ``device_phase()`` and
+    ``build_phase()``."""
+    import torch
+
+    sys.path.insert(0, str(SRC))
+    os.environ["REPRO_TORCH_CHAR_CACHE_DIR"] = str(CACHE)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
 def main() -> int:
     import torch
 
@@ -3610,14 +3919,7 @@ def main() -> int:
         print(f"chip_smoke: {SRC / 'repro_torch'} not found; run from a "
               f"checkout of the repository", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(SRC))
-    # Checkout-local characterization caches, fresh for each device, so
-    # the card does its own work and nothing outside the checkout is
-    # read or written.
-    os.environ["REPRO_TORCH_CHAR_CACHE_DIR"] = str(CACHE)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
+    setup()
     name, smi = device_phase()
     build_phase()
     characterize_phase()
@@ -3645,6 +3947,12 @@ def main() -> int:
         serve_launches[k] += n
     held_fa += family_held["flash_attention"]
     held_kv += family_held["kv_retry"]
+    torch.cuda.empty_cache()
+    encdec_launches, encdec_held, _ = encdec_phase(smi)
+    for k, n in encdec_launches.items():
+        serve_launches[k] += n
+    held_fa += encdec_held["flash_attention"]
+    held_kv += encdec_held["kv_retry"]
 
     # Times and bounds are sums over each main path's launches, each
     # re-run on the inputs it had there.
@@ -3673,13 +3981,16 @@ def main() -> int:
                           serve_launches["flash_attention"], fa_cases,
                           held_fa, library=True),
              tc_launches=serve_launches["flash_attention_tc"],
-             family_launches=family_launches["flash_attention"]),
+             family_launches=family_launches["flash_attention"],
+             encdec_launches=encdec_launches["flash_attention"]),
         dict(_kernel_line("kv_retry", f"{kernels}/kv_retry/csrc/kv_retry.cu",
                           "src/repro/kernels/kv_retry/kernel.py:26",
                           serve_launches["kv_retry"], kv_cases, held_kv,
                           library=False),
              vec_launches=serve_launches["kv_retry_vec"],
-             family_launches=family_launches["kv_retry"]),
+             family_launches=family_launches["kv_retry"],
+             encdec_launches=encdec_launches["kv_retry"],
+             encdec_held=len(encdec_held["kv_retry"])),
         _kernel_line("ssd_scan", f"{kernels}/ssd_scan/csrc/ssd_scan.cu",
                      "src/repro/kernels/ssd_scan/kernel.py:40",
                      ssd_launches, ssd_cases, held_ssd, library=False),

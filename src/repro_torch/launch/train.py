@@ -38,6 +38,7 @@ from repro_torch.data import (CorpusConfig, FlashTierReader,
 from repro_torch.device import resolve_device
 from repro_torch.flashsim.config import OperatingCondition
 from repro_torch.models import build_model
+from repro_torch.models.api import frontend_zeros
 from repro_torch.optim.adamw import (AdamWConfig, adamw_update,
                                      cosine_schedule, init_opt_state,
                                      tree_leaves, tree_map)
@@ -134,8 +135,17 @@ def train(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
                                           batch=batch))
     reader = FlashTierReader(corpus, RetryPolicy(mechanism), condition,
                              device=dev)
+    # The stub frontends' zero inputs (VLM patches, encoder frames), as
+    # the reference's launcher adds them: float32 zeros, which the model
+    # casts to the activation dtype.
+    zeros = {k: v.numpy() for k, v in frontend_zeros(
+        cfg, batch, "cpu", torch.float32).items()}
+
+    def read(i):
+        return {**reader.read(i), **zeros}
+
     end = steps if stop_after is None else min(steps, stop_after)
-    pipe = PrefetchPipeline(reader.read, n_batches=max(end - start, 0),
+    pipe = PrefetchPipeline(read, n_batches=max(end - start, 0),
                             start_index=start, device=dev)
     run = TrainRun(losses={}, start_step=start, step_s=[], reader=reader,
                    pipeline=pipe, restore_stats=rstats, state=state)

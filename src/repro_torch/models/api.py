@@ -1,12 +1,13 @@
 """Public model API: ``build_model(cfg, device, generator)`` -> Model bundle.
 
-The port builds the decoder family: global and sliding-window attention,
-Mamba-2 SSD blocks and RG-LRU blocks (with the pattern tail of
-recurrentgemma), each attention or RG-LRU layer with a dense MLP or the
-MoE FFN (olmoe, llama4).  Encoder-decoder and VLM families raise
-``NotImplementedError`` (ROADMAP D12); ``input_specs`` is JAX dry-run
-tooling and waits for ROADMAP item 13.  ``train_loss`` trains every
-block kind but Mamba-2's (ROADMAP D14b).
+The port builds every family: the decoder (global and sliding-window
+attention, Mamba-2 SSD blocks and RG-LRU blocks with the pattern tail of
+recurrentgemma, each attention or RG-LRU layer with a dense MLP or the
+MoE FFN of olmoe and llama4), the VLM (internvl2: the decoder over a
+patch prefix, ``batch["patches"]``) and the encoder-decoder (whisper:
+``models.encdec``, ``batch["audio_embed"]``).  ``input_specs`` is JAX
+dry-run tooling and waits for ROADMAP item 13.  ``train_loss`` trains
+every block kind but Mamba-2's (ROADMAP D14b).
 """
 
 from __future__ import annotations
@@ -19,7 +20,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.models import encdec as ED
 from repro_torch.models import lm as LM
+from repro_torch.models.common import act_dtype
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,13 +46,33 @@ def build_model(cfg: ModelConfig, device=None,
     generator on ``device`` seeded with 0.
     """
     dev = resolve_device(device)
-    if cfg.family != "decoder":
-        raise NotImplementedError(
-            f"the {cfg.family!r} family is not ported: ROADMAP D12")
     if generator is None:
         generator = torch.Generator(dev).manual_seed(0)
+    if cfg.family == "encdec":
+        return Model(cfg=cfg,
+                     init=functools.partial(ED.encdec_init, cfg, generator),
+                     train_loss=functools.partial(ED.train_loss, cfg),
+                     prefill=functools.partial(ED.prefill, cfg),
+                     decode_step=functools.partial(ED.decode_step, cfg))
     return Model(cfg=cfg,
                  init=functools.partial(LM.lm_init, cfg, generator),
                  train_loss=functools.partial(LM.train_loss, cfg),
                  prefill=functools.partial(LM.prefill, cfg),
                  decode_step=functools.partial(LM.decode_step, cfg))
+
+
+def frontend_zeros(cfg: ModelConfig, batch: int, device=None,
+                   dtype: Optional[torch.dtype] = None) -> dict:
+    """The stub modality frontends' inputs as the reference's serving
+    engine and training launcher feed them: zero patch embeddings (B,
+    n_patches, d) for the VLM, zero frame embeddings (B, enc_positions,
+    d) for the encoder-decoder, none for the decoder; in ``dtype`` (by
+    default the activation dtype) on ``device`` (``None``: the card)."""
+    dt = act_dtype(cfg) if dtype is None else dtype
+    shape = {"vlm": ("patches", cfg.n_patches),
+             "encdec": ("audio_embed", cfg.enc_positions)}.get(cfg.family)
+    if shape is None:
+        return {}
+    name, n = shape
+    return {name: torch.zeros((batch, n, cfg.d_model), dtype=dt,
+                              device=resolve_device(device))}

@@ -1,4 +1,5 @@
-"""GQA attention for the decoder: full-sequence (prefill) and cached decode.
+"""GQA attention: global, local, bidirectional and cross; prefill, cached
+decode and training.
 
 Layouts, as in the reference:
   q:        (B, T, K, G, hd)   with H = K * G (G query groups per KV head)
@@ -13,18 +14,21 @@ fallbacks and are covered by that plain version.  Decode attention is
 plain torch (einsum, softmax, valid mask), as the reference computes it
 outside any kernel.
 
-Decode on a global cache writes the new token's K/V at slot
-``min(pos, S - 1)``: the reference's ``dynamic_update_slice`` clamps its
-start index, and its serving engine prefills without headroom, so every
-decode step overwrites the last slot (ROADMAP C6).  Bidirectional and
-cross attention (encoder-decoder) and the in-model int8 cache
-(``REPRO_KV_INT8``) are not ported (ROADMAP D12, D13).
+Bidirectional attention (the whisper encoder's) and cross attention
+(its decoder's, over the encoder output ``enc_out``) take the kernel
+with ``causal=False``; a cross cache holds the S encoder positions'
+K/V, static through decode.  Decode on a global cache writes the new
+token's K/V at slot ``min(pos, S - 1)``: the reference's
+``dynamic_update_slice`` clamps its start index, and its serving engine
+prefills without headroom, so every decode step overwrites the last slot
+(ROADMAP C6).  The in-model int8 cache (``REPRO_KV_INT8``) is not ported
+(ROADMAP D13).
 """
 
 from __future__ import annotations
 
 import os
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -57,13 +61,15 @@ def _proj(x, w):
         x.shape[:-1] + (n, hd))
 
 
-def _project_qkv(cfg: ModelConfig, p, x):
-    """-> q (B,T,K,G,hd), k/v (B,T,K,hd) before rope."""
+def _project_qkv(cfg: ModelConfig, p, x, kv_x=None):
+    """-> q (B,T,K,G,hd), k/v (B,S,K,hd) before rope; K and V project
+    ``kv_x`` (cross attention's encoder output) where given, else x."""
     K = cfg.n_kv_heads
     G = cfg.n_heads // K
+    src = x if kv_x is None else kv_x
     q = _proj(x, p["wq"])
-    k = _proj(x, p["wk"])
-    v = _proj(x, p["wv"])
+    k = _proj(src, p["wk"])
+    v = _proj(src, p["wv"])
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_scale"])
         k = rmsnorm(k, p["k_scale"])
@@ -79,27 +85,53 @@ def _merge_out(cfg: ModelConfig, p, o):
     return o @ p["wo"].to(o.dtype).reshape(H * hd, d)
 
 
-def attention_fullseq(cfg: ModelConfig, p: dict, x, positions,
-                      kind: str) -> Tuple[torch.Tensor, dict]:
-    """Prefill attention of ``kind`` "causal" or "local" over x (B, T, d);
-    returns (y, cache).  A global cache holds exactly the T prompt slots
-    (no decode headroom, as the reference's serving engine asks)."""
-    if kind not in ("causal", "local"):
-        raise NotImplementedError(
-            f"{kind!r} attention (encoder-decoder) is not ported: "
-            f"ROADMAP D12")
+#: The attention kinds: decoder self-attention (global, sliding-window),
+#: the encoder's bidirectional attention, the decoder's cross attention.
+_KINDS = ("causal", "local", "bidir", "cross")
+
+
+def _check_kv_int8() -> None:
     if os.environ.get("REPRO_KV_INT8", "0") == "1":
         raise NotImplementedError(
             "REPRO_KV_INT8 (the in-model int8 KV cache) is not ported: "
             "ROADMAP D13")
-    q, k, v = _project_qkv(cfg, p, x)
+
+
+def _roped_qkv(cfg: ModelConfig, p, x, positions, kind, enc_out=None,
+               enc_positions=None):
+    """q, k, v of ``kind`` with rope applied as the reference applies it
+    (cross K/V, from ``enc_out``, unroped), and the keys' positions."""
+    if kind not in _KINDS:
+        raise ValueError(kind)
+    if (kind == "cross") != (enc_out is not None):
+        raise ValueError("cross attention, and only it, takes enc_out")
+    q, k, v = _project_qkv(cfg, p, x, kv_x=enc_out)
     q = rope(q.reshape(q.shape[:2] + (-1, q.shape[-1])), positions,
              cfg.rope_theta).reshape(q.shape)
-    k = rope(k, positions, cfg.rope_theta)
+    kv_pos = positions if enc_out is None else enc_positions
+    if kind != "cross":
+        k = rope(k, kv_pos, cfg.rope_theta)
+    return q, k, v, kv_pos
+
+
+def attention_fullseq(cfg: ModelConfig, p: dict, x, positions, kind: str,
+                      enc_out=None, enc_positions=None
+                      ) -> Tuple[torch.Tensor, Optional[dict]]:
+    """Prefill attention of ``kind`` over x (B, T, d); ``enc_out`` (B, S,
+    d) and ``enc_positions`` (S,) for "cross".  Returns (y, cache): a
+    global cache holds exactly the T prompt slots (no decode headroom,
+    as the reference's serving engine asks), a cross cache the S encoder
+    positions, and a bidirectional layer none."""
+    _check_kv_int8()
+    q, k, v, _ = _roped_qkv(cfg, p, x, positions, kind, enc_out,
+                            enc_positions)
     window = cfg.window if kind == "local" else None
-    o = flash_attention(q, k, v, causal=True, window=window,
-                        softcap=cfg.attn_softcap, device=x.device)
+    o = flash_attention(q, k, v, causal=kind in ("causal", "local"),
+                        window=window, softcap=cfg.attn_softcap,
+                        device=x.device)
     y = _merge_out(cfg, p, o)
+    if kind == "bidir":
+        return y, None
     kc = k.transpose(1, 2)
     vc = v.transpose(1, 2)
     if kind == "local":
@@ -114,14 +146,12 @@ def attention_fullseq(cfg: ModelConfig, p: dict, x, positions,
 
 def attention_decode(cfg: ModelConfig, p: dict, x, cache: dict, pos: int,
                      kind: str) -> Tuple[torch.Tensor, dict]:
-    """One decode step of ``kind`` "causal" or "local"; x (B, 1, d), pos
-    the new token's absolute position.  Returns (y, new cache); the
-    input cache is not modified."""
-    if kind not in ("causal", "local"):
-        raise NotImplementedError(
-            f"{kind!r} decode attention (encoder-decoder) is not ported: "
-            f"ROADMAP D12")
-    dt = x.dtype
+    """One decode step of ``kind`` "causal", "local" or "cross"; x (B, 1,
+    d), pos the new token's absolute position.  Returns (y, new cache);
+    the input cache is not modified, and a cross cache (static, every
+    key valid) is returned as it came."""
+    if kind not in ("causal", "local", "cross"):
+        raise ValueError(kind)
     K = cfg.n_kv_heads
     G = cfg.n_heads // K
     hd = cfg.resolved_head_dim
@@ -133,6 +163,10 @@ def attention_decode(cfg: ModelConfig, p: dict, x, cache: dict, pos: int,
         q = rmsnorm(q, p["q_scale"])
     q = rope(q, positions, cfg.rope_theta).reshape(B, 1, K, G, hd)
 
+    if kind == "cross":
+        ck, cv = cache["k"], cache["v"]
+        valid = torch.ones((ck.shape[2],), dtype=torch.bool, device=x.device)
+        return _decode_attend(cfg, p, q, ck, cv, valid), cache
     knew = _proj(x, p["wk"])
     vnew = _proj(x, p["wv"])
     if cfg.qk_norm:
@@ -153,16 +187,22 @@ def attention_decode(cfg: ModelConfig, p: dict, x, cache: dict, pos: int,
         ck[:, :, slot] = knew[:, :, 0]
         cv[:, :, slot] = vnew[:, :, 0]
         valid = torch.arange(S, device=x.device) <= pos
+    return _decode_attend(cfg, p, q, ck, cv, valid), {"k": ck, "v": cv}
 
-    # s: (B, K, G, 1, S), products of dt values summed in float32.
+
+def _decode_attend(cfg: ModelConfig, p, q, ck, cv, valid):
+    """One query token q (B, 1, K, G, hd) over a cache ck, cv (B, K, S,
+    hd) where ``valid`` (S,): the output projection of the softmax."""
+    hd = q.shape[-1]
+    # s: (B, K, G, 1, S), products of the activation dtype's values
+    # summed in float32.
     qf = q.float().permute(0, 2, 3, 1, 4)                 # (B,K,G,1,hd)
     s = torch.matmul(qf, ck.float()[:, :, None].transpose(-1, -2))
     s = softcap(s * (hd ** -0.5), cfg.attn_softcap)
     s = torch.where(valid, s, NEG)
-    w = torch.softmax(s, dim=-1).to(dt)
+    w = torch.softmax(s, dim=-1).to(q.dtype)
     o = torch.matmul(w, cv[:, :, None])                   # (B,K,G,1,hd)
-    y = _merge_out(cfg, p, o.permute(0, 3, 1, 2, 4))
-    return y, {"k": ck, "v": cv}
+    return _merge_out(cfg, p, o.permute(0, 3, 1, 2, 4))
 
 
 # -- training: the reference's blockwise and windowed attention -----------------
@@ -275,22 +315,18 @@ def windowed_attention(cfg: ModelConfig, q, k, v, q_positions,
     return torch.cat(outs, dim=1)[:, :T]
 
 
-def attention_train(cfg: ModelConfig, p: dict, x, positions, kind: str):
-    """Training attention of ``kind`` "causal" or "local" over x (B,T,d):
-    the reference's training path, blockwise (global) or windowed
-    (local) online softmax, differentiable by autograd.  No kernel runs
-    here: flash attention stays the prefill's."""
-    if kind not in ("causal", "local"):
-        raise NotImplementedError(
-            f"{kind!r} attention (encoder-decoder) is not ported: "
-            f"ROADMAP D12")
-    q, k, v = _project_qkv(cfg, p, x)
-    q = rope(q.reshape(q.shape[:2] + (-1, q.shape[-1])), positions,
-             cfg.rope_theta).reshape(q.shape)
-    k = rope(k, positions, cfg.rope_theta)
+def attention_train(cfg: ModelConfig, p: dict, x, positions, kind: str,
+                    enc_out=None, enc_positions=None):
+    """Training attention of ``kind`` over x (B,T,d) (``enc_out``,
+    ``enc_positions`` for "cross"): the reference's training path,
+    blockwise (global, bidirectional, cross) or windowed (local) online
+    softmax, differentiable by autograd.  No kernel runs here: flash
+    attention stays the prefill's."""
+    q, k, v, kv_pos = _roped_qkv(cfg, p, x, positions, kind, enc_out,
+                                 enc_positions)
     if kind == "local":
         o = windowed_attention(cfg, q, k, v, positions, cfg.window)
     else:
-        o = blockwise_attention(cfg, q, k, v, positions, positions,
-                                causal=True)
+        o = blockwise_attention(cfg, q, k, v, positions, kv_pos,
+                                causal=kind == "causal")
     return _merge_out(cfg, p, o)

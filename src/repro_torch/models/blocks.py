@@ -4,8 +4,10 @@ An attention (``ATTN``, ``LOCAL``) or RG-LRU (``RGLRU``) layer is (norm
 -> temporal mixer -> residual) + (norm -> FFN -> residual), where the
 FFN is a dense MLP or, on MoE layers, the MoE FFN; an SSD layer
 (``SSM``) is the whole mixer-and-channel layer, (norm -> Mamba-2 block
--> residual), with no second norm or FFN.  Encoder-decoder attention
-(``ENC_ATTN``) raises ``NotImplementedError`` naming ROADMAP D12.
+-> residual), with no second norm or FFN.  The whisper encoder's layers
+(``ENC_ATTN``) attend bidirectionally; its decoder's layers add a cross
+sub-block (``lnx``, ``xattn``: norm -> cross attention over the encoder
+output -> residual) after the self-attention residual.
 """
 
 from __future__ import annotations
@@ -21,20 +23,17 @@ from repro_torch.models import rglru as RG
 from repro_torch.models import ssm as SSMM
 from repro_torch.models.common import apply_norm, mlp_apply, mlp_init, norm_init
 
-#: ROADMAP items of the block kinds the port does not have.
-_NOT_PORTED = {ENC_ATTN: "D12 (encoder-decoder attention)"}
+#: The attention kind of each attention block kind.
+_ATTN_KINDS = {ATTN: "causal", LOCAL: "local", ENC_ATTN: "bidir"}
 
 
 def check_kind(kind: str) -> None:
-    if kind in _NOT_PORTED:
-        raise NotImplementedError(
-            f"block kind {kind!r} is not ported: ROADMAP {_NOT_PORTED[kind]}")
-    if kind not in (ATTN, LOCAL, SSM, RGLRU):
+    if kind not in (*_ATTN_KINDS, SSM, RGLRU):
         raise ValueError(kind)
 
 
 def block_init(gen: torch.Generator, cfg: ModelConfig, kind: str,
-               moe_here: bool) -> dict:
+               moe_here: bool, cross: bool = False) -> dict:
     check_kind(kind)
     d = cfg.d_model
     p = {"ln1": norm_init(cfg, d, gen.device)}
@@ -45,6 +44,9 @@ def block_init(gen: torch.Generator, cfg: ModelConfig, kind: str,
         p["rglru"] = RG.rglru_init(gen, cfg)
     else:
         p["attn"] = A.attn_init(gen, cfg)
+    if cross:
+        p["lnx"] = norm_init(cfg, d, gen.device)
+        p["xattn"] = A.attn_init(gen, cfg)
     p["ln2"] = norm_init(cfg, d, gen.device)
     if moe_here:
         p["moe"] = MOE.moe_init(gen, cfg, cfg.moe)
@@ -53,8 +55,17 @@ def block_init(gen: torch.Generator, cfg: ModelConfig, kind: str,
     return p
 
 
-def _attn_kind(kind: str) -> str:
-    return "local" if kind == LOCAL else "causal"
+def _cross(cfg: ModelConfig, p: dict, x, positions, enc_out, enc_positions,
+           train: bool = False):
+    """The cross sub-block of a decoder layer on its residual input x:
+    (x plus cross attention over ``enc_out``, the cross cache or None)."""
+    h = apply_norm(cfg, p["lnx"], x)
+    if train:
+        return x + A.attention_train(cfg, p["xattn"], h, positions, "cross",
+                                     enc_out, enc_positions), None
+    y, c = A.attention_fullseq(cfg, p["xattn"], h, positions, "cross",
+                               enc_out, enc_positions)
+    return x + y, c
 
 
 def _ffn(cfg: ModelConfig, p: dict, x, with_aux: bool = False):
@@ -68,9 +79,12 @@ def _ffn(cfg: ModelConfig, p: dict, x, with_aux: bool = False):
     return MOE.moe_apply(cfg, cfg.moe, p["moe"], h), None
 
 
-def block_fullseq(cfg: ModelConfig, kind: str, p: dict, x,
-                  positions) -> Tuple[torch.Tensor, dict]:
-    """Prefill block application; returns (x, cache)."""
+def block_fullseq(cfg: ModelConfig, kind: str, p: dict, x, positions,
+                  enc_out=None, enc_positions=None
+                  ) -> Tuple[torch.Tensor, dict]:
+    """Prefill block application (``enc_out``, ``enc_positions``: the
+    encoder output a cross sub-block attends to); returns (x, cache),
+    which is empty for an encoder layer."""
     check_kind(kind)
     h = apply_norm(cfg, p["ln1"], x)
     if kind == SSM:
@@ -81,9 +95,12 @@ def block_fullseq(cfg: ModelConfig, kind: str, p: dict, x,
         cache = {"rglru": c}
     else:
         y, c = A.attention_fullseq(cfg, p["attn"], h, positions,
-                                   _attn_kind(kind))
-        cache = {"attn": c}
+                                   _ATTN_KINDS[kind])
+        cache = {} if c is None else {"attn": c}
     x = x + y
+    if "xattn" in p:
+        x, cache["xattn"] = _cross(cfg, p, x, positions, enc_out,
+                                   enc_positions)
     return x + _ffn(cfg, p, x)[0], cache
 
 
@@ -96,7 +113,8 @@ def block_train_check(kind: str) -> None:
             "ROADMAP D14b")
 
 
-def block_train(cfg: ModelConfig, kind: str, p: dict, x, positions
+def block_train(cfg: ModelConfig, kind: str, p: dict, x, positions,
+                enc_out=None, enc_positions=None
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Training block application (no cache), the reference's
     ``block_fullseq(..., "train")``: returns (x, the MoE layer's aux loss
@@ -106,8 +124,12 @@ def block_train(cfg: ModelConfig, kind: str, p: dict, x, positions
     if kind == RGLRU:
         y, _ = RG.rglru_fullseq(cfg, p["rglru"], h, return_cache=False)
     else:
-        y = A.attention_train(cfg, p["attn"], h, positions, _attn_kind(kind))
+        y = A.attention_train(cfg, p["attn"], h, positions,
+                              _ATTN_KINDS[kind])
     x = x + y
+    if "xattn" in p:
+        x, _ = _cross(cfg, p, x, positions, enc_out, enc_positions,
+                      train=True)
     y, aux = _ffn(cfg, p, x, with_aux=True)
     return x + y, aux
 
@@ -124,7 +146,12 @@ def block_decode(cfg: ModelConfig, kind: str, p: dict, x, cache: dict,
         new_cache = {"rglru": c}
     else:
         y, c = A.attention_decode(cfg, p["attn"], h, cache["attn"], pos,
-                                  _attn_kind(kind))
+                                  _ATTN_KINDS[kind])
         new_cache = {"attn": c}
     x = x + y
+    if "xattn" in p:
+        h = apply_norm(cfg, p["lnx"], x)
+        y, new_cache["xattn"] = A.attention_decode(
+            cfg, p["xattn"], h, cache["xattn"], pos, "cross")
+        x = x + y
     return x + _ffn(cfg, p, x)[0], new_cache

@@ -1,4 +1,5 @@
-"""Decoder-only LM assembled from the block pattern.
+"""Decoder-only LM assembled from the block pattern, and the VLM: the same
+backbone over projected patch embeddings prepended to the tokens.
 
 Parameters and caches keep the reference's stacked-unit layout: every
 leaf of ``params["units"]`` and ``cache["units"]`` carries a leading
@@ -15,6 +16,12 @@ scan body), so only the unit inputs are kept; the tail runs without
 remat.  MoE configs add 0.01 x the load-balance aux loss summed over the
 units' MoE layers: the reference drops the tail's aux, and so does the
 port (ROADMAP D15 notes the quirk).
+
+The VLM (``family == "vlm"``, internvl2) takes ``batch["patches"]`` (B,
+n_patches, d), the stub vision frontend's output, in front of the token
+embeddings: positions run over n_patches + T, the prefill cache holds
+those slots, and ``train_loss`` drops the prefix rows before the
+logits.
 """
 
 from __future__ import annotations
@@ -57,9 +64,8 @@ def _index(tree, u: int):
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "decoder":
-        raise NotImplementedError(
-            f"the {cfg.family!r} family is not ported: ROADMAP D12")
+    if cfg.family not in ("decoder", "vlm"):
+        raise ValueError(f"the {cfg.family!r} family is not a decoder LM")
     for kind in cfg.block_pattern + cfg.tail_pattern():
         B.check_kind(kind)
 
@@ -123,12 +129,21 @@ def backbone_decode(cfg: ModelConfig, params, x, cache, pos: int):
 # -- entry points ---------------------------------------------------------------
 
 
+def _embed_input(cfg: ModelConfig, params, batch):
+    """Token embeddings, with the VLM's patches prepended: (x, the
+    number of prefix rows)."""
+    x = embed_apply(cfg, params["embed_p"], batch["tokens"])
+    if cfg.family != "vlm":
+        return x, 0
+    patches = batch["patches"]
+    return torch.cat([patches.to(x.dtype), x], dim=1), patches.shape[1]
+
+
 def prefill(cfg: ModelConfig, params, batch):
-    """batch {"tokens": (B, T) int}: -> (last-position float32 logits
-    (B, 1, V), cache)."""
+    """batch {"tokens": (B, T) int; the VLM's "patches": (B, P, d)}: ->
+    (last-position float32 logits (B, 1, V), cache)."""
     _check_family(cfg)
-    tokens = batch["tokens"]
-    x = embed_apply(cfg, params["embed_p"], tokens)
+    x, _ = _embed_input(cfg, params, batch)
     T = x.shape[1]
     positions = torch.arange(T, dtype=torch.int32, device=x.device)
     x, cache = backbone_fullseq(cfg, params, x, positions)
@@ -157,13 +172,14 @@ def _unit_train(cfg: ModelConfig, unit_p, x, positions):
 
 
 def train_loss(cfg: ModelConfig, params, batch):
-    """batch {"tokens", "labels": (B, T) int}: -> scalar float32 mean
-    next-token cross-entropy (plus 0.01 x the units' load-balance aux
-    loss for MoE configs), differentiable in ``params``."""
+    """batch {"tokens", "labels": (B, T) int; the VLM's "patches"}: ->
+    scalar float32 mean next-token cross-entropy over the token rows
+    (plus 0.01 x the units' load-balance aux loss for MoE configs),
+    differentiable in ``params``."""
     _check_family(cfg)
     for kind in cfg.block_pattern + cfg.tail_pattern():
         B.block_train_check(kind)
-    x = embed_apply(cfg, params["embed_p"], batch["tokens"])
+    x, n_prefix = _embed_input(cfg, params, batch)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for u in range(cfg.unit_count()):
@@ -173,7 +189,7 @@ def train_loss(cfg: ModelConfig, params, batch):
         aux_total = aux_total + aux
     for i, kind in enumerate(cfg.tail_pattern()):   # tail aux dropped
         x, _ = B.block_train(cfg, kind, params["tail"][i], x, positions)
-    x = apply_norm(cfg, params["final_norm"], x)
+    x = apply_norm(cfg, params["final_norm"], x)[:, n_prefix:]
     logits = logits_apply(cfg, params["embed_p"], x)
     loss = cross_entropy(logits[:, :-1], batch["labels"][:, 1:])
     if cfg.moe is not None:

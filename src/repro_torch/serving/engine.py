@@ -9,7 +9,11 @@
 Requests of unequal length are left-padded to the batch maximum so the
 KV cache is rectangular (static-batch serving).  The prefill keeps no
 cache headroom, as the reference's engine does, so each decode step
-writes the last cache slot (ROADMAP C6).  Greedy sampling keeps outputs
+writes the last cache slot (ROADMAP C6).  As the reference's engine
+does, the VLM prefills over zero patch embeddings and decodes from
+position T + n_patches, and the encoder-decoder over zero frame
+embeddings; its static cross-attention leaves are read (and
+re-quantized) every step like the others.  Greedy sampling keeps outputs
 deterministic.  ``RetryPolicy`` "baseline" serves every read from the
 backing tier; the AR² mechanisms serve margin-cleared pages from int8.
 Times are host-clock seconds around work that ends in a device
@@ -28,7 +32,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.retry import RetryPolicy
 from repro_torch.device import resolve_device
-from repro_torch.models.api import build_model
+from repro_torch.models.api import build_model, frontend_zeros
 from repro_torch.serving.kv_store import KVReadStats, QuantizedKVStore
 
 
@@ -84,7 +88,8 @@ class ServeEngine:
                  eos_id: Optional[int] = None) -> Tuple[np.ndarray, ServeStats]:
         tokens = self._pad_batch(prompts)
         B, T = tokens.shape
-        batch = {"tokens": torch.as_tensor(tokens, device=self.device)}
+        batch = {"tokens": torch.as_tensor(tokens, device=self.device),
+                 **frontend_zeros(self.cfg, B, self.device)}
 
         _sync(self.device)
         t0 = time.perf_counter()
@@ -94,6 +99,7 @@ class ServeEngine:
         self.store.pack(cache)
 
         out = [self._greedy(logits)]
+        pos = T + (self.cfg.n_patches if self.cfg.family == "vlm" else 0)
         done = np.zeros((B,), bool)
 
         t0 = time.perf_counter()
@@ -101,7 +107,7 @@ class ServeEngine:
             step_batch = {
                 "token": torch.as_tensor(out[-1][:, None], dtype=torch.int64,
                                          device=self.device),
-                "pos": T + step,
+                "pos": pos + step,
                 "cache": self.store.materialize(),
             }
             logits, new_cache = self.model.decode_step(self.params, step_batch)

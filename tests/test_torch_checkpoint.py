@@ -127,6 +127,44 @@ class TestAgainstReference:
         out, _ = restore(d, tparams)
         _assert_tree_equal(out, tparams)
 
+    def test_encdec_state_byte_identical_and_restored_by_both(self,
+                                                              tmp_path):
+        """A reduced whisper's parameters (the learned positions, stacked
+        encoder and decoder units with their cross sub-blocks): the same
+        leaf order as jax's, byte-identical files, and each package
+        restores the other's checkpoint bit for bit, one corrupt shard
+        reconstructed."""
+        import jax
+
+        from repro.configs import get_config as ref_get_config
+        from repro.configs.base import reduced_config as ref_reduced_config
+        from repro.models import build_model as ref_build_model
+        from repro_torch.models.convert import params_from_jax
+        from repro_torch.optim.adamw import tree_leaves
+
+        rcfg = ref_reduced_config(ref_get_config("whisper-large-v3"))
+        params = jax.tree.map(np.asarray, ref_build_model(rcfg).init(
+            jax.random.PRNGKey(0)))
+        tparams = params_from_jax(params, "cpu")
+        assert "xattn" in tparams["dec_units"]["b0"]
+        for a, b in zip(jax.tree.leaves(params), tree_leaves(tparams),
+                        strict=True):
+            np.testing.assert_array_equal(a, b.numpy())
+        ref_d = RCK.save(tmp_path / "ref", params, shard_bytes=1 << 20)
+        d = save(tmp_path / "port", tparams, shard_bytes=1 << 20)
+        names = _files(ref_d)
+        assert names == _files(d) and len(names) > 2
+        for n in names:
+            assert (ref_d / n).read_bytes() == (d / n).read_bytes(), n
+        corrupt_shard(ref_d, 1)
+        out, st = restore(ref_d, tparams)
+        _assert_tree_equal(out, tparams)
+        assert st.n_reconstructed == 1
+        delete_shard(d, 0)
+        out, st = RCK.restore(d, params)
+        _assert_tree_equal(out, params)
+        assert st.n_reconstructed == 1
+
     def test_bfloat16_leaves_round_trip(self, tmp_path):
         x = torch.randn(64, 33).to(torch.bfloat16)
         out, _ = restore(save(tmp_path / "ck", {"x": x}), {"x": x})

@@ -121,6 +121,27 @@ def test_flash_attention_tc_lengths_and_groups(T, G):
     assert bf16_err_ratio(got, want) <= 1.0
 
 
+@pytest.mark.parametrize("BK,G,T,S,causal", [
+    (40, 1, 1500, 1500, False), (40, 1, 11, 1500, False),
+    (4, 7, 267, 267, True)], ids=["encoder", "cross", "vlm-g7"])
+def test_flash_attention_tc_encoder_decoder_and_vlm_shapes(BK, G, T, S,
+                                                           causal):
+    """The serving shapes of whisper-large-v3 and internvl2-1b at hd 64
+    on the tensor-core kernel: the encoder's bidirectional attention at
+    T = S = 1500 (no multiple of a key tile: the last tile of every kv
+    row, the last row's too, is ragged), the decoder's cross attention
+    of 11 query rows (a query tile mostly padding) over 1500 keys, and
+    internvl's causal attention of 14 query heads over 2 KV heads (G 7)."""
+    q, k, v = _fa_inputs(BK, G, T, S, 64, torch.bfloat16, seed=T + G)
+    before = FA.tc_launches
+    got = FA.flash_attention_fwd(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert FA.tc_launches == before + 1
+    want = flash_attention_plain(q, k, v, causal=causal)
+    assert got.shape == q.shape and bool(torch.isfinite(got).all())
+    assert bf16_err_ratio(got, want) <= 1.0
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_kv_valid_zero_outputs_zero(dtype):
     """kv_valid = 0 hides every key: every row is 0, as in the reference."""

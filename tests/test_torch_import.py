@@ -86,6 +86,12 @@ def test_import_and_simulate_without_jax(tmp_path):
         "gen, st = eng.generate([np.array([5, 9, 11]), np.array([7, 3])],"
         " max_new_tokens=2)\n"
         "assert gen.shape == (2, 2) and st.kv.pages == 0, (gen, st)\n"
+        "from repro_torch.models import encdec\n"
+        "for arch in ('whisper-large-v3', 'internvl2-1b'):\n"
+        "    eng = ServeEngine(reduced_config(get_config(arch)), device='cpu')\n"
+        "    gen, st = eng.generate([np.array([5, 9, 11]), np.array([7, 3])],"
+        " max_new_tokens=2)\n"
+        "    assert gen.shape == (2, 2) and st.kv.pages > 0, (arch, gen, st)\n"
         "from repro_torch.kernels.rber import rber_table\n"
         "t = rber_table(np.zeros((2, 8)), np.ones((2, 8)), np.zeros((3, 7)),"
         " device='cpu')\n"
@@ -159,6 +165,8 @@ def _entry_points():
 
     cfg = reduced_config(rt.get_config("llama3.2-3b"))
     mamba = reduced_config(rt.get_config("mamba2-130m"))
+    whisper = reduced_config(rt.get_config("whisper-large-v3"))
+    from repro_torch.models.api import frontend_zeros
     x = torch.zeros(8, 16)
     q = torch.zeros(1, 8, 2, 2, 16)
     kv = torch.zeros(1, 8, 2, 16)
@@ -166,6 +174,8 @@ def _entry_points():
         "ServeEngine": lambda: rt.ServeEngine(cfg),
         "build_model": lambda: rt.build_model(cfg),
         "build_model-mamba2": lambda: rt.build_model(mamba),
+        "build_model-whisper": lambda: rt.build_model(whisper),
+        "frontend_zeros": lambda: frontend_zeros(whisper, 1),
         "ssd_scan": lambda: ssd_scan(torch.zeros(1, 8, 2, 16),
                                      torch.zeros(1, 8, 4),
                                      torch.zeros(1, 8, 4),
@@ -207,7 +217,8 @@ def _entry_points():
 
 
 @pytest.mark.parametrize("name", [
-    "ServeEngine", "build_model", "build_model-mamba2", "params_from_jax",
+    "ServeEngine", "build_model", "build_model-mamba2", "build_model-whisper",
+    "frontend_zeros", "params_from_jax",
     "kv_read_with_retry", "flash_attention", "ssd_scan", "rber_table",
     "characterize_condition", "attempt_histogram", "attempt_cdf", "SSDSim",
     "simulate", "simulate-closed", "compare_mechanisms", "simulate_batch", "SSDSimRef",

@@ -79,9 +79,13 @@ def test_engine_matches_reference(setup, mechanism, tau):
     print(f"{mechanism} tau={tau}: {st.summary()}")
 
 
-#: The RG-LRU and MoE families, reduced (recurrentgemma with its tail).
+#: The RG-LRU, MoE, encoder-decoder and VLM families, reduced
+#: (recurrentgemma with its tail).  The engines feed whisper zero frame
+#: embeddings and internvl zero patch embeddings, and internvl decodes
+#: from position T + n_patches.
 FAMILY_ARCHS = {"recurrentgemma-2b": dict(n_layers=8), "olmoe-1b-7b": {},
-                "llama4-maverick-400b-a17b": {}}
+                "llama4-maverick-400b-a17b": {}, "whisper-large-v3": {},
+                "internvl2-1b": {}}
 FAMILY_PROMPTS = [np.arange(3, 43, dtype=np.int32) % 500 + 2,
                   np.array([7, 3, 9], np.int32)]
 _FAMILY = {}
@@ -116,6 +120,38 @@ def test_families_engine_matches_reference(arch, mechanism, tau):
     # Baseline keeps no fast tier and reads through it 0 pages.
     assert (st.kv.fast_pages > 0) == (mechanism != "baseline")
     print(f"{arch} {mechanism} tau={tau}: {st.summary()}")
+
+
+def test_store_reads_cross_leaves_in_the_references_order():
+    """A whisper prefill cache (self ``attn`` and static cross ``xattn``
+    leaves of every decoder unit): the same fast-tier keys in the same
+    order, bitwise int8 pages, equal stats and reads as the reference's
+    store."""
+    ref_cfg, ref_params, cfg, params = _family("whisper-large-v3")
+    toks = np.array([[5, 9, 11, 2], [0, 0, 7, 3]], np.int32)
+    audio = np.random.default_rng(6).standard_normal(
+        (2, cfg.enc_positions, cfg.d_model)).astype(np.float32)
+    _, ref_cache = ref_build_model(ref_cfg).prefill(ref_params, {
+        "tokens": jnp.asarray(toks), "audio_embed": jnp.asarray(audio)})
+    cache = params_from_jax(jax.tree.map(np.asarray, ref_cache), "cpu")
+    ref_store, store = RefStore(RefPolicy("pr2ar2"), tau=0.01), \
+        QuantizedKVStore(RetryPolicy("pr2ar2"), tau=0.01)
+    ref_store.pack(ref_cache)
+    store.pack(cache)
+    assert list(store.fast) == list(ref_store.fast) == [
+        f"['units']['b0']['{a}']['{n}']" for a in ("attn", "xattn")
+        for n in ("k", "v")]
+    for key, (q, sc) in store.fast.items():
+        assert np.array_equal(q.numpy(), np.asarray(ref_store.fast[key][0]))
+        assert np.array_equal(sc.numpy(), np.asarray(ref_store.fast[key][1]))
+    got, want = store.materialize(), ref_store.materialize()
+    assert dataclasses.asdict(store.stats) == dataclasses.asdict(
+        ref_store.stats)
+    assert store.stats.pages == 2 * 2 * 2 * 4 * (4 + cfg.enc_positions)
+    for a in ("attn", "xattn"):
+        for n in ("k", "v"):
+            assert np.array_equal(got["units"]["b0"][a][n].numpy(),
+                                  np.asarray(want["units"]["b0"][a][n]))
 
 
 def test_store_walks_lists_in_the_references_order():
@@ -247,3 +283,13 @@ def test_serve_cli(capsys):
     assert "kv_fast=" in out and "req1:" in out
     with pytest.raises(NotImplementedError, match="item 13"):
         serve.main(["--dry-run"])
+
+
+@pytest.mark.parametrize("arch", ["whisper-large-v3", "internvl2-1b"])
+def test_serve_cli_encdec_and_vlm(arch, capsys):
+    from repro_torch.launch import serve
+
+    serve.main(["--arch", arch, "--smoke", "--device", "cpu", "--max-new",
+                "3", "--batch", "2"])
+    out = capsys.readouterr().out
+    assert "kv_fast=" in out and "req1:" in out

@@ -262,7 +262,8 @@ def test_moe_tail_aux_is_dropped_as_in_the_reference():
     np.testing.assert_allclose(got.item(), float(want), rtol=1e-5)
 
 
-@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "olmoe-1b-7b"])
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "olmoe-1b-7b",
+                                  "whisper-large-v3", "internvl2-1b"])
 def test_command_line_smoke_trains_the_new_families(arch, tmp_path, capsys,
                                                     synthetic_tables):
     TL.main(["--smoke", "--device", "cpu", "--arch", arch, "--steps", "2",
@@ -285,9 +286,7 @@ def test_restore_reconstructs_a_corrupt_shard(tmp_path):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("arch,item", [("mamba2-130m", "D14b"),
-                                       ("whisper-large-v3", "D12"),
-                                       ("internvl2-1b", "D12")])
+@pytest.mark.parametrize("arch,item", [("mamba2-130m", "D14b")])
 def test_untrainable_families_name_their_item(arch, item):
     cfg = reduced_config(get_config(arch))
     with pytest.raises(NotImplementedError, match=item):

@@ -2,7 +2,8 @@
 """Where the serving path's time goes on a CUDA card.
 
 Builds ``ServeEngine`` for each ``--arch`` (llama3.2-3b by default;
-mamba2-130m, recurrentgemma-2b, olmoe-1b-7b) at full width with seeded
+mamba2-130m, recurrentgemma-2b, olmoe-1b-7b, whisper-large-v3 and
+internvl2-1b, fed their frontends' zero inputs) at full width with seeded
 weights on the card (as ``chip_smoke.py``'s serve paths do), warms it
 up, then runs ``generate`` for each request set and mechanism under
 ``torch.profiler`` and prints, per run: the host-clock prefill and
@@ -29,9 +30,14 @@ from torch.profiler import ProfilerActivity, profile
 from repro_torch.configs import get_config
 from repro_torch.core.retry import RetryPolicy
 from repro_torch.launch.serve import default_prompts
+from repro_torch.models.api import frontend_zeros
 from repro_torch.serving import ServeEngine
 
 LONG_LENGTHS = (2048, 1024, 1536, 1792)
+#: Long sets within a model's context: whisper's decoder 448 positions
+#: (with 16 new tokens), internvl's 2048 (with 256 patches).
+ARCH_LONG_LENGTHS = {"whisper-large-v3": (224, 432, 300, 380),
+                     "internvl2-1b": (768, 1792, 1024, 1536)}
 
 
 def _kind(name: str) -> str:
@@ -44,7 +50,7 @@ def _kind(name: str) -> str:
                                              "state_scores")):
         return "ssd_scan kernel"
     if "gemm" in n or "gemv" in n or "xmma" in n or "cutlass" in n \
-            or "matmul" in n:
+            or "matmul" in n or "nvjet" in n:   # nvjet_*: cuBLAS (CUDA 12.8)
         return "matrix products"
     if "copy" in n or "cast" in n or "convert" in n:
         return "copies and casts"
@@ -113,12 +119,13 @@ def _profile_arch(arch):
     rng = np.random.default_rng(1)
     sets = {"short": default_prompts(cfg.vocab, 4),
             "long": [rng.integers(2, cfg.vocab, size=n).astype(np.int32)
-                     for n in LONG_LENGTHS]}
+                     for n in ARCH_LONG_LENGTHS.get(arch, LONG_LENGTHS)]}
     for e in engines.values():
         e.generate(sets["short"], max_new_tokens=2)
     for set_name, prompts in sets.items():
         batch = {"tokens": torch.as_tensor(eng._pad_batch(prompts),
-                                           device=eng.device)}
+                                           device=eng.device),
+                 **frontend_zeros(cfg, len(prompts), eng.device)}
         with torch.inference_mode():
             p_wall, p_kind, p_n, p_top, _ = _profiled(
                 lambda: eng.model.prefill(eng.params, batch))
