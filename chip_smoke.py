@@ -313,13 +313,47 @@ exits non-zero):
                      them on its zero patches) and internvl's steps on
                      seeded random patches (losses finite); no kernel
                      launch.
+ 18. int8 KV cache and Mamba-2 training — (a) ``python -m
+                     repro_torch.launch.serve --smoke --arch A`` in-process
+                     for every published arch (reduced configs, head dim
+                     16): every B4 launch on the SIMT kernel
+                     (``small_hd_launches``) and every B3 launch on E 16
+                     held against the plain version, mamba2-130m
+                     launching B5 and reading no KV page; with
+                     ``REPRO_KV_INT8=1``: (b) the small-width check of
+                     llama3.2-3b, tailed recurrentgemma (the local ring's
+                     scales) and whisper (the cross scales) with the CPU
+                     decoding from the card's cache, tokens and KV stats
+                     equal, int8 elements at most a level apart; (c)
+                     llama3.2-3b at full width and depth served as in
+                     phase 7 (B3 recorded only), every B3 launch on int8
+                     backing (``int8_launches``) and held bit for bit,
+                     margins too, the int8 cache's bytes against bf16's
+                     and B3's time a launch against its bytes bound; (d)
+                     whisper-large-v3 at full width, the short set, B3 on
+                     its int8 self and cross leaves, the first and last
+                     decode steps held; then (e) mamba2-130m trained at
+                     24 layers, d 768, batch 2 x 1024, four AdamW steps
+                     through the launcher: losses finite and falling, no
+                     kernel launch (the SSD blocks train through the
+                     plain scan), then served on the trained weights
+                     (24 B5 launches a prefill), and the reduced
+                     mamba2-130m's float32 loss and gradients on the card
+                     within 1e-5 of the CPU's.
 
 The line before the last is a JSON object describing each kernel
 (launches on its main path, error against the plain version, and times
 and bound summed over the main path's held launches; for flash attention
-and the KV retry read, phases 7, 16 and 17 together, with phase 16's
-launches also apart (``family_launches``) and phase 17's
-(``encdec_launches``; ``encdec_held`` KV reads of them held); for the
+and the KV retry read, phases 7, 16, 17 and 18 together, with phase
+16's launches also apart (``family_launches``), phase 17's
+(``encdec_launches``; ``encdec_held`` KV reads of them held), phase
+18's B4 launches at head dim 16 (``small_hd_launches``; with
+``tc_launches`` they make up every launch; their held times apart in
+``small_hd_ms``, ``small_hd_plain_ms``, ``small_hd_bound_ms`` and not
+in the row's sums, since SDPA has no softcap for gemma2's) and its B3
+launches on int8 backing (``int8_launches``, ``int8_held`` of them held,
+their times also in ``int8_ms``, ``int8_plain_ms``,
+``int8_bound_ms``); for the
 shard core also
 the inline sweep's counted launches and its held launch, the
 prepass-GC compare's counted launches and its held launch, the
@@ -517,8 +551,8 @@ PIN_FLASH_STATS = dict(batches=6, pages=6, attempts=81,
                        sim_read_us=3715.1249999999995)
 
 # Phase 16: the RG-LRU and MoE families.  At the reduced width, card
-# against CPU (recurrentgemma with a tail: 2 units + 2 tail layers; the
-# flash-attention kernel takes head dims 64/128/256); at published
+# against CPU (recurrentgemma with a tail: 2 units + 2 tail layers; at
+# head dim 64: phase 18 holds the reduced head dim of 16); at published
 # widths and depths through ServeEngine; and trained at published widths
 # and these depths (recurrentgemma one unit and the tail of 2).
 FAMILY_SMALL = (("recurrentgemma-2b", dict(n_layers=8, head_dim=64)),
@@ -529,7 +563,7 @@ FAMILY_TRAIN = (("recurrentgemma-2b", 5), ("olmoe-1b-7b", 2))
 FAMILY_TRAIN_STEPS = 3
 
 # Phase 17: the encoder-decoder and VLM families.  At the reduced width
-# (head dim 64, as the flash-attention kernel takes), card against CPU;
+# (head dim 64; phase 18 holds 16), card against CPU;
 # at published widths and depths through ServeEngine, with long sets of
 # whisper's decoder context (448 positions = 432 + 16 new tokens) and of
 # internvl's 2048 (256 patches + T); trained at published widths, whisper
@@ -540,6 +574,17 @@ ENCDEC_LONG = {"whisper-large-v3": (224, 432, 300, 380),
                "internvl2-1b": (768, 1792, 1024, 1536)}
 ENCDEC_TRAIN = (("whisper-large-v3", dict(n_layers=2, n_enc_layers=2), 448),
                 ("internvl2-1b", {}, TRAIN_SEQ))
+
+# Phase 18: the int8 KV cache (REPRO_KV_INT8=1) at the reduced width,
+# card against CPU (head dim 16: B4's SIMT kernel in float32), for the
+# global cache, the local ring of a tailed recurrentgemma and whisper's
+# cross scales; at full width through ServeEngine for llama3.2-3b (the
+# request sets of phase 7) and whisper (the short set); mamba2-130m
+# trained at published width and depth for a few steps.
+INT8_SMALL = (("llama3.2-3b", {}), ("recurrentgemma-2b", dict(n_layers=8)),
+              ("whisper-large-v3", {}))
+INT8_ENCDEC = "whisper-large-v3"
+MAMBA_TRAIN_STEPS = 4
 
 
 def phase(name):
@@ -1218,7 +1263,10 @@ def _hold_kv(name, data_q, scale, backing, tau, got=None, reps=3,
     card (the plain formula in the kernel's summation order), so a flip
     is a page whose margin lies within the rtol of 0, where the two sum
     orders round to opposite signs; any other launch must have 0
-    flips."""
+    flips.  On int8 backing (the in-model int8 cache's pages: amax 127,
+    scale 1, or all zero, so every sum of squares is an integer below
+    2^24, exact in any order) outputs and margins must equal the plain
+    version's bit for bit, with no flip."""
     import torch
 
     from repro_torch.kernels.kv_retry import ops as KV
@@ -1245,6 +1293,11 @@ def _hold_kv(name, data_q, scale, backing, tau, got=None, reps=3,
             emu, emu_m = kv_retry_emulate(data_q, scale, backing, tau)
             own_order = torch.equal(margin, emu_m) and torch.equal(out, emu)
             del emu, emu_m
+    int8 = backing.dtype == torch.int8
+    if int8 and not (torch.equal(out, want) and torch.equal(margin, want_m)):
+        raise AssertionError(f"{name}: kv_retry on int8 backing differs "
+                             f"from its plain version: {flips} flips, "
+                             f"margin gap {gap:.3g}, max abs {err}")
     if gap > KV_MARGIN_RTOL or not own_order or err != 0.0 or not (
             torch.equal(out, again[0]) and torch.equal(margin, again[1])):
         raise AssertionError(f"{name}: kv_retry differs from its plain "
@@ -1266,7 +1319,7 @@ def _hold_kv(name, data_q, scale, backing, tau, got=None, reps=3,
                 t_ops=t_ops, bound_ms=bound_ms, bound_by=bound_by,
                 max_abs_err=err, pages=P, retried=retried, flips=flips,
                 moved=t_bytes * HBM_BYTES_PER_S * 1e-3,
-                leaf=backing.numel() * backing.element_size())
+                leaf=backing.numel() * backing.element_size(), int8=int8)
 
 
 def _kv_leaf_report(held, data_q, scale, backing, tau):
@@ -1324,7 +1377,9 @@ def serve_kernel_phase():
     from repro_torch.kernels.kv_retry.emulate import pages_near_zero
     from repro_torch.kernels.kv_retry.plain import quantize_pages
 
-    _hgmma_counts(FA._SOURCE, "fa_tc_kernel", len(FA.HEAD_DIMS))
+    _hgmma_counts(FA._SOURCE, "fa_tc_kernel",
+                  sum(FA.uses_tensor_cores(torch.bfloat16, hd)
+                      for hd in FA.HEAD_DIMS))
 
     gen = torch.Generator(DEVICE).manual_seed(0)
 
@@ -1409,7 +1464,13 @@ def _small_width_check(arch, min_agree, exact=False, **overrides):
     patch embeddings and the encoder-decoder's seeded random frame
     embeddings (the engine feeds zeros).  For MoE configs each router
     call's picks are compared too, and a token whose picks differ is
-    printed with its probabilities."""
+    printed with its probabilities.  An int8 KV cache (``REPRO_KV_INT8=1``,
+    whose data the two devices may round to adjacent levels where a K/V
+    value sits at a rounding boundary): the CPU decodes from the card's
+    cache, so the logits compare the same step on the same inputs, and
+    the caches are held apart: float leaves within 1e-4 of their
+    largest, int8 leaves at most one level apart on at most 1e-3 of
+    their elements (the differing ones counted)."""
     import contextlib
     import dataclasses
 
@@ -1423,6 +1484,7 @@ def _small_width_check(arch, min_agree, exact=False, **overrides):
     from repro_torch.models.api import frontend_zeros
     from repro_torch.optim.adamw import tree_map
     from repro_torch.serving import ServeEngine
+    from repro_torch.serving.kv_store import _leaves
 
     cfg = dataclasses.replace(reduced_config(get_config(arch)),
                               activation_dtype="float32", **overrides)
@@ -1441,22 +1503,27 @@ def _small_width_check(arch, min_agree, exact=False, **overrides):
                                 dtype=torch.float32)
              for k, v in frontend_zeros(cfg, len(prompts), "cpu").items()}
     pos0 = toks.shape[1] + (cfg.n_patches if cfg.family == "vlm" else 0)
-    gap = 0.0
+    gap, apart, steps = 0.0, 0, []
     routes = _Recorder(MOE, "route") if cfg.moe is not None else \
         contextlib.nullcontext()
     with torch.inference_mode(), routes:
         outs = [e.model.prefill(e.params, {
             k: v.to(e.device) for k, v in dict(tokens=toks, **front).items()})
             for e in (card, cpu)]
+        int8 = any(leaf.dtype == torch.int8 for _, leaf in _leaves(outs[0][1]))
         for step in range(3):
             (lc, cc), (lp, cp) = outs
             lc = lc.cpu()
             if not bool(torch.isfinite(lc).all()):
                 raise AssertionError(f"{arch}: non-finite logits")
-            gap = max(gap, float((lc - lp).abs().max() / lp.abs().max()))
+            steps.append(float((lc - lp).abs().max() / lp.abs().max()))
+            gap = max(gap, steps[-1])
             if step == 2:
                 break
             tok = lp[:, -1].argmax(-1)[:, None]
+            if int8:
+                apart += _int8_cache_gap(arch, cc, cp)
+                cp = tree_map(lambda t: t.to("cpu"), cc)
             outs = [e.model.decode_step(e.params, {
                 "token": tok.to(e.device), "pos": pos0 + step,
                 "cache": c}) for e, c in ((card, cc), (cpu, cp))]
@@ -1466,14 +1533,18 @@ def _small_width_check(arch, min_agree, exact=False, **overrides):
         routing = f"; router picks of {n} tokens, {flips} differ"
     if gap > 1e-4:
         raise AssertionError(f"{arch} small width: card logits differ from "
-                             f"the CPU's by {gap:.3g} of the largest"
-                             f"{routing}")
+                             f"the CPU's by {gap:.3g} of the largest "
+                             f"(prefill and decode steps {steps}; int8 "
+                             f"elements apart {apart}){routing}")
     g_card, s_card = card.generate(prompts, max_new_tokens=8)
     g_cpu, s_cpu = cpu.generate(prompts, max_new_tokens=8)
     agree = float((g_card == g_cpu).mean())
+    shared = f"; {apart} int8 cache elements a level apart, decode from " \
+        f"the card's cache, gaps by step {steps}" if int8 else ""
     print(f"small-width {arch} ({overrides or 'reduced'}, float32, tau "
           f"0.01): logits gap {gap:.3g} of the largest (prefill, 2 decode "
-          f"steps{routing}); served tokens card == cpu {agree:.4f}; kv_fast card "
+          f"steps{routing}{shared}); served tokens card == cpu {agree:.4f}; "
+          f"kv_fast card "
           f"{100 * s_card.kv.fast_fraction:.2f}% cpu "
           f"{100 * s_cpu.kv.fast_fraction:.2f}% of {s_card.kv.pages} pages",
           flush=True)
@@ -1482,6 +1553,31 @@ def _small_width_check(arch, min_agree, exact=False, **overrides):
         raise AssertionError(f"{arch} small width: served tokens "
                              f"{g_card.tolist()} vs {g_cpu.tolist()}, KV "
                              f"stats {s_card.kv} vs {s_cpu.kv}")
+
+
+def _int8_cache_gap(arch, card, cpu):
+    """Hold a cache of the card against the CPU's: float leaves within
+    1e-4 of their largest, int8 leaves at most one level apart on at most
+    1e-3 of their elements; returns the count of int8 elements apart."""
+    import torch
+
+    from repro_torch.serving.kv_store import _leaves, keystr
+
+    apart = 0
+    for (path, a), (_, b) in zip(_leaves(card), _leaves(cpu)):
+        a = a.cpu()
+        if a.dtype == b.dtype == torch.int8:
+            d = (a.int() - b.int()).abs()
+            n = int((d > 0).sum())
+            if int(d.max()) > 1 or n > 1e-3 * d.numel():
+                raise AssertionError(f"{arch} {keystr(path)}: {n} int8 "
+                                     f"elements apart, up to {int(d.max())}")
+            apart += n
+        elif float((a.float() - b.float()).abs().max()) > \
+                1e-4 * float(b.float().abs().max()):
+            raise AssertionError(f"{arch} {keystr(path)}: card and CPU "
+                                 f"caches differ")
+    return apart
 
 
 def _request_sets(vocab, long_lengths=LONG_LENGTHS):
@@ -1587,14 +1683,16 @@ def _finite_checked(engines):
     return finite
 
 
-def _drive(runs, kernels, finite, keep=None):
+def _drive(runs, kernels, finite, keep=None, variants=None):
     """Serve each run ``(label, engine, prompts)`` with every kernel's
     launch count set to 0 just before and read just after, recording the
     launches of ``kernels`` (``keep``: {kernel: which launch indices of a
     run to keep}, the others counted only); then hold each recorded
     launch against the plain version on its inputs, and time it beside
-    its bound.  Returns ({kernel: launches over the runs}, {kernel: held
-    launches}, {label: (tokens, ServeStats, launch counts)})."""
+    its bound.  ``variants`` (default ``_VARIANTS``) names the variant
+    every launch of a kernel must take.  Returns ({kernel: launches over
+    the runs}, {kernel: held launches}, {label: (tokens, ServeStats,
+    launch counts)})."""
     import contextlib
 
     import torch
@@ -1602,7 +1700,8 @@ def _drive(runs, kernels, finite, keep=None):
     from repro_torch.serving import KVReadStats
 
     mods = _kernel_modules()
-    launches = dict.fromkeys((*mods, *_VARIANTS), 0)
+    variants = _VARIANTS if variants is None else variants
+    launches = dict.fromkeys((*mods, *variants), 0)
     held = {k: [] for k in kernels}
     out = {}
     for label, e, prompts in runs:
@@ -1610,7 +1709,7 @@ def _drive(runs, kernels, finite, keep=None):
         finite.clear()
         for m in mods.values():
             m.launches = 0
-        for k, (attr, _) in _VARIANTS.items():
+        for k, (attr, _) in variants.items():
             setattr(mods[k.rsplit("_", 1)[0]], attr, 0)
         recs = {k: _Recorder(mods[k], _HOLDERS[k][0],
                              (keep or {}).get(k)) for k in kernels}
@@ -1619,7 +1718,7 @@ def _drive(runs, kernels, finite, keep=None):
                 stack.enter_context(r)
             gen, st = e.generate(prompts, max_new_tokens=SERVE_MAX_NEW)
         counts = {k: m.launches for k, m in mods.items()}
-        for k, (attr, what) in _VARIANTS.items():
+        for k, (attr, what) in variants.items():
             name = k.rsplit("_", 1)[0]
             counts[k] = getattr(mods[name], attr)
             if counts[k] != counts[name]:
@@ -1674,15 +1773,17 @@ def _first_leaf_ratio(store):
 
 
 def _serve_full_width(arch, prefix="", long_lengths=LONG_LENGTHS,
-                      keep=None):
+                      keep=None, kernels=("flash_attention", "kv_retry"),
+                      variants=None):
     """``ServeEngine`` for ``arch`` at its published widths with seeded
     weights, as pr2ar2 at SERVE_TAU, baseline, and pr2ar2 at RETRY_TAU,
     driven (``_drive``, which keeps the launches ``keep`` accepts) over
     the short and long (``long_lengths``) request sets and the short set
     at the retrying tau, with run labels starting ``prefix``.  pr2ar2
     must serve some pages fast and baseline none, and the retrying run
-    must retry some page reads and serve others fast.  Returns (engines,
-    parameter count, launches, held launches, runs)."""
+    must retry some page reads and serve others fast.  ``kernels`` are
+    recorded and held, ``variants`` as ``_drive`` takes them.  Returns
+    (engines, parameter count, launches, held launches, runs)."""
     import torch
 
     from repro_torch.configs import get_config
@@ -1717,8 +1818,7 @@ def _serve_full_width(arch, prefix="", long_lengths=LONG_LENGTHS,
     runs = [(f"{prefix}{s} {m}", engines[m], p) for s, p in sets
             for m in ("pr2ar2", "baseline")]
     runs.append((retry_label, engines["retry"], sets[0][1]))
-    launches, held, out = _drive(runs, ("flash_attention", "kv_retry"),
-                                 finite, keep)
+    launches, held, out = _drive(runs, kernels, finite, keep, variants)
     for set_name, _ in sets:
         p_gen, p_st, _ = out[f"{prefix}{set_name} pr2ar2"]
         b_gen, b_st, _ = out[f"{prefix}{set_name} baseline"]
@@ -3845,6 +3945,276 @@ def encdec_phase(smi):
     return launches, held, train
 
 
+def _serve_smoke_archs():
+    """``python -m repro_torch.launch.serve --smoke --arch A`` in-process
+    on the card for every published arch (the reduced configs: head dim
+    16, E 16 KV pages), each run's B4 and B3 launches recorded, counted
+    (B4 all at head dim 16, ``small_hd_launches``; B3 all on the vector
+    kernel) and held against the plain version; mamba2-130m launches B5
+    and reads no KV page.  Returns (launches, held)."""
+    import contextlib
+
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.configs.base import ATTN, LOCAL, reduced_config
+    from repro_torch.launch import serve as SERVE
+
+    mods = _kernel_modules()
+    fa, kv, ssd = mods["flash_attention"], mods["kv_retry"], mods["ssd_scan"]
+    launches = dict.fromkeys(("flash_attention", "flash_attention_small_hd",
+                              "kv_retry", "kv_retry_vec", "ssd_scan"), 0)
+    held = {"flash_attention": [], "kv_retry": []}
+    for arch in sorted(ARCHS):
+        cfg = reduced_config(get_config(arch))
+        for m in (fa, kv, ssd):
+            m.launches = 0
+        fa.small_hd_launches = fa.tc_launches = kv.vec_launches = 0
+        recs = {"flash_attention": _Recorder(fa, "flash_attention_fwd"),
+                "kv_retry": _Recorder(kv, "kv_retry_fwd")}
+        t0 = time.perf_counter()
+        with contextlib.ExitStack() as stack:
+            for r in recs.values():
+                stack.enter_context(r)
+            SERVE.main(["--smoke", "--arch", arch])
+        wall = time.perf_counter() - t0
+        counts = dict(flash_attention=fa.launches,
+                      flash_attention_small_hd=fa.small_hd_launches,
+                      kv_retry=kv.launches, kv_retry_vec=kv.vec_launches,
+                      ssd_scan=ssd.launches)
+        has_attn = cfg.family != "decoder" or any(
+            k in (ATTN, LOCAL) for k in cfg.block_pattern)
+        ok = (counts["flash_attention"] == counts["flash_attention_small_hd"]
+              == recs["flash_attention"].n and fa.tc_launches == 0
+              and counts["kv_retry"] == counts["kv_retry_vec"]
+              == recs["kv_retry"].n
+              and (counts["flash_attention"] > 0) == has_attn
+              and (counts["kv_retry"] > 0) == has_attn
+              and (counts["ssd_scan"] > 0) == (cfg.ssm is not None))
+        if not ok:
+            raise AssertionError(f"serve --smoke --arch {arch}: launches "
+                                 f"{counts}, tc {fa.tc_launches}")
+        rs = {k: [_HOLDERS[k][1](f"smoke {arch} launch {i}", a, o)
+                  for i, (a, o) in enumerate(r.calls)]
+              for k, r in recs.items()}
+        for k, n in counts.items():
+            launches[k] += n
+        for k in held:
+            held[k] += rs[k]
+        print(f"serve --smoke --arch {arch} on the card: {wall:.3f} s, "
+              f"head dim {cfg.resolved_head_dim}, launches {counts}, all "
+              f"held", flush=True)
+        del recs, rs
+    return launches, held
+
+
+def _int8_cache_bytes(cache):
+    """Bytes of an int8 cache's k/v leaves and of their scales, and what
+    the same k/v leaves take in bfloat16."""
+    import torch
+
+    from repro_torch.serving.kv_store import _leaves
+
+    data = scales = 0
+    for path, leaf in _leaves(cache):
+        if path[-1] in ("k", "v") and leaf.dtype == torch.int8:
+            data += leaf.numel()
+        elif path[-1] in ("k_s", "v_s"):
+            scales += leaf.numel() * leaf.element_size()
+    return data, scales, 2 * data
+
+
+def _mamba_grad_check():
+    """The reduced mamba2-130m's float32 loss and gradients, card against
+    CPU on the same weights and batch: the loss within rtol 1e-5, every
+    gradient within rtol 1e-5 plus 1e-5 of its leaf's largest magnitude
+    (the tolerance of ``tests/test_torch_train.py``)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models import build_model
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+
+    cfg = dataclasses.replace(reduced_config(get_config(SSM_ARCH)),
+                              activation_dtype="float32")
+    params = build_model(cfg, "cpu", torch.Generator().manual_seed(0)).init()
+    toks = np.random.default_rng(0).integers(0, cfg.vocab, (2, 64))
+    batch = {"tokens": torch.as_tensor(toks),
+             "labels": torch.as_tensor(np.roll(toks, -1, axis=1))}
+    out = {}
+    for dev in (DEVICE, "cpu"):
+        p = tree_map(lambda t: t.to(dev).requires_grad_(True), params)
+        loss = build_model(cfg, dev).train_loss(
+            p, {k: v.to(dev) for k, v in batch.items()})
+        loss.backward()
+        out[dev] = (float(loss.detach()),
+                    [t.grad.cpu() for t in tree_leaves(p)])
+    (lc, gc), (lp, gp) = out[DEVICE], out["cpu"]
+    worst = max(float(((a - b).abs() - 1e-5 * b.abs()).max())
+                / max(1e-5 * float(b.abs().max()), 1e-30)
+                for a, b in zip(gc, gp))
+    if abs(lc - lp) > 1e-5 * abs(lp) or not worst <= 1.0:
+        raise AssertionError(f"mamba2 small width: loss card {lc} cpu {lp}, "
+                             f"worst gradient gap {worst:.3g} of tolerance")
+    return lc, lp, worst, len(gp)
+
+
+@phase("int8 KV cache and Mamba-2 training")
+def int8_mamba_phase(smi):
+    """ROADMAP D13 and D14b on the card, with B4 at head dim 16: (a)
+    ``launch.serve --smoke`` for every published arch; (b) the int8 cache
+    at small width, card against CPU; (c) llama3.2-3b at full width and
+    depth with the int8 cache, every B3 launch on int8 backing held bit
+    for bit, margins too; (d) whisper-large-v3 at full width with it, the
+    short set; (e) mamba2-130m trained at published width and depth with
+    0 B5 launches, then served (B5 launched), and its small-width
+    gradients card against CPU.  Returns (launches, held)."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.retry import RetryPolicy
+    from repro_torch.kernels.kv_retry import ops as KV
+    from repro_torch.launch import train as TL
+    from repro_torch.optim.adamw import AdamWConfig, tree_leaves
+    from repro_torch.serving import ServeEngine
+
+    t0 = time.perf_counter()
+    launches, held = _serve_smoke_archs()
+    print(f"(a) serve --smoke, {len(held['flash_attention'])} B4 launches "
+          f"at head dim 16 and {len(held['kv_retry'])} B3 launches held, "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    _print_held("(a) B4 at head dim 16", held["flash_attention"])
+    _print_held("(a) B3 on E 16", held["kv_retry"])
+
+    prev = os.environ.get("REPRO_KV_INT8")
+    os.environ["REPRO_KV_INT8"] = "1"
+    try:
+        t0 = time.perf_counter()
+        for arch, kw in INT8_SMALL:
+            _small_width_check(arch, 1.0, exact=True, **kw)
+        print(f"(b) small width, int8 cache: {time.perf_counter() - t0:.3f} s",
+              flush=True)
+
+        variants = {**_VARIANTS,
+                    "kv_retry_int8": ("int8_launches", "on int8 backing")}
+        t0 = time.perf_counter()
+        engines, _, got, got_held, out = _serve_full_width(
+            SERVE_ARCH, prefix="int8 ", kernels=("kv_retry",),
+            variants=variants)
+        if not got["kv_retry"]:
+            raise AssertionError(f"(c): B3 launches {got}")
+        data, scales, bf16 = _int8_cache_bytes(
+            engines["pr2ar2"].store.backing)
+        rs = got_held["kv_retry"]
+        steps = SERVE_MAX_NEW - 1
+        bound_ms = _bound(sum(r["t_bytes"] for r in rs),
+                          sum(r["t_ops"] for r in rs))[0]
+        full_ms = sum(3 * r["leaf"] + 8 * r["pages"] for r in rs) \
+            / HBM_BYTES_PER_S * 1e3
+        print(f"(c) {SERVE_ARCH} int8 cache on {smi}: the long set's last "
+              f"cache {data / 1e6:.3f} MB of int8 k/v + {scales / 1e6:.3f} MB "
+              f"of scales against {bf16 / 1e6:.3f} MB in bfloat16; B3 "
+              f"{got['kv_retry']} launches, all on int8 backing "
+              f"(int8_launches), {len(rs)} held bit for bit: "
+              f"{sum(r['ms'] for r in rs) / len(rs):.4f} ms a launch against "
+              f"a bytes bound of {bound_ms / len(rs):.4f} (retried backing "
+              f"only; {full_ms / len(rs):.4f} reading all backing: 3 P E + "
+              f"8 P bytes); B4 {got['flash_attention']} launches "
+              f"(tc_launches {got['flash_attention_tc']}); "
+              + "; ".join(f"{lab[5:]} prefill {st.prefill_s * 1e3:.1f} ms "
+                          f"decode {st.decode_s * 1e3 / steps:.1f} ms a step"
+                          for lab, (_, st, _) in out.items())
+              + f"; {time.perf_counter() - t0:.3f} s", flush=True)
+        _print_held("(c) B3 on int8 backing", rs)
+        for k in ("flash_attention", "flash_attention_tc", "kv_retry",
+                  "kv_retry_vec", "kv_retry_int8"):
+            launches[k] = launches.get(k, 0) + got[k]
+        held["kv_retry"] += rs
+        del engines, out, got_held
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        cfg = get_config(INT8_ENCDEC)
+        n_fa, n_leaves = _encdec_launches(cfg)
+        eng = ServeEngine(cfg, policy=RetryPolicy("pr2ar2"), tau=SERVE_TAU,
+                          seed=0, device=DEVICE)
+        finite = _finite_checked({"pr2ar2": eng})
+        short = _request_sets(cfg.vocab)[0][1]
+        eng.generate(short, max_new_tokens=2)              # warm-up
+        last = (SERVE_MAX_NEW - 2) * n_leaves
+        got, got_held, out = _drive(
+            [(f"int8 {INT8_ENCDEC} short pr2ar2", eng, short)],
+            ("kv_retry",), finite,
+            {"kv_retry": lambda i: i < n_leaves or i >= last}, variants)
+        want = n_leaves * (SERVE_MAX_NEW - 1)
+        if got["kv_retry"] != want or got["kv_retry_int8"] != want or \
+                got["flash_attention"] != n_fa:
+            raise AssertionError(f"(d): launches {got}")
+        data, scales, bf16 = _int8_cache_bytes(eng.store.backing)
+        _print_held(f"(d) {INT8_ENCDEC} B3 on int8 backing (first and last "
+                    f"decode steps)", got_held["kv_retry"])
+        print(f"(d) {INT8_ENCDEC} int8 cache: {data / 1e6:.3f} MB of int8 "
+              f"k/v (self and cross) + {scales / 1e6:.3f} MB of scales "
+              f"against {bf16 / 1e6:.3f} MB in bfloat16; "
+              f"{time.perf_counter() - t0:.3f} s", flush=True)
+        for k in ("flash_attention", "flash_attention_tc", "kv_retry",
+                  "kv_retry_vec", "kv_retry_int8"):
+            launches[k] += got[k]
+        held["kv_retry"] += got_held["kv_retry"]
+        del eng, out, got_held
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        if prev is None:
+            os.environ.pop("REPRO_KV_INT8")
+        else:
+            os.environ["REPRO_KV_INT8"] = prev
+
+    t0 = time.perf_counter()
+    cfg = get_config(SSM_ARCH)
+    opt = AdamWConfig(moment_dtype=cfg.moment_dtype)
+    before = _kernel_counts()
+    torch.cuda.reset_peak_memory_stats()
+    run = TL.train(cfg, steps=MAMBA_TRAIN_STEPS, batch=TRAIN_BATCH,
+                   seq=TRAIN_SEQ, device=DEVICE, opt=opt, log=lambda *_: None)
+    losses = [run.losses[i] for i in sorted(run.losses)]
+    launched = _launched_since(before)
+    n_params = sum(t.numel() for t in tree_leaves(run.state["params"]))
+    print(f"(e) train {SSM_ARCH} at published width and depth "
+          f"({cfg.n_layers} layers, d {cfg.d_model}), {n_params} parameters, "
+          f"batch {TRAIN_BATCH} x {TRAIN_SEQ}, {MAMBA_TRAIN_STEPS} AdamW "
+          f"steps (lr {opt.lr}) on {smi}: losses {losses}; steps "
+          f"{[round(t, 3) for t in run.step_s]} s, peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB allocated; "
+          f"launches {launched}", flush=True)
+    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0] \
+            or any(launched.values()):
+        raise AssertionError(f"(e) train {SSM_ARCH}: losses {losses}, "
+                             f"launches {launched}")
+    eng = ServeEngine(cfg, params=run.state["params"],
+                      policy=RetryPolicy("pr2ar2"), device=DEVICE)
+    before = _kernel_counts()
+    _, st = eng.generate(_request_sets(cfg.vocab)[0][1], max_new_tokens=2)
+    launched = _launched_since(before)
+    if launched["ssd_scan"] != cfg.n_layers or st.kv.pages:
+        raise AssertionError(f"(e) serving the trained {SSM_ARCH}: "
+                             f"launches {launched}, {st.kv}")
+    del run, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    lc, lp, worst, n = _mamba_grad_check()
+    print(f"(e) served the trained weights: B5 {launched['ssd_scan']} "
+          f"launches a prefill; small-width {SSM_ARCH} float32 loss card "
+          f"{lc!r} cpu {lp!r}, {n} gradient leaves, worst gap "
+          f"{worst:.3g} of the tolerance (rtol 1e-5 + 1e-5 of the leaf's "
+          f"largest); {time.perf_counter() - t0:.3f} s", flush=True)
+    return launches, held
+
+
 def _print_held(name, rs):
     """One line for the launches of one run, held and re-timed."""
     bound_ms, bound_by = _bound(sum(r["t_bytes"] for r in rs),
@@ -3892,6 +4262,15 @@ def _kernel_line(name, source, replaces, launches, cases, held, library):
         "bound_by": bound_by,
         "library_ms": sum(lib) if library and None not in lib else None,
     }
+
+
+def _sub_sums(prefix, held):
+    """Kernel, plain and bound milliseconds summed over a subset of a
+    kernel's held launches, for its row of the JSON line."""
+    return {f"{prefix}_ms": sum(r["ms"] for r in held),
+            f"{prefix}_plain_ms": sum(r["plain_ms"] for r in held),
+            f"{prefix}_bound_ms": _bound(sum(r["t_bytes"] for r in held),
+                                         sum(r["t_ops"] for r in held))[0]}
 
 
 def setup() -> None:
@@ -3953,6 +4332,21 @@ def main() -> int:
         serve_launches[k] += n
     held_fa += encdec_held["flash_attention"]
     held_kv += encdec_held["kv_retry"]
+    torch.cuda.empty_cache()
+    int8_launches, int8_held = int8_mamba_phase(smi)
+    for k in ("flash_attention", "flash_attention_tc", "kv_retry",
+              "kv_retry_vec"):
+        serve_launches[k] += int8_launches[k]
+    held_kv += int8_held["kv_retry"]
+    # The head-dim-16 launches are summed apart: SDPA has no softcap, so
+    # with gemma2's among them the row's library time would be null.
+    held_small = int8_held["flash_attention"]
+    held_int8 = [r for r in int8_held["kv_retry"] if r["int8"]]
+    small_hd = int8_launches["flash_attention_small_hd"]
+    if serve_launches["flash_attention_tc"] + small_hd != \
+            serve_launches["flash_attention"]:
+        raise AssertionError(f"flash_attention launches {serve_launches}, "
+                             f"{small_hd} at head dim 16")
 
     # Times and bounds are sums over each main path's launches, each
     # re-run on the inputs it had there.
@@ -3978,11 +4372,13 @@ def main() -> int:
         dict(_kernel_line("flash_attention",
                           f"{kernels}/flash_attention/csrc/flash_attention.cu",
                           "src/repro/kernels/flash_attention/kernel.py:34",
-                          serve_launches["flash_attention"], fa_cases,
-                          held_fa, library=True),
+                          serve_launches["flash_attention"],
+                          fa_cases + held_small, held_fa, library=True),
              tc_launches=serve_launches["flash_attention_tc"],
              family_launches=family_launches["flash_attention"],
-             encdec_launches=encdec_launches["flash_attention"]),
+             encdec_launches=encdec_launches["flash_attention"],
+             small_hd_launches=small_hd,
+             **_sub_sums("small_hd", held_small)),
         dict(_kernel_line("kv_retry", f"{kernels}/kv_retry/csrc/kv_retry.cu",
                           "src/repro/kernels/kv_retry/kernel.py:26",
                           serve_launches["kv_retry"], kv_cases, held_kv,
@@ -3990,7 +4386,9 @@ def main() -> int:
              vec_launches=serve_launches["kv_retry_vec"],
              family_launches=family_launches["kv_retry"],
              encdec_launches=encdec_launches["kv_retry"],
-             encdec_held=len(encdec_held["kv_retry"])),
+             encdec_held=len(encdec_held["kv_retry"]),
+             int8_launches=int8_launches["kv_retry_int8"],
+             int8_held=len(held_int8), **_sub_sums("int8", held_int8)),
         _kernel_line("ssd_scan", f"{kernels}/ssd_scan/csrc/ssd_scan.cu",
                      "src/repro/kernels/ssd_scan/kernel.py:40",
                      ssd_launches, ssd_cases, held_ssd, library=False),

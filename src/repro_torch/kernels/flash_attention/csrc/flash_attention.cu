@@ -60,12 +60,18 @@
 //   cudaGetDriverEntryPoint(ByVersion), so the library links nothing
 //   beyond the runtime.
 //
-// float32: fa_fwd_kernel, the first port's SIMT kernel, kept for float32
-// inputs (the card's small-width serving checks).  One block of 256
-// threads takes one (bh, 64-query tile), keeps the query tile in shared
-// memory and streams 64-key tiles of K, then V, through one buffer;
-// every product is a scalar float32 fmaf (kept fused under the shared
-// -fmad=false), so it runs on the float32 pipes.
+// float32, and bfloat16 at hd 16 and 32: fa_fwd_kernel, the first port's
+// SIMT kernel, kept for float32 inputs (the card's small-width serving
+// checks) and for the reduced configs' narrow heads (hd 16), where a
+// wgmma tile of 64 columns would be mostly padding and speed is not at
+// stake.  One block of 256 threads takes one (bh, 64-query tile), keeps
+// the query tile in shared memory as float32 (bfloat16 widened exactly)
+// and streams 64-key tiles of K, then V, through one buffer; every
+// product is a scalar float32 fmaf (kept fused under the shared
+// -fmad=false), so it runs on the float32 pipes, and P.V keeps p in
+// float32 as the plain version does.  A thread owns 4 query rows and, of
+// the head's columns, 4 adjacent ones in each 64-column group, or hd / 16
+// below 64 (Cols).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -87,12 +93,48 @@ constexpr int kBQ = 64;
 constexpr int kBK = 64;
 constexpr int kThreads = 256;
 
+// Output columns of a thread: in each of NG groups of 64 columns, W
+// adjacent ones at 64 g + tx W (tx the thread's column index, 0..15).
+// W is 4 at hd 64, 128 and 256 (NG = hd / 64), hd / 16 below 64 (NG 1).
+template <int HD>
+struct Cols {
+  static constexpr int W = HD >= 64 ? 4 : HD / 16;
+  static constexpr int NG = HD >= 64 ? HD / 64 : 1;
+};
+
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
+// Four bfloat16 values (8 bytes) widened to float32, exactly.
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
 __device__ __forceinline__ void store4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
+}
+
+// W values of a row, rounded to T (round to nearest even for bfloat16).
+template <int W>
+__device__ __forceinline__ void store_w(float* p, const float* v) {
+  if constexpr (W == 4) {
+    store4(p, make_float4(v[0], v[1], v[2], v[3]));
+  } else {
+#pragma unroll
+    for (int c = 0; c < W; ++c) p[c] = v[c];
+  }
+}
+
+template <int W>
+__device__ __forceinline__ void store_w(__nv_bfloat16* p, const float* v) {
+#pragma unroll
+  for (int c = 0; c < W; ++c) p[c] = __float2bfloat16_rn(v[c]);
 }
 
 // Rows [row0, row0 + 64) of a (rows, HD) matrix into shared memory as
@@ -130,7 +172,8 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, T* __restrict__ o, int T_, int S,
               int G, int n_qt, int causal, int has_window, int window,
               int kv_valid, float scale, int has_cap, float cap) {
-  constexpr int NC = HD / 64;          // float4 output columns per thread
+  constexpr int W = Cols<HD>::W;
+  constexpr int NG = Cols<HD>::NG;
   extern __shared__ float smem[];
   float* Qs = smem;                    // (64, HD + 4)
   float* KVs = Qs + kBQ * (HD + 4);    // (64, HD + 4): K, then V
@@ -147,13 +190,15 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   load_tile<T, HD>(Qs, qb, q0, T_);
 
   float m[4], l[4];
-  float4 acc[4][NC];
+  float acc[4][NG][W];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     m[i] = kNeg;
     l[i] = 0.f;
 #pragma unroll
-    for (int g = 0; g < NC; ++g) acc[i][g] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int g = 0; g < NG; ++g)
+#pragma unroll
+      for (int c = 0; c < W; ++c) acc[i][g][c] = 0.f;
   }
 
   // Key tiles holding a visible key for some row of this query tile.
@@ -223,12 +268,9 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       l[i] = l[i] * c + row_sum16(rs);
       m[i] = m_new;
 #pragma unroll
-      for (int g = 0; g < NC; ++g) {
-        acc[i][g].x *= c;
-        acc[i][g].y *= c;
-        acc[i][g].z *= c;
-        acc[i][g].w *= c;
-      }
+      for (int g = 0; g < NG; ++g)
+#pragma unroll
+        for (int cc = 0; cc < W; ++cc) acc[i][g][cc] *= c;
     }
     __syncthreads();                   // P written; K reads are done
     load_tile<T, HD>(KVs, vb, k0, S);
@@ -242,18 +284,27 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         pa[i] = *reinterpret_cast<const float4*>(Ps + (ty + 16 * i) * (kBK + 4) + jj);
 #pragma unroll
       for (int jq = 0; jq < 4; ++jq) {
-        const float* vrow = KVs + (jj + jq) * (HD + 4) + tx * 4;
+        const float* vrow = KVs + (jj + jq) * (HD + 4) + tx * W;
 #pragma unroll
-        for (int g = 0; g < NC; ++g) {
-          const float4 vv = *reinterpret_cast<const float4*>(vrow + 64 * g);
+        for (int g = 0; g < NG; ++g) {
+          float vv[W];
+          if constexpr (W == 4) {
+            const float4 v4 = *reinterpret_cast<const float4*>(vrow + 64 * g);
+            vv[0] = v4.x;
+            vv[1] = v4.y;
+            vv[2] = v4.z;
+            vv[3] = v4.w;
+          } else {
+#pragma unroll
+            for (int c = 0; c < W; ++c) vv[c] = vrow[64 * g + c];
+          }
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
             const float p = jq == 0 ? pa[i].x : jq == 1 ? pa[i].y
                           : jq == 2 ? pa[i].z : pa[i].w;
-            acc[i][g].x = fmaf(p, vv.x, acc[i][g].x);
-            acc[i][g].y = fmaf(p, vv.y, acc[i][g].y);
-            acc[i][g].z = fmaf(p, vv.z, acc[i][g].z);
-            acc[i][g].w = fmaf(p, vv.w, acc[i][g].w);
+#pragma unroll
+            for (int c = 0; c < W; ++c)
+              acc[i][g][c] = fmaf(p, vv[c], acc[i][g][c]);
           }
         }
       }
@@ -265,12 +316,13 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int row = q0 + ty + 16 * i;
     if (row >= T_) continue;
     const float den = fmaxf(l[i], 1e-30f);
-    T* orow = o + ((size_t)bh * T_ + row) * HD + tx * 4;
+    T* orow = o + ((size_t)bh * T_ + row) * HD + tx * W;
 #pragma unroll
-    for (int g = 0; g < NC; ++g) {
-      const float4 a = acc[i][g];
-      store4(orow + 64 * g,
-             make_float4(a.x / den, a.y / den, a.z / den, a.w / den));
+    for (int g = 0; g < NG; ++g) {
+      float out[W];
+#pragma unroll
+      for (int c = 0; c < W; ++c) out[c] = acc[i][g][c] / den;
+      store_w<W>(orow + 64 * g, out);
     }
   }
 }
@@ -297,24 +349,40 @@ int launch(const void* q, const void* k, const void* v, void* o, int BH,
   return (int)cudaGetLastError();
 }
 
+// The float32 instances take hd 16, 32, 64, 128 and 256; the bfloat16
+// ones hd 16 and 32 (wider bfloat16 heads take the tensor-core kernel).
 template <typename T>
 int launch_hd(int hd, const void* q, const void* k, const void* v, void* o,
               int BH, int T_, int S, int BK, int causal, int has_window,
               int window, int kv_valid, float scale, int has_cap, float cap,
               cudaStream_t stream) {
+  constexpr bool kF32 = sizeof(T) == 4;
   switch (hd) {
-    case 64:
-      return launch<T, 64>(q, k, v, o, BH, T_, S, BK, causal, has_window,
+    case 16:
+      return launch<T, 16>(q, k, v, o, BH, T_, S, BK, causal, has_window,
                            window, kv_valid, scale, has_cap, cap, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, o, BH, T_, S, BK, causal, has_window,
-                            window, kv_valid, scale, has_cap, cap, stream);
-    case 256:
-      return launch<T, 256>(q, k, v, o, BH, T_, S, BK, causal, has_window,
-                            window, kv_valid, scale, has_cap, cap, stream);
+    case 32:
+      return launch<T, 32>(q, k, v, o, BH, T_, S, BK, causal, has_window,
+                           window, kv_valid, scale, has_cap, cap, stream);
     default:
-      return (int)cudaErrorInvalidValue;
+      break;
   }
+  if constexpr (kF32) {
+    switch (hd) {
+      case 64:
+        return launch<T, 64>(q, k, v, o, BH, T_, S, BK, causal, has_window,
+                             window, kv_valid, scale, has_cap, cap, stream);
+      case 128:
+        return launch<T, 128>(q, k, v, o, BH, T_, S, BK, causal, has_window,
+                              window, kv_valid, scale, has_cap, cap, stream);
+      case 256:
+        return launch<T, 256>(q, k, v, o, BH, T_, S, BK, causal, has_window,
+                              window, kv_valid, scale, has_cap, cap, stream);
+      default:
+        break;
+    }
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 
@@ -817,6 +885,20 @@ extern "C" int fa_fwd_f32_launch(const void* q, const void* k, const void* v,
   return simt::launch_hd<float>(hd, q, k, v, o, BH, T_, S, BK, causal,
                                 has_window, window, kv_valid, scale, has_cap,
                                 cap, static_cast<cudaStream_t>(stream));
+}
+
+// bfloat16 q, k, v, o at hd 16 or 32 (contiguous, 16-byte aligned): the
+// SIMT kernel.  Returns a cudaError_t (0 on success).
+extern "C" int fa_fwd_simt_bf16_launch(const void* q, const void* k,
+                                       const void* v, void* o, int BH,
+                                       int T_, int S, int BK, int hd,
+                                       int causal, int has_window,
+                                       int window, int kv_valid, float scale,
+                                       int has_cap, float cap, void* stream) {
+  if (BK <= 0 || BH % BK) return (int)cudaErrorInvalidValue;
+  return simt::launch_hd<__nv_bfloat16>(
+      hd, q, k, v, o, BH, T_, S, BK, causal, has_window, window, kv_valid,
+      scale, has_cap, cap, static_cast<cudaStream_t>(stream));
 }
 
 // bfloat16 q, k, v, o (16-byte aligned, contiguous): the tensor-core

@@ -5,10 +5,12 @@ k and v (BK, S, hd) — and picks the implementation by the tensors'
 device:
 
   * CUDA tensors launch a hand-written kernel of
-    ``csrc/flash_attention.cu`` (built with nvcc at first use): bfloat16
-    the tensor-core kernel (``wgmma`` and TMA; every tensor's base
-    16-byte aligned, else it raises), float32 the SIMT kernel — or
-    raise; neither falls back to the other, nor to the plain version;
+    ``csrc/flash_attention.cu`` (built with nvcc at first use), by a
+    fixed rule on dtype and head dim: bfloat16 at hd 64, 128 or 256 the
+    tensor-core kernel (``wgmma`` and TMA), bfloat16 at hd 16 or 32 and
+    float32 at every hd of ``HEAD_DIMS`` the SIMT kernel; every tensor's
+    base 16-byte aligned, else it raises.  Other head dims raise; no
+    kernel falls back to another, nor to the plain version;
   * CPU tensors run the plain torch version
     (:func:`repro_torch.kernels.flash_attention.plain.flash_attention_plain`).
 
@@ -16,7 +18,9 @@ device:
 ``ops.flash_attention``: q (B, T, K, G, hd) and k, v (B, S, K, hd) are
 flattened to ``bh = (b*K + k)*G + g`` query rows over ``b*K + k`` kv
 rows.  ``launches`` counts the CUDA kernel launches of this process, and
-nothing else; ``tc_launches`` counts those of the tensor-core kernel.
+nothing else; ``tc_launches`` counts those of the tensor-core kernel,
+``small_hd_launches`` those at a head dim below 64 (the reduced
+configs' 16: the SIMT kernel in either dtype).
 """
 
 from __future__ import annotations
@@ -34,22 +38,38 @@ from repro_torch.kernels.flash_attention.plain import flash_attention_plain
 launches = 0
 #: Of those, the launches of the bfloat16 tensor-core kernel.
 tc_launches = 0
+#: Of those, the launches at a head dim below ``TC_MIN_HEAD_DIM``.
+small_hd_launches = 0
 
 _SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
-#: Head dims the kernel is instantiated for.
-HEAD_DIMS = (64, 128, 256)
-#: The C entry point of each dtype: the SIMT kernel for float32, the
-#: tensor-core kernel for bfloat16.
-_ENTRIES = {torch.float32: "fa_fwd_f32_launch",
-            torch.bfloat16: "fa_fwd_tc_launch"}
+#: Head dims the kernels take (the single list of what the card runs).
+HEAD_DIMS = (16, 32, 64, 128, 256)
+#: bfloat16 heads at least this wide take the tensor-core kernel.
+TC_MIN_HEAD_DIM = 64
+_DTYPES = (torch.float32, torch.bfloat16)
 
 
-def _kernel_fn(dtype):
-    """The C entry point for ``dtype`` of the built kernel library, typed
-    for ctypes."""
+def uses_tensor_cores(dtype: torch.dtype, hd: int) -> bool:
+    """Whether a CUDA launch takes the tensor-core kernel: bfloat16 at a
+    head dim of at least 64; the rest of ``HEAD_DIMS`` runs the SIMT
+    kernel."""
+    return dtype == torch.bfloat16 and hd >= TC_MIN_HEAD_DIM
+
+
+def _entry(dtype: torch.dtype, hd: int) -> str:
+    """The C entry point of the kernel for ``dtype`` and ``hd``."""
+    if uses_tensor_cores(dtype, hd):
+        return "fa_fwd_tc_launch"
+    return "fa_fwd_f32_launch" if dtype == torch.float32 else \
+        "fa_fwd_simt_bf16_launch"
+
+
+def _kernel_fn(entry):
+    """The C entry point ``entry`` of the built kernel library, typed for
+    ctypes."""
     from repro_torch.kernels import build
 
-    fn = getattr(build.load(_SOURCE), _ENTRIES[dtype])
+    fn = getattr(build.load(_SOURCE), entry)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, ci,
                    ctypes.c_float, ci, ctypes.c_float, vp]
@@ -60,18 +80,18 @@ def _kernel_fn(dtype):
 def _launch_cuda(q, k, v, causal, window, softcap, kv_valid):
     """Launch the CUDA kernel of q's dtype on the current stream (no
     synchronize)."""
-    global launches, tc_launches
+    global launches, tc_launches, small_hd_launches
     BH, T, hd = q.shape
     BK, S, _ = k.shape
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention kernel takes head dims "
                          f"{HEAD_DIMS}, got {hd}")
     out = torch.empty_like(q)
-    tc = q.dtype == torch.bfloat16
-    if tc and any(t.data_ptr() % 16 for t in (q, k, v, out)):
-        raise ValueError("the tensor-core flash_attention kernel loads "
-                         "by TMA and needs 16-byte aligned q, k, v")
-    fn = _kernel_fn(q.dtype)
+    tc = uses_tensor_cores(q.dtype, hd)
+    if any(t.data_ptr() % 16 for t in (q, k, v, out)):
+        raise ValueError("the flash_attention kernels load by TMA or in "
+                         "vectors and need 16-byte aligned q, k, v")
+    fn = _kernel_fn(_entry(q.dtype, hd))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              BH, T, S, BK, hd, int(causal),
@@ -83,6 +103,7 @@ def _launch_cuda(q, k, v, causal, window, softcap, kv_valid):
                            f"error {err}")
     launches += 1
     tc_launches += int(tc)
+    small_hd_launches += int(hd < TC_MIN_HEAD_DIM)
     return out
 
 
@@ -105,7 +126,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if hd_k != hd or BK == 0 or BH % BK:
         raise ValueError(f"q {tuple(q.shape)} does not group over k "
                          f"{tuple(k.shape)}")
-    if q.dtype not in _ENTRIES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"q, k, v must share float32 or bfloat16, got "
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
     if not q.device == k.device == v.device:

@@ -9,6 +9,13 @@
 //   margin = 1 - (0.5 * scale[p]) / (tau * rms)
 //   out[p] = margin >= 0 ? deq : backing[p]   (rounded to backing's dtype)
 //
+// Backing and out are float32, bfloat16 or int8.  int8 backing is the
+// in-model int8 KV cache's (REPRO_KV_INT8=1): a fast page is written as
+// trunc(deq), toward zero, as the reference's float-to-int8 convert
+// does, and a retried page is copied; the margin is the same.  The
+// vector kernel's lane then loads 16 bytes of the int8 page and 16 of
+// the backing, and writes its 16 outputs with one 16-byte store.
+//
 // Bound.  Bytes: each int8 page and its scale are read once, each output
 // page and margin written once, and a backing page read only where the
 // page retries (the serving analogue of the paper's retry, and why the
@@ -69,6 +76,20 @@ __device__ __forceinline__ void store_deq(__nv_bfloat16* p, float a, float b,
   *reinterpret_cast<uint2*>(p) = u;
 }
 
+// int8 out: each value truncated toward zero (in int8's range).
+__device__ __forceinline__ uint32_t pack_i8(float a, float b, float c,
+                                            float d) {
+  return ((uint32_t)__float2int_rz(a) & 0xffu) |
+         (((uint32_t)__float2int_rz(b) & 0xffu) << 8) |
+         (((uint32_t)__float2int_rz(c) & 0xffu) << 16) |
+         (((uint32_t)__float2int_rz(d) & 0xffu) << 24);
+}
+
+__device__ __forceinline__ void store_deq(int8_t* p, float a, float b,
+                                          float c, float d) {
+  *reinterpret_cast<uint32_t*>(p) = pack_i8(a, b, c, d);
+}
+
 // Four elements copied bit for bit.
 __device__ __forceinline__ void copy4(float* dst, const float* src) {
   *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(src);
@@ -77,6 +98,10 @@ __device__ __forceinline__ void copy4(float* dst, const float* src) {
 __device__ __forceinline__ void copy4(__nv_bfloat16* dst,
                                       const __nv_bfloat16* src) {
   *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(src);
+}
+
+__device__ __forceinline__ void copy4(int8_t* dst, const int8_t* src) {
+  *reinterpret_cast<uint32_t*>(dst) = *reinterpret_cast<const uint32_t*>(src);
 }
 
 template <typename T>
@@ -167,7 +192,23 @@ __device__ __forceinline__ void store_vals(__nv_bfloat16* p, const float* v) {
                             (int)pack_bf16(v[8 * k + 6], v[8 * k + 7])));
 }
 
-// n elements of backing (a multiple of 8) copied bit for bit.
+template <int n>
+__device__ __forceinline__ void store_vals(int8_t* p, const float* v) {
+  int4* d = reinterpret_cast<int4*>(p);
+#pragma unroll
+  for (int k = 0; k < n / 16; ++k)
+    __stcs(d + k, make_int4(
+        (int)pack_i8(v[16 * k], v[16 * k + 1], v[16 * k + 2], v[16 * k + 3]),
+        (int)pack_i8(v[16 * k + 4], v[16 * k + 5], v[16 * k + 6],
+                     v[16 * k + 7]),
+        (int)pack_i8(v[16 * k + 8], v[16 * k + 9], v[16 * k + 10],
+                     v[16 * k + 11]),
+        (int)pack_i8(v[16 * k + 12], v[16 * k + 13], v[16 * k + 14],
+                     v[16 * k + 15])));
+}
+
+// n elements of backing (a multiple of 8; of 16 for int8) copied bit for
+// bit.
 template <int n, typename T>
 __device__ __forceinline__ void copy_vals(T* dst, const T* src) {
   constexpr int kPieces = n * (int)sizeof(T) / 16;
@@ -308,10 +349,10 @@ int launch(const void* q, const void* s, const void* b, void* o, void* m,
 
 }  // namespace
 
-// dtype of backing and out: 0 float32, 1 bfloat16.  vector 0 launches
-// the warp-per-page kernel (E a multiple of 4), 1 the vector kernel (E a
-// multiple of 16 up to 512; the int8 pages, backing and out 16-byte
-// aligned).
+// dtype of backing and out: 0 float32, 1 bfloat16, 2 int8.  vector 0
+// launches the warp-per-page kernel (E a multiple of 4), 1 the vector
+// kernel (E a multiple of 16 up to 512; the int8 pages, backing and out
+// 16-byte aligned).
 // Returns a cudaError_t (0 on success).
 extern "C" int kv_retry_launch(const void* data_q, const void* scale,
                                const void* backing, void* out, void* margin,
@@ -325,5 +366,8 @@ extern "C" int kv_retry_launch(const void* data_q, const void* scale,
   if (dtype == 1)
     return launch<__nv_bfloat16>(data_q, scale, backing, out, margin, P, E,
                                  tau, vector, st);
+  if (dtype == 2)
+    return launch<int8_t>(data_q, scale, backing, out, margin, P, E, tau,
+                          vector, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -10,9 +10,16 @@
 Page widths that are a multiple of 16, up to 512, take the vector kernel
 (``kv_retry_vec_kernel``: 16-byte loads, several pages in flight a
 thread); any other multiple of 4 takes the warp-per-page kernel
-(``kv_retry_kernel``).  ``launches`` counts the CUDA kernel launches of
-this process, and nothing else; ``vec_launches`` counts those of the
-vector kernel among them.
+(``kv_retry_kernel``).  Backing (and out) may be float32, bfloat16 or
+int8: the in-model int8 KV cache (``REPRO_KV_INT8=1``) stores its k and
+v leaves as int8, and the store reads them through this read as the
+reference does.  On int8 backing a fast page is written as
+``trunc(q * s)``, truncated toward zero as XLA's float-to-int8 convert
+and torch's ``.to(torch.int8)`` do (not rounded); q * s must lie in
+int8's range, as it does for pages that ``quantize_pages`` made of an
+int8 leaf.  ``launches`` counts the CUDA kernel launches of this
+process, and nothing else; ``vec_launches`` counts those of the vector
+kernel among them, and ``int8_launches`` those on int8 backing.
 """
 
 from __future__ import annotations
@@ -32,12 +39,14 @@ __all__ = ["kv_read_with_retry", "kv_retry_fwd", "quantize_pages"]
 launches = 0
 #: Of those, launches of the vector kernel.
 vec_launches = 0
+#: Of those, launches on int8 backing.
+int8_launches = 0
 
 #: The widest page the vector kernel takes.
 MAX_VEC_WIDTH = 512
 
 _SOURCE = Path(__file__).resolve().parent / "csrc" / "kv_retry.cu"
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
 def uses_vector(E: int) -> bool:
@@ -62,7 +71,7 @@ def _kernel_fn():
 def _launch_cuda(data_q, scale, backing, tau, vector):
     """Launch the vector kernel (``vector``) or the warp-per-page kernel on the
     current stream (no synchronize)."""
-    global launches, vec_launches
+    global launches, vec_launches, int8_launches
     P, E = backing.shape
     if vector and (data_q.data_ptr() % 16 or backing.data_ptr() % 16):
         raise ValueError("kv_retry's vector kernel takes int8 pages and "
@@ -78,6 +87,7 @@ def _launch_cuda(data_q, scale, backing, tau, vector):
         raise RuntimeError(f"kv_retry kernel launch failed: CUDA error {err}")
     launches += 1
     vec_launches += bool(vector)
+    int8_launches += backing.dtype == torch.int8
     return out, margin
 
 
@@ -85,9 +95,9 @@ def kv_retry_fwd(data_q: torch.Tensor, scale: torch.Tensor,
                  backing: torch.Tensor, tau: float = 0.02):
     """Fast read with retry on device tensors.
 
-    data_q (P, E) int8, scale (P, 1) float32, backing (P, E) float32 or
-    bfloat16, on one device; on the card E must be a multiple of 4, and
-    a multiple of 16 up to 512 takes the vector kernel.
+    data_q (P, E) int8, scale (P, 1) float32, backing (P, E) float32,
+    bfloat16 or int8, on one device; on the card E must be a multiple of
+    4, and a multiple of 16 up to 512 takes the vector kernel.
     Returns (out (P, E) in backing's dtype, margin (P, 1) float32).
     """
     if data_q.dim() != 2 or data_q.dtype != torch.int8:
@@ -95,8 +105,8 @@ def kv_retry_fwd(data_q: torch.Tensor, scale: torch.Tensor,
                          f"{tuple(data_q.shape)} {data_q.dtype}")
     P, E = data_q.shape
     if backing.shape != (P, E) or backing.dtype not in _DTYPES:
-        raise ValueError(f"backing must be ({P}, {E}) float32 or bfloat16, "
-                         f"got {tuple(backing.shape)} {backing.dtype}")
+        raise ValueError(f"backing must be ({P}, {E}) float32, bfloat16 or "
+                         f"int8, got {tuple(backing.shape)} {backing.dtype}")
     if scale.shape != (P, 1) or scale.dtype != torch.float32:
         raise ValueError(f"scale must be ({P}, 1) float32, got "
                          f"{tuple(scale.shape)} {scale.dtype}")

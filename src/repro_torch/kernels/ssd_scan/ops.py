@@ -21,7 +21,14 @@
 :func:`ssd_scan` is the model-layout adapter of the reference's
 ``ops.ssd_scan``: x (B, T, nh, hd) becomes ``bh = b*nh + h`` rows, dA is
 formed outside the kernel as the reference forms it, and B and C stay
-(B, T, ds).  ``launches`` counts the calls of :func:`ssd_scan_fwd` that
+(B, T, ds).  With ``training=True`` it runs the reference's training
+mode on every device: the plain scan, differentiated by autograd (the
+reference trains through its non-kernel ``ssd_chunked``; the TPU kernel
+has no backward, and neither has B5).  The kernel is launched through
+ctypes on raw pointers, so its outputs carry no ``grad_fn``: on the
+card ``ssd_scan_fwd`` raises where grad is enabled and an input
+requires it, rather than detach every parameter upstream of the scan.
+``launches`` counts the calls of :func:`ssd_scan_fwd` that
 launched on CUDA (one per call, whichever path), and nothing else;
 ``tc_launches`` counts those that took the tensor-core path.
 """
@@ -250,6 +257,10 @@ def ssd_scan_fwd(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
     if chunk < 1:
         raise ValueError(f"chunk must be positive, got {chunk}")
     if x.device.type == "cuda":
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (x, Bm, Cm, dt, dA)):
+            raise RuntimeError("ssd_scan's kernel has no backward; training "
+                               "runs ssd_scan(..., training=True)")
         return _launch_cuda(*(_aligned(t) for t in (x, Bm, Cm, dt, dA)),
                             chunk)
     if x.device.type == "cpu":
@@ -259,14 +270,15 @@ def ssd_scan_fwd(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
 
 def ssd_scan(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
              dt: torch.Tensor, A: torch.Tensor, chunk: int = 256,
-             device=None):
+             device=None, training: bool = False):
     """The SSD scan in the model layout, on ``device`` (``None``: the
     CUDA card; inputs elsewhere are moved there).
 
     x (B, T, nh, hd); Bm, Cm (B, T, ds), shared across heads; dt (B, T,
     nh) post-softplus; A (nh,) negative.  Returns (y (B, T, nh, hd), H
     (B, nh, hd, ds) float32) — the interface of the reference's
-    ``models/ssm.ssd_chunked``.
+    ``models/ssm.ssd_chunked``.  ``training``: the plain scan on every
+    device, differentiable by autograd (the reference's training mode).
     """
     dev = resolve_device(device)
     x, Bm, Cm, dt, A = (t.to(dev) for t in (x, Bm, Cm, dt, A))
@@ -275,7 +287,8 @@ def ssd_scan(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
     xh = x.permute(0, 2, 1, 3).reshape(B * nh, T, hd)
     dth = dt.permute(0, 2, 1).reshape(B * nh, T)
     dAh = dth * A.to(dth.dtype).repeat(B)[:, None]
-    y, H = ssd_scan_fwd(xh, Bm, Cm, dth, dAh, chunk=chunk)
+    scan = ssd_scan_plain if training else ssd_scan_fwd
+    y, H = scan(xh, Bm, Cm, dth, dAh, chunk=chunk)
     y = y.reshape(B, nh, T, hd).permute(0, 2, 1, 3)
     H = H.reshape(B, nh, ds, hd).permute(0, 1, 3, 2)
     return y, H

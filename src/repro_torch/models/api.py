@@ -7,7 +7,7 @@ MoE FFN of olmoe and llama4), the VLM (internvl2: the decoder over a
 patch prefix, ``batch["patches"]``) and the encoder-decoder (whisper:
 ``models.encdec``, ``batch["audio_embed"]``).  ``input_specs`` is JAX
 dry-run tooling and waits for ROADMAP item 13.  ``train_loss`` trains
-every block kind but Mamba-2's (ROADMAP D14b).
+every block kind, Mamba-2's SSD blocks through the plain scan.
 """
 
 from __future__ import annotations

@@ -21,8 +21,17 @@ K/V, static through decode.  Decode on a global cache writes the new
 token's K/V at slot ``min(pos, S - 1)``: the reference's
 ``dynamic_update_slice`` clamps its start index, and its serving engine
 prefills without headroom, so every decode step overwrites the last slot
-(ROADMAP C6).  The in-model int8 cache (``REPRO_KV_INT8``) is not ported
-(ROADMAP D13).
+(ROADMAP C6).
+
+``REPRO_KV_INT8=1`` (read at each call, as the reference reads it at
+each trace) stores the causal, local and cross caches in int8, the
+reference's AR² adaptation: ``{"k", "k_s", "v", "v_s"}``, each
+position's hd vector quantized on its own (``_quant_kv``: int8 data,
+float32 scale (..., 1)).  Decode quantizes the new K/V row before it is
+written, carries the scales through the local ring and the global
+cache's clamped slot as it carries the data, and dequantizes the whole
+cache to the activation dtype before the scores, as the reference's
+plain path does.
 """
 
 from __future__ import annotations
@@ -34,6 +43,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.kv_retry.plain import quantize_pages
 from repro_torch.models.common import init_dense, rmsnorm, rope, softcap
 
 NEG = -1e30
@@ -90,11 +100,29 @@ def _merge_out(cfg: ModelConfig, p, o):
 _KINDS = ("causal", "local", "bidir", "cross")
 
 
-def _check_kv_int8() -> None:
-    if os.environ.get("REPRO_KV_INT8", "0") == "1":
-        raise NotImplementedError(
-            "REPRO_KV_INT8 (the in-model int8 KV cache) is not ported: "
-            "ROADMAP D13")
+def _kv_int8() -> bool:
+    """Whether prefill stores the int8 KV cache (``REPRO_KV_INT8=1``)."""
+    return os.environ.get("REPRO_KV_INT8", "0") == "1"
+
+
+def _quant_kv(x):
+    """x (..., hd) -> (int8 data (..., hd), float32 scales (..., 1)):
+    per-vector symmetric quantization, the reference's ``_quant_kv``
+    (the same arithmetic as ``quantize_pages``)."""
+    q, s = quantize_pages(x.reshape(-1, x.shape[-1]))
+    return q.view(x.shape), s.view(x.shape[:-1] + (1,))
+
+
+def _dequant_kv(q, scale, dtype):
+    return (q.float() * scale).to(dtype)
+
+
+def _maybe_quantize_cache(cache: dict) -> dict:
+    if not _kv_int8():
+        return cache
+    kq, ks = _quant_kv(cache["k"])
+    vq, vs = _quant_kv(cache["v"])
+    return {"k": kq, "k_s": ks, "v": vq, "v_s": vs}
 
 
 def _roped_qkv(cfg: ModelConfig, p, x, positions, kind, enc_out=None,
@@ -121,8 +149,8 @@ def attention_fullseq(cfg: ModelConfig, p: dict, x, positions, kind: str,
     d) and ``enc_positions`` (S,) for "cross".  Returns (y, cache): a
     global cache holds exactly the T prompt slots (no decode headroom,
     as the reference's serving engine asks), a cross cache the S encoder
-    positions, and a bidirectional layer none."""
-    _check_kv_int8()
+    positions, and a bidirectional layer none; under ``REPRO_KV_INT8=1``
+    the caches are int8 with their scales."""
     q, k, v, _ = _roped_qkv(cfg, p, x, positions, kind, enc_out,
                             enc_positions)
     window = cfg.window if kind == "local" else None
@@ -141,7 +169,8 @@ def attention_fullseq(cfg: ModelConfig, p: dict, x, positions, kind: str,
             pad = (0, 0, w - kc.shape[2], 0)
             kc = torch.nn.functional.pad(kc, pad)
             vc = torch.nn.functional.pad(vc, pad)
-    return y, {"k": kc.contiguous(), "v": vc.contiguous()}
+    return y, _maybe_quantize_cache({"k": kc.contiguous(),
+                                     "v": vc.contiguous()})
 
 
 def attention_decode(cfg: ModelConfig, p: dict, x, cache: dict, pos: int,
@@ -149,7 +178,9 @@ def attention_decode(cfg: ModelConfig, p: dict, x, cache: dict, pos: int,
     """One decode step of ``kind`` "causal", "local" or "cross"; x (B, 1,
     d), pos the new token's absolute position.  Returns (y, new cache);
     the input cache is not modified, and a cross cache (static, every
-    key valid) is returned as it came."""
+    key valid) is returned as it came.  A cache with scales (``"k_s"``)
+    is int8: the new row is quantized, and the cache dequantized before
+    the scores."""
     if kind not in ("causal", "local", "cross"):
         raise ValueError(kind)
     K = cfg.n_kv_heads
@@ -163,31 +194,40 @@ def attention_decode(cfg: ModelConfig, p: dict, x, cache: dict, pos: int,
         q = rmsnorm(q, p["q_scale"])
     q = rope(q, positions, cfg.rope_theta).reshape(B, 1, K, G, hd)
 
+    int8 = "k_s" in cache
     if kind == "cross":
-        ck, cv = cache["k"], cache["v"]
-        valid = torch.ones((ck.shape[2],), dtype=torch.bool, device=x.device)
-        return _decode_attend(cfg, p, q, ck, cv, valid), cache
-    knew = _proj(x, p["wk"])
-    vnew = _proj(x, p["wv"])
-    if cfg.qk_norm:
-        knew = rmsnorm(knew, p["k_scale"])
-    knew = rope(knew, positions, cfg.rope_theta).transpose(1, 2)  # (B,K,1,hd)
-    vnew = vnew.transpose(1, 2)
-    if kind == "local":
-        ck = torch.cat([cache["k"][:, :, 1:], knew], dim=2)
-        cv = torch.cat([cache["v"][:, :, 1:], vnew], dim=2)
-        W = ck.shape[2]
-        n_valid = min(pos + 1, W)
-        valid = torch.arange(W, device=x.device) >= (W - n_valid)
+        new_cache = cache
+        valid = torch.ones((cache["k"].shape[2],), dtype=torch.bool,
+                           device=x.device)
     else:
-        S = cache["k"].shape[2]
-        slot = min(max(pos, 0), S - 1)     # the reference's clamp (C6)
-        ck = cache["k"].clone()
-        cv = cache["v"].clone()
-        ck[:, :, slot] = knew[:, :, 0]
-        cv[:, :, slot] = vnew[:, :, 0]
-        valid = torch.arange(S, device=x.device) <= pos
-    return _decode_attend(cfg, p, q, ck, cv, valid), {"k": ck, "v": cv}
+        knew = _proj(x, p["wk"])
+        vnew = _proj(x, p["wv"])
+        if cfg.qk_norm:
+            knew = rmsnorm(knew, p["k_scale"])
+        new = {"k": rope(knew, positions, cfg.rope_theta).transpose(1, 2),
+               "v": vnew.transpose(1, 2)}                 # (B, K, 1, hd)
+        if int8:
+            for n in ("k", "v"):
+                new[n], new[n + "_s"] = _quant_kv(new[n])
+        if kind == "local":
+            new_cache = {n: torch.cat([cache[n][:, :, 1:], new[n]], dim=2)
+                         for n in new}
+            W = new_cache["k"].shape[2]
+            n_valid = min(pos + 1, W)
+            valid = torch.arange(W, device=x.device) >= (W - n_valid)
+        else:
+            S = cache["k"].shape[2]
+            slot = min(max(pos, 0), S - 1)     # the reference's clamp (C6)
+            new_cache = {}
+            for n in new:
+                new_cache[n] = cache[n].clone()
+                new_cache[n][:, :, slot] = new[n][:, :, 0]
+            valid = torch.arange(S, device=x.device) <= pos
+    ck, cv = new_cache["k"], new_cache["v"]
+    if int8:
+        ck = _dequant_kv(ck, new_cache["k_s"], x.dtype)
+        cv = _dequant_kv(cv, new_cache["v_s"], x.dtype)
+    return _decode_attend(cfg, p, q, ck, cv, valid), new_cache
 
 
 def _decode_attend(cfg: ModelConfig, p, q, ck, cv, valid):

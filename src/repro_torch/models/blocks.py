@@ -104,23 +104,17 @@ def block_fullseq(cfg: ModelConfig, kind: str, p: dict, x, positions,
     return x + _ffn(cfg, p, x)[0], cache
 
 
-def block_train_check(kind: str) -> None:
-    """Raise unless blocks of ``kind`` can train in the port."""
-    check_kind(kind)
-    if kind == SSM:
-        raise NotImplementedError(
-            "training through Mamba-2 SSD blocks is not ported: "
-            "ROADMAP D14b")
-
-
 def block_train(cfg: ModelConfig, kind: str, p: dict, x, positions,
                 enc_out=None, enc_positions=None
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Training block application (no cache), the reference's
     ``block_fullseq(..., "train")``: returns (x, the MoE layer's aux loss
-    or None)."""
-    block_train_check(kind)
+    or None).  An SSD layer trains through the plain scan by autograd."""
+    check_kind(kind)
     h = apply_norm(cfg, p["ln1"], x)
+    if kind == SSM:
+        y, _ = SSMM.ssm_fullseq(cfg, p["ssm"], h, return_cache=False)
+        return x + y, None
     if kind == RGLRU:
         y, _ = RG.rglru_fullseq(cfg, p["rglru"], h, return_cache=False)
     else:

@@ -177,8 +177,6 @@ def train_loss(cfg: ModelConfig, params, batch):
     (plus 0.01 x the units' load-balance aux loss for MoE configs),
     differentiable in ``params``."""
     _check_family(cfg)
-    for kind in cfg.block_pattern + cfg.tail_pattern():
-        B.block_train_check(kind)
     x, n_prefix = _embed_input(cfg, params, batch)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)

@@ -11,7 +11,11 @@ reference's non-kernel ``ssd_chunked``).  Decode carries (conv state,
 ssm state) and costs O(1) a token, in plain torch as in the reference.
 Dtypes and summation orders are the reference's: the prefill conv sums
 its K products in the activation dtype, left to right from 0; the
-decode conv is a product summed in float32 and rounded once.  The cache
+decode conv is a product summed in float32 and rounded once.  Training
+(``return_cache=False``) runs the reference's training mode: the chunked
+scan as the plain torch version on every device, differentiated by
+autograd, as the reference differentiates its non-kernel
+``ssd_chunked``; the kernel has no backward and stays the prefill's.  The cache
 is ``{"conv": (B, K-1, C) activation dtype, "ssm": (B, nh, hd, ds)
 float32}``.
 """
@@ -95,16 +99,22 @@ def _out(cfg: ModelConfig, p, y, z):
     return y @ p["out_proj"].to(y.dtype)
 
 
-def ssm_fullseq(cfg: ModelConfig, p: dict, u):
-    """Full-sequence SSD block.  u (B, T, d) -> (out, cache)."""
+def ssm_fullseq(cfg: ModelConfig, p: dict, u, return_cache: bool = True):
+    """Full-sequence SSD block.  u (B, T, d) -> (out, cache); without
+    ``return_cache`` (training: the plain scan, by autograd) the cache
+    is None."""
     s = cfg.ssm
     z, xBC, dt = _split_proj(cfg, p, u)
     xBC, conv_state = _causal_conv(xBC, p["conv_w"], p["conv_b"])
     x, Bm, Cm, dtv, A = _heads(cfg, xBC, dt, p)
-    y, H = ssd_scan(x, Bm, Cm, dtv, A, chunk=s.chunk, device=x.device)
+    y, H = ssd_scan(x, Bm, Cm, dtv, A, chunk=s.chunk, device=x.device,
+                    training=not return_cache)
     y = y + x * p["d_skip"][None, None, :, None].to(x.dtype)
     y = y.reshape(y.shape[0], y.shape[1], s.d_inner(cfg.d_model))
-    return _out(cfg, p, y, z), {"conv": conv_state, "ssm": H}
+    out = _out(cfg, p, y, z)
+    if not return_cache:
+        return out, None
+    return out, {"conv": conv_state, "ssm": H}
 
 
 def ssm_decode(cfg: ModelConfig, p: dict, u, cache: dict):

@@ -13,15 +13,21 @@ orders); the KV retry read's margins within rtol 1e-6 of the
 larger of the margin and its ratio term, equal decisions, and outputs
 bit for bit, at E 16-512 (the vector kernel, ``vec_launches``) and E
 20 and 36 (the warp-per-page kernel), and bit for bit on pages whose
-margins lie within 1e-6 of 0 with sums exact in any order; the SSD
+margins lie within 1e-6 of 0 with sums exact in any order, and on int8
+backing (the in-model int8 cache's: both kernels, outputs bit for bit,
+margins too on pages whose dequant is integral, ``int8_launches``); the SSD
 scan's y within 1e-5 of its largest |y| in float32 and by the same element-wise bfloat16 rule, and H within 1e-5 of its
 largest |H| (the plain version takes the kernel's cumulative-sum order,
 so only product orders differ), and within 1e-4 of the sequential
 oracle; its bfloat16 launches at hd 64 on the tensor-core path
-(``tc_launches``), bit for bit equal from one launch to the next; the RBER table within rtol 1e-6 of the plain version (both call
+(``tc_launches``), bit for bit equal from one launch to the next, and
+its refusal of inputs that require grad (training runs the plain scan);
+the RBER table within rtol 1e-6 of the plain version (both call
 CUDA's erfcf), on the characterization's shape, a ragged page count and
 long retry tables.  bfloat16 flash attention runs on the tensor-core
-kernel and float32 on the SIMT kernel; the cases cover lengths below,
+kernel and float32 on the SIMT kernel, as do head dims 16 and 32 in
+both dtypes (``small_hd_launches``, in the causal, local, bidirectional
+and cross kinds); the cases cover lengths below,
 at and past a tile, GQA groups of 1, 3 and 8, an all-masked
 ``kv_valid = 0``, the wrapper's refusal of a misaligned view, and
 ``tc_launches`` counting bfloat16 launches only.  The shard core
@@ -74,7 +80,7 @@ def card():
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
-@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("kw", [dict(causal=True),
                                 dict(causal=True, window=48, softcap=50.0),
@@ -186,9 +192,41 @@ def test_flash_attention_tc_launches_count_bf16_only():
 
 
 def test_flash_attention_rejects_head_dim():
-    q = torch.zeros(2, 8, 32, device="cuda")
+    q = torch.zeros(2, 8, 48, device="cuda")
     with pytest.raises(ValueError, match="head dims"):
         FA.flash_attention_fwd(q, q, q)
+
+
+# The four attention kinds at the reduced configs' narrow heads: causal,
+# local (a window with a softcap, gemma2's), bidirectional (T = S) and
+# cross (11 queries over 40 keys, no mask).
+SMALL_HD_KINDS = {"causal": (70, 70, dict(causal=True)),
+                  "local": (70, 70, dict(causal=True, window=32,
+                                         softcap=50.0)),
+                  "bidir": (70, 70, dict(causal=False)),
+                  "cross": (11, 40, dict(causal=False))}
+
+
+@pytest.mark.parametrize("kind", sorted(SMALL_HD_KINDS))
+@pytest.mark.parametrize("hd", [16, 32])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_small_head_dims(kind, hd, dtype):
+    """Head dims 16 and 32 run the SIMT kernel in both dtypes, counted by
+    ``small_hd_launches`` and not by ``tc_launches``: float32 within
+    1e-5 of the plain version, bfloat16 by the element-wise rule."""
+    T, S, kw = SMALL_HD_KINDS[kind]
+    q, k, v = _fa_inputs(2, 2, T, S, hd, getattr(torch, dtype), seed=hd)
+    counts = FA.launches, FA.tc_launches, FA.small_hd_launches
+    got = FA.flash_attention_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert (FA.launches - counts[0], FA.tc_launches - counts[1],
+            FA.small_hd_launches - counts[2]) == (1, 0, 1)
+    assert not FA.uses_tensor_cores(q.dtype, hd)
+    want = flash_attention_plain(q, k, v, **kw)
+    if dtype == "float32":
+        assert float((got - want).abs().max()) <= F32_TOL
+    else:
+        assert bf16_err_ratio(got, want) <= 1.0
 
 
 def _kv_pages(P, E, dtype, seed=6):
@@ -284,6 +322,64 @@ def test_kv_retry_warp_kernel_matches_plain_on_vector_widths(E):
     _kv_hold(q, s, b, 0.01, out, margin)
 
 
+def _int8_kv_pages(P, E, seed=9):
+    """int8 backing pages as the in-model cache holds them (amax 127, or
+    all zero; spiky ones retry at tau 0.01) and general ones (amax below
+    127, whose fast reads truncate), with their fast tier; and a mask of
+    the pages whose dequant is integral (sums exact in any order)."""
+    rng = np.random.default_rng(seed)
+    b = rng.integers(-100, 101, (P, E)).astype(np.int8)
+    kind = rng.integers(0, 4, P)
+    b[kind == 1, 0] = 127
+    b[kind == 2] = 0
+    spiky = np.flatnonzero(kind == 3)
+    b[spiky] = rng.integers(-3, 4, (spiky.size, E))
+    b[spiky, rng.integers(0, E, spiky.size)] = -127
+    b = torch.from_numpy(b).cuda()
+    return (*quantize_pages(b), b,
+            torch.from_numpy(kind != 0).cuda())
+
+
+@pytest.mark.parametrize("vector", [True, False])
+@pytest.mark.parametrize("E", [16, 64, 128, 256, 20])
+@pytest.mark.parametrize("tau", [0.05, 0.01])
+def test_kv_retry_int8_backing_bitwise(vector, E, tau):
+    """The int8-backing variant of both kernels against the plain version:
+    outputs bit for bit (fast pages truncated toward zero), equal
+    decisions, margins bit for bit on integral pages at power-of-two
+    widths and within the rule elsewhere; ``int8_launches`` counts the
+    launch."""
+    if vector and E % 16:
+        pytest.skip("the vector kernel takes multiples of 16")
+    q, s, b, exact = _int8_kv_pages(4099, E, seed=E)
+    counts = KV.launches, KV.vec_launches, KV.int8_launches
+    out, margin = KV._launch_cuda(q, s, b, tau, vector=vector)
+    torch.cuda.synchronize()
+    assert (KV.launches - counts[0], KV.vec_launches - counts[1],
+            KV.int8_launches - counts[2]) == (1, int(vector), 1)
+    assert out.dtype == torch.int8
+    fast = _kv_hold(q, s, b, tau, out, margin)
+    if E & (E - 1) == 0:
+        # The plain version's mean multiplies by 1/E on the card: equal to
+        # the kernel's division where E is a power of two (every head dim).
+        want_m = kv_retry_plain(q, s, b, tau=tau)[1]
+        assert torch.equal(margin[exact], want_m[exact])
+    trunc = fast & ~exact
+    assert bool(trunc.any())
+    assert bool((out[trunc] != b[trunc]).any())
+    if tau < 0.02:
+        assert bool((~fast).any())
+
+
+def test_kv_retry_wrapper_takes_int8_backing():
+    q, s, b, _ = _int8_kv_pages(300, 64)
+    before = KV.int8_launches
+    out, margin = KV.kv_retry_fwd(q, s, b, tau=0.01)
+    torch.cuda.synchronize()
+    assert KV.int8_launches == before + 1
+    _kv_hold(q, s, b, 0.01, out, margin)
+
+
 def _ssd_inputs(BG, G, T, hd, ds, dtype, seed=0):
     """x (BG*G, T, hd), shared B and C (BG, T, ds), dt = softplus(N(0, 1)),
     A = -exp(N(0, 1)) per head, dA = dt * A."""
@@ -367,6 +463,32 @@ def test_ssd_scan_tc_launches_count_tensor_core_path_only(dtype, hd, tc):
     torch.cuda.synchronize()
     assert (SSD.launches - launches, SSD.tc_launches - tcl) == (1, tc)
     assert SSD.uses_tensor_cores(args[0].dtype, hd, 128, 300, 256) == bool(tc)
+
+
+def test_ssd_scan_raises_on_inputs_requiring_grad():
+    """The kernel is launched on raw pointers and has no backward: with
+    grad enabled and an input that requires it, the CUDA path raises
+    rather than return outputs detached from the parameters; the
+    training mode runs the plain scan and keeps the graph."""
+    args = _ssd_inputs(2, 3, 40, 16, 16, "float32")
+    x = args[0].clone().requires_grad_(True)
+    before = SSD.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        SSD.ssd_scan_fwd(x, *args[1:])
+    assert SSD.launches == before
+    with torch.no_grad():
+        y, _ = SSD.ssd_scan_fwd(x, *args[1:])
+    torch.cuda.synchronize()
+    assert SSD.launches == before + 1
+    B, nh = 2, 3
+    xm = x.detach().view(B, nh, 40, 16).permute(0, 2, 1, 3).clone()
+    xm.requires_grad_(True)
+    dt = args[3].view(B, nh, 40).permute(0, 2, 1)
+    A = -torch.arange(1, nh + 1, dtype=torch.float32, device="cuda")
+    yt, _ = SSD.ssd_scan(xm, args[1], args[2], dt, A, chunk=16,
+                         training=True)
+    yt.sum().backward()
+    assert SSD.launches == before + 1 and xm.grad is not None
 
 
 def test_ssd_scan_rejects_head_dim():

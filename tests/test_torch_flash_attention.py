@@ -149,6 +149,22 @@ def test_cpu_path_does_not_count_launches():
     assert FA.launches == before
 
 
+@pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_card_routing_rule(hd, dtype):
+    """``HEAD_DIMS`` is the one list of what the card takes; bfloat16 at
+    hd 64 and wider takes the tensor-core kernel, the rest the SIMT
+    kernel (bfloat16 at hd 16 and 32 its own entry point)."""
+    assert hd in FA.HEAD_DIMS and len(FA.HEAD_DIMS) == 5
+    tc = FA.uses_tensor_cores(dtype, hd)
+    assert tc == (dtype == torch.bfloat16 and hd >= 64)
+    entry = FA._entry(dtype, hd)
+    assert entry == ("fa_fwd_tc_launch" if tc else "fa_fwd_f32_launch"
+                     if dtype == torch.float32 else "fa_fwd_simt_bf16_launch")
+    csrc = FA._SOURCE.read_text()
+    assert f'extern "C" int {entry}(' in csrc
+
+
 @pytest.mark.parametrize("fault", ["p-bf16", "drop-tile"])
 def test_bf16_rule_rejects_faulty_attention(fault):
     """Against the reference's Pallas kernel (interpret mode) on a causal

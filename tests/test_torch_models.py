@@ -219,45 +219,6 @@ def test_encdec_and_vlm_configs_build(arch):
     assert ("pos_embed" in params) == (arch == "whisper-large-v3")
 
 
-def _int8_inputs(cfg):
-    """A prefill batch of ``cfg``'s family, its frontend's zeros too."""
-    from repro_torch.models.api import frontend_zeros
-
-    return {"tokens": torch.from_numpy(_tokens(cfg.vocab)),
-            **frontend_zeros(cfg, B, "cpu")}
-
-
-@pytest.mark.parametrize("arch", MODEL_ARCHS + NEW_ARCHS
-                         + ("whisper-large-v3", "internvl2-1b"))
-def test_kv_int8_names_its_item(arch, monkeypatch):
-    """``REPRO_KV_INT8=1`` (the in-model int8 KV cache) raises naming
-    ROADMAP D13 in every family with attention."""
-    _, _, port, params = _models(arch, "float32")
-    monkeypatch.setenv("REPRO_KV_INT8", "1")
-    with pytest.raises(NotImplementedError, match="D13"):
-        port.prefill(params, _int8_inputs(port.cfg))
-
-
-@pytest.mark.parametrize("kind", ["cross", "bidir"])
-def test_kv_int8_names_its_item_in_encoder_decoder_attention(kind,
-                                                             monkeypatch):
-    from repro_torch.models import attention as TA
-
-    _, _, port, params = _models("whisper-large-v3", "float32")
-    cfg = port.cfg
-    p = {k: w[0] for k, w in params["dec_units"]["b0"]["xattn"].items()}
-    x = torch.zeros((B, 3, cfg.d_model))
-    pos = torch.arange(3, dtype=torch.int32)
-    kw = {}
-    if kind == "cross":
-        kw = dict(enc_out=torch.zeros((B, cfg.enc_positions, cfg.d_model)),
-                  enc_positions=torch.arange(cfg.enc_positions,
-                                             dtype=torch.int32))
-    monkeypatch.setenv("REPRO_KV_INT8", "1")
-    with pytest.raises(NotImplementedError, match="D13"):
-        TA.attention_fullseq(cfg, p, x, pos, kind, **kw)
-
-
 @pytest.mark.parametrize("arch", NEW_ARCHS)
 def test_full_configs_build(arch):
     """``build_model`` takes the published RG-LRU and MoE configs (no

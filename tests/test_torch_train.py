@@ -3,7 +3,9 @@
 Reduced ``llama3.2-3b`` (and ``gemma2-2b`` for the windowed attention,
 ``recurrentgemma-2b`` at 8 layers for the RG-LRU scan and the pattern
 tail, ``olmoe-1b-7b`` for the MoE dispatch and its load-balance aux
-loss) in float32, with the reference's initial parameters carried
+loss, ``mamba2-130m`` for the SSD blocks, trained through the plain
+scan by autograd as the reference trains through ``ssd_chunked``) in
+float32, with the reference's initial parameters carried
 across by ``params_from_jax``:
 
   * ``train_loss`` and every gradient against ``jax.value_and_grad`` of
@@ -21,7 +23,8 @@ across by ``params_from_jax``:
     same way: losses within 1e-4;
   * the command line runs its steps, saves, and resumes: the resumed
     losses equal the uninterrupted run's bit for bit on the CPU; it
-    trains the RG-LRU and MoE families too.
+    trains the RG-LRU, MoE, encoder-decoder, VLM and Mamba-2 families
+    too.
 """
 
 import dataclasses
@@ -96,7 +99,8 @@ def synthetic_tables():
 
 
 @pytest.mark.parametrize("arch", ["llama3.2-3b", "gemma2-2b",
-                                  "recurrentgemma-2b", "olmoe-1b-7b"])
+                                  "recurrentgemma-2b", "olmoe-1b-7b",
+                                  "mamba2-130m"])
 def test_train_loss_and_gradients_match_reference(arch):
     rcfg, cfg = _cfgs(arch)
     params = _ref_params(rcfg)
@@ -236,6 +240,21 @@ def test_command_line_smoke_saves_and_resumes(tmp_path, capsys,
     assert "resumed from step 3" in out and "step    6" in out
 
 
+def test_command_line_smoke_trains_and_resumes_mamba2(tmp_path, capsys,
+                                                      synthetic_tables):
+    """``launch.train --arch mamba2-130m --smoke --device cpu`` trains
+    (losses finite), saves and resumes."""
+    args = ["--smoke", "--device", "cpu", "--arch", "mamba2-130m",
+            "--save-every", "2", "--ckpt-dir", str(tmp_path)]
+    TL.main(args + ["--steps", "3"])
+    out = capsys.readouterr().out
+    assert "checkpoint @ 2" in out and "training run complete" in out
+    assert "nan" not in out.lower()
+    TL.main(args + ["--steps", "4"])
+    out = capsys.readouterr().out
+    assert "resumed from step 2" in out and "step    4" in out
+
+
 def test_moe_tail_aux_is_dropped_as_in_the_reference():
     """olmoe cut to a pattern of two layers over three: one unit and an
     MoE tail layer.  The reference adds 0.01 x the units' aux losses and
@@ -263,7 +282,8 @@ def test_moe_tail_aux_is_dropped_as_in_the_reference():
 
 
 @pytest.mark.parametrize("arch", ["recurrentgemma-2b", "olmoe-1b-7b",
-                                  "whisper-large-v3", "internvl2-1b"])
+                                  "whisper-large-v3", "internvl2-1b",
+                                  "mamba2-130m"])
 def test_command_line_smoke_trains_the_new_families(arch, tmp_path, capsys,
                                                     synthetic_tables):
     TL.main(["--smoke", "--device", "cpu", "--arch", arch, "--steps", "2",
@@ -286,12 +306,34 @@ def test_restore_reconstructs_a_corrupt_shard(tmp_path):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("arch,item", [("mamba2-130m", "D14b")])
-def test_untrainable_families_name_their_item(arch, item):
-    cfg = reduced_config(get_config(arch))
-    with pytest.raises(NotImplementedError, match=item):
-        model = build_model(cfg, device="cpu")
-        model.train_loss({}, {})
+def test_mamba2_trains_through_the_plain_scan():
+    """The SSD blocks train through the plain scan by autograd (the
+    reference's training mode): every SSM parameter of the reduced
+    mamba2-130m gets a nonzero gradient, ``ssd_scan(..., training=True)``
+    computes what the kernel's entry computes on the CPU, and no kernel
+    launches."""
+    from repro_torch.kernels.ssd_scan import ops as SO
+
+    _, cfg = _cfgs("mamba2-130m")
+    model = build_model(cfg, device="cpu")
+    params = tree_map(lambda p: p.requires_grad_(True), model.init())
+    batch = {k: torch.from_numpy(v) for k, v in _batch(cfg.vocab).items()}
+    before = SO.launches
+    model.train_loss(params, batch).backward()
+    assert SO.launches == before
+    for name, g in params["units"]["b0"]["ssm"].items():
+        assert g.grad is not None and bool(g.grad.abs().sum() > 0), name
+    rng = np.random.default_rng(2)
+    x, Bm, Cm = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                 for s in ((2, 37, 3, 16), (2, 37, 16), (2, 37, 16)))
+    dt = torch.from_numpy(rng.random((2, 37, 3)).astype(np.float32) * 0.1)
+    A = -torch.arange(1, 4, dtype=torch.float32)
+    want = SO.ssd_scan(x, Bm, Cm, dt, A, chunk=8, device="cpu")
+    x.requires_grad_(True)
+    got = SO.ssd_scan(x, Bm, Cm, dt, A, chunk=8, device="cpu",
+                      training=True)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert got[0].grad_fn is not None
 
 
 @pytest.mark.parametrize("flag", [["--dry-run"], ["--shape", "train_4k"]])
