@@ -340,6 +340,29 @@ exits non-zero):
                      (24 B5 launches a prefill), and the reduced
                      mamba2-130m's float32 loss and gradients on the card
                      within 1e-5 of the CPU's.
+ 19. sharded steps — ``repro_torch.distributed`` at world size 1 (NCCL
+                     takes one card a rank): (a) a one-rank NCCL process
+                     group through a ``FileStore`` under ``build/``, the
+                     host mesh (``launch.mesh.make_host_mesh``) on the
+                     card and one all-reduce; (b) llama3.2-3b at its
+                     published widths, all 28 layers, batch 2 x 1024,
+                     three steps of ``launch.train.train`` on the (1, 1)
+                     mesh (``distributed.steps.make_train_step``: DTensor
+                     parameters and moments, units gathered just in time)
+                     with phase 15's seed, rate, schedule and
+                     deterministic setting: the losses equal phase 15's
+                     first three bit for bit (else within 1e-5 relative,
+                     printed as such), peak memory printed, no kernel
+                     launch; ``compress_grads`` on a seeded gradient tree
+                     equal to the CPU's bit for bit; (c) olmoe-1b-7b at
+                     full width and depth with ``REPRO_MOE_EP=1``:
+                     ``make_prefill_step`` on the long set through the
+                     expert-parallel body (64 local experts), B4 16
+                     launches a prefill, each held against the plain
+                     version with the bfloat16 rule; the logits against
+                     the dense dispatch's prefill of the same weights by
+                     the same rule; three ``make_decode_step`` steps whose
+                     greedy tokens equal the unsharded ``decode_step``'s.
 
 The line before the last is a JSON object describing each kernel
 (launches on its main path, error against the plain version, and times
@@ -350,7 +373,10 @@ and the KV retry read, phases 7, 16, 17 and 18 together, with phase
 18's B4 launches at head dim 16 (``small_hd_launches``; with
 ``tc_launches`` they make up every launch; their held times apart in
 ``small_hd_ms``, ``small_hd_plain_ms``, ``small_hd_bound_ms`` and not
-in the row's sums, since SDPA has no softcap for gemma2's) and its B3
+in the row's sums, since SDPA has no softcap for gemma2's), phase 19's
+B4 launches (``dist_launches``, not in ``launches``; their held times
+in ``dist_ms``, ``dist_plain_ms``, ``dist_bound_ms``, not in the row's
+sums) and phase 18's B3
 launches on int8 backing (``int8_launches``, ``int8_held`` of them held,
 their times also in ``int8_ms``, ``int8_plain_ms``,
 ``int8_bound_ms``); for the
@@ -585,6 +611,18 @@ INT8_SMALL = (("llama3.2-3b", {}), ("recurrentgemma-2b", dict(n_layers=8)),
               ("whisper-large-v3", {}))
 INT8_ENCDEC = "whisper-large-v3"
 MAMBA_TRAIN_STEPS = 4
+
+# Phase 19: the sharded steps at world size 1 (NCCL takes one card a
+# rank).  llama3.2-3b's sharded train step for this many of phase 15's
+# steps (its seed, rate, schedule and deterministic setting), held to
+# phase 15's losses bit for bit or, failing that, within this relative
+# tolerance; compress_grads on a tree drawn from this seed; olmoe-1b-7b's
+# expert-parallel prefill on the long set and this many decode steps.
+DIST_TRAIN_STEPS = 3
+DIST_LOSS_RTOL = 1e-5
+DIST_COMPRESS_SEED = 19
+DIST_MOE_ARCH = "olmoe-1b-7b"
+DIST_DECODE_STEPS = 3
 
 
 def phase(name):
@@ -4215,6 +4253,248 @@ def int8_mamba_phase(smi):
     return launches, held
 
 
+def _compress_tree(device):
+    """A seeded gradient tree (Gaussian leaves of several scales, one at
+    x.5 of a quantization step) on ``device``."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(DIST_COMPRESS_SEED)
+    half = rng.integers(-250, 251, 4096).astype(np.float32) / 2
+    half[0] = 127.0
+    tree = {"w": [rng.standard_normal((1024, 3072)).astype(np.float32)
+                  * 10.0 ** -k for k in range(4)], "half": half}
+    return {"w": [torch.from_numpy(x).to(device) for x in tree["w"]],
+            "half": torch.from_numpy(tree["half"]).to(device)}
+
+
+def _compress_check():
+    """``compress_grads`` over two steps (with error feedback) on the card
+    against the CPU, bit for bit."""
+    import torch
+
+    from repro_torch.distributed.compress import compress_grads
+    from repro_torch.optim.adamw import tree_leaves
+
+    outs = {}
+    for dev in (DEVICE, "cpu"):
+        tree, ef, got = _compress_tree(dev), None, []
+        for _ in range(2):
+            out, ef = compress_grads(tree, ef)
+            got += [t.cpu() for t in tree_leaves(out) + tree_leaves(ef)]
+        outs[dev] = got
+    same = all(torch.equal(a, b) and a.dtype == b.dtype
+               for a, b in zip(outs[DEVICE], outs["cpu"]))
+    n = sum(t.numel() for t in tree_leaves(_compress_tree("cpu")))
+    if not same:
+        raise AssertionError("compress_grads on the card differs from the "
+                             "CPU's")
+    return n
+
+
+def _pad_left(prompts):
+    """The serving engine's left-padded (B, T) token batch."""
+    import numpy as np
+
+    T = max(len(p) for p in prompts)
+    out = np.zeros((len(prompts), T), np.int64)
+    for i, p in enumerate(prompts):
+        out[i, T - len(p):] = p
+    return out
+
+
+@phase("sharded steps")
+def dist_phase(smi, train_losses=None):
+    """Phase 19: (a) a one-rank NCCL process group through a FileStore
+    under build/, the host mesh on the card and one all-reduce; (b)
+    llama3.2-3b's sharded train step (``launch.train.train`` on the
+    (1, 1) mesh: ``distributed.steps.make_train_step``) at full width and
+    depth for three steps, held against phase 15's losses
+    (``train_losses``; run unsharded here when not given), and
+    ``compress_grads`` against the CPU bit for bit; (c) olmoe-1b-7b at
+    full width and depth under ``REPRO_MOE_EP=1``: ``make_prefill_step``
+    on the long set through the expert-parallel body (64 local experts),
+    every B4 launch held, the logits against the dense dispatch's
+    prefill of the same weights, then decode steps whose greedy tokens
+    equal the unsharded ``decode_step``'s.  Returns (B4 launches of
+    (c)'s prefill and decode, their held records)."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed import steps as ST
+    from repro_torch.distributed.elastic import reshard_state
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.kernels.flash_attention.plain import bf16_err_ratio
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import train as TL
+    from repro_torch.models import build_model
+    from repro_torch.optim.adamw import AdamWConfig, tree_leaves
+
+    store = ROOT / "build" / "chip_smoke_dist_store"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    rank, world = M.init_process_group(DEVICE, store_path=str(store))
+    try:
+        mesh = M.make_host_mesh(device=DEVICE)
+        probe = torch.full((4,), 3.0, device=DEVICE)
+        dist.all_reduce(probe)
+        if world != 1 or not bool((probe == 3.0 * world).all()) or \
+                dist.get_backend() != M.BACKENDS[mesh.device_type]:
+            raise AssertionError(f"process group: rank {rank} of {world}, "
+                                 f"{dist.get_backend()}, all-reduce {probe}")
+        print(f"(a) {dist.get_backend()} process group of {world} rank "
+              f"through a FileStore, mesh {SH.mesh_shape(mesh)} on "
+              f"{mesh.device_type}, all-reduce checked, "
+              f"{time.perf_counter() - t0:.3f} s", flush=True)
+
+        # (b) the sharded train step at full width and depth.
+        before = _kernel_counts()
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+        torch.use_deterministic_algorithms(True)
+        quiet = lambda *_: None      # noqa: E731
+        cfg = get_config(TRAIN_ARCH)
+        opt = AdamWConfig(lr=TRAIN_LR, moment_dtype=cfg.moment_dtype)
+        kw = dict(steps=TRAIN_STEPS, stop_after=DIST_TRAIN_STEPS,
+                  batch=TRAIN_BATCH, seq=TRAIN_SEQ, opt=opt, log=quiet)
+        if train_losses is None:
+            ref = TL.train(cfg, device=DEVICE, **kw)
+            train_losses = [ref.losses[i] for i in sorted(ref.losses)]
+            del ref
+            torch.cuda.empty_cache()
+        want = list(train_losses[:DIST_TRAIN_STEPS])
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        run = TL.train(cfg, mesh=mesh, **kw)
+        wall = time.perf_counter() - t1
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        losses = [run.losses[i] for i in sorted(run.losses)]
+        leaves = tree_leaves(run.state["params"])
+        if not all(isinstance(x, SH.DTensor) for x in leaves):
+            raise AssertionError("the sharded state holds a plain tensor")
+        state_gb = sum(SH.local(x).numel() * SH.local(x).element_size()
+                       for x in tree_leaves(run.state)) / 1e9
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, want))
+        if losses == want:
+            how = "equal to phase 15's bit for bit"
+        elif rel <= DIST_LOSS_RTOL:
+            how = (f"within {rel:.3g} relative of phase 15's (not bit for "
+                   f"bit)")
+        else:
+            raise AssertionError(f"sharded losses {losses} != phase 15's "
+                                 f"{want}")
+        print(f"(b) train {TRAIN_ARCH} full depth on the (1, 1) mesh, batch "
+              f"{TRAIN_BATCH} x {TRAIN_SEQ}, {DIST_TRAIN_STEPS} sharded "
+              f"steps on {smi}: losses {losses} {how}; grad norms "
+              f"{[run.grad_norms[i] for i in sorted(run.grad_norms)]}; "
+              f"{wall:.3f} s in all, steps "
+              f"{[round(t, 3) for t in run.step_s]} s, {state_gb:.1f} GB "
+              f"of DTensor state, peak {peak:.1f} GB allocated", flush=True)
+        del run, leaves
+        torch.cuda.empty_cache()
+        torch.use_deterministic_algorithms(False)
+        launched = _launched_since(before)
+        if any(launched.values()):
+            raise AssertionError(f"the sharded train step launched a "
+                                 f"kernel: {launched}")
+        n = _compress_check()
+        print(f"(b) compress_grads on {n} seeded gradient values over two "
+              f"steps with error feedback: the card's output and feedback "
+              f"equal the CPU's bit for bit", flush=True)
+        out = dict(losses=losses, how=how, peak_gb=peak, step_s=wall)
+
+        # (c) the expert-parallel prefill and decode at full width.
+        cfg = get_config(DIST_MOE_ARCH)
+        prefill, place = ST.make_prefill_step(cfg, mesh)
+        decode, _ = ST.make_decode_step(cfg, mesh)
+        torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator(DEVICE).manual_seed(0)     # phase 16's
+        params = reshard_state(build_model(cfg, DEVICE, gen).init(), mesh,
+                               place)
+        torch.cuda.empty_cache()
+        init_peak = torch.cuda.max_memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+        long = _request_sets(cfg.vocab)[1][1]
+        batch = {"tokens": torch.as_tensor(_pad_left(long), device=DEVICE)}
+        n_attn = cfg.n_layers
+        with torch.no_grad():
+            os.environ["REPRO_MOE_EP"] = "0"
+            prefill(params, batch)                          # warm-up
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            dense, dense_cache = prefill(params, batch)
+            torch.cuda.synchronize()
+            dense_s = time.perf_counter() - t1
+            os.environ["REPRO_MOE_EP"] = "1"
+            prefill(params, batch)          # warm-up: the model group
+            FA.launches = FA.tc_launches = 0
+            with _Recorder(FA, "flash_attention_fwd") as rec:
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                logits, cache = prefill(params, batch)
+                torch.cuda.synchronize()
+                prefill_s = time.perf_counter() - t1
+                toks = [logits[:, -1].argmax(-1)]
+                pos = batch["tokens"].shape[1]
+                for i in range(DIST_DECODE_STEPS):
+                    lg, cache = decode(params, {"token": toks[-1][:, None],
+                                                "pos": pos + i,
+                                                "cache": cache})
+                    toks.append(lg[:, -1].argmax(-1))
+            launches, tc = FA.launches, FA.tc_launches
+            os.environ["REPRO_MOE_EP"] = "0"
+            want_toks = [dense[:, -1].argmax(-1)]
+            model = build_model(cfg, DEVICE)
+            for i in range(DIST_DECODE_STEPS):
+                lg, dense_cache = model.decode_step(
+                    params, {"token": want_toks[-1][:, None],
+                             "pos": pos + i, "cache": dense_cache})
+                want_toks.append(lg[:, -1].argmax(-1))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        ratio = float(bf16_err_ratio(logits, dense))
+        err = float((logits - dense).abs().max())
+        if launches != n_attn or tc != launches or rec.n != launches:
+            raise AssertionError(f"expert-parallel prefill: {launches} B4 "
+                                 f"launches ({tc} on the tensor cores, "
+                                 f"{rec.n} recorded), {n_attn} expected")
+        if not bool(torch.isfinite(logits).all()) or not ratio <= 1.0:
+            raise AssertionError(f"expert-parallel logits against the dense "
+                                 f"dispatch's: max abs {err}, worst |err| / "
+                                 f"tolerance {ratio}")
+        got_t = torch.stack(toks, 1).cpu()
+        want_t = torch.stack(want_toks, 1).cpu()
+        if not torch.equal(got_t, want_t):
+            raise AssertionError(f"expert-parallel greedy tokens {got_t} != "
+                                 f"the unsharded decode's {want_t}")
+        held = [_hold_fa(f"dist prefill launch {i}", a.pop("q"), a.pop("k"),
+                         a.pop("v"), a, got=o, quiet=True)
+                for i, (a, o) in enumerate(rec.calls)]
+        del rec, params, cache, dense_cache
+        torch.cuda.empty_cache()
+        print(f"(c) {DIST_MOE_ARCH} full width and depth, REPRO_MOE_EP=1 on "
+              f"the (1, 1) mesh ({cfg.moe.n_experts} local experts), long "
+              f"set {tuple(batch['tokens'].shape)} on {smi}: prefill "
+              f"{prefill_s * 1e3:.1f} ms (the dense dispatch's "
+              f"{dense_s * 1e3:.1f}), logits against the dense "
+              f"dispatch's max abs {err:.3g} (worst |err| / tolerance "
+              f"{ratio:.3g}), {DIST_DECODE_STEPS} decode steps' greedy "
+              f"tokens equal the unsharded decode's, peak {peak:.2f} GiB "
+              f"(placing the parameters {init_peak:.2f}); "
+              f"B4 {launches} launches (tc_launches {tc})", flush=True)
+        _print_held("  dist prefill flash_attention", held)
+        out.update(prefill_ms=prefill_s * 1e3, dense_ms=dense_s * 1e3,
+                   logits_ratio=ratio)
+        return launches, held, out
+    finally:
+        os.environ.pop("REPRO_MOE_EP", None)
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+
+
 def _print_held(name, rs):
     """One line for the launches of one run, held and re-timed."""
     bound_ms, bound_by = _bound(sum(r["t_bytes"] for r in rs),
@@ -4319,7 +4599,7 @@ def main() -> int:
     online_fault_launches = online_faults_phase(smi, gc_res, gc_inplace)
     torch.cuda.empty_cache()
     calibrate_phase(smi)
-    train_phase(smi)
+    train = train_phase(smi)
     torch.cuda.empty_cache()
     family_launches, family_held, _ = family_phase(smi)
     for k, n in family_launches.items():
@@ -4338,6 +4618,8 @@ def main() -> int:
               "kv_retry_vec"):
         serve_launches[k] += int8_launches[k]
     held_kv += int8_held["kv_retry"]
+    torch.cuda.empty_cache()
+    dist_launches, dist_held, _ = dist_phase(smi, train["losses"])
     # The head-dim-16 launches are summed apart: SDPA has no softcap, so
     # with gemma2's among them the row's library time would be null.
     held_small = int8_held["flash_attention"]
@@ -4378,7 +4660,8 @@ def main() -> int:
              family_launches=family_launches["flash_attention"],
              encdec_launches=encdec_launches["flash_attention"],
              small_hd_launches=small_hd,
-             **_sub_sums("small_hd", held_small)),
+             **_sub_sums("small_hd", held_small),
+             dist_launches=dist_launches, **_sub_sums("dist", dist_held)),
         dict(_kernel_line("kv_retry", f"{kernels}/kv_retry/csrc/kv_retry.cu",
                           "src/repro/kernels/kv_retry/kernel.py:26",
                           serve_launches["kv_retry"], kv_cases, held_kv,

@@ -20,3 +20,12 @@ def resolve_device(device=None) -> torch.device:
                 "none; pass device='cpu' to run on the CPU")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def require_local(name: str, *tensors) -> None:
+    """Kernel wrappers take plain local tensors, never a DTensor (a
+    sharded step gathers weights and keeps activations local)."""
+    from torch.distributed.tensor import DTensor
+
+    if any(isinstance(t, DTensor) for t in tensors):
+        raise TypeError(f"{name} takes local tensors, not DTensors")

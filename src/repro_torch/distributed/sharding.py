@@ -1,0 +1,317 @@
+"""Logical-axis sharding: rules, activation constraints, parameter
+placements, over ``torch.distributed``'s ``DeviceMesh`` and DTensor.
+
+The reference's ``repro.distributed.sharding`` restated.  Model code
+annotates activations with logical axes through :func:`constrain` (a
+no-op outside :func:`use_mesh` and on plain tensors).  Parameter and
+optimizer-state placements come from the parameter-tree paths by
+:func:`param_specs`: 2-D FSDP x TP, tensor-parallel over ``model`` along
+heads/ff/vocab/expert dims and fully sharded over ``data`` along a
+complementary dim, so the AdamW moments are sharded over the whole mesh
+by construction.  The ``pod`` axis (the multi-pod mesh) extends data
+parallelism: the batch and the FSDP dims shard over ("pod", "data"),
+pod-major.
+
+A spec is what the reference's ``PartitionSpec`` holds: a tuple with,
+per tensor dim, ``None`` or a tuple of mesh axis names.
+:func:`spec_to_placements` turns it into DTensor placements (one per
+mesh dim): a tensor dim over mesh axes becomes ``Shard(dim)`` on each of
+them, in mesh-dim order, which is pod-major for ("pod", "data").
+
+Computation runs on plain local tensors: :func:`gather` turns a DTensor
+weight into the full tensor just where it is used, with its gradient
+summed over the batch axes (``Partial``) and replicated over ``model``,
+so the backward pass leaves each gradient on its parameter's placements.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import re
+import threading
+from typing import Optional, Tuple
+
+import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+_state = threading.local()
+
+#: logical axis name -> mesh axes (single-pod).  The multi-pod mesh
+#: extends the "data"-mapped axes with the "pod" axis.
+DEFAULT_RULES = {
+    "batch": ("data",),
+    "seq": None,
+    "embed": None,
+    "heads": ("model",),
+    "kv_heads": ("model",),
+    "head_dim": None,
+    "ff": ("model",),
+    "vocab": ("model",),
+    "experts": ("model",),
+    "fsdp": ("data",),       # weight dim sharded over the data axis
+    "kv_seq": ("model",),    # KV-cache seq dim when heads cannot shard
+    #: inter-unit activation carry: sequence sharded over the model axis
+    #: (Megatron sequence-parallel style).
+    "act_seq": ("model",),
+}
+
+
+def _axis_names(mesh) -> Tuple[str, ...]:
+    names = getattr(mesh, "mesh_dim_names", None)
+    return tuple(names if names is not None else mesh.axis_names)
+
+
+def mesh_shape(mesh) -> dict:
+    """``{axis name: size}`` of a ``DeviceMesh`` (or of any object with
+    the reference mesh's ``shape`` mapping and ``axis_names``)."""
+    if isinstance(getattr(mesh, "shape", None), dict):
+        return dict(mesh.shape)
+    return dict(zip(_axis_names(mesh), mesh.mesh.shape))
+
+
+def rules_for_mesh(mesh) -> dict:
+    rules = dict(DEFAULT_RULES)
+    if "pod" in _axis_names(mesh):
+        rules["batch"] = ("pod", "data")
+        rules["fsdp"] = ("pod", "data")
+    return rules
+
+
+def current_mesh():
+    return getattr(_state, "mesh", None)
+
+
+def current_rules() -> Optional[dict]:
+    return getattr(_state, "rules", None)
+
+
+def current_batch_axes() -> Tuple[str, ...]:
+    """The mesh axes the running step split its batch over (``()``: the
+    batch is whole on every rank)."""
+    return getattr(_state, "batch_axes", ())
+
+
+@contextlib.contextmanager
+def use_mesh(mesh, rules: Optional[dict] = None,
+             batch_axes: Tuple[str, ...] = ()):
+    """Activate the mesh for model code: constraints, the expert-parallel
+    MoE, and (``batch_axes``) the axes the local batch is a shard of."""
+    prev = (current_rules(), current_mesh(), current_batch_axes())
+    _state.rules = rules or (rules_for_mesh(mesh) if mesh is not None
+                             else None)
+    _state.mesh = mesh
+    _state.batch_axes = tuple(batch_axes) if mesh is not None else ()
+    try:
+        yield
+    finally:
+        _state.rules, _state.mesh, _state.batch_axes = prev
+
+
+def snapshot() -> tuple:
+    """The active mesh context, for code that runs later or on another
+    thread (the backward pass's recomputation)."""
+    return current_mesh(), current_rules(), current_batch_axes()
+
+
+@contextlib.contextmanager
+def restored(snap: tuple):
+    """Re-enter a :func:`snapshot`."""
+    mesh, rules, axes = snap
+    with use_mesh(mesh, rules, axes):
+        yield
+
+
+def logical_to_spec(axes: Tuple[Optional[str], ...], rules=None) -> tuple:
+    rules = rules or current_rules() or DEFAULT_RULES
+    return tuple((rules.get(a) if a else None) or None for a in axes)
+
+
+def _guarded(shape, parts, sizes) -> tuple:
+    """Drop an axis group whose size does not divide its dim, or that
+    reuses a mesh axis an earlier dim took."""
+    out, used = [], set()
+    for dim, m in enumerate(parts):
+        if m:
+            m_t = m if isinstance(m, tuple) else (m,)
+            size = 1
+            for ax in m_t:
+                size *= sizes[ax]
+            if shape[dim] % size == 0 and not (used & set(m_t)):
+                out.append(tuple(m_t))
+                used.update(m_t)
+                continue
+        out.append(None)
+    return tuple(out)
+
+
+def spec_to_placements(spec: tuple, mesh) -> tuple:
+    """DTensor placements (one per mesh dim) of a spec."""
+    place = [Replicate()] * len(_axis_names(mesh))
+    index = {n: i for i, n in enumerate(_axis_names(mesh))}
+    for dim, m in enumerate(spec):
+        for ax in m or ():
+            place[index[ax]] = Shard(dim)
+    return tuple(place)
+
+
+def constrain(x, axes: Tuple[Optional[str], ...]):
+    """Redistribute a DTensor to its logical axes' placements inside
+    :func:`use_mesh`; ``x`` unchanged otherwise (plain tensors, no
+    mesh)."""
+    rules, mesh = current_rules(), current_mesh()
+    if rules is None or mesh is None or not isinstance(x, DTensor):
+        return x
+    parts = [(rules.get(a) if a else None) for a in axes]
+    spec = _guarded(x.shape, parts, mesh_shape(mesh))
+    return x.redistribute(mesh, spec_to_placements(spec, mesh))
+
+
+# ---------------------------------------------------------------------------
+# Parameter placements by tree path.
+# ---------------------------------------------------------------------------
+
+#: (path regex, logical axes per dim, in the parameter's dim order).
+#: Leading stacked-unit dims are handled separately.
+_PARAM_RULES = (
+    # attention projections
+    (r"\bwq$", ("fsdp", "heads", None)),          # (d, H, hd)
+    (r"\bwk$", ("fsdp", "kv_heads", None)),
+    (r"\bwv$", ("fsdp", "kv_heads", None)),
+    (r"\bwo$", ("heads", None, "fsdp")),          # (H, hd, d)
+    # dense mlp
+    (r"\bwi$", ("fsdp", "ff")),                   # (d, ff)
+    (r"\bwg$", ("fsdp", "ff")),
+    (r"\bwd$", ("ff", "fsdp")),                   # (ff, d)
+    # moe
+    (r"\brouter$", ("fsdp", None)),               # (d, E)
+    (r"\bmoe_wi$", ("experts", "fsdp", None)),    # (E, d, ff)
+    (r"\bmoe_wg$", ("experts", "fsdp", None)),
+    (r"\bmoe_wd$", ("experts", None, "fsdp")),    # (E, ff, d)
+    # embeddings / head
+    (r"\bembed$", ("vocab", "fsdp")),             # (V, d)
+    (r"\bunembed$", ("fsdp", "vocab")),           # (d, V)
+    (r"\bpos_embed$", (None, "fsdp")),
+    # ssm
+    (r"\bin_proj$", ("fsdp", "ff")),              # (d, inner+...)
+    (r"\bout_proj$", ("ff", "fsdp")),
+    (r"\bconv_w$", (None, "ff")),                 # (d_conv, channels)
+    # rglru
+    (r"\bw_gate$", ("fsdp", "ff")),
+    (r"\bw_rec$", ("fsdp", "ff")),
+    (r"\bw_out$", ("ff", "fsdp")),
+    (r"\ba_gate$", ("ff",)),
+    (r"\bx_gate$", ("ff",)),
+)
+
+
+def _spec_for_path(path: str, ndim: int, n_stacked: int, rules) -> tuple:
+    for pat, axes in _PARAM_RULES:
+        if re.search(pat, path):
+            if len(axes) + n_stacked != ndim:
+                break  # fall through to replicated
+            return (None,) * n_stacked + tuple(
+                (rules.get(a) if a else None) or None for a in axes)
+    return (None,) * ndim
+
+
+def map_with_path(fn, tree, path: Tuple[str, ...] = ()):
+    """``fn(path, leaf)`` over nested dicts and lists (a tuple is a leaf:
+    specs and placements are tuples); a path is the keys and list
+    indices (as strings) from the root."""
+    if isinstance(tree, dict):
+        return {k: map_with_path(fn, v, path + (str(k),))
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [map_with_path(fn, v, path + (str(i),))
+                for i, v in enumerate(tree)]
+    return fn(path, tree)
+
+
+def param_specs(params, mesh):
+    """A spec per parameter leaf (stacked units keep a leading None);
+    ``mesh`` needs only the axis names and sizes."""
+    rules = rules_for_mesh(mesh)
+    sizes = mesh_shape(mesh)
+
+    def spec(path, leaf):
+        n_stacked = 1 if "units" in path else 0
+        s = _spec_for_path("/".join(path), leaf.ndim, n_stacked, rules)
+        return _guarded(leaf.shape, s, sizes)
+
+    return map_with_path(spec, params)
+
+
+def param_placements(params, mesh):
+    """DTensor placements per parameter leaf (the reference's
+    ``named_shardings``)."""
+    return map_with_path(
+        lambda _, s: spec_to_placements(s, mesh),
+        param_specs(params, mesh))
+
+
+def batch_size_of(mesh, axes) -> int:
+    sizes = mesh_shape(mesh)
+    n = 1
+    for ax in axes:
+        n *= sizes[ax]
+    return n
+
+
+def grad_placements(mesh, model=None) -> list:
+    """Placements of a gathered weight's gradient: summed over the batch
+    axes, ``model`` (default replicated) over "model"."""
+    batch = rules_for_mesh(mesh)["batch"]
+    return [Partial() if n in batch else
+            (model or Replicate()) if n == "model" else Replicate()
+            for n in _axis_names(mesh)]
+
+
+def gather(x):
+    """A DTensor weight as the full local tensor; its gradient lands on
+    the DTensor's placements summed over the batch axes.  Plain tensors
+    pass through."""
+    if not isinstance(x, DTensor):
+        return x
+    return x.full_tensor(grad_placements=grad_placements(x.device_mesh))
+
+
+def gather_tree(tree, keep: Tuple[str, ...] = ()):
+    """:func:`gather` over nested dicts / lists, except the dict entries
+    named in ``keep``."""
+    if isinstance(tree, dict):
+        return {k: v if k in keep else gather_tree(v, keep)
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [gather_tree(v, keep) for v in tree]
+    return gather(tree)
+
+
+def local(x) -> torch.Tensor:
+    """The local shard of a DTensor; a plain tensor itself."""
+    return x.to_local() if isinstance(x, DTensor) else x
+
+
+def batch_index(mesh, axes) -> int:
+    """This rank's index along the batch axes (pod-major)."""
+    sizes, idx = mesh_shape(mesh), 0
+    for ax in axes:
+        idx = idx * sizes[ax] + mesh.get_local_rank(ax)
+    return idx
+
+
+def gather_batch(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """The global batch of a local batch shard (rows over ``axes``,
+    pod-major); the gradient is summed back over ``axes``."""
+    names = _axis_names(mesh)
+    shard = [Shard(0) if n in axes else Replicate() for n in names]
+    grad = [Partial() if n in axes else Replicate() for n in names]
+    return DTensor.from_local(x, mesh, shard).full_tensor(
+        grad_placements=grad)
+
+
+def local_rows(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """This rank's rows of a global batch split over ``axes``."""
+    n = batch_size_of(mesh, axes)
+    rows = x.shape[0] // n
+    i = batch_index(mesh, axes)
+    return x[i * rows:(i + 1) * rows]

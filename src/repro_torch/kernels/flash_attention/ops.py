@@ -31,7 +31,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.device import resolve_device
+from repro_torch.device import require_local, resolve_device
 from repro_torch.kernels.flash_attention.plain import flash_attention_plain
 
 #: CUDA launches of the flash-attention kernels in this process.
@@ -117,6 +117,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     on one device, BH a multiple of BK.  Keys at or past ``kv_valid``
     are padding.  Returns (BH, T, hd) in q's dtype.
     """
+    require_local("flash_attention_fwd", q, k, v)
     if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape:
         raise ValueError(f"q must be (BH, T, hd) and k, v (BK, S, hd), got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "

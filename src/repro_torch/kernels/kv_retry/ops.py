@@ -30,7 +30,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.device import resolve_device
+from repro_torch.device import require_local, resolve_device
 from repro_torch.kernels.kv_retry.plain import kv_retry_plain, quantize_pages
 
 __all__ = ["kv_read_with_retry", "kv_retry_fwd", "quantize_pages"]
@@ -100,6 +100,7 @@ def kv_retry_fwd(data_q: torch.Tensor, scale: torch.Tensor,
     4, and a multiple of 16 up to 512 takes the vector kernel.
     Returns (out (P, E) in backing's dtype, margin (P, 1) float32).
     """
+    require_local("kv_retry_fwd", data_q, scale, backing)
     if data_q.dim() != 2 or data_q.dtype != torch.int8:
         raise ValueError(f"data_q must be (P, E) int8, got "
                          f"{tuple(data_q.shape)} {data_q.dtype}")

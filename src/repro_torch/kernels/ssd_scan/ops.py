@@ -41,7 +41,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.device import resolve_device
+from repro_torch.device import require_local, resolve_device
 from repro_torch.kernels.ssd_scan.plain import ssd_scan_plain
 
 #: CUDA launches of the SSD scan kernel in this process.
@@ -235,6 +235,7 @@ def ssd_scan_fwd(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
     Bm and Cm share float32 or bfloat16, all on one device.  Returns
     (y (BH, T, hd) in x's dtype, H (BH, ds, hd) float32).
     """
+    require_local("ssd_scan_fwd", x, Bm, Cm, dt, dA)
     if x.dim() != 3 or Bm.dim() != 3 or Cm.shape != Bm.shape:
         raise ValueError(f"x must be (BH, T, hd) and Bm, Cm (BG, T, ds), "
                          f"got {tuple(x.shape)}, {tuple(Bm.shape)}, "

@@ -33,7 +33,8 @@ def main(argv=None):
     ap.add_argument("--arch", default="llama3.2-3b")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--dry-run", action="store_true",
-                    help="lower+compile on the production mesh (not ported)")
+                    help="lower and count on the production mesh "
+                         "(ROADMAP D15b)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--mechanism", default="pr2ar2")
@@ -43,8 +44,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     if args.dry_run:
-        raise NotImplementedError("--dry-run is TPU dry-run tooling: "
-                                  "ROADMAP item 13")
+        raise NotImplementedError("--dry-run is the dry-run's: "
+                                  "ROADMAP D15b, the rest of item 13")
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = reduced_config(cfg)

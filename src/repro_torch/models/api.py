@@ -5,9 +5,11 @@ attention, Mamba-2 SSD blocks and RG-LRU blocks with the pattern tail of
 recurrentgemma, each attention or RG-LRU layer with a dense MLP or the
 MoE FFN of olmoe and llama4), the VLM (internvl2: the decoder over a
 patch prefix, ``batch["patches"]``) and the encoder-decoder (whisper:
-``models.encdec``, ``batch["audio_embed"]``).  ``input_specs`` is JAX
-dry-run tooling and waits for ROADMAP item 13.  ``train_loss`` trains
-every block kind, Mamba-2's SSD blocks through the plain scan.
+``models.encdec``, ``batch["audio_embed"]``).  ``input_specs`` is the
+dry-run's and waits for ROADMAP D15b.  ``train_loss`` trains every block
+kind, Mamba-2's SSD blocks through the plain scan.  Parameters may be
+plain tensors or DTensors on a mesh (``distributed.steps``); on
+``device="meta"`` ``init`` gives the parameter tree's shapes.
 """
 
 from __future__ import annotations
@@ -34,8 +36,17 @@ class Model:
     decode_step: Callable         # (params, batch{token,pos,cache}) -> (logits, cache)
 
     def input_specs(self, *args, **kw):
-        raise NotImplementedError("input_specs is dry-run tooling: "
-                                  "ROADMAP item 13")
+        raise NotImplementedError("input_specs is the dry-run's: "
+                                  "ROADMAP D15b, the rest of item 13")
+
+
+class _MetaGenerator(torch.Generator):
+    """A CPU generator that allocates on the meta device: random inits
+    accept it and draw nothing."""
+
+    @property
+    def device(self):
+        return torch.device("meta")
 
 
 def build_model(cfg: ModelConfig, device=None,
@@ -43,11 +54,13 @@ def build_model(cfg: ModelConfig, device=None,
     """Model bundle for ``cfg`` on ``device`` (``None``: the CUDA card).
 
     ``generator`` draws the parameters of ``Model.init``; by default a
-    generator on ``device`` seeded with 0.
+    generator on ``device`` seeded with 0 (on "meta", one that draws
+    nothing).
     """
     dev = resolve_device(device)
     if generator is None:
-        generator = torch.Generator(dev).manual_seed(0)
+        generator = _MetaGenerator() if dev.type == "meta" else \
+            torch.Generator(dev).manual_seed(0)
     if cfg.family == "encdec":
         return Model(cfg=cfg,
                      init=functools.partial(ED.encdec_init, cfg, generator),

@@ -42,6 +42,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import constrain
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.kv_retry.plain import quantize_pages
 from repro_torch.models.common import init_dense, rmsnorm, rope, softcap
@@ -139,6 +140,9 @@ def _roped_qkv(cfg: ModelConfig, p, x, positions, kind, enc_out=None,
     kv_pos = positions if enc_out is None else enc_positions
     if kind != "cross":
         k = rope(k, kv_pos, cfg.rope_theta)
+    q = constrain(q, ("batch", None, "kv_heads", None, None))
+    k = constrain(k, ("batch", None, "kv_heads", None))
+    v = constrain(v, ("batch", None, "kv_heads", None))
     return q, k, v, kv_pos
 
 
@@ -157,6 +161,7 @@ def attention_fullseq(cfg: ModelConfig, p: dict, x, positions, kind: str,
     o = flash_attention(q, k, v, causal=kind in ("causal", "local"),
                         window=window, softcap=cfg.attn_softcap,
                         device=x.device)
+    o = constrain(o, ("batch", "act_seq", None, None, None))
     y = _merge_out(cfg, p, o)
     if kind == "bidir":
         return y, None

@@ -17,6 +17,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ATTN, ENC_ATTN, LOCAL, RGLRU, SSM, ModelConfig
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import attention as A
 from repro_torch.models import moe as MOE
 from repro_torch.models import rglru as RG
@@ -25,6 +26,12 @@ from repro_torch.models.common import apply_norm, mlp_apply, mlp_init, norm_init
 
 #: The attention kind of each attention block kind.
 _ATTN_KINDS = {ATTN: "causal", LOCAL: "local", ENC_ATTN: "bidir"}
+
+
+def _sp(x):
+    """The sequence-parallel residual stream of the prefill (the
+    reference's flash mode): a hint, a no-op on plain tensors."""
+    return constrain(x, ("batch", "act_seq", None))
 
 
 def check_kind(kind: str) -> None:
@@ -97,11 +104,12 @@ def block_fullseq(cfg: ModelConfig, kind: str, p: dict, x, positions,
         y, c = A.attention_fullseq(cfg, p["attn"], h, positions,
                                    _ATTN_KINDS[kind])
         cache = {} if c is None else {"attn": c}
-    x = x + y
+    x = _sp(x + y)
     if "xattn" in p:
         x, cache["xattn"] = _cross(cfg, p, x, positions, enc_out,
                                    enc_positions)
-    return x + _ffn(cfg, p, x)[0], cache
+        x = _sp(x)
+    return _sp(x + _ffn(cfg, p, x)[0]), cache
 
 
 def block_train(cfg: ModelConfig, kind: str, p: dict, x, positions,

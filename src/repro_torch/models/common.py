@@ -13,6 +13,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import constrain
 
 
 def act_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -119,6 +120,7 @@ def mlp_apply(cfg: ModelConfig, p, x):
         h = act(g) * h
     else:
         h = gelu(h)
+    h = constrain(h, ("batch", None, "ff"))
     return h @ p["wd"].to(dt)
 
 
@@ -149,6 +151,7 @@ def logits_apply(cfg: ModelConfig, p, x):
     ``preferred_element_type``), then the final softcap."""
     w = p["embed"].T if cfg.tie_embeddings else p["unembed"]
     logits = x.float() @ w.to(x.dtype).float()
+    logits = constrain(logits, ("batch", None, "vocab"))
     return softcap(logits, cfg.final_softcap)
 
 

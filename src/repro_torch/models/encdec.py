@@ -14,7 +14,9 @@ block ``b0`` each, ``enc_norm``, ``final_norm``), so ``params_from_jax``
 carries the reference's weights over unchanged; a prefill cache is
 ``{"units": {"b0": {"attn": ..., "xattn": ...}}}`` stacked the same
 way.  The reference's encoder and decoder scans have no remat, and
-neither has this module.  Prefill attention goes through the
+neither has this module.  DTensor parameters are gathered as in
+``models.lm``: each unit's where the stack takes it, the rest where an
+entry point starts.  Prefill attention goes through the
 flash-attention kernel (bidirectional, causal and cross), training
 through the blockwise attention by autograd.
 """
@@ -35,7 +37,11 @@ from repro_torch.models.common import (
     logits_apply,
     norm_init,
 )
-from repro_torch.models.lm import _index, _stack
+from repro_torch.distributed.sharding import constrain
+from repro_torch.models.lm import _index, _stack, outer_params, unit_params
+
+#: The stacked entries of the parameter tree.
+_STACKED = ("enc_units", "dec_units")
 
 
 def sinusoids(length: int, channels: int, device=None) -> torch.Tensor:
@@ -81,9 +87,10 @@ def encode(cfg: ModelConfig, params, audio_embed, train: bool = False):
     S = audio_embed.shape[1]
     x = audio_embed.to(act_dtype(cfg))
     x = x + sinusoids(S, cfg.d_model, x.device).to(x.dtype)[None]
+    x = constrain(x, ("batch", None, None))
     positions = _arange(S, x.device)
     for u in range(cfg.n_enc_layers):
-        p = _index(params["enc_units"], u)["b0"]
+        p = unit_params(cfg, params["enc_units"], u)["b0"]
         if train:
             x, _ = B.block_train(cfg, ENC_ATTN, p, x, positions)
         else:
@@ -99,10 +106,11 @@ def _decoder_fullseq(cfg: ModelConfig, params, tokens, enc_out,
     positions = _arange(T, tokens.device)
     x = embed_apply(cfg, params["embed_p"], tokens)
     x = x + params["pos_embed"][:T].to(x.dtype)[None]
+    x = constrain(x, ("batch", None, None))
     enc_positions = _arange(enc_out.shape[1], enc_out.device)
     caches = []
     for u in range(cfg.unit_count()):
-        p = _index(params["dec_units"], u)["b0"]
+        p = unit_params(cfg, params["dec_units"], u)["b0"]
         if train:
             x, _ = B.block_train(cfg, ATTN, p, x, positions, enc_out,
                                  enc_positions)
@@ -118,6 +126,7 @@ def train_loss(cfg: ModelConfig, params, batch):
     """batch {"audio_embed": (B, S, d), "tokens", "labels": (B, T) int}
     -> scalar float32 mean next-token cross-entropy, differentiable in
     ``params``."""
+    params = outer_params(cfg, params, _STACKED)
     enc_out = encode(cfg, params, batch["audio_embed"], train=True)
     x, _ = _decoder_fullseq(cfg, params, batch["tokens"], enc_out, train=True)
     logits = logits_apply(cfg, params["embed_p"], x)
@@ -127,6 +136,7 @@ def train_loss(cfg: ModelConfig, params, batch):
 def prefill(cfg: ModelConfig, params, batch):
     """batch {"tokens": (B, T) int, "audio_embed": (B, S, d)} -> (the
     last position's float32 logits (B, 1, V), cache)."""
+    params = outer_params(cfg, params, _STACKED)
     enc_out = encode(cfg, params, batch["audio_embed"])
     x, caches = _decoder_fullseq(cfg, params, batch["tokens"], enc_out)
     return logits_apply(cfg, params["embed_p"], x[:, -1:]), {"units": caches}
@@ -137,12 +147,13 @@ def decode_step(cfg: ModelConfig, params, batch):
     learned position is row ``pos`` clamped to the table, as the
     reference's ``dynamic_slice_in_dim`` reads it."""
     pos = int(batch["pos"])
+    params = outer_params(cfg, params, _STACKED)
     x = embed_apply(cfg, params["embed_p"], batch["token"])
     row = min(max(pos, 0), params["pos_embed"].shape[0] - 1)
     x = x + params["pos_embed"][row].to(x.dtype)
     caches = []
     for u in range(cfg.unit_count()):
-        p = _index(params["dec_units"], u)["b0"]
+        p = unit_params(cfg, params["dec_units"], u)["b0"]
         c = _index(batch["cache"]["units"], u)["b0"]
         x, c = B.block_decode(cfg, ATTN, p, x, c, pos)
         caches.append({"b0": c})

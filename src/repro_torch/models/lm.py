@@ -15,7 +15,15 @@ plain lists of per-layer trees, not stacked.
 scan body), so only the unit inputs are kept; the tail runs without
 remat.  MoE configs add 0.01 x the load-balance aux loss summed over the
 units' MoE layers: the reference drops the tail's aux, and so does the
-port (ROADMAP D15 notes the quirk).
+port (ROADMAP C13).
+
+Parameters may be DTensors (``distributed.steps``): each unit's weights
+are gathered to full local tensors just where the backbone takes the
+unit (inside the remat region in training, so the backward pass
+gathers them again rather than keeping them), the other weights where
+an entry point starts; an expert-parallel MoE keeps its experts as
+local shards (``models.moe.kept_sharded``).  Activations stay plain
+local tensors; the ``constrain`` hints are no-ops on them.
 
 The VLM (``family == "vlm"``, internvl2) takes ``batch["patches"]`` (B,
 n_patches, d), the stub vision frontend's output, in front of the token
@@ -30,7 +38,10 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import (constrain, gather_tree,
+                                              restored, snapshot)
 from repro_torch.models import blocks as B
+from repro_torch.models import moe as MOE
 from repro_torch.models.common import (
     apply_norm,
     cross_entropy,
@@ -63,6 +74,19 @@ def _index(tree, u: int):
     return tree[u]
 
 
+def unit_params(cfg: ModelConfig, units, u: int):
+    """Unit ``u``'s weights, DTensors gathered (plain tensors as they
+    are)."""
+    return gather_tree(_index(units, u), keep=MOE.kept_sharded(cfg))
+
+
+def outer_params(cfg: ModelConfig, params, stacked=("units",)) -> dict:
+    """``params`` with every entry but the stacked units gathered."""
+    keep = MOE.kept_sharded(cfg)
+    return {k: v if k in stacked else gather_tree(v, keep)
+            for k, v in params.items()}
+
+
 def _check_family(cfg: ModelConfig) -> None:
     if cfg.family not in ("decoder", "vlm"):
         raise ValueError(f"the {cfg.family!r} family is not a decoder LM")
@@ -88,9 +112,10 @@ def lm_init(cfg: ModelConfig, generator: torch.Generator) -> dict:
 
 def backbone_fullseq(cfg: ModelConfig, params, x, positions):
     """x (B, T, d) embedded input -> (x_out, cache)."""
+    x = constrain(x, ("batch", None, None))
     caches = []
     for u in range(cfg.unit_count()):
-        unit_p = _index(params["units"], u)
+        unit_p = unit_params(cfg, params["units"], u)
         unit_c = {}
         for i, kind in enumerate(cfg.block_pattern):
             x, unit_c[f"b{i}"] = B.block_fullseq(
@@ -109,7 +134,7 @@ def backbone_fullseq(cfg: ModelConfig, params, x, positions):
 def backbone_decode(cfg: ModelConfig, params, x, cache, pos: int):
     new_units = []
     for u in range(cfg.unit_count()):
-        unit_p = _index(params["units"], u)
+        unit_p = unit_params(cfg, params["units"], u)
         unit_c = _index(cache["units"], u)
         new_c = {}
         for i, kind in enumerate(cfg.block_pattern):
@@ -143,6 +168,7 @@ def prefill(cfg: ModelConfig, params, batch):
     """batch {"tokens": (B, T) int; the VLM's "patches": (B, P, d)}: ->
     (last-position float32 logits (B, 1, V), cache)."""
     _check_family(cfg)
+    params = outer_params(cfg, params)
     x, _ = _embed_input(cfg, params, batch)
     T = x.shape[1]
     positions = torch.arange(T, dtype=torch.int32, device=x.device)
@@ -153,6 +179,7 @@ def prefill(cfg: ModelConfig, params, batch):
 
 def decode_step(cfg: ModelConfig, params, batch):
     """batch {"token": (B, 1), "pos": int, "cache": nested dict}."""
+    params = outer_params(cfg, params)
     x = embed_apply(cfg, params["embed_p"], batch["token"])
     x, new_cache = backbone_decode(cfg, params, x, batch["cache"],
                                    int(batch["pos"]))
@@ -160,30 +187,38 @@ def decode_step(cfg: ModelConfig, params, batch):
     return logits_apply(cfg, params["embed_p"], x), new_cache
 
 
-def _unit_train(cfg: ModelConfig, unit_p, x, positions):
+def _unit_train(cfg: ModelConfig, snap, unit_p, x, positions):
     """One unit in training: (x, the sum of its MoE layers' aux losses
-    from 0, in layer order)."""
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i, kind in enumerate(cfg.block_pattern):
-        x, a = B.block_train(cfg, kind, unit_p[f"b{i}"], x, positions)
-        if a is not None:
-            aux = aux + a
-    return x, aux
+    from 0, in layer order).  ``unit_p`` is gathered here, inside the
+    remat region, under the mesh context ``snap`` (the recomputation may
+    run on the autograd engine's device thread)."""
+    with restored(snap):
+        unit_p = gather_tree(unit_p, MOE.kept_sharded(cfg))
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i, kind in enumerate(cfg.block_pattern):
+            x, a = B.block_train(cfg, kind, unit_p[f"b{i}"], x, positions)
+            if a is not None:
+                aux = aux + a
+        return x, aux
 
 
-def train_loss(cfg: ModelConfig, params, batch):
+def train_loss(cfg: ModelConfig, params, batch, return_aux: bool = False):
     """batch {"tokens", "labels": (B, T) int; the VLM's "patches"}: ->
     scalar float32 mean next-token cross-entropy over the token rows
     (plus 0.01 x the units' load-balance aux loss for MoE configs),
-    differentiable in ``params``."""
+    differentiable in ``params``; with ``return_aux``, (loss, the units'
+    aux sum)."""
     _check_family(cfg)
+    params = outer_params(cfg, params)
     x, n_prefix = _embed_input(cfg, params, batch)
+    x = constrain(x, ("batch", None, None))
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for u in range(cfg.unit_count()):
+        x = constrain(x, ("batch", "act_seq", None))
         x, aux = torch.utils.checkpoint.checkpoint(
-            _unit_train, cfg, _index(params["units"], u), x, positions,
-            use_reentrant=False)
+            _unit_train, cfg, snapshot(), _index(params["units"], u), x,
+            positions, use_reentrant=False)
         aux_total = aux_total + aux
     for i, kind in enumerate(cfg.tail_pattern()):   # tail aux dropped
         x, _ = B.block_train(cfg, kind, params["tail"][i], x, positions)
@@ -192,4 +227,4 @@ def train_loss(cfg: ModelConfig, params, batch):
     loss = cross_entropy(logits[:, :-1], batch["labels"][:, 1:])
     if cfg.moe is not None:
         loss = loss + 0.01 * aux_total   # load-balance coefficient (OLMoE)
-    return loss
+    return (loss, aux_total) if return_aux else loss

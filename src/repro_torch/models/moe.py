@@ -16,20 +16,35 @@ float32 (the reference's ``preferred_element_type``), then softmax
 ``lax.top_k`` does, the lower expert index first (a stable descending
 sort).
 
-``REPRO_MOE_EP=1`` selects the reference's expert-parallel dispatch,
-which over a device mesh shards the experts (ROADMAP D15) and without
-one means to fall back to this dense dispatch (the reference recurses
-there instead: ROADMAP C11).  The port has no mesh, so it always
-computes the dense dispatch.
+Under a mesh (``distributed.sharding.use_mesh``, the step builders of
+``distributed.steps``), ``REPRO_MOE_EP=1`` selects the reference's
+expert-parallel dispatch, :func:`moe_apply_ep`: each "model" rank owns
+``E / tp`` experts (the local shards of ``moe_wi``, ``moe_wg`` and
+``moe_wd`` along dim 0) and dispatches its local tokens to them with a
+local capacity; one all-reduce of the (B, T, d) combine over the
+"model" group is the only communication.  With no mesh, or where tp
+does not divide E, the reference means to fall back to the dense
+dispatch and recurses instead (ROADMAP C11); the port computes the
+dense dispatch.  The dense dispatch under a mesh whose step split the
+batch over data ranks dispatches the global batch, as the reference's
+SPMD program does: the tokens are gathered over the batch axes, so the
+capacity, the drops and the aux loss are the global ones.
 """
 
 from __future__ import annotations
 
+import os
+
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, MoEConfig
+from repro_torch.distributed import sharding as SH
 from repro_torch.models.common import init_dense, mlp_apply, mlp_init
+
+#: The expert leaves an expert-parallel MoE keeps as "model" shards.
+EXPERT_LEAVES = ("moe_wi", "moe_wg", "moe_wd")
 
 
 def moe_init(gen: torch.Generator, cfg: ModelConfig, moe: MoEConfig) -> dict:
@@ -76,52 +91,201 @@ def _balance(moe: MoEConfig, probs, top1):
     return E * torch.sum(frac * probs.mean(dim=0))
 
 
+def _use_ep() -> bool:
+    return os.environ.get("REPRO_MOE_EP", "0") == "1"
+
+
+def _ep_tp(moe: MoEConfig):
+    """The "model" size the expert-parallel dispatch splits the experts
+    over, or None where it does not run (off, no mesh, tp !| E)."""
+    mesh = SH.current_mesh()
+    if not _use_ep() or mesh is None or "model" not in mesh.mesh_dim_names:
+        return None
+    tp = mesh.size(mesh.mesh_dim_names.index("model"))
+    return tp if moe.n_experts % tp == 0 else None
+
+
+def kept_sharded(cfg: ModelConfig) -> tuple:
+    """Leaf names that unit gathers leave as DTensors: the experts, when
+    the expert-parallel dispatch runs."""
+    return EXPERT_LEAVES if cfg.moe and _ep_tp(cfg.moe) else ()
+
+
 def moe_apply(cfg: ModelConfig, moe: MoEConfig, p: dict, x,
               with_aux: bool = False):
     """x (B, T, d) -> (B, T, d) [, float32 load-balance aux loss]."""
-    B, T, d = x.shape
-    dt = x.dtype
-    N = B * T
-    E, k = moe.n_experts, moe.top_k
-    tokens = x.reshape(N, d)
-    probs, gate_v, gate_i = route(moe, p, tokens)
+    if _ep_tp(moe):
+        return moe_apply_ep(cfg, moe, p, x, with_aux)
+    mesh, axes = SH.current_mesh(), SH.current_batch_axes()
+    if mesh is None or not axes:
+        return _dense(cfg, moe, p, x, with_aux)
+    # The global batch's dispatch (gathered over the batch axes, the
+    # gradient summed back), then this rank's rows.
+    xg = SH.gather_batch(x, mesh, axes)
+    out = _dense(cfg, moe, p, xg, with_aux)
+    y = SH.local_rows(out[0] if with_aux else out, mesh, axes)
+    return (y, out[1]) if with_aux else y
 
+
+def _route(moe: MoEConfig, router, tokens, with_aux: bool):
+    """(gates (N, k), expert indices (N, k), the load-balance aux loss
+    or None)."""
+    probs, gate_v, gate_i = route(moe, {"router": router}, tokens)
     aux = None
     if with_aux:
         if moe.router != "softmax":
             probs = probs / torch.clamp(probs.sum(-1, keepdim=True),
                                         min=1e-9)
         aux = _balance(moe, probs, gate_i[:, 0])
+    return gate_v, gate_i, aux
 
-    capacity = max(int(N * k / E * moe.capacity_factor), 4)
 
-    # Position of each assignment within its expert (dropped past
-    # capacity; a dropped one adds zeros to slot capacity - 1).  The
-    # cumsum runs along the last dim: along dim 0 CUDA scans each of the
-    # E columns in one thread (371 of olmoe's 614 ms long prefill on an
-    # H100).
+def _experts(moe: MoEConfig, tokens, gate_v, gate_i, wi, wg, wd,
+             e0: int = 0):
+    """tokens (N, d) through the experts [e0, e0 + n) whose weights are
+    ``wi``, ``wg``, ``wd`` (n along dim 0; all E in the dense dispatch):
+    (N, d), each token's gated outputs of its assignments to those
+    experts summed.
+
+    An assignment's slot is its position within its expert (the
+    exclusive cumsum of the routing one-hot, token-major, k-minor; other
+    experts' assignments count in a drop row n); one past the capacity
+    ``max(int(N k / E cf), 4)``, or to another expert, adds zeros to
+    slot capacity - 1 of local expert ``e mod n``.  Spread so: sent all
+    to one slot, the scatter-add's duplicates made olmoe's long prefill
+    3.3x slower on an H100 (PERF.md, PR 27).  The cumsum runs along the
+    last dim: along dim 0 CUDA scans each column in one thread (371 of
+    olmoe's 614 ms long prefill on an H100)."""
+    N, d = tokens.shape
+    dt = tokens.dtype
+    E, k, n = moe.n_experts, moe.top_k, wi.shape[0]
+    cap = max(int(N * k / E * moe.capacity_factor), 4)
     flat_e = gate_i.reshape(N * k)
-    onehot = F.one_hot(flat_e, E)
-    pos_in_e = torch.cumsum(onehot.T, dim=1).T - onehot
-    pos = pos_in_e.gather(1, flat_e[:, None])[:, 0]
-    keep = pos < capacity
-    safe_pos = torch.where(keep, pos, capacity - 1)
+    mine = (flat_e >= e0) & (flat_e < e0 + n)
+    le = torch.where(mine, flat_e - e0, n)
+    onehot = F.one_hot(le, n + 1)
+    pos = (torch.cumsum(onehot.T, dim=1).T - onehot).gather(
+        1, le[:, None])[:, 0]
+    keep = mine & (pos < cap)
+    safe_pos = torch.where(keep, pos, cap - 1)
+    safe_le = torch.where(keep, le, flat_e % n)
     tok_rep = tokens.repeat_interleave(k, dim=0)
-    buf = tokens.new_zeros((E, capacity, d)).index_put(
-        (flat_e, safe_pos), tok_rep * keep[:, None].to(dt), accumulate=True)
-
-    # Expert SwiGLU, batched over E.
-    h = torch.bmm(buf, p["moe_wi"].to(dt))
-    g = torch.bmm(buf, p["moe_wg"].to(dt))
-    out_buf = torch.bmm(F.silu(g) * h, p["moe_wd"].to(dt))
-
+    buf = tokens.new_zeros((n, cap, d)).index_put(
+        (safe_le, safe_pos), tok_rep * keep[:, None].to(dt), accumulate=True)
+    buf = SH.constrain(buf, ("experts", None, None))
+    # Expert SwiGLU, batched over the experts.
+    h = torch.bmm(buf, wi.to(dt))
+    g = torch.bmm(buf, wg.to(dt))
+    h = SH.constrain(F.silu(g) * h, ("experts", None, None))
+    out_buf = torch.bmm(h, wd.to(dt))
     # Gather back and combine with the gates.
-    out_tok = out_buf[flat_e, safe_pos]
+    out_tok = out_buf[safe_le, safe_pos]
     out_tok = out_tok * (keep[:, None] * gate_v.reshape(N * k, 1)).to(dt)
-    y = out_tok.reshape(N, k, d).sum(dim=1)
+    return out_tok.reshape(N, k, d).sum(dim=1)
+
+
+def _dense(cfg: ModelConfig, moe: MoEConfig, p: dict, x,
+           with_aux: bool = False):
+    """The dense dispatch on the tokens of x."""
+    p = SH.gather_tree(p)
+    B, T, d = x.shape
+    tokens = x.reshape(B * T, d)
+    gate_v, gate_i, aux = _route(moe, p["router"], tokens, with_aux)
+    y = _experts(moe, tokens, gate_v, gate_i,
+                 *(p[name] for name in EXPERT_LEAVES))
     if moe.shared_expert:
-        y = y + mlp_apply(cfg, p["shared"], x).reshape(N, d)
+        y = y + mlp_apply(cfg, p["shared"], x).reshape(B * T, d)
     y = y.reshape(B, T, d)
+    return (y, aux) if with_aux else y
+
+
+class _ToExperts(torch.autograd.Function):
+    """Tokens and gates into the expert ranks' partial computation:
+    identity forward; the backward sums their partial gradients over the
+    "model" group (one all-reduce of both, packed)."""
+
+    @staticmethod
+    def forward(ctx, tokens, gates, group):
+        ctx.group = group
+        ctx.split = tokens.numel()
+        return tokens.view_as(tokens), gates.view_as(gates)
+
+    @staticmethod
+    def backward(ctx, g_tok, g_gate):
+        flat = torch.cat([g_tok.reshape(-1), g_gate.reshape(-1).to(
+            g_tok.dtype)])
+        dist.all_reduce(flat, group=ctx.group)
+        return (flat[:ctx.split].view_as(g_tok),
+                flat[ctx.split:].view_as(g_gate).to(g_gate.dtype), None)
+
+
+class _SumOverModel(torch.autograd.Function):
+    """The expert ranks' partial combines summed over the "model" group
+    (one all-reduce); the gradient passes through unchanged, since every
+    model rank carries the same downstream gradient of the sum."""
+
+    @staticmethod
+    def forward(ctx, y, group):
+        y = y.clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _local_experts(w, mesh, e0: int, n: int):
+    """This "model" rank's experts [e0, e0 + n) of an expert leaf: the
+    local shard of a DTensor (gathered over the batch axes, its gradient
+    summed back over them), or a slice of a plain tensor."""
+    if not isinstance(w, SH.DTensor):
+        return w[e0:e0 + n]
+    names = mesh.mesh_dim_names
+    want = tuple(SH.Shard(0) if a == "model" else SH.Replicate()
+                 for a in names)
+    grad = SH.grad_placements(mesh, model=SH.Shard(0))
+    return w.redistribute(mesh, want).to_local(grad_placements=grad)
+
+
+def moe_apply_ep(cfg: ModelConfig, moe: MoEConfig, p: dict, x,
+                 with_aux: bool = False):
+    """Expert-parallel MoE under a mesh: the experts shard over "model";
+    tokens stay local (the reference's ``shard_map`` body,
+    ``models/moe.py:126-244``).
+
+    Each model rank routes its local tokens over all E experts (the
+    same on every model rank), keeps the assignments to its own ``E /
+    tp`` experts with a local cumsum and a local capacity ``max(int(N k
+    / E cf), 4)`` (others go to a drop row), runs its experts, and
+    combines its share of each token's k outputs; one all-reduce over
+    the "model" group sums the shares.  In the backward pass the tokens'
+    and gates' partial gradients are summed over "model" (one
+    all-reduce), as the transpose of the reference's ``shard_map`` sums
+    them; the routing and the aux loss sit outside that partial region.
+    The aux loss is the local tokens', as the reference's body computes
+    it.  Call it inside ``use_mesh``; without a usable mesh it computes
+    the dense dispatch (C11).
+    """
+    tp = _ep_tp(moe)
+    if tp is None:
+        return _dense(cfg, moe, p, x, with_aux)
+    mesh = SH.current_mesh()
+    E_local = moe.n_experts // tp
+    e0 = mesh.get_local_rank("model") * E_local
+    B, T, d = x.shape
+    tokens = x.reshape(B * T, d)
+    gate_v, gate_i, aux = _route(moe, SH.gather(p["router"]), tokens,
+                                 with_aux)
+    group = mesh.get_group("model")
+    tokens, gate_v = _ToExperts.apply(tokens, gate_v, group)
+    y = _experts(moe, tokens, gate_v, gate_i,
+                 *(_local_experts(p[name], mesh, e0, E_local)
+                   for name in EXPERT_LEAVES), e0=e0).reshape(B, T, d)
+    # Each token's k experts may live on other ranks: the one collective.
+    y = _SumOverModel.apply(y, group)
+    if moe.shared_expert:
+        y = y + mlp_apply(cfg, SH.gather_tree(p["shared"]), x)
     return (y, aux) if with_aux else y
 
 

@@ -15,6 +15,13 @@ reference's by an ulp.
 Unlike the reference, :func:`adamw_update` updates ``params`` and the
 moments in place (a 3B-parameter state would not fit twice on one
 card), in blocks of :data:`BLOCK` elements, and returns them.
+
+Sharded trees (DTensor leaves, ``repro_torch.distributed``): the update
+is elementwise, so it runs on each rank's local shards; the global norm
+sums every element's square once across the mesh (one all-reduce over
+each mesh dim of the local sums, a leaf replicated over a mesh dim
+counted on that dim's first rank only).  Plain tensors keep their path
+and their bits.
 """
 
 from __future__ import annotations
@@ -24,6 +31,8 @@ import math
 from typing import Any, Optional, Tuple
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core.xla_math import fma32, powf, sqrt32
 
@@ -64,18 +73,39 @@ def tree_leaves(tree) -> list:
 def init_opt_state(params, cfg: AdamWConfig):
     dt = getattr(torch, cfg.moment_dtype)
     leaf = tree_leaves(params)[0]
-    return {"m": tree_map(lambda p: torch.zeros(p.shape, dtype=dt,
-                                                device=p.device), params),
-            "v": tree_map(lambda p: torch.zeros(p.shape, dtype=dt,
-                                                device=p.device), params),
+    # A DTensor parameter's moments share its placements.
+    return {"m": tree_map(lambda p: torch.zeros_like(p, dtype=dt), params),
+            "v": tree_map(lambda p: torch.zeros_like(p, dtype=dt), params),
             "step": torch.zeros((), dtype=torch.int32, device=leaf.device)}
+
+
+def _local(t):
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _square_sum(g) -> torch.Tensor:
+    """A leaf's local sum of squares; 0 on a rank that is not the first
+    along a mesh dim the leaf is replicated over."""
+    s = torch.sum(torch.square(_local(g).float()))
+    if isinstance(g, DTensor):
+        coord = g.device_mesh.get_coordinate()
+        if any(c and not p.is_shard() for c, p in zip(coord, g.placements)):
+            return torch.zeros_like(s)
+    return s
 
 
 @torch.no_grad()
 def global_norm(tree) -> torch.Tensor:
-    """float32 ``sqrt(sum of squares)`` over every leaf."""
-    sums = [torch.sum(torch.square(g.float())) for g in tree_leaves(tree)]
-    return sqrt32(torch.sum(torch.stack(sums)))
+    """float32 ``sqrt(sum of squares)`` over every leaf; over the whole
+    mesh for DTensor leaves."""
+    leaves = tree_leaves(tree)
+    total = torch.sum(torch.stack([_square_sum(g) for g in leaves]))
+    mesh = next((g.device_mesh for g in leaves if isinstance(g, DTensor)),
+                None)
+    if mesh is not None:
+        for i in range(mesh.ndim):
+            dist.all_reduce(total, group=mesh.get_group(i))
+    return sqrt32(total)
 
 
 def _f32(v, like) -> torch.Tensor:
@@ -120,7 +150,8 @@ def adamw_update(grads, opt_state, params, cfg: AdamWConfig,
             mb.copy_(m32)
             vb.copy_(v32)
 
-    tree_map(upd, params, grads, opt_state["m"], opt_state["v"])
+    tree_map(lambda *ts: upd(*map(_local, ts)), params, grads,
+             opt_state["m"], opt_state["v"])
     opt_state["step"] = step
     return params, opt_state, {"grad_norm": gnorm}
 

@@ -740,3 +740,53 @@ def test_online_gc_and_faults_on_the_card(monkeypatch, tmp_path):
     for knobs in (dict(gc="online"), dict(gc="prepass", faults=fc)):
         with pytest.raises(BatchedUnsupported):
             simulate(w, cond, "pr2ar2", cfg=cfg, engine="batched", **knobs)
+
+
+def test_sharded_step_on_a_one_rank_nccl_mesh(tmp_path):
+    """The sharded train step on a (1, 1) mesh over one NCCL rank equals
+    the same step on a (1, 1) gloo mesh on the CPU (reduced llama3.2-3b,
+    float32 activations, the same seeded parameters and batches): three
+    steps' losses and grad norms within 1e-5 (the later losses carry the
+    updates; parameters are not compared element by element, since
+    AdamW's first steps move an element with a near-zero gradient by
+    about +-lr whichever way its sign rounds), every leaf a DTensor on
+    the card."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.distributed import steps as ST
+    from repro_torch.models import build_model
+    from repro_torch.optim.adamw import tree_leaves
+
+    cfg = dataclasses.replace(reduced_config(get_config("llama3.2-3b")),
+                              activation_dtype="float32")
+    params = build_model(cfg, "cpu").init()
+    rng = np.random.default_rng(0)
+    batches = []
+    for _ in range(3):
+        toks = rng.integers(0, cfg.vocab, (4, 32)).astype(np.int32)
+        batches.append({"tokens": toks, "labels": np.roll(toks, -1, 1)})
+    torch.cuda.set_device(0)
+    dist.init_process_group("cpu:gloo,cuda:nccl", rank=0, world_size=1,
+                            store=dist.FileStore(str(tmp_path / "store"), 1))
+    try:
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            mesh = init_device_mesh(dev, (1, 1),
+                                    mesh_dim_names=("data", "model"))
+            step, place = ST.make_train_step(cfg, mesh)
+            state = ST.init_train_state(
+                cfg, mesh, place,
+                params={k: v for k, v in params.items()})
+            assert all(isinstance(x, DTensor) and x.device.type == dev
+                       for x in tree_leaves(state["params"]))
+            metrics = [step(state, b)[1] for b in batches]
+            runs[dev] = [(float(m["loss"]), float(m["grad_norm"]))
+                         for m in metrics]
+    finally:
+        dist.destroy_process_group()
+    np.testing.assert_allclose(runs["cuda"], runs["cpu"], rtol=1e-5)

@@ -1,0 +1,161 @@
+"""The port's sharded train step (``repro_torch.distributed.steps``) over
+gloo meshes of CPU ranks, against the reference's ``make_train_step`` on
+a host mesh of 4 CPU devices at the same mesh shape.
+
+Two subprocesses run the reference's cases, half each
+(``tests/sharded_reference.py``,
+``XLA_FLAGS=--xla_force_host_platform_device_count=4``), while one
+``torch.multiprocessing`` spawn a world size (1, 4, then 2) runs the
+port's cases (``tests/sharded_port.py``; ranks meet through a
+``FileStore`` in ``tmp_path``, no fixed port).  Both start from the
+reference's seed-0 parameters (the first subprocess writes them before
+its cases), float32 activations, batch 4 x 16.
+
+  * meshes (1, 1), (2, 1), (1, 2), (2, 2), (4, 1), (1, 4); reduced
+    llama3.2-3b, gemma2-2b, mamba2-130m, recurrentgemma-2b (8 layers:
+    two units and a tail), whisper-large-v3 and olmoe-1b-7b with
+    ``REPRO_MOE_EP`` 0 and 1 (tp 2 and 4): the first step's loss and
+    grad_norm within 1e-5 relative of the reference's, three steps'
+    losses within 1e-4 (the budget of ``tests/test_torch_train.py``);
+  * each rank's local state bytes equal to one device's share of the
+    reference's state;
+  * at (1, 1), ``launch.train.train`` on a mesh equal to the
+    single-device loop bit for bit;
+  * the expert-parallel layer's y and aux against the reference's
+    ``moe_apply_ep`` at (1, 2), (1, 4) and (2, 2) within 1e-5;
+  * ``compress_grads`` and ``global_norm`` on DTensor gradients over
+    (2, 2) against the whole tree;
+  * elastic restart: two steps at (2, 2) saved to disk, restored on
+    ``plan_mesh(2, (2, 2))``'s mesh (1, 2) through ``reshard_state``
+    bit for bit, two more steps equal to an unbroken (1, 2) run's.
+
+The ``torchrun`` launch is in ``tests/test_torch_distributed.py``.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+import sharded_port as SP
+
+ROOT = Path(__file__).resolve().parents[1]
+
+TRAIN_CASES = [
+    ["llama3.2-3b", [1, 1], 0, 3],
+    ["gemma2-2b", [2, 1], 0, 3],
+    ["mamba2-130m", [1, 2], 0, 3],
+    ["olmoe-1b-7b", [1, 2], 1, 3],
+    ["recurrentgemma-2b", [4, 1], 0, 3],
+    ["whisper-large-v3", [1, 4], 0, 3],
+    ["olmoe-1b-7b", [2, 2], 0, 3],
+    ["olmoe-1b-7b", [1, 4], 1, 3],
+    ["olmoe-1b-7b", [2, 2], 1, 3],
+]
+MOE_CASES = [[1, 2], [1, 4], [2, 2]]
+
+
+def _tag(case):
+    arch, shape, ep, _ = case
+    return f"{arch}/{shape[0]}x{shape[1]}/ep{ep}"
+
+
+#: Reference subprocesses (each takes every second case).
+N_REF = 2
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """(the reference's results, the port's by world size)."""
+    work = tmp_path_factory.mktemp("sharded")
+    (work / "cases.json").write_text(json.dumps(
+        {"train": TRAIN_CASES, "moe": MOE_CASES}))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
+    refs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "tests" / "sharded_reference.py"),
+         str(work), str(i), str(N_REF)],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for i in range(N_REF)]
+    try:
+        deadline = time.monotonic() + 300
+        while not (work / "params.pkl").exists():
+            assert refs[0].poll() is None, refs[0].stdout.read().decode()
+            assert time.monotonic() < deadline
+            time.sleep(0.2)
+        port = {w: SP.run(w, work) for w in (1, 4, 2)}
+    finally:
+        outs = [r.communicate(timeout=600)[0] for r in refs]
+    for r, out in zip(refs, outs):
+        assert r.returncode == 0, out.decode()[-4000:]
+    ref = {}
+    for i in range(N_REF):
+        ref.update(np.load(work / f"ref_{i}.npz"))
+    return ref, port
+
+
+def _port_case(port, case):
+    shape = case[1]
+    return port[shape[0] * shape[1]]
+
+
+@pytest.mark.parametrize("case", TRAIN_CASES, ids=_tag)
+def test_sharded_step_matches_reference(runs, case):
+    ref, port = runs
+    tag = _tag(case)
+    want = ref[f"train/{tag}"]
+    got = np.array(_port_case(port, case)["train"][tag])
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-5)
+    np.testing.assert_allclose(got[:, 0], want[:, 0], rtol=1e-4)
+
+
+@pytest.mark.parametrize("case", TRAIN_CASES, ids=_tag)
+def test_local_state_bytes_equal_reference_shard(runs, case):
+    ref, port = runs
+    tag = _tag(case)
+    per_rank = _port_case(port, case)["bytes"][tag]
+    assert per_rank == [int(ref[f"bytes/{tag}"])] * len(per_rank)
+
+
+def test_one_by_one_mesh_equals_unsharded_loop(runs):
+    _, port = runs
+    plain, sharded = port[1]["plain_vs_mesh"]
+    assert len(plain) == 4 and plain == sharded
+
+
+@pytest.mark.parametrize("shape", MOE_CASES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_expert_parallel_layer_matches_reference(runs, shape):
+    ref, port = runs
+    tag = f"{shape[0]}x{shape[1]}"
+    y, aux = port[shape[0] * shape[1]]["moe"][tag]
+    want = ref[f"moe/y/{tag}"]
+    np.testing.assert_allclose(np.array(y), want, rtol=1e-5,
+                               atol=1e-5 * np.abs(want).max())
+    np.testing.assert_allclose(aux, float(ref[f"moe/aux/{tag}"]), rtol=1e-5)
+
+
+def test_compression_and_norm_span_the_mesh(runs):
+    """On DTensor gradients over (2, 2), ``compress_grads`` takes each
+    leaf's amax over the whole tensor (outputs and feedback equal the
+    whole tree's bit for bit) and ``global_norm`` counts a replicated
+    leaf once."""
+    _, port = runs
+    equal, (sharded, plain) = port[4]["compress"]
+    assert equal
+    np.testing.assert_allclose(sharded, plain, rtol=1e-6)
+
+
+def test_elastic_restart_on_planned_mesh(runs):
+    _, port = runs
+    el = port[2]["elastic"]
+    assert el["plan"] == [1, 2]
+    assert el["exact"]
+    assert len(port[4]["elastic_saved"]) == 2
+    resumed, unbroken = np.array(el["resumed"]), np.array(el["unbroken"])
+    np.testing.assert_allclose(resumed[:, 0], unbroken[:, 0], rtol=1e-5)
+    np.testing.assert_allclose(resumed[:, 1], unbroken[:, 1], rtol=1e-5)

@@ -338,5 +338,11 @@ def test_mamba2_trains_through_the_plain_scan():
 
 @pytest.mark.parametrize("flag", [["--dry-run"], ["--shape", "train_4k"]])
 def test_distributed_flags_raise(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TL.main(["--smoke", "--device", "cpu"] + flag)
+    """``--dry-run`` waits for ROADMAP D15b; ``--shape`` builds the
+    16 x 16 production mesh, which one CPU rank cannot hold."""
+    if flag == ["--dry-run"]:
+        with pytest.raises(NotImplementedError, match="D15b"):
+            TL.main(["--smoke", "--device", "cpu"] + flag)
+    else:
+        with pytest.raises(RuntimeError, match="needs 256 ranks"):
+            TL.main(["--smoke", "--device", "cpu"] + flag)
