@@ -363,6 +363,30 @@ exits non-zero):
                      the dense dispatch's prefill of the same weights by
                      the same rule; three ``make_decode_step`` steps whose
                      greedy tokens equal the unsharded ``decode_step``'s.
+ 20. dryrun        — ``repro_torch.launch.dryrun`` on the card's host: (a)
+                     for each distinct B4 and B5 launch of phases 6-19
+                     (inputs' shapes, dtypes and strides, the static
+                     arguments), the custom op's fake implementation
+                     gives the real launch's output shapes, dtypes and
+                     strides; (b) full-width cells traced over a fake
+                     16 x 16 process group (``run_cells``, one process a
+                     cell, all at once, started before phase 18 and
+                     tracing beside phases 18 and 19 on the host's cores;
+                     they use no device): llama3.2-3b ``train_4k``,
+                     ``prefill_32k`` and ``decode_32k``, mamba2-130m
+                     ``prefill_32k`` and olmoe-1b-7b ``prefill_32k`` under
+                     ``ep``, each record's bytes, FLOPs, collectives and
+                     ``trace_s`` printed; (c) one real cell: llama3.2-3b's
+                     prefill at B 1 x T 2048 from ``build_cell`` on a
+                     one-rank NCCL mesh, its ``FlopCounterMode`` count
+                     equal to the dry-run's of the same cell, its B4 op
+                     calls equal to the kernel's launches, its inputs'
+                     bytes equal to the dry-run's ``argument_bytes``, and
+                     the dry-run's ``temp_bytes`` printed beside
+                     ``torch.cuda.max_memory_allocated`` of the step; the
+                     card's ``total_memory`` printed with ``nvidia-smi``'s
+                     name and power limit (the dry-run's
+                     ``CARD_MEMORY_BYTES``).
 
 The line before the last is a JSON object describing each kernel
 (launches on its main path, error against the plain version, and times
@@ -623,6 +647,27 @@ DIST_LOSS_RTOL = 1e-5
 DIST_COMPRESS_SEED = 19
 DIST_MOE_ARCH = "olmoe-1b-7b"
 DIST_DECODE_STEPS = 3
+
+# Phase 20: the dry-run.  Full-width cells (arch, shape, variant) traced
+# over a fake 16 x 16 group, one process each, all at once; one prefill
+# cell of this arch, batch and length run for real on one NCCL rank; the
+# phase's budget in seconds.
+DRYRUN_CELLS = (("llama3.2-3b", "train_4k", "base"),
+                ("llama3.2-3b", "prefill_32k", "base"),
+                ("llama3.2-3b", "decode_32k", "base"),
+                ("mamba2-130m", "prefill_32k", "base"),
+                ("olmoe-1b-7b", "prefill_32k", "ep"))
+DRYRUN_REAL = ("llama3.2-3b", 1, 2048)
+DRYRUN_BUDGET_S = 90.0
+#: A (b) cell's limit in seconds: the cells start before phase 18 and
+#: trace beside phases 18 and 19 on the host's cores (they use no
+#: device).
+DRYRUN_CELL_TIMEOUT_S = 600.0
+#: Phase 20 (b)'s threads and results once started.
+_DRYRUN = {}
+#: Each distinct CUDA launch of B4 and B5 in this process: {kernel: {key:
+#: (output shapes, dtypes, strides)}}, noted by ``setup()``'s wrappers.
+LAUNCHED = {"flash_attention": {}, "ssd_scan": {}}
 
 
 def phase(name):
@@ -4495,6 +4540,221 @@ def dist_phase(smi, train_losses=None):
         store.unlink(missing_ok=True)
 
 
+def _fake_launch_checks():
+    """Phase 20 (a): each noted launch's inputs as fake CUDA tensors
+    through the custom op; its fake outputs' shapes, dtypes and strides
+    must be the real launch's.  Returns the count of shapes held per
+    kernel."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.kernels.ssd_scan import ops as SSD
+
+    ops = {"flash_attention": torch.ops.repro_torch.flash_attention,
+           "ssd_scan": torch.ops.repro_torch.ssd_scan}
+    if not all(LAUNCHED.values()):            # the phase run alone
+        gen = torch.Generator(DEVICE).manual_seed(20)
+    if not LAUNCHED["flash_attention"]:
+        B, T, H, K, hd = PREFILL_SHAPE
+        q, k, v = (torch.randn((B, T, n, hd), generator=gen, device=DEVICE,
+                               dtype=torch.bfloat16) for n in (H, K, K))
+        FA.flash_attention(q.view(B, T, K, H // K, hd), k, v)
+    if not LAUNCHED["ssd_scan"]:
+        B, T, nh, hd, ds, chunk = SSD_SHAPE
+        SSD.ssd_scan_fwd(*_ssd_inputs(gen, B, nh, T, hd, ds, torch.bfloat16),
+                         chunk=chunk)
+    held = {}
+    with FakeTensorMode():
+        for kernel, seen in LAUNCHED.items():
+            for (ins, static), want in seen.items():
+                st = dict(static)
+                ts = [torch.empty_strided(shape, stride,
+                                          dtype=getattr(torch, dt[6:]),
+                                          device="cuda")
+                      for shape, dt, stride in ins]
+                if kernel == "flash_attention":
+                    cap, kv = st["softcap"], st["kv_valid"]
+                    out = ops[kernel](
+                        *ts, bool(st["causal"]), st["window"],
+                        None if cap is None else float(cap),
+                        None if kv is None else int(kv))
+                else:
+                    out = ops[kernel](*ts, st["chunk"])
+                outs = tuple(out) if isinstance(out, (tuple, list)) else \
+                    (out,)
+                got = tuple(_meta_of(t) for t in outs)
+                if got != want:
+                    raise AssertionError(f"{kernel} fake outputs {got} != "
+                                         f"the launch's {want} at {ins} "
+                                         f"{st}")
+            held[kernel] = len(seen)
+    return held
+
+
+def _real_prefill_cell(smi):
+    """Phase 20 (c): llama3.2-3b's prefill at B 1 x T 2048 from
+    ``build_cell``, first traced by the dry-run over a fake one-rank
+    group, then run for real on a one-rank NCCL mesh under the same
+    counters."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import steps as ST
+    from repro_torch.distributed.elastic import reshard_state
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.launch import cost as C
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import build_model
+    from repro_torch.optim.adamw import tree_map
+
+    arch, B, T = DRYRUN_REAL
+    cfg = get_config(arch)
+    shape = ShapeConfig(f"prefill_{T}", T, B, "prefill")
+    rec = DR.run_cell(arch, shape.name, "1x1", ROOT / "build" / "dryrun",
+                      cfg=cfg, shape=shape)
+    store = ROOT / "build" / "chip_smoke_dryrun_store"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    M.init_process_group(DEVICE, store_path=str(store))
+    try:
+        mesh = M.make_mesh((1, 1), device=DEVICE)
+        step, specs, places = ST.build_cell(cfg, shape, mesh)
+        gen = torch.Generator(DEVICE).manual_seed(20)
+        params = build_model(cfg, DEVICE, gen).init()
+        params = tree_map(lambda p: p.to(torch.bfloat16), params)
+        params = reshard_state(params, mesh, places[0])
+        toks = torch.randint(0, cfg.vocab, (B, T), generator=gen,
+                             device=DEVICE, dtype=torch.int32)
+        batch = {"tokens": toks}
+        held = DR.held_bytes((params, batch))
+        step(params, batch)                                   # warm-up
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        n0 = FA.launches
+        tr = C.trace(step, params, batch)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        launches = FA.launches - n0
+        calls = tr.calls.get("repro_torch.flash_attention", 0)
+        logits = tr.out[0]
+        finite = bool(torch.isfinite(logits.float()).all())
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+    mem = rec["memory"]
+    if tr.cost.flops != rec["flops_per_device"]:
+        raise AssertionError(f"real {arch} prefill counts {tr.cost.flops} "
+                             f"FLOPs, its dry-run {rec['flops_per_device']}")
+    if calls != launches or launches != cfg.n_layers:
+        raise AssertionError(f"B4 op calls {calls}, launches {launches}, "
+                             f"{cfg.n_layers} layers")
+    if held != mem["argument_bytes"]:
+        raise AssertionError(f"real inputs hold {held} bytes, the dry-run's "
+                             f"argument_bytes {mem['argument_bytes']}")
+    if not finite or tuple(logits.shape) != (B, 1, cfg.vocab):
+        raise AssertionError(f"real prefill logits {tuple(logits.shape)}, "
+                             f"finite {finite}")
+    print(f"(c) {arch} prefill B {B} x T {T} from build_cell on one NCCL "
+          f"rank on {smi}: FlopCounterMode {tr.cost.flops:.6e} FLOPs "
+          f"({tr.breakdown()}) equal to the dry-run's; B4 op calls {calls} "
+          f"= launches {launches}; inputs {held} bytes = the dry-run's "
+          f"argument_bytes; dry-run temp_bytes {mem['temp_bytes']} "
+          f"({mem['temp_bytes'] / 2**30:.3f} GiB; the same counter on "
+          f"the real run {tr.peak_bytes}) beside the step's "
+          f"max_memory_allocated above its inputs {peak} "
+          f"({peak / 2**30:.3f} GiB); logits finite; real step "
+          f"{tr.seconds * 1e3:.1f} ms under the counters, dry-run trace "
+          f"{rec['trace_s']} s", flush=True)
+    return dict(flops=tr.cost.flops, temp_bytes=mem["temp_bytes"],
+                peak=peak, launches=launches)
+
+
+def start_dryrun_cells():
+    """Start phase 20 (b): every cell of ``DRYRUN_CELLS`` traced over a
+    fake 16 x 16 group, one process each, all at once (a thread for each
+    variant's group), in the background; they use the host's cores and
+    no device.  ``main()`` starts them before phase 18."""
+    import threading
+
+    from repro_torch.launch import dryrun as DR
+
+    if _DRYRUN:
+        return
+    out_dir = ROOT / "build" / "dryrun"
+    by_variant, done = {}, []
+    for arch, shape, variant in DRYRUN_CELLS:
+        by_variant.setdefault(variant, []).append((arch, shape, "single"))
+
+    def cells(variant, cs):
+        done.extend((c, variant, st) for c, st in DR.run_cells(
+            cs, out_dir, variant, jobs=len(cs),
+            timeout=DRYRUN_CELL_TIMEOUT_S))
+
+    threads = [threading.Thread(target=cells, args=item)
+               for item in by_variant.items()]
+    for t in threads:
+        t.start()
+    _DRYRUN.update(threads=threads, done=done, out_dir=out_dir,
+                   t0=time.perf_counter())
+
+
+@phase("dryrun")
+def dryrun_phase(smi):
+    """Phase 20: (c) one real cell against its dry-run, (a) the custom
+    ops' fake outputs against every distinct B4 and B5 launch of the run,
+    then (b)'s full-width cells (started by :func:`start_dryrun_cells`,
+    here if not before) are joined and printed."""
+    import torch
+
+    from repro_torch.launch import dryrun as DR
+
+    t0 = time.perf_counter()
+    props = torch.cuda.get_device_properties(0)
+    print(f"card total_memory {props.total_memory} bytes on {smi} (the "
+          f"dry-run holds each rank's total against "
+          f"{DR.CARD_MEMORY_BYTES})", flush=True)
+    if props.total_memory != DR.CARD_MEMORY_BYTES:
+        print(f"NOTE: launch.dryrun.CARD_MEMORY_BYTES "
+              f"({DR.CARD_MEMORY_BYTES}) is not this card's "
+              f"{props.total_memory}", flush=True)
+    start_dryrun_cells()
+    real = _real_prefill_cell(smi)
+    held = _fake_launch_checks()
+    print(f"(a) fake outputs equal to the launches' (shapes, dtypes, "
+          f"strides): {held} distinct launch shapes", flush=True)
+    for w in _DRYRUN["threads"]:
+        w.join()
+    done, out_dir = _DRYRUN["done"], _DRYRUN["out_dir"]
+    print(f"(b) the cells' processes ended "
+          f"{time.perf_counter() - _DRYRUN['t0']:.1f} s after they started "
+          f"({t0 - _DRYRUN['t0']:.1f} s before this phase)", flush=True)
+    bad = [(c, v, st) for c, v, st in done if st != "ok"]
+    if bad or len(done) != len(DRYRUN_CELLS):
+        raise AssertionError(f"dry-run cells failed: {bad}")
+    for (arch, shape, mesh), variant, _ in done:
+        rec = json.loads(DR._record_path(out_dir, arch, shape, mesh,
+                                         variant).read_text())
+        m, c = rec["memory"], rec["collectives"]
+        print(f"(b) {arch} x {shape} x {mesh} [{variant}] trace_s "
+              f"{rec['trace_s']}: FLOPs/rank {rec['flops_per_device']:.4e} "
+              f"{rec['flops_breakdown']}, bytes "
+              f"{rec['bytes_accessed_per_device']:.4e}; memory argument "
+              f"{m['argument_bytes']} output {m['output_bytes']} temp "
+              f"{m['temp_bytes']} step argument {m['step_argument_bytes']} "
+              f"fits {m['fits']}; collectives counts {c['counts']} traffic "
+              f"{ {k: round(v) for k, v in c['traffic'].items()} }; kernel "
+              f"calls {rec['kernel_calls']}", flush=True)
+    phase_s = time.perf_counter() - t0
+    print(f"dryrun phase {phase_s:.1f} s (budget {DRYRUN_BUDGET_S:.0f} s)",
+          flush=True)
+    return dict(real, held=held, seconds=phase_s)
+
+
 def _print_held(name, rs):
     """One line for the launches of one run, held and re-timed."""
     bound_ms, bound_by = _bound(sum(r["t_bytes"] for r in rs),
@@ -4566,6 +4826,48 @@ def setup() -> None:
     os.environ["REPRO_TORCH_CHAR_CACHE_DIR"] = str(CACHE)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    _note_launches()
+
+
+def _meta_of(t):
+    return (tuple(t.shape), str(t.dtype), tuple(t.stride()))
+
+
+def _note_launches():
+    """Wrap the B4 and B5 wrappers (``functools.wraps`` keeps their
+    signatures for ``_Recorder``) so that each distinct CUDA launch is
+    noted in ``LAUNCHED`` with its output's metadata, for phase 20 (a)."""
+    import functools
+    import inspect
+
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.kernels.ssd_scan import ops as SSD
+
+    for mod, name, kernel in ((FA, "flash_attention_fwd", "flash_attention"),
+                              (SSD, "ssd_scan_fwd", "ssd_scan")):
+        orig = getattr(mod, name)
+        if getattr(orig, "_notes_launches", False):
+            continue
+        sig = inspect.signature(orig)
+
+        def noted(*a, _orig=orig, _sig=sig, _kernel=kernel, **kw):
+            out = _orig(*a, **kw)
+            bound = _sig.bind(*a, **kw)
+            bound.apply_defaults()
+            args = dict(bound.arguments)
+            tensors = [v for v in args.values() if hasattr(v, "stride")]
+            if tensors and tensors[0].device.type == "cuda":
+                key = (tuple(_meta_of(t) for t in tensors),
+                       tuple((k, v) for k, v in args.items()
+                             if not hasattr(v, "stride")))
+                outs = out if isinstance(out, tuple) else (out,)
+                LAUNCHED[_kernel].setdefault(
+                    key, tuple(_meta_of(t) for t in outs))
+            return out
+
+        noted = functools.wraps(orig)(noted)
+        noted._notes_launches = True
+        setattr(mod, name, noted)
 
 
 def main() -> int:
@@ -4613,6 +4915,7 @@ def main() -> int:
     held_fa += encdec_held["flash_attention"]
     held_kv += encdec_held["kv_retry"]
     torch.cuda.empty_cache()
+    start_dryrun_cells()
     int8_launches, int8_held = int8_mamba_phase(smi)
     for k in ("flash_attention", "flash_attention_tc", "kv_retry",
               "kv_retry_vec"):
@@ -4620,6 +4923,8 @@ def main() -> int:
     held_kv += int8_held["kv_retry"]
     torch.cuda.empty_cache()
     dist_launches, dist_held, _ = dist_phase(smi, train["losses"])
+    torch.cuda.empty_cache()
+    dryrun_phase(smi)
     # The head-dim-16 launches are summed apart: SDPA has no softcap, so
     # with gemma2's among them the row's library time would be null.
     held_small = int8_held["flash_attention"]

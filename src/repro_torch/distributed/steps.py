@@ -21,8 +21,8 @@ the logits and cache back over the batch axes, so they take and return
 global tensors.  Tensor-parallel products are not here: every "model"
 rank computes its batch rows in full (ROADMAP D15c); the expert-parallel
 MoE (``REPRO_MOE_EP=1``) is the one layer that divides work over
-"model".  ``build_cell`` and ``train_input_shardings`` belong to the
-dry-run and wait for ROADMAP D15b.
+"model".  :func:`build_cell` gives the dry-run one (arch x shape x mesh)
+cell: the step, its arguments as meta tensors and their placements.
 """
 
 from __future__ import annotations
@@ -34,11 +34,11 @@ import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.distributed import sharding as SH
 from repro_torch.distributed.elastic import reshard_state
 from repro_torch.models import moe as MOE
-from repro_torch.models.api import build_model
+from repro_torch.models.api import build_model, input_specs
 from repro_torch.optim.adamw import (AdamWConfig, adamw_update,
                                      init_opt_state, tree_leaves, tree_map)
 
@@ -162,10 +162,14 @@ def _split(mesh, batch: Dict, axes) -> Dict:
     """This rank's rows of each batch entry (all rows where ``axes`` is
     empty), as tensors on the mesh's device."""
     out = {}
+    kind = mesh.device_type
     for k, v in batch.items():
-        t = v if k == "pos" else torch.as_tensor(
-            np.asarray(v) if not isinstance(v, torch.Tensor) else v,
-            device=mesh.device_type)
+        if k == "pos":
+            t = v
+        elif isinstance(v, torch.Tensor):
+            t = v if v.device.type == kind else v.to(kind)
+        else:
+            t = torch.as_tensor(np.asarray(v), device=kind)
         out[k] = SH.local_rows(t, mesh, axes) if axes and k != "pos" else t
     return out
 
@@ -237,6 +241,12 @@ def _reported_loss(loss, aux, mesh, axes, n_b):
     for ax in axes:
         dist.broadcast(aux, group=mesh.get_group(ax), group_src=0)
     return ce + 0.01 * aux
+
+
+def train_input_shardings(cfg: ModelConfig, mesh, shape: ShapeConfig):
+    """-> (the cell's batch as meta tensors, its placements)."""
+    specs = input_specs(cfg, shape)
+    return specs, batch_shardings(cfg, mesh, specs)
 
 
 def host_state(state) -> Any:
@@ -316,3 +326,62 @@ def make_decode_step(cfg: ModelConfig, mesh):
                 _gather_rows(cache, mesh, axes))
 
     return fn, p_place
+
+
+# ---------------------------------------------------------------------------
+# One-stop cell builder for the dry-run.
+# ---------------------------------------------------------------------------
+
+
+def _logits_sharding(mesh, global_batch: int) -> tuple:
+    """Placements of the (B, T, V) logits: the batch over the batch axes
+    where they divide it, else replicated."""
+    b = SH.rules_for_mesh(mesh)["batch"]
+    whole = global_batch % SH.batch_size_of(mesh, b)
+    return SH.spec_to_placements((None if whole else tuple(b), None, None),
+                                 mesh)
+
+
+def serve_param_shapes(cfg: ModelConfig):
+    """The parameter tree as meta tensors in bfloat16 where the
+    parameters are float32: the production serving convention the
+    reference's dry-run takes for its prefill and decode cells."""
+    return tree_map(lambda p: p.to(torch.bfloat16)
+                    if p.dtype == torch.float32 else p, param_shapes(cfg))
+
+
+def build_cell(cfg: ModelConfig, shape: ShapeConfig, mesh):
+    """-> (step, argument specs, their placements) for one (arch x shape
+    x mesh) cell, the reference's ``build_cell``: the step of
+    :func:`make_train_step`, :func:`make_prefill_step` or
+    :func:`make_decode_step`; its arguments as meta tensors (the train
+    state, or the serve parameters in bfloat16, and the batch of
+    :func:`~repro_torch.models.api.input_specs`); the placements each
+    argument has on the reference's mesh (``None``: replicated).  The
+    port's serve steps take and return global batches: they split the
+    rows over the batch axes themselves."""
+    specs = input_specs(cfg, shape)
+    b_place = batch_shardings(cfg, mesh, specs)
+    if shape.kind == "train":
+        step, state_place = make_train_step(cfg, mesh, batch_shard=b_place)
+        state_spec, _ = make_train_state_specs(cfg, mesh)
+        return step, (state_spec, specs), (state_place, b_place)
+    make = make_prefill_step if shape.kind == "prefill" else \
+        make_decode_step
+    fn, p_place = make(cfg, mesh)
+    return fn, (serve_param_shapes(cfg), specs), (p_place, b_place)
+
+
+def cell_output_placements(cfg: ModelConfig, shape: ShapeConfig, mesh,
+                           out) -> Any:
+    """The placements the reference gives a cell's outputs ``out``
+    (its ``out_shardings``): the train state on its placements and the
+    metrics replicated; the logits by :func:`_logits_sharding` and the
+    cache by :func:`cache_shardings`."""
+    if shape.kind == "train":
+        _, place = make_train_state_specs(cfg, mesh)
+        state, metrics = out
+        return place, {k: None for k in metrics}
+    logits, cache = out
+    return (_logits_sharding(mesh, shape.global_batch),
+            cache_shardings(cfg, mesh, cache))

@@ -21,6 +21,14 @@ rows.  ``launches`` counts the CUDA kernel launches of this process, and
 nothing else; ``tc_launches`` counts those of the tensor-core kernel,
 ``small_hd_launches`` those at a head dim below 64 (the reduced
 configs' 16: the SIMT kernel in either dtype).
+
+:func:`flash_attention_fwd` checks its inputs and calls the custom op
+``torch.ops.repro_torch.flash_attention``: its CUDA implementation is
+the kernel's launch, its CPU implementation the plain version, its fake
+implementation (:func:`_fake`) the launch's output (shape, dtype,
+strides) without a device, and its FLOP formula (:func:`_flops`) the
+reference dry-run's analytic count, so ``FlopCounterMode`` and fake
+tensors trace a prefill through the kernel (``launch.cost``).
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ from pathlib import Path
 from typing import Optional
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.device import require_local, resolve_device
 from repro_torch.kernels.flash_attention.plain import flash_attention_plain
@@ -132,14 +141,53 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
     if not q.device == k.device == v.device:
         raise ValueError("q, k and v must share a device")
-    kw = dict(causal=causal, window=window, softcap=softcap)
-    if q.device.type == "cuda":
-        kv = S if kv_valid is None else max(0, min(int(kv_valid), S))
-        return _launch_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
-                            kv_valid=kv, **kw)
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, kv_valid=kv_valid, **kw)
-    raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
+    if q.device.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"flash_attention runs on cuda or cpu (meta: "
+                         f"shapes only), not {q.device}")
+    return torch.ops.repro_torch.flash_attention(
+        q, k, v, causal, window, None if softcap is None else float(softcap),
+        None if kv_valid is None else int(kv_valid))
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=(),
+                         device_types="cuda")
+def _flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool, window: Optional[int],
+                        softcap: Optional[float],
+                        kv_valid: Optional[int]) -> torch.Tensor:
+    """The custom op on CUDA tensors: the kernel's launch."""
+    S = k.shape[1]
+    kv = S if kv_valid is None else max(0, min(kv_valid, S))
+    return _launch_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
+                        causal=causal, window=window, softcap=softcap,
+                        kv_valid=kv)
+
+
+@_flash_attention_op.register_kernel("cpu")
+def _(q, k, v, causal, window, softcap, kv_valid):
+    return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                 softcap=softcap, kv_valid=kv_valid)
+
+
+@_flash_attention_op.register_fake
+def _fake(q, k, v, causal, window, softcap, kv_valid):
+    """The launch's output: (BH, T, hd) in q's dtype, contiguous."""
+    return q.new_empty(q.shape)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _flops(q_shape, k_shape, v_shape, causal, window, softcap, kv_valid,
+           *args, **kwargs) -> int:
+    """The reference dry-run's count (``launch/hlo_cost.py``'s
+    ``_opaque_kernel_cost``): ``4 BH T hd S_eff frac`` (BH = B K G), with
+    ``S_eff = min(window, S)`` and ``frac`` 1 for a window, else S and ½
+    causal, 1 not.  ``kv_valid`` does not enter it, as the reference's
+    stand-in has none."""
+    BH, T, hd = q_shape
+    S = k_shape[1]
+    if window is not None:
+        return 4 * BH * T * hd * min(window, S)
+    return 4 * BH * T * hd * S // (2 if causal else 1)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

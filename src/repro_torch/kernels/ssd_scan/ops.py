@@ -31,15 +31,23 @@ requires it, rather than detach every parameter upstream of the scan.
 ``launches`` counts the calls of :func:`ssd_scan_fwd` that
 launched on CUDA (one per call, whichever path), and nothing else;
 ``tc_launches`` counts those that took the tensor-core path.
+
+:func:`ssd_scan_fwd` checks its inputs and calls the custom op
+``torch.ops.repro_torch.ssd_scan``: its CUDA implementation is the
+launch, its CPU implementation the plain version, its fake
+implementation (:func:`_fake`) the launch's outputs without a device,
+and its FLOP formula (:func:`_flops`) the reference dry-run's analytic
+count (``launch.cost``).
 """
 
 from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.device import require_local, resolve_device
 from repro_torch.kernels.ssd_scan.plain import ssd_scan_plain
@@ -257,16 +265,52 @@ def ssd_scan_fwd(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
         raise ValueError("x, Bm, Cm, dt and dA must share a device")
     if chunk < 1:
         raise ValueError(f"chunk must be positive, got {chunk}")
-    if x.device.type == "cuda":
-        if torch.is_grad_enabled() and any(
-                t.requires_grad for t in (x, Bm, Cm, dt, dA)):
-            raise RuntimeError("ssd_scan's kernel has no backward; training "
-                               "runs ssd_scan(..., training=True)")
-        return _launch_cuda(*(_aligned(t) for t in (x, Bm, Cm, dt, dA)),
-                            chunk)
-    if x.device.type == "cpu":
-        return ssd_scan_plain(x, Bm, Cm, dt, dA, chunk)
-    raise ValueError(f"ssd_scan runs on cuda or cpu, not {x.device}")
+    if x.device.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"ssd_scan runs on cuda or cpu (meta: shapes "
+                         f"only), not {x.device}")
+    if x.device.type == "cuda" and torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, Bm, Cm, dt, dA)):
+        raise RuntimeError("ssd_scan's kernel has no backward; training "
+                           "runs ssd_scan(..., training=True)")
+    return tuple(torch.ops.repro_torch.ssd_scan(x, Bm, Cm, dt, dA, chunk))
+
+
+@torch.library.custom_op("repro_torch::ssd_scan", mutates_args=(),
+                         device_types="cuda")
+def _ssd_scan_op(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
+                 dt: torch.Tensor, dA: torch.Tensor,
+                 chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The custom op on CUDA tensors: the kernel's launch."""
+    return _launch_cuda(*(_aligned(t) for t in (x, Bm, Cm, dt, dA)), chunk)
+
+
+@_ssd_scan_op.register_kernel("cpu")
+def _(x, Bm, Cm, dt, dA, chunk):
+    # The plain scan's y is a view of its chunk-padded buffer; the op's
+    # outputs are laid out as the launch's, contiguous.
+    y, H = ssd_scan_plain(x, Bm, Cm, dt, dA, chunk)
+    return y.contiguous(), H.contiguous()
+
+
+@_ssd_scan_op.register_fake
+def _fake(x, Bm, Cm, dt, dA, chunk):
+    """The launch's outputs: y (BH, T, hd) in x's dtype and H (BH, ds,
+    hd) float32, both contiguous."""
+    return (x.new_empty(x.shape),
+            x.new_empty((x.shape[0], Bm.shape[-1], x.shape[-1]),
+                        dtype=torch.float32))
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_scan)
+def _flops(x_shape, bm_shape, cm_shape, dt_shape, da_shape, chunk, *args,
+           **kwargs) -> int:
+    """The reference dry-run's count (``launch/hlo_cost.py``'s
+    ``_opaque_kernel_cost``): ``BH T (2 L (ds + hd) + 4 ds hd)`` with
+    BH = B nh and L the configured chunk, as its stand-in's marker
+    carries it."""
+    BH, T, hd = x_shape
+    ds = bm_shape[-1]
+    return BH * T * (2 * chunk * (ds + hd) + 4 * ds * hd)
 
 
 def ssd_scan(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,

@@ -7,6 +7,8 @@ Usage (the card is the default device):
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \
       --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \
+      --dry-run
 """
 
 from __future__ import annotations
@@ -33,8 +35,11 @@ def main(argv=None):
     ap.add_argument("--arch", default="llama3.2-3b")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--dry-run", action="store_true",
-                    help="lower and count on the production mesh "
-                         "(ROADMAP D15b)")
+                    help="trace and count prefill_32k and decode_32k on "
+                         "the 16 x 16 production mesh (launch.dryrun)")
+    ap.add_argument("--out-dir", default=None,
+                    help="the dry-run's records (default "
+                         "results/dryrun_torch)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--mechanism", default="pr2ar2")
@@ -44,8 +49,16 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     if args.dry_run:
-        raise NotImplementedError("--dry-run is the dry-run's: "
-                                  "ROADMAP D15b, the rest of item 13")
+        from repro_torch.launch.dryrun import run_cells
+
+        done = run_cells([(args.arch, s, "single")
+                          for s in ("prefill_32k", "decode_32k")],
+                         args.out_dir, reduced=args.smoke)
+        for (_, shape, _), status in done:
+            print(f"dry-run {shape}: {status}")
+        if any(status != "ok" for _, status in done):
+            raise SystemExit(1)
+        return
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = reduced_config(cfg)

@@ -23,7 +23,8 @@ one device each, and one rank runs alone without it):
 
 ``--shape`` takes a production shape (``train_4k``) on the production
 mesh (16 x 16 ranks) and raises on any other world size.  ``--dry-run``
-is the dry-run's and raises (ROADMAP D15b).  :func:`train` without a
+traces that shape (default ``train_4k``) on the production mesh over a
+fake process group and writes its record (``launch.dryrun``).  :func:`train` without a
 mesh is the single-device loop; with a (1, 1) mesh its losses are the
 same bit for bit.
 """
@@ -295,13 +296,23 @@ def main(argv=None):
                     help="a production shape, on the 16 x 16 production "
                          "mesh (256 ranks)")
     ap.add_argument("--dry-run", action="store_true",
-                    help="lower and count on the production mesh "
-                         "(ROADMAP D15b)")
+                    help="trace and count --shape (default train_4k) on "
+                         "the 16 x 16 production mesh (launch.dryrun)")
+    ap.add_argument("--out-dir", default=None,
+                    help="the dry-run's records (default "
+                         "results/dryrun_torch)")
     args = ap.parse_args(argv)
 
     if args.dry_run:
-        raise NotImplementedError("--dry-run is the dry-run's: "
-                                  "ROADMAP D15b, the rest of item 13")
+        from repro_torch.launch.dryrun import run_cells
+
+        (_, status), = run_cells([(args.arch, args.shape or "train_4k",
+                                   "single")], args.out_dir,
+                                 reduced=args.smoke)
+        print(f"dry-run: {status}")
+        if status != "ok":
+            raise SystemExit(1)
+        return
     cfg = get_config(args.arch)
     batch = args.batch or (4 if args.smoke else 2)
     seq = args.seq or (64 if args.smoke else 1024)

@@ -5,8 +5,9 @@ attention, Mamba-2 SSD blocks and RG-LRU blocks with the pattern tail of
 recurrentgemma, each attention or RG-LRU layer with a dense MLP or the
 MoE FFN of olmoe and llama4), the VLM (internvl2: the decoder over a
 patch prefix, ``batch["patches"]``) and the encoder-decoder (whisper:
-``models.encdec``, ``batch["audio_embed"]``).  ``input_specs`` is the
-dry-run's and waits for ROADMAP D15b.  ``train_loss`` trains every block
+``models.encdec``, ``batch["audio_embed"]``).  :func:`input_specs`
+gives every input of a grid cell as meta tensors (the dry-run's
+arguments).  ``train_loss`` trains every block
 kind, Mamba-2's SSD blocks through the plain scan.  Parameters may be
 plain tensors or DTensors on a mesh (``distributed.steps``); on
 ``device="meta"`` ``init`` gives the parameter tree's shapes.
@@ -16,11 +17,11 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import encdec as ED
 from repro_torch.models import lm as LM
@@ -35,9 +36,9 @@ class Model:
     prefill: Callable             # (params, batch) -> (logits, cache)
     decode_step: Callable         # (params, batch{token,pos,cache}) -> (logits, cache)
 
-    def input_specs(self, *args, **kw):
-        raise NotImplementedError("input_specs is the dry-run's: "
-                                  "ROADMAP D15b, the rest of item 13")
+    def input_specs(self, shape: ShapeConfig,
+                    batch_override: Optional[int] = None) -> Dict:
+        return input_specs(self.cfg, shape, batch_override)
 
 
 class _MetaGenerator(torch.Generator):
@@ -58,17 +59,24 @@ def build_model(cfg: ModelConfig, device=None,
     nothing).
     """
     dev = resolve_device(device)
-    if generator is None:
-        generator = _MetaGenerator() if dev.type == "meta" else \
-            torch.Generator(dev).manual_seed(0)
+    gen = [generator]
+
+    def init():
+        # The default generator is made at the first draw, so a model
+        # whose parameters come from elsewhere (a checkpoint, the
+        # dry-run's fake tensors) needs no generator on its device.
+        if gen[0] is None:
+            gen[0] = _MetaGenerator() if dev.type == "meta" else \
+                torch.Generator(dev).manual_seed(0)
+        mod = ED.encdec_init if cfg.family == "encdec" else LM.lm_init
+        return mod(cfg, gen[0])
+
     if cfg.family == "encdec":
-        return Model(cfg=cfg,
-                     init=functools.partial(ED.encdec_init, cfg, generator),
+        return Model(cfg=cfg, init=init,
                      train_loss=functools.partial(ED.train_loss, cfg),
                      prefill=functools.partial(ED.prefill, cfg),
                      decode_step=functools.partial(ED.decode_step, cfg))
-    return Model(cfg=cfg,
-                 init=functools.partial(LM.lm_init, cfg, generator),
+    return Model(cfg=cfg, init=init,
                  train_loss=functools.partial(LM.train_loss, cfg),
                  prefill=functools.partial(LM.prefill, cfg),
                  decode_step=functools.partial(LM.decode_step, cfg))
@@ -89,3 +97,48 @@ def frontend_zeros(cfg: ModelConfig, batch: int, device=None,
     name, n = shape
     return {name: torch.zeros((batch, n, cfg.d_model), dtype=dt,
                               device=resolve_device(device))}
+
+
+def _frontend_specs(cfg: ModelConfig, B: int) -> Dict:
+    """The stub modality frontends' inputs: precomputed frame or patch
+    embeddings in the activation dtype."""
+    return frontend_zeros(cfg, B, device="meta")
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig,
+                batch_override: Optional[int] = None) -> Dict:
+    """Every input of one grid cell as meta tensors (shapes and dtypes,
+    no storage), the reference's ``ShapeDtypeStruct`` specs:
+
+      train   -> {tokens, labels, frontend...}, int32 (B, T);
+      prefill -> {tokens, frontend...}; the VLM's patches take context
+                 slots, so its T is the context less the patches;
+      decode  -> {token (B, 1), pos (), cache}, the cache the port's
+                 prefill makes at depth ``seq_len`` (run on meta
+                 tensors, so it is the real cache's structure by
+                 construction; int8 with scales under REPRO_KV_INT8=1).
+    """
+    B = batch_override or shape.global_batch
+    i32 = torch.int32
+
+    def tok(T):
+        return torch.empty((B, T), dtype=i32, device="meta")
+
+    if shape.kind == "train":
+        specs = {"tokens": tok(shape.seq_len), "labels": tok(shape.seq_len)}
+        specs.update(_frontend_specs(cfg, B))
+        return specs
+    if shape.kind == "prefill":
+        T = shape.seq_len
+        if cfg.family == "vlm":
+            T = max(T - cfg.n_patches, 1)
+        specs = {"tokens": tok(T)}
+        specs.update(_frontend_specs(cfg, B))
+        return specs
+    pre = input_specs(cfg, dataclasses.replace(shape, kind="prefill"), B)
+    model = build_model(cfg, "meta")
+    with torch.no_grad():
+        _, cache = model.prefill(model.init(), pre)
+    return {"token": tok(1),
+            "pos": torch.empty((), dtype=i32, device="meta"),
+            "cache": cache}

@@ -236,3 +236,61 @@ def _worker(rank, world, work_dir):
 def run(world: int, work_dir) -> dict:
     mp.spawn(_worker, args=(world, str(work_dir)), nprocs=world)
     return json.loads((Path(work_dir) / f"port_{world}.json").read_text())
+
+
+def _cost_worker(rank, world, work_dir):
+    """Each case of ``work_dir/cost_cases.json`` (``[arch, kind, [data,
+    model], variant, [shape name, seq_len, global batch]]``, reduced
+    configs) built by ``build_cell`` on a gloo mesh and run once for
+    real under ``launch.cost.trace``, on seeded parameters (bfloat16 for
+    serving) and a seeded batch; rank 0 writes each case's collectives
+    to ``work_dir/cost_<world>.json``."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import steps as ST
+    from repro_torch.distributed.elastic import reshard_state
+    from repro_torch.launch import cost as C
+    from repro_torch.launch.dryrun import collective_bytes
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.optim.adamw import tree_map
+
+    torch.set_num_threads(1)
+    work = Path(work_dir)
+    store = dist.FileStore(str(work / f"cost_store_{world}"), world)
+    dist.init_process_group("gloo", store=store, rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        out = {}
+        for arch, kind, mesh_shape, variant, shp in json.loads(
+                (work / "cost_cases.json").read_text()):
+            cfg = reduced_config(get_config(arch))
+            shape = ShapeConfig(shp[0], shp[1], shp[2], kind)
+            mesh = make_mesh(tuple(mesh_shape), device="cpu")
+            step, (_, specs), (place, _) = ST.build_cell(cfg, shape, mesh)
+            if kind == "train":
+                arg0 = ST.init_train_state(cfg, mesh, place, seed=0)
+            else:
+                gen = torch.Generator().manual_seed(0)
+                params = tree_map(lambda p: p.to(torch.bfloat16),
+                                  build_model(cfg, "cpu", gen).init())
+                arg0 = reshard_state(params, mesh, place)
+            gen = torch.Generator().manual_seed(1)
+            batch = {k: (torch.randint(0, cfg.vocab, v.shape, generator=gen,
+                                       dtype=v.dtype)
+                         if not v.is_floating_point() else
+                         torch.randn(v.shape, generator=gen).to(v.dtype))
+                     for k, v in specs.items()}
+            tr = C.trace(step, arg0, batch)
+            out[f"{arch}/{kind}/{mesh_shape[0]}x{mesh_shape[1]}/{variant}"] = \
+                collective_bytes(tr.cost)
+        if rank == 0:
+            (work / f"cost_{world}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+
+
+def run_costs(world: int, work_dir) -> dict:
+    """:func:`_cost_worker` on ``world`` gloo ranks; rank 0's results."""
+    mp.spawn(_cost_worker, args=(world, str(work_dir)), nprocs=world)
+    return json.loads((Path(work_dir) / f"cost_{world}.json").read_text())

@@ -43,7 +43,11 @@ in its op table, equal to the array interpreter and, launch for launch,
 to the plain version.  Online GC and faults characterize on the card
 and run on the host interpreter, equal to the same runs characterized
 on the CPU, and the batched engine refuses both.  ``chip_smoke.py``
-holds every kernel at its main path's full-width shapes.
+holds every kernel at its main path's full-width shapes.  B4 and B5 are
+custom ops (``repro_torch::flash_attention``, ``repro_torch::ssd_scan``):
+called as ops on the card they launch their kernels, agree with the
+plain versions by the rules above, and their fake implementations give
+the launches' output shapes, dtypes and strides.
 """
 
 import numpy as np
@@ -790,3 +794,71 @@ def test_sharded_step_on_a_one_rank_nccl_mesh(tmp_path):
     finally:
         dist.destroy_process_group()
     np.testing.assert_allclose(runs["cuda"], runs["cpu"], rtol=1e-5)
+
+
+def _fake_meta(op, args):
+    """The custom op's fake outputs (shape, dtype, strides) on fake copies
+    of ``args`` (tensors; the rest passed as they are)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode() as mode:
+        out = op(*(mode.from_tensor(a) if isinstance(a, torch.Tensor) else a
+                   for a in args))
+    outs = out if isinstance(out, (tuple, list)) else (out,)
+    return [(tuple(t.shape), t.dtype, tuple(t.stride())) for t in outs]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kw", [dict(causal=True, window=None, softcap=None,
+                                     kv_valid=None),
+                                dict(causal=True, window=48, softcap=50.0,
+                                     kv_valid=None),
+                                dict(causal=False, window=None, softcap=None,
+                                     kv_valid=150)],
+                         ids=["causal", "window-softcap", "kv_valid"])
+def test_flash_attention_custom_op_on_the_card(dtype, kw):
+    """``repro_torch::flash_attention`` on CUDA tensors launches the
+    kernel (one launch, counted), its output equals the plain version's
+    by the rule of ``test_flash_attention_matches_plain``, and its fake
+    implementation gives the launch's shape, dtype and strides."""
+    q, k, v = _fa_inputs(2, 3, 200, 230, 128, getattr(torch, dtype))
+    op = torch.ops.repro_torch.flash_attention
+    args = (q, k, v, kw["causal"], kw["window"], kw["softcap"],
+            kw["kv_valid"])
+    before = FA.launches
+    got = op(*args)
+    torch.cuda.synchronize()
+    assert FA.launches == before + 1
+    want = flash_attention_plain(q, k, v, **kw)
+    if dtype == "float32":
+        assert float((got - want).abs().max()) <= F32_TOL
+    else:
+        assert bf16_err_ratio(got, want) <= 1.0
+    assert _fake_meta(op, args) == [(tuple(got.shape), got.dtype,
+                                     tuple(got.stride()))]
+
+
+@pytest.mark.parametrize("dtype,hd,T,chunk", [("bfloat16", 64, 2048, 256),
+                                              ("bfloat16", 64, 300, 256),
+                                              ("float32", 32, 200, 64)],
+                         ids=["tc-long", "tc-pad", "simt"])
+def test_ssd_scan_custom_op_on_the_card(dtype, hd, T, chunk):
+    """``repro_torch::ssd_scan`` on CUDA tensors launches the kernel (the
+    tensor-core path or the SIMT kernel, one launch counted), its y and H
+    equal the plain version's by the rules of
+    ``test_ssd_scan_matches_plain``, and its fake implementation gives
+    the launch's shapes, dtypes and strides."""
+    args = _ssd_inputs(2, 3, T, hd, 128 if hd == 64 else 64, dtype)
+    op = torch.ops.repro_torch.ssd_scan
+    before = SSD.launches
+    y, H = op(*args, chunk)
+    torch.cuda.synchronize()
+    assert SSD.launches == before + 1
+    want_y, want_H = ssd_scan_plain(*args, chunk=chunk)
+    if dtype == "float32":
+        assert _rel(y, want_y) <= SSD_TOL
+    else:
+        assert bf16_err_ratio(y, want_y) <= 1.0
+    assert _rel(H, want_H) <= SSD_TOL
+    assert _fake_meta(op, args + (chunk,)) == [
+        (tuple(t.shape), t.dtype, tuple(t.stride())) for t in (y, H)]

@@ -125,6 +125,34 @@ def test_import_and_simulate_without_jax(tmp_path):
     assert out.stdout.startswith("ok ")
 
 
+def test_dryrun_imports_without_jax(tmp_path):
+    """The dry-run (``launch.dryrun``, ``launch.cost``, ``launch.fake_cuda``)
+    imports and counts a product with JAX blocked, and loads neither JAX
+    nor the reference package."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "import torch\n"
+        "from repro_torch.launch import cost, dryrun, fake_cuda\n"
+        "c = cost.analyze(torch.matmul, torch.ones(4, 8), torch.ones(8, 2))\n"
+        "assert c.flops == 2 * 4 * 8 * 2, c\n"
+        "assert dryrun.variant_flags('kvint8+ep') == {'kvint8', 'ep'}\n"
+        "rec = dryrun.run_cell('gemma2-2b', 'long_500k', 'multi', "
+        "sys.argv[1])\n"
+        "assert rec['status'] == 'skipped', rec\n"
+        "assert sys.modules['jax'] is None\n"
+        "bad = [m for m in sys.modules if m == 'repro' "
+        "or m.startswith('repro.')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
 def test_no_jax_or_reference_imports():
     files = sorted((SRC / "repro_torch").rglob("*.py"))
     assert len(files) > 20

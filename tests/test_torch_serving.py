@@ -274,15 +274,21 @@ def test_store_stats_and_tiers(setup):
                               np.asarray(want["units"]["b0"]["attn"][name]))
 
 
-def test_serve_cli(capsys):
+def test_serve_cli(capsys, tmp_path):
+    """The command line serves a reduced config on the CPU; ``--dry-run``
+    traces its prefill_32k and decode_32k cells on the 16 x 16 mesh and
+    writes their records (``launch.dryrun``)."""
     from repro_torch.launch import serve
 
     serve.main(["--smoke", "--device", "cpu", "--max-new", "2",
                 "--batch", "2"])
     out = capsys.readouterr().out
     assert "kv_fast=" in out and "req1:" in out
-    with pytest.raises(NotImplementedError, match="item 13"):
-        serve.main(["--dry-run"])
+    serve.main(["--smoke", "--dry-run", "--out-dir", str(tmp_path)])
+    assert "dry-run prefill_32k: ok" in capsys.readouterr().out
+    assert sorted(p.name for p in tmp_path.glob("*.json")) == [
+        "llama3.2-3b__decode_32k__single.json",
+        "llama3.2-3b__prefill_32k__single.json"]
 
 
 @pytest.mark.parametrize("arch", ["whisper-large-v3", "internvl2-1b"])

@@ -28,6 +28,7 @@ across by ``params_from_jax``:
 """
 
 import dataclasses
+import json
 
 import jax
 import jax.numpy as jnp
@@ -337,12 +338,18 @@ def test_mamba2_trains_through_the_plain_scan():
 
 
 @pytest.mark.parametrize("flag", [["--dry-run"], ["--shape", "train_4k"]])
-def test_distributed_flags_raise(flag):
-    """``--dry-run`` waits for ROADMAP D15b; ``--shape`` builds the
-    16 x 16 production mesh, which one CPU rank cannot hold."""
+def test_distributed_flags_raise(flag, tmp_path):
+    """``--dry-run`` traces ``train_4k`` of the reduced config on the
+    16 x 16 production mesh over a fake process group and writes its
+    record (``launch.dryrun``); ``--shape`` builds the 16 x 16 production
+    mesh for real, which one CPU rank cannot hold, and raises."""
     if flag == ["--dry-run"]:
-        with pytest.raises(NotImplementedError, match="D15b"):
-            TL.main(["--smoke", "--device", "cpu"] + flag)
+        TL.main(["--smoke", "--device", "cpu", "--out-dir", str(tmp_path)]
+                + flag)
+        rec = json.loads((tmp_path / "llama3.2-3b__train_4k__single.json")
+                         .read_text())
+        assert rec["status"] == "ok" and rec["n_devices"] == 256
+        assert rec["flops_per_device"] > 0
     else:
         with pytest.raises(RuntimeError, match="needs 256 ranks"):
             TL.main(["--smoke", "--device", "cpu"] + flag)
