@@ -176,8 +176,10 @@ exits non-zero):
                      the unfused run's, with WA > 1, ``gc_invocations ==
                      blocks_erased > 0`` and the same FTL stats for every
                      mechanism.  The first GC launch must hold erases
-                     (kind 2) and low-priority GC reads and is held
-                     against the plain version, bit for bit, and timed.
+                     (kind 2) and low-priority GC reads; it is timed in
+                     full, equal to its re-run bit for bit, and its first
+                     ``GC_HOLD_STEPS`` steps are held against the plain
+                     version, bit for bit.
                      ``baseline`` and ``pr2ar2`` under
                      ``host_prio_aged:4`` (the GC reads through the aged
                      priority rings) must equal the array interpreter;
@@ -375,8 +377,16 @@ exits non-zero):
                      they use no device): llama3.2-3b ``train_4k``,
                      ``prefill_32k`` and ``decode_32k``, mamba2-130m
                      ``prefill_32k`` and olmoe-1b-7b ``prefill_32k`` under
-                     ``ep``, each record's bytes, FLOPs, collectives and
-                     ``trace_s`` printed; (c) one real cell: llama3.2-3b's
+                     ``ep``, and the kernel stand-ins' variants:
+                     llama3.2-3b ``train_4k`` under ``flash`` (markers
+                     101/102) and ``decode_32k`` under ``flash+kvint8``
+                     (402), mamba2-130m ``train_4k`` under ``ssdk``
+                     (30256/40256), each record's bytes, FLOPs,
+                     collectives and ``trace_s`` printed, each stand-in
+                     cell's ``kernel`` FLOPs equal to the marker formula
+                     summed over the config's layers (computed here) and
+                     its ``dot`` below the ``base`` cell's where that cell
+                     runs; (c) one real cell: llama3.2-3b's
                      prefill at B 1 x T 2048 from ``build_cell`` on a
                      one-rank NCCL mesh, its ``FlopCounterMode`` count
                      equal to the dry-run's of the same cell, its B4 op
@@ -386,7 +396,14 @@ exits non-zero):
                      ``torch.cuda.max_memory_allocated`` of the step; the
                      card's ``total_memory`` printed with ``nvidia-smi``'s
                      name and power limit (the dry-run's
-                     ``CARD_MEMORY_BYTES``).
+                     ``CARD_MEMORY_BYTES``); (c') llama3.2-3b's decode
+                     step at B 1 over a 2 048-slot cache, bf16 and int8,
+                     from ``build_cell`` on the one-rank NCCL mesh: its
+                     ``FlopCounterMode`` count equal to the ``dot +
+                     kernel`` of the same cell's dry-run under ``flash``
+                     (``flash+kvint8``), printed with the card's name and
+                     power limit; (d) each kernel stand-in called on CUDA
+                     tensors raises (none has a device implementation).
 
 The line before the last is a JSON object describing each kernel
 (launches on its main path, error against the plain version, and times
@@ -501,6 +518,10 @@ GC_PRIO_SCHEDULER = "host_prio_aged:4"
 GC_PRIO_MECHANISMS = ("baseline", "pr2ar2")
 GC_WEAR_SEEDS = (0, 1, 2, 3)
 GC_PEC_PER_ERASE = 300.0
+#: The GC launch's prefix held against the plain core (kernel and plain
+#: version both stopped after this many lockstep steps): the whole
+#: launch's ~720 k steps take the plain core ~160 s on the card.
+GC_HOLD_STEPS = 65536
 
 # Phase 12: the closed loop.  The pinned open-loop cells, the
 # schedulers with a ring lowering, the QD ladder and its mechanisms,
@@ -649,14 +670,18 @@ DIST_MOE_ARCH = "olmoe-1b-7b"
 DIST_DECODE_STEPS = 3
 
 # Phase 20: the dry-run.  Full-width cells (arch, shape, variant) traced
-# over a fake 16 x 16 group, one process each, all at once; one prefill
-# cell of this arch, batch and length run for real on one NCCL rank; the
-# phase's budget in seconds.
+# over a fake 16 x 16 group, one process each, all at once (the last
+# three under the kernel stand-ins); a prefill and a decode of this arch,
+# batch and length (the decode's cache slots) run for real on one NCCL
+# rank; the phase's budget in seconds.
 DRYRUN_CELLS = (("llama3.2-3b", "train_4k", "base"),
                 ("llama3.2-3b", "prefill_32k", "base"),
                 ("llama3.2-3b", "decode_32k", "base"),
                 ("mamba2-130m", "prefill_32k", "base"),
-                ("olmoe-1b-7b", "prefill_32k", "ep"))
+                ("olmoe-1b-7b", "prefill_32k", "ep"),
+                ("llama3.2-3b", "train_4k", "flash"),
+                ("llama3.2-3b", "decode_32k", "flash+kvint8"),
+                ("mamba2-130m", "train_4k", "ssdk"))
 DRYRUN_REAL = ("llama3.2-3b", 1, 2048)
 DRYRUN_BUDGET_S = 90.0
 #: A (b) cell's limit in seconds: the cells start before phase 18 and
@@ -939,12 +964,15 @@ def _variant(ops, kw):
     return "global", 0
 
 
-def _hold(name, ops, timing, steps, kw, got=None):
+def _hold(name, ops, timing, steps, kw, got=None, plain_steps=None):
     """Hold one launch of the kernel against its plain version on the
     same card tensors, bit for bit, and time both.
 
     ``got`` is a launch's output recorded on the main path; without it
-    the kernel's own timed launches give the output compared."""
+    the kernel's own timed launches give the output compared.  With
+    ``plain_steps`` below ``steps``, the timed launches must equal
+    ``got`` and the plain version is held against the kernel over the
+    first ``plain_steps`` steps only (both stopped there)."""
     import torch
 
     from repro_torch.kernels.fcfs_core import ops as K
@@ -953,27 +981,35 @@ def _hold(name, ops, timing, steps, kw, got=None):
     K.fcfs_core_fwd(ops, timing, steps, **kw)          # warm-up
     ms, again = _cuda_ms(lambda: K.fcfs_core_fwd(ops, timing, steps, **kw),
                          KERNEL_REPS)
-    got = again if got is None else got
+    got = full = again if got is None else got
+    held_steps = steps if plain_steps is None else min(plain_steps, steps)
+    if held_steps < steps:
+        if not all(torch.equal(g, a) for g, a in zip(got, again)):
+            raise AssertionError(f"{name}: the kernel's re-run differs "
+                                 f"from the recorded launch")
+        got = again = K.fcfs_core_fwd(ops, timing, held_steps, **kw)
     plain_ms, want = _cuda_ms(
-        lambda: fcfs_core_plain(ops, timing, steps, **kw), 1)
+        lambda: fcfs_core_plain(ops, timing, held_steps, **kw), 1)
     err = max(float((g - w).abs().nan_to_num(float("inf")).max())
               for g, w in zip(got, want))
     if err != 0.0 or not all(torch.equal(g, w) and torch.equal(g, a)
                              for g, w, a in zip(got, want, again)):
         raise AssertionError(f"{name}: kernel differs from plain version "
                              f"(max abs {err})")
-    t_bytes, t_ops = _bound_ms(ops, *got)
+    t_bytes, t_ops = _bound_ms(ops, *full)
     bound_ms, bound_by = _bound(t_bytes, t_ops)
-    longest = _longest_lane_steps(ops, got[2])
+    longest = _longest_lane_steps(ops, full[2])
     variant, smem = _variant(ops, kw)
     n_pip = int((timing[:, 3] != 0).sum())
     print(f"{name}: lanes {ops.shape[0]} ({n_pip} pipelined) maxp "
           f"{ops.shape[1]} steps {steps} longest lane {longest} variant "
           f"{variant} ({smem} B of shared memory a block) max_abs_err "
           f"{err} kernel {ms:.3f} ms ({ms * 1e6 / longest:.1f} ns per step "
-          f"of the longest lane) plain {plain_ms:.1f} ms bound "
-          f"{bound_ms:.6f} ms ({bound_by})", flush=True)
-    return dict(case=name, steps=steps, longest=longest, ms=ms,
+          f"of the longest lane) plain {plain_ms:.1f} ms over "
+          f"{held_steps} steps bound {bound_ms:.6f} ms ({bound_by})",
+          flush=True)
+    return dict(case=name, steps=steps, plain_steps=held_steps,
+                longest=longest, ms=ms,
                 plain_ms=plain_ms, t_bytes=t_bytes, t_ops=t_ops,
                 bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
                 variant=variant, smem=smem)
@@ -2797,7 +2833,7 @@ def gc_phase(smi, chain_ns):
 
     held = _hold(f"prepass-GC launch 0 ({ops0.shape[0]} lanes, "
                  f"{int((timing0[:, 3] != 0).sum())} pipelined)", ops0,
-                 timing0, steps0, kw0, got=out0)
+                 timing0, steps0, kw0, got=out0, plain_steps=GC_HOLD_STEPS)
     held["chain_ms"] = held["longest"] * chain_ns * 1e-6
     print(f"  chain bound {held['chain_ms']:.3f} ms = {held['longest']} "
           f"steps x {chain_ns:.3f} ns; kernel at "
@@ -4592,11 +4628,25 @@ def _fake_launch_checks():
     return held
 
 
-def _real_prefill_cell(smi):
+def _real_params(gen):
+    """The real cells' llama3.2-3b parameters, bf16, drawn from ``gen``
+    on the card (made once for phase 20's prefill and decode cells)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.optim.adamw import tree_map
+
+    params = build_model(get_config(DRYRUN_REAL[0]), DEVICE, gen).init()
+    return tree_map(lambda p: p.to(torch.bfloat16), params)
+
+
+def _real_prefill_cell(smi, params, gen):
     """Phase 20 (c): llama3.2-3b's prefill at B 1 x T 2048 from
     ``build_cell``, first traced by the dry-run over a fake one-rank
     group, then run for real on a one-rank NCCL mesh under the same
-    counters."""
+    counters, with ``params`` (:func:`_real_params`) and tokens drawn
+    from ``gen``."""
     import torch
     import torch.distributed as dist
 
@@ -4608,8 +4658,6 @@ def _real_prefill_cell(smi):
     from repro_torch.launch import cost as C
     from repro_torch.launch import dryrun as DR
     from repro_torch.launch import mesh as M
-    from repro_torch.models import build_model
-    from repro_torch.optim.adamw import tree_map
 
     arch, B, T = DRYRUN_REAL
     cfg = get_config(arch)
@@ -4623,9 +4671,6 @@ def _real_prefill_cell(smi):
     try:
         mesh = M.make_mesh((1, 1), device=DEVICE)
         step, specs, places = ST.build_cell(cfg, shape, mesh)
-        gen = torch.Generator(DEVICE).manual_seed(20)
-        params = build_model(cfg, DEVICE, gen).init()
-        params = tree_map(lambda p: p.to(torch.bfloat16), params)
         params = reshard_state(params, mesh, places[0])
         toks = torch.randint(0, cfg.vocab, (B, T), generator=gen,
                              device=DEVICE, dtype=torch.int32)
@@ -4674,6 +4719,154 @@ def _real_prefill_cell(smi):
                 peak=peak, launches=launches)
 
 
+def _real_decode_cells(smi, params, gen):
+    """Phase 20 (c'): llama3.2-3b's decode step at B 1 over a 2 048-slot
+    cache, bf16 and int8, from ``build_cell`` on a one-rank NCCL mesh,
+    counted by ``FlopCounterMode`` and held against the ``dot + kernel``
+    of the same cell's dry-run under ``flash`` (``flash+kvint8``): the
+    decode stand-in's 401/402 formula is the two products the card
+    runs.  ``params`` from :func:`_real_params`; the token and the cache
+    drawn from ``gen``."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import steps as ST
+    from repro_torch.distributed.elastic import reshard_state
+    from repro_torch.launch import cost as C
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import mesh as M
+    from repro_torch.optim.adamw import tree_map
+
+    arch, B, S = DRYRUN_REAL
+    cfg = get_config(arch)
+    shape = ShapeConfig(f"decode_{S}", S, B, "decode")
+    recs = {v: DR.run_cell(arch, shape.name, "1x1",
+                           ROOT / "build" / "dryrun", v, cfg=cfg,
+                           shape=shape)
+            for v in ("flash", "flash+kvint8")}
+    store = ROOT / "build" / "chip_smoke_dryrun_store"
+    store.unlink(missing_ok=True)
+    M.init_process_group(DEVICE, store_path=str(store))
+    out = {}
+    try:
+        mesh = M.make_mesh((1, 1), device=DEVICE)
+        for variant, rec in recs.items():
+            int8 = "kvint8" in variant
+            # The real step: the cache's switch without the stand-ins.
+            with DR.variant_switches({"kvint8"} if int8 else set()):
+                step, specs, places = ST.build_cell(cfg, shape, mesh)
+            placed = reshard_state(params, mesh, places[0])
+
+            def leaf(t):
+                if t.dtype == torch.int8:
+                    return torch.randint(-127, 128, t.shape, generator=gen,
+                                         device=DEVICE, dtype=torch.int8)
+                x = torch.rand(t.shape, generator=gen, device=DEVICE)
+                return (x * 0.02 if t.dtype == torch.float32
+                        else x - 0.5).to(t.dtype)
+
+            batch = {"token": torch.randint(0, cfg.vocab, (B, 1),
+                                            generator=gen, device=DEVICE,
+                                            dtype=torch.int32),
+                     "pos": S, "cache": tree_map(leaf, specs[1]["cache"])}
+            tr = C.trace(step, placed, batch)
+            logits = tr.out[0]
+            split = rec["flops_breakdown"]
+            want = split["dot"] + split["kernel"]
+            calls = rec["kernel_calls"]["decode_attention_standin"]
+            if tr.cost.flops != want:
+                raise AssertionError(f"real {arch} decode ({variant}) counts "
+                                     f"{tr.cost.flops} FLOPs, its dry-run "
+                                     f"dot + kernel {want} ({split})")
+            if calls != cfg.n_layers or split["kernel"] <= 0:
+                raise AssertionError(f"{variant} dry-run: {calls} decode "
+                                     f"stand-in calls, {split}")
+            if tuple(logits.shape) != (B, 1, cfg.vocab) or not bool(
+                    torch.isfinite(logits.float()).all()):
+                raise AssertionError(f"real decode logits "
+                                     f"{tuple(logits.shape)} not finite")
+            cache = "int8" if int8 else "bf16"
+            print(f"(c') {arch} decode B {B} over {S} {cache} slots from "
+                  f"build_cell on one NCCL rank on {smi}: "
+                  f"FlopCounterMode {tr.cost.flops:.6e} FLOPs "
+                  f"({tr.breakdown()}) = the {variant} dry-run's dot + "
+                  f"kernel {want:.6e} ({split}, {calls} decode stand-in "
+                  f"calls); logits finite", flush=True)
+            out[variant] = tr.cost.flops
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+    return out
+
+
+def _standins_raise():
+    """Phase 20 (d): every stand-in op called on real CUDA tensors
+    raises: none has a device implementation."""
+    import torch
+
+    from repro_torch.kernels import opaque
+
+    ops = torch.ops.repro_torch
+    kw = dict(device=DEVICE, dtype=torch.bfloat16)
+    q = torch.zeros(1, 8, 2, 2, 64, **kw)
+    k = torch.zeros(1, 8, 2, 64, **kw)
+    ck = torch.zeros(1, 2, 8, 64, device=DEVICE, dtype=torch.int8)
+    sc = torch.ones(1, 2, 8, 1, device=DEVICE)
+    x = torch.zeros(1, 8, 2, 64, **kw)
+    bm = torch.zeros(1, 8, 16, **kw)
+    dt = torch.zeros(1, 8, 2, device=DEVICE)
+    a = torch.zeros(2, device=DEVICE)
+    calls = {
+        "flash_attention_fwd_standin":
+            lambda: ops.flash_attention_fwd_standin(q, k, k, True, None),
+        "flash_attention_bwd_standin":
+            lambda: ops.flash_attention_bwd_standin(q, k, k, q, True, None),
+        "decode_attention_standin":
+            lambda: ops.decode_attention_standin(q[:, :1], ck, ck, sc, sc, 4),
+        "ssd_scan_fwd_standin":
+            lambda: ops.ssd_scan_fwd_standin(x, bm, bm, dt, a, 8),
+        "ssd_scan_bwd_standin":
+            lambda: ops.ssd_scan_bwd_standin(x, bm, bm, dt, a, x, 8),
+    }
+    assert set(calls) == set(opaque.OPS)
+    for name, call in calls.items():
+        try:
+            call()
+        except NotImplementedError:
+            continue
+        raise AssertionError(f"stand-in {name} ran on CUDA tensors")
+    print(f"(d) the {len(calls)} stand-ins raise NotImplementedError on CUDA "
+          f"tensors", flush=True)
+    return len(calls)
+
+
+def _standin_formula(arch, shape_name, variant):
+    """The stand-in FLOPs one rank of the 16 x 16 mesh should count for a
+    (b) cell, from the reference's marker formulas summed over the
+    config's layers: under the unit's remat two forwards and a backward
+    a layer (flash x 2.5, the scan x 3), decode one fused call a layer
+    over the cache's ``seq_len`` slots."""
+    from repro_torch.configs import SHAPES, get_config
+
+    cfg, shape = get_config(arch), SHAPES[shape_name]
+    B = shape.global_batch // 16
+    T = shape.seq_len
+    if variant == "ssdk":
+        s = cfg.ssm
+        nh, hd, ds, L = s.n_heads(cfg.d_model), s.head_dim, s.d_state, \
+            s.chunk
+        fwd = B * nh * T * (2 * L * (ds + hd) + 4 * ds * hd)
+        return cfg.n_layers * (2 * fwd + 3 * fwd)
+    K, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    G = cfg.n_heads // K
+    if shape.kind == "decode":
+        return cfg.n_layers * 4 * B * K * G * hd * T
+    fwd = 4 * B * T * K * G * hd * T // 2             # causal (101)
+    return cfg.n_layers * (2 * fwd + fwd * 5 // 2)
+
+
 def start_dryrun_cells():
     """Start phase 20 (b): every cell of ``DRYRUN_CELLS`` traced over a
     fake 16 x 16 group, one process each, all at once (a thread for each
@@ -4705,10 +4898,12 @@ def start_dryrun_cells():
 
 @phase("dryrun")
 def dryrun_phase(smi):
-    """Phase 20: (c) one real cell against its dry-run, (a) the custom
-    ops' fake outputs against every distinct B4 and B5 launch of the run,
-    then (b)'s full-width cells (started by :func:`start_dryrun_cells`,
-    here if not before) are joined and printed."""
+    """Phase 20: (c) one real prefill cell and (c') two real decode cells
+    against their dry-runs, (d) the stand-ins raising on CUDA tensors, (a)
+    the custom ops' fake outputs against every distinct B4 and B5 launch
+    of the run, then (b)'s full-width cells (started by
+    :func:`start_dryrun_cells`, here if not before) are joined and
+    printed; each part's seconds are printed."""
     import torch
 
     from repro_torch.launch import dryrun as DR
@@ -4723,8 +4918,20 @@ def dryrun_phase(smi):
               f"({DR.CARD_MEMORY_BYTES}) is not this card's "
               f"{props.total_memory}", flush=True)
     start_dryrun_cells()
-    real = _real_prefill_cell(smi)
+    t = time.perf_counter()
+    gen = torch.Generator(DEVICE).manual_seed(20)
+    params = _real_params(gen)
+    parts = {"params": time.perf_counter() - t}
+    t = time.perf_counter()
+    real = _real_prefill_cell(smi, params, gen)
+    parts["c"], t = time.perf_counter() - t, time.perf_counter()
+    real["decode"] = _real_decode_cells(smi, params, gen)
+    del params
+    parts["c'"], t = time.perf_counter() - t, time.perf_counter()
+    real["standins_raise"] = _standins_raise()
+    parts["d"], t = time.perf_counter() - t, time.perf_counter()
     held = _fake_launch_checks()
+    parts["a"] = time.perf_counter() - t
     print(f"(a) fake outputs equal to the launches' (shapes, dtypes, "
           f"strides): {held} distinct launch shapes", flush=True)
     for w in _DRYRUN["threads"]:
@@ -4736,9 +4943,10 @@ def dryrun_phase(smi):
     bad = [(c, v, st) for c, v, st in done if st != "ok"]
     if bad or len(done) != len(DRYRUN_CELLS):
         raise AssertionError(f"dry-run cells failed: {bad}")
+    recs = {}
     for (arch, shape, mesh), variant, _ in done:
-        rec = json.loads(DR._record_path(out_dir, arch, shape, mesh,
-                                         variant).read_text())
+        rec = recs[arch, shape, variant] = json.loads(DR._record_path(
+            out_dir, arch, shape, mesh, variant).read_text())
         m, c = rec["memory"], rec["collectives"]
         print(f"(b) {arch} x {shape} x {mesh} [{variant}] trace_s "
               f"{rec['trace_s']}: FLOPs/rank {rec['flops_per_device']:.4e} "
@@ -4749,8 +4957,28 @@ def dryrun_phase(smi):
               f"fits {m['fits']}; collectives counts {c['counts']} traffic "
               f"{ {k: round(v) for k, v in c['traffic'].items()} }; kernel "
               f"calls {rec['kernel_calls']}", flush=True)
+    for (arch, shape, variant), rec in recs.items():
+        if variant not in ("flash", "ssdk", "flash+kvint8"):
+            continue
+        kernel = rec["flops_breakdown"]["kernel"]
+        want = _standin_formula(arch, shape, variant)
+        base = recs.get((arch, shape, "base"))
+        print(f"(b) {arch} x {shape} [{variant}]: kernel FLOPs {kernel:.6e} "
+              f"= the marker formula summed over the layers {want:.6e}; dot "
+              f"{rec['flops_breakdown']['dot']:.6e}"
+              + ("" if base is None else
+                 f" (base {base['flops_breakdown']['dot']:.6e})"),
+              flush=True)
+        if kernel != want:
+            raise AssertionError(f"{arch} {shape} {variant}: kernel FLOPs "
+                                 f"{kernel}, the marker formula {want}")
+        if base is not None and not (rec["flops_breakdown"]["dot"] <
+                                     base["flops_breakdown"]["dot"]):
+            raise AssertionError(f"{arch} {shape} {variant}: dot not below "
+                                 f"base's")
     phase_s = time.perf_counter() - t0
-    print(f"dryrun phase {phase_s:.1f} s (budget {DRYRUN_BUDGET_S:.0f} s)",
+    print(f"dryrun phase {phase_s:.1f} s (budget {DRYRUN_BUDGET_S:.0f} s): "
+          + ", ".join(f"({k}) {v:.1f} s" for k, v in parts.items()),
           flush=True)
     return dict(real, held=held, seconds=phase_s)
 
@@ -4948,6 +5176,7 @@ def main() -> int:
             sweep_bound_ms=sweep_held["bound_ms"],
             gc_launches=gc_launches, gc_smem_launches=gc_smem_launches,
             gc_ms=gc_held["ms"], gc_plain_ms=gc_held["plain_ms"],
+            gc_plain_steps=gc_held["plain_steps"],
             gc_bound_ms=gc_held["bound_ms"],
             closed_launches=closed_launches,
             closed_ms=sum(r["ms"] for r in closed_held),

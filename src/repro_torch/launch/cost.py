@@ -8,10 +8,11 @@ and counts what it dispatches, rank 0's share:
 
   * FLOPs come from ``torch.utils.flop_counter.FlopCounterMode``: the
     products (``mm``, ``bmm``, ``addmm``, ...: 2 * M * N * K, the
-    reference's ``dot``) and the two custom ops of the model steps
-    (``repro_torch::flash_attention``, B4, and ``repro_torch::ssd_scan``,
-    B5) by their FLOP formulas, which are the reference's analytic
-    counts of its kernel stand-ins (``custom-call(kernel)``).
+    reference's ``dot``) and the custom ops of the model steps
+    (``repro_torch::flash_attention``, B4, ``repro_torch::ssd_scan``,
+    B5, and the dry-run's kernel stand-ins of ``kernels/opaque.py``) by
+    their FLOP formulas, which are the reference's analytic counts of
+    its kernel stand-ins (``custom-call(kernel)``).
     :func:`breakdown` splits them into ``dot`` and ``kernel``.
     Elementwise arithmetic is not counted (the reference's ``analyze``
     adds one per element, its ``breakdown`` does not);
@@ -256,11 +257,18 @@ class Trace:
 
     def breakdown(self) -> Dict[str, float]:
         """FLOPs as the reference's ``breakdown`` splits them: ``dot``
-        (the products) and ``kernel`` (the custom ops of B4 and B5)."""
+        (the products) and ``kernel`` (the custom ops: B4, B5 and the
+        kernel stand-ins)."""
         kernel = sum(v for k, v in self.flops_by_op.items()
                      if k.startswith("repro_torch."))
         return {"dot": float(sum(self.flops_by_op.values()) - kernel),
                 "kernel": float(kernel)}
+
+    def kernel_bytes(self) -> float:
+        """The custom ops' operand and result bytes (the reference's
+        ``custom-call(kernel)`` bytes)."""
+        return float(sum(v for k, v in self.bytes_by_op.items()
+                         if k.startswith("repro_torch.")))
 
 
 def trace(fn, *args, **kwargs) -> Trace:

@@ -6,7 +6,8 @@ on fake tensors (``FakeTensorMode``) on device ``"cuda"`` over a fake
 process group (torch's ``fake`` backend) of the mesh's world size, 256
 ranks (16 x 16) or 512 (2 x 16 x 16), rank 0 traced.  No tensor holds
 data and no collective moves any: the trace is the card's program, with
-B4 and B5 reached through their custom ops' fake implementations.  Its
+B4 and B5 (and, under the stand-in variants, the kernel stand-ins)
+reached through their custom ops' fake implementations.  Its
 counts (``launch.cost``) give each rank's share:
 
   * memory: the arguments' and outputs' bytes on the cell's placements
@@ -15,8 +16,15 @@ counts (``launch.cost``) give each rank's share:
     batches), and the peak of the live storages the step makes; whether
     that total fits the card (:data:`CARD_MEMORY_BYTES`);
   * FLOPs (products as ``dot``, the custom ops as ``kernel``), eager
-    bytes, transcendentals;
+    bytes (the custom ops' own as ``kernel_bytes``), transcendentals;
   * collectives by kind: count, output bytes and ring traffic.
+
+The variants (``--variant``, flags joined by ``+``) are the
+reference's: ``kvint8`` (the int8 KV cache), ``ep`` (the expert-parallel
+MoE), and the kernel stand-ins of ``kernels/opaque.py``: ``flash``
+(training and decode attention as the flash and fused decode stand-ins)
+and ``ssdk`` (the SSD scan in training as the scan stand-in), fake-only
+custom ops counted as ``kernel`` by the reference's FLOP formulas.
 
 These are counts of the program, not times.  Records go to
 ``results/dryrun_torch/<arch>__<shape>__<mesh>[__<variant>].json`` (the
@@ -28,6 +36,8 @@ stand-ins of ``launch.fake_cuda`` first.
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama3.2-3b \\
       --shape train_4k --mesh single
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama3.2-3b \\
+      --shape train_4k --mesh single --variant flash
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh both \\
       --jobs 4
 """
@@ -35,6 +45,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -53,14 +64,15 @@ RESULTS_DIR = Path(__file__).resolve().parents[3] / "results" / \
 CARD_MEMORY_BYTES = 85017493504
 CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
 
-#: Variants and the switches they set (``REPRO_KV_INT8``,
-#: ``REPRO_MOE_EP``); ``flash`` and ``ssdk`` are the reference's kernel
-#: stand-ins (``kernels/opaque.py``), ROADMAP D15b-2.
-VARIANT_ENV = {"kvint8": "REPRO_KV_INT8", "ep": "REPRO_MOE_EP"}
-LATER = ("flash", "ssdk")
-VARIANT_NOTE = ("the port's prefill always runs B4 (repro_torch::"
-                "flash_attention) and B5 (repro_torch::ssd_scan) as custom "
-                "ops; its training and decode steps run neither")
+#: Each variant flag's switch: (variable, value with the flag, value
+#: without it), the reference's (``launch/dryrun.py:run_cell``).
+VARIANT_ENV = {"kvint8": ("REPRO_KV_INT8", "1", "0"),
+               "ep": ("REPRO_MOE_EP", "1", "0"),
+               "flash": ("REPRO_ATTN_IMPL", "flash", "blockwise"),
+               "ssdk": ("REPRO_PALLAS_SSD", "opaque", "auto")}
+#: The flags of the kernel stand-ins; any of them sets
+#: ``REPRO_OPAQUE_KERNELS=1``.
+STANDIN_FLAGS = ("flash", "ssdk")
 SKIP_REASON = ("full-attention decode over 524k ctx is quadratic; skipped "
                "per task rule (DESIGN.md §6)")
 #: A cell's limit, in seconds, under ``--all``.
@@ -68,18 +80,63 @@ CELL_TIMEOUT_S = 900
 
 
 def variant_flags(variant: str) -> set:
-    """The flags of ``base`` or a ``+`` join of ``kvint8`` and ``ep``."""
+    """The flags of ``base`` or a ``+`` join of the flags of
+    :data:`VARIANT_ENV`."""
     flags = set() if variant == "base" else set(variant.split("+"))
-    later = flags & set(LATER)
-    if later:
-        raise NotImplementedError(
-            f"variant {'+'.join(sorted(later))}: the reference's kernel "
-            f"stand-ins are ROADMAP D15b-2")
     unknown = flags - set(VARIANT_ENV)
     if unknown:
         raise ValueError(f"unknown variant flags {sorted(unknown)}; known: "
-                         f"base, {', '.join(VARIANT_ENV)}, {', '.join(LATER)}")
+                         f"base, {', '.join(VARIANT_ENV)}")
     return flags
+
+
+def variant_env(flags) -> dict:
+    """The switches a cell with ``flags`` runs under, every one set."""
+    env = {var: on if f in flags else off
+           for f, (var, on, off) in VARIANT_ENV.items()}
+    env["REPRO_OPAQUE_KERNELS"] = "1" if flags & set(STANDIN_FLAGS) else "0"
+    return env
+
+
+@contextlib.contextmanager
+def variant_switches(flags):
+    """Set :func:`variant_env`'s switches for ``flags`` in this process's
+    environment (the models read them at each call), and restore them
+    after."""
+    env = variant_env(flags)
+    saved = {v: os.environ.get(v) for v in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for var, v in saved.items():
+            if v is None:
+                os.environ.pop(var, None)
+            else:
+                os.environ[var] = v
+
+
+def variant_note(flags) -> str:
+    """Which steps run which custom ops under ``flags``."""
+    note = ("prefill runs B4 (repro_torch::flash_attention) and B5 "
+            "(repro_torch::ssd_scan) as custom ops")
+    if "flash" in flags:
+        note += ("; training attention runs the flash stand-ins "
+                 "(repro_torch::flash_attention_fwd_standin and "
+                 "flash_attention_bwd_standin: markers 101/102, 103/104, "
+                 "10000+w/20000+w) and decode attention the fused decode "
+                 "stand-in (repro_torch::decode_attention_standin: 401, "
+                 "402 on an int8 cache)")
+    else:
+        note += "; training and decode attention run plain torch"
+    if "ssdk" in flags:
+        note += ("; the SSD scan in training runs the scan stand-ins "
+                 "(repro_torch::ssd_scan_fwd_standin and "
+                 "ssd_scan_bwd_standin: 30000+L/40000+L)")
+    else:
+        note += "; the SSD scan in training runs the plain scan"
+    return note + ("; stand-ins are fake-only ops, counted as kernel by "
+                   "the reference's FLOP formulas")
 
 
 def mesh_dims(mesh_kind: str):
@@ -249,18 +306,19 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str,
     """Trace one cell on a fake process group and write its record.
 
     ``mesh_kind``: ``single``, ``multi`` or ``DxM``; ``variant``:
-    ``base`` or a ``+`` join of ``kvint8`` and ``ep`` (``flash`` and
-    ``ssdk`` raise: ROADMAP D15b-2); ``reduced`` takes the arch's reduced
-    config; ``cfg`` and ``shape`` replace the arch's config and the
-    named shape.  Opens a fake group of the mesh's world size (rank 0)
-    unless a process group is open, and closes what it opened.  Needs a
-    process where fake CUDA tensors trace (``launch.fake_cuda.ready``).
+    ``base`` or a ``+`` join of ``kvint8``, ``ep``, ``flash`` and
+    ``ssdk``; ``reduced`` takes the arch's reduced config; ``cfg`` and
+    ``shape`` replace the arch's config and the named shape.  Opens a
+    fake group of the mesh's world size (rank 0) unless a process group
+    is open, and closes what it opened.  Needs a process where fake CUDA
+    tensors trace (``launch.fake_cuda.ready``).
     """
     import torch.distributed as dist
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from repro_torch.configs import SHAPES, get_config, reduced_config
     from repro_torch.distributed import steps as ST
+    from repro_torch.kernels.opaque import OPS
     from repro_torch.launch import cost as C
     from repro_torch.launch import fake_cuda
     from repro_torch.launch import mesh as M
@@ -293,31 +351,26 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str,
 
         dist.init_process_group("fake", store=FakeStore(), rank=0,
                                 world_size=world)
-    saved = {v: os.environ.get(v) for v in VARIANT_ENV.values()}
     try:
-        for flag, var in VARIANT_ENV.items():
-            os.environ[var] = "1" if flag in flags else "0"
-        mesh = M.make_mesh(dims, names, device="cuda")
-        t0 = time.perf_counter()
-        step, specs, places = ST.build_cell(cfg, shape, mesh)
-        arg_leaves = {}
-        for i, (s, p) in enumerate(zip(specs, places)):
-            for k, v in leaf_bytes(s, p, mesh).items():
-                arg_leaves[f"{i}/{k}"] = v
-        with FakeTensorMode(allow_non_fake_inputs=True):
-            args = step_arguments(cfg, shape, mesh, specs, places)
-            step_arg_bytes = held_bytes(args)
-            tr = C.trace(step, *args)
-            out_place = ST.cell_output_placements(cfg, shape, mesh, tr.out)
-            out_bytes = sum(leaf_bytes(tr.out, out_place, mesh).values())
-            step_out_bytes = held_bytes(tr.out)
-        trace_s = time.perf_counter() - t0
+        with variant_switches(flags):
+            mesh = M.make_mesh(dims, names, device="cuda")
+            t0 = time.perf_counter()
+            step, specs, places = ST.build_cell(cfg, shape, mesh)
+            arg_leaves = {}
+            for i, (s, p) in enumerate(zip(specs, places)):
+                for k, v in leaf_bytes(s, p, mesh).items():
+                    arg_leaves[f"{i}/{k}"] = v
+            with FakeTensorMode(allow_non_fake_inputs=True):
+                args = step_arguments(cfg, shape, mesh, specs, places)
+                step_arg_bytes = held_bytes(args)
+                tr = C.trace(step, *args)
+                out_place = ST.cell_output_placements(cfg, shape, mesh,
+                                                      tr.out)
+                out_bytes = sum(leaf_bytes(tr.out, out_place,
+                                           mesh).values())
+                step_out_bytes = held_bytes(tr.out)
+            trace_s = time.perf_counter() - t0
     finally:
-        for var, v in saved.items():
-            if v is None:
-                os.environ.pop(var, None)
-            else:
-                os.environ[var] = v
         if opened:
             dist.destroy_process_group()
 
@@ -329,6 +382,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str,
         reduced=cfg != get_config(arch), trace_s=round(trace_s, 2),
         flops_per_device=cost.flops, flops_breakdown=split,
         bytes_accessed_per_device=cost.bytes,
+        kernel_bytes=tr.kernel_bytes(),
         transcendentals=cost.transcendentals,
         xla_cost_analysis={
             "flops": cost.flops, "bytes_accessed": cost.bytes,
@@ -358,11 +412,9 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str,
         fits=total <= CARD_MEMORY_BYTES,
         collectives=coll,
         collectives_loop_body_once=coll,
-        kernel_calls={
-            "flash_attention": tr.calls.get("repro_torch.flash_attention",
-                                            0),
-            "ssd_scan": tr.calls.get("repro_torch.ssd_scan", 0)},
-        variant_note=VARIANT_NOTE,
+        kernel_calls={op: tr.calls.get(f"repro_torch.{op}", 0)
+                      for op in ("flash_attention", "ssd_scan", *OPS)},
+        variant_note=variant_note(flags),
         model={"n_params": cfg.n_params(),
                "n_active_params": cfg.n_active_params()},
         shape_cfg=dataclasses.asdict(shape),
@@ -445,7 +497,8 @@ def main(argv=None):
     ap.add_argument("--mesh", default="single",
                     help="single, multi, both, or DxM")
     ap.add_argument("--variant", default="base",
-                    help="base, or kvint8 / ep joined by +")
+                    help="base, or kvint8 / ep / flash / ssdk joined by "
+                         "+")
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--jobs", type=int, default=1,
                     help="cells traced at once under --all")

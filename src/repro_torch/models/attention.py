@@ -32,6 +32,17 @@ written, carries the scales through the local ring and the global
 cache's clamped slot as it carries the data, and dequantizes the whole
 cache to the activation dtype before the scores, as the reference's
 plain path does.
+
+Under the dry-run's ``flash`` variant (``REPRO_ATTN_IMPL=flash`` and
+``REPRO_OPAQUE_KERNELS=1``, :func:`repro_torch.kernels.opaque.flash_mode`)
+training and decode attention call the reference's kernel stand-ins
+where it does: training attention the flash stand-in (markers 101/103,
+10000 + w; its backward 102/104, 20000 + w) in place of the blockwise
+and windowed scans, decode attention the fused decode stand-in on the
+updated cache (401; 402 on an int8 cache, passed with its scales and
+not dequantized), for causal, local and cross layers alike.  Prefill
+keeps B4's op, whose FLOP formula is the same markers'.  The stand-ins
+have fake implementations only.
 """
 
 from __future__ import annotations
@@ -43,6 +54,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import constrain
+from repro_torch.kernels import opaque
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.kv_retry.plain import quantize_pages
 from repro_torch.models.common import init_dense, rmsnorm, rope, softcap
@@ -185,7 +197,8 @@ def attention_decode(cfg: ModelConfig, p: dict, x, cache: dict, pos: int,
     the input cache is not modified, and a cross cache (static, every
     key valid) is returned as it came.  A cache with scales (``"k_s"``)
     is int8: the new row is quantized, and the cache dequantized before
-    the scores."""
+    the scores (under the ``flash`` stand-ins, the decode stand-in takes
+    it as it is)."""
     if kind not in ("causal", "local", "cross"):
         raise ValueError(kind)
     K = cfg.n_kv_heads
@@ -229,6 +242,10 @@ def attention_decode(cfg: ModelConfig, p: dict, x, cache: dict, pos: int,
                 new_cache[n][:, :, slot] = new[n][:, :, 0]
             valid = torch.arange(S, device=x.device) <= pos
     ck, cv = new_cache["k"], new_cache["v"]
+    if opaque.flash_mode():
+        scales = (new_cache["k_s"], new_cache["v_s"]) if int8 else None
+        o = opaque.decode_attention(q, ck, cv, pos, scales)
+        return _merge_out(cfg, p, o), new_cache
     if int8:
         ck = _dequant_kv(ck, new_cache["k_s"], x.dtype)
         cv = _dequant_kv(cv, new_cache["v_s"], x.dtype)
@@ -366,10 +383,15 @@ def attention_train(cfg: ModelConfig, p: dict, x, positions, kind: str,
     ``enc_positions`` for "cross"): the reference's training path,
     blockwise (global, bidirectional, cross) or windowed (local) online
     softmax, differentiable by autograd.  No kernel runs here: flash
-    attention stays the prefill's."""
+    attention stays the prefill's.  Under the dry-run's ``flash``
+    stand-ins, the reference's flash stand-in and its backward instead."""
     q, k, v, kv_pos = _roped_qkv(cfg, p, x, positions, kind, enc_out,
                                  enc_positions)
-    if kind == "local":
+    if opaque.flash_mode():
+        o = opaque.flash_attention(
+            q, k, v, causal=kind in ("causal", "local"),
+            window=cfg.window if kind == "local" else None)
+    elif kind == "local":
         o = windowed_attention(cfg, q, k, v, positions, cfg.window)
     else:
         o = blockwise_attention(cfg, q, k, v, positions, kv_pos,

@@ -15,7 +15,11 @@ decode conv is a product summed in float32 and rounded once.  Training
 (``return_cache=False``) runs the reference's training mode: the chunked
 scan as the plain torch version on every device, differentiated by
 autograd, as the reference differentiates its non-kernel
-``ssd_chunked``; the kernel has no backward and stays the prefill's.  The cache
+``ssd_chunked``; the kernel has no backward and stays the prefill's.
+Under the dry-run's ``ssdk`` variant (``REPRO_PALLAS_SSD=opaque`` and
+``REPRO_OPAQUE_KERNELS=1``, :func:`repro_torch.kernels.opaque.ssd_mode`)
+training calls the reference's scan stand-in (markers 30000 + L, its
+backward 40000 + L) in place of the plain scan.  The cache
 is ``{"conv": (B, K-1, C) activation dtype, "ssm": (B, nh, hd, ds)
 float32}``.
 """
@@ -28,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import opaque
 from repro_torch.kernels.ssd_scan.ops import ssd_scan
 from repro_torch.models.common import init_dense, rmsnorm, softplus
 
@@ -101,14 +106,17 @@ def _out(cfg: ModelConfig, p, y, z):
 
 def ssm_fullseq(cfg: ModelConfig, p: dict, u, return_cache: bool = True):
     """Full-sequence SSD block.  u (B, T, d) -> (out, cache); without
-    ``return_cache`` (training: the plain scan, by autograd) the cache
-    is None."""
+    ``return_cache`` (training: the plain scan, by autograd, or the
+    dry-run's scan stand-in) the cache is None."""
     s = cfg.ssm
     z, xBC, dt = _split_proj(cfg, p, u)
     xBC, conv_state = _causal_conv(xBC, p["conv_w"], p["conv_b"])
     x, Bm, Cm, dtv, A = _heads(cfg, xBC, dt, p)
-    y, H = ssd_scan(x, Bm, Cm, dtv, A, chunk=s.chunk, device=x.device,
-                    training=not return_cache)
+    if not return_cache and opaque.ssd_mode():
+        y, H = opaque.ssd_scan(x, Bm, Cm, dtv, A, chunk=s.chunk)
+    else:
+        y, H = ssd_scan(x, Bm, Cm, dtv, A, chunk=s.chunk, device=x.device,
+                        training=not return_cache)
     y = y + x * p["d_skip"][None, None, :, None].to(x.dtype)
     y = y.reshape(y.shape[0], y.shape[1], s.d_inner(cfg.d_model))
     out = _out(cfg, p, y, z)

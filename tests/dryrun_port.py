@@ -11,7 +11,7 @@ variant, [shape name, seq_len, global batch]]`` of one mesh shape, as
 group of that world size, traces each cell with
 ``launch.dryrun.run_cell`` at its reduced config and shape and writes
 ``WORK_DIR/NAME.out.json``: each record, with each argument leaf's bytes
-on its placements (from ``build_cell``).
+on its placements (from ``build_cell`` under the variant's switches).
 """
 
 import json
@@ -31,7 +31,8 @@ def cell(arch, kind, mesh_shape, variant, shape, out_dir):
     cfg = reduced_config(get_config(arch))
     shape = ShapeConfig(shape[0], shape[1], shape[2], kind)
     mesh = M.make_mesh(tuple(mesh_shape), device="cuda")
-    _, specs, places = ST.build_cell(cfg, shape, mesh)
+    with DR.variant_switches(DR.variant_flags(variant)):   # kvint8's cache
+        _, specs, places = ST.build_cell(cfg, shape, mesh)
     leaves = {}
     for i, (s, p) in enumerate(zip(specs, places)):
         for k, v in DR.leaf_bytes(s, p, mesh).items():

@@ -6,14 +6,16 @@ sets ``XLA_FLAGS`` before JAX starts):
 
 ``WORK_DIR/NAME.json`` lists cells ``[arch, kind, [data, model],
 variant, [shape name, seq_len, global batch]]``; the variant is
-``base``, or ``opaque`` (``REPRO_ATTN_IMPL=flash
-REPRO_OPAQUE_KERNELS=1 REPRO_PALLAS_SSD=opaque``, the kernels as the
-reference's stand-ins).  Each is ``build_cell`` at its reduced config
-and shape, lowered and compiled; ``WORK_DIR/NAME.out.json`` gets its
-per-device argument and output bytes (``memory_analysis``), each
-argument leaf's bytes on its sharding, the output leaves' count and
-bytes on their shardings, and ``hlo_cost.breakdown``'s
-``dot`` and ``custom-call(kernel)`` FLOPs.  NAME ``specs`` instead
+``base``, ``opaque`` (``REPRO_ATTN_IMPL=flash REPRO_OPAQUE_KERNELS=1
+REPRO_PALLAS_SSD=opaque``, the kernels as the reference's stand-ins), or
+a ``+`` join of the reference dry-run's flags (``flash``, ``ssdk``,
+``kvint8``, ``ep``), which set the switches as its ``run_cell`` sets
+them.  Each is ``build_cell`` at its reduced config and shape, lowered
+and compiled; ``WORK_DIR/NAME.out.json`` gets its per-device argument
+and output bytes (``memory_analysis``), each argument leaf's bytes on
+its sharding, the output leaves' count and bytes on their shardings,
+and ``hlo_cost.breakdown``'s ``dot`` and ``custom-call(kernel)`` FLOPs
+and ``custom-call(kernel)`` bytes.  NAME ``specs`` instead
 writes ``input_specs`` of every published config x shape
 (``jax.eval_shape``; nothing is compiled), also under
 ``REPRO_KV_INT8=1``: each leaf's path, shape and dtype, or the error.
@@ -35,6 +37,23 @@ from repro.configs.base import ShapeConfig, reduced_config  # noqa: E402
 
 OPAQUE_ENV = {"REPRO_ATTN_IMPL": "flash", "REPRO_OPAQUE_KERNELS": "1",
               "REPRO_PALLAS_SSD": "opaque"}
+#: The switches of the reference dry-run's variant flags
+#: (``repro.launch.dryrun.run_cell``); any flag also sets
+#: ``REPRO_OPAQUE_KERNELS=1``.
+FLAG_ENV = {"flash": ("REPRO_ATTN_IMPL", "flash"),
+            "ssdk": ("REPRO_PALLAS_SSD", "opaque"),
+            "kvint8": ("REPRO_KV_INT8", "1"),
+            "ep": ("REPRO_MOE_EP", "1")}
+
+
+def variant_env(variant) -> dict:
+    if variant == "base":
+        return {}
+    if variant == "opaque":
+        return dict(OPAQUE_ENV)
+    env = {"REPRO_OPAQUE_KERNELS": "1"}
+    env.update(FLAG_ENV[f] for f in variant.split("+"))
+    return env
 
 
 def _path(path) -> str:
@@ -66,10 +85,10 @@ def cell(arch, kind, mesh_shape, variant, shape):
     from repro.distributed.steps import build_cell
     from repro.launch import hlo_cost as HC
 
-    for k in OPAQUE_ENV:
+    for k in ("REPRO_OPAQUE_KERNELS",) + tuple(v for v, _ in
+                                                FLAG_ENV.values()):
         os.environ.pop(k, None)
-    if variant == "opaque":
-        os.environ.update(OPAQUE_ENV)
+    os.environ.update(variant_env(variant))
     cfg = reduced_config(get_config(arch))
     mesh = jax.make_mesh(tuple(mesh_shape), ("data", "model"),
                          axis_types=(AxisType.Auto,) * 2,
@@ -80,8 +99,8 @@ def cell(arch, kind, mesh_shape, variant, shape):
         cfg, ShapeConfig(name, seq, batch, kind), mesh)
     compiled = jitted.lower(*arg_specs).compile()
     mem = compiled.memory_analysis()
-    _, flops = HC.breakdown(compiled.as_text())
-    flops = dict(flops)
+    bytes_by, flops = HC.breakdown(compiled.as_text(), top=None)
+    flops, bytes_by = dict(flops), dict(bytes_by)
     leaves = {}
     for i, (spec, shard) in enumerate(zip(arg_specs, shards)):
         flat = jax.tree_util.tree_flatten_with_path(spec)[0]
@@ -102,7 +121,8 @@ def cell(arch, kind, mesh_shape, variant, shape):
             "output_leaves": len(outs), "output_data_bytes": out_data,
             "leaves": leaves,
             "dot": flops.get("dot", 0.0),
-            "kernel": flops.get("custom-call(kernel)", 0.0)}
+            "kernel": flops.get("custom-call(kernel)", 0.0),
+            "kernel_bytes": bytes_by.get("custom-call(kernel)", 0.0)}
 
 
 def main(work_dir, name):

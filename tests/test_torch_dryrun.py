@@ -35,8 +35,11 @@ Reduced configs; the shapes of :data:`SHAPES`.
     implementation), fake outputs against the plain outputs, and the
     FLOP formulas against ``hlo_cost``'s;
   * ``run_cell`` on fake 256- and 512-rank groups writes a record with
-    every key of the reference's, for each kind; ``long_500k`` skips
-    where the reference skips; the variants;
+    every key of the reference's, for each kind and for the stand-in
+    variants ``flash``, ``ssdk``, ``flash+kvint8`` and ``flash+ep``
+    (their counts against the reference's cells:
+    ``test_torch_dryrun_standins.py``); ``long_500k`` skips where the
+    reference skips; the variants;
   * ``launch.serve --dry-run`` runs.
 """
 
@@ -684,7 +687,7 @@ def test_production_record_keys(production_records, shape, mesh):
     record has every key of the reference's record (``trace_s`` for
     ``lower_s`` and ``compile_s``), its memory keys (alias and generated
     code null), collectives by the five kinds, and the kernel calls of
-    the kind (prefill: one B4 call a layer)."""
+    the kind (prefill: one B4 call a layer; no stand-in under ``base``)."""
     from repro_torch.configs import get_config, reduced_config
     from repro_torch.launch import cost as C
 
@@ -698,9 +701,13 @@ def test_production_record_keys(production_records, shape, mesh):
     for part in ("bytes", "traffic", "counts"):
         assert set(rec["collectives"][part]) == set(C.KINDS)
     assert sum(rec["collectives"]["counts"].values()) > 0
+    from repro_torch.kernels.opaque import OPS
+
     cfg = reduced_config(get_config("llama3.2-3b"))
     want = cfg.n_layers if shape == "prefill_32k" else 0
-    assert rec["kernel_calls"] == {"flash_attention": want, "ssd_scan": 0}
+    assert rec["kernel_calls"] == dict({"flash_attention": want,
+                                        "ssd_scan": 0},
+                                       **{op: 0 for op in OPS})
     assert rec["flops_breakdown"]["kernel"] > 0 if want else \
         rec["flops_breakdown"]["kernel"] == 0
     assert rec["memory"]["total_bytes"] == (
@@ -718,21 +725,85 @@ def test_long_context_skips_as_the_reference(tmp_path):
                       .read_text()) == rec
 
 
-@pytest.mark.parametrize("variant,err", [("flash", NotImplementedError),
-                                         ("ssdk", NotImplementedError),
-                                         ("kvint8+flash", NotImplementedError),
-                                         ("turbo", ValueError)])
+@pytest.mark.parametrize("variant,err", [("turbo", ValueError)])
 def test_later_variants_raise(variant, err):
-    """``flash`` and ``ssdk`` (the reference's kernel stand-ins) raise
-    naming D15b-2; an unknown flag raises; ``base``, ``kvint8``, ``ep``
-    and their joins are taken."""
+    """An unknown flag raises; ``base``, ``kvint8``, ``ep``, ``flash``,
+    ``ssdk`` and their joins are taken, and the stand-in flags set
+    ``REPRO_OPAQUE_KERNELS=1`` beside their own switches."""
     from repro_torch.launch import dryrun as DR
 
-    with pytest.raises(err, match="D15b-2" if err is NotImplementedError
-                       else "unknown"):
+    with pytest.raises(err, match="unknown"):
         DR.variant_flags(variant)
     assert DR.variant_flags("kvint8+ep") == {"kvint8", "ep"}
+    assert DR.variant_flags("flash+kvint8") == {"flash", "kvint8"}
     assert DR.variant_flags("base") == set()
+    env = DR.variant_env(DR.variant_flags("flash+ssdk"))
+    assert env["REPRO_OPAQUE_KERNELS"] == "1"
+    assert env["REPRO_ATTN_IMPL"] == "flash"
+    assert env["REPRO_PALLAS_SSD"] == "opaque"
+    assert env["REPRO_KV_INT8"] == "0"
+    assert DR.variant_env(DR.variant_flags("kvint8+ep"))[
+        "REPRO_OPAQUE_KERNELS"] == "0"
+
+
+#: The stand-in variants on the production meshes: (variant, arch,
+#: shape), reduced configs.
+STANDIN_VARIANTS = [("flash", "llama3.2-3b", "train_4k"),
+                    ("ssdk", "mamba2-130m", "train_4k"),
+                    ("flash+kvint8", "llama3.2-3b", "decode_32k"),
+                    ("flash+ep", "olmoe-1b-7b", "decode_32k")]
+
+
+@pytest.fixture(scope="module")
+def standin_records(tmp_path_factory):
+    """``python -m repro_torch.launch.dryrun --smoke --mesh both
+    --variant V`` for each of :data:`STANDIN_VARIANTS` (a process for
+    each, at once): {(variant, mesh): record}."""
+    out = tmp_path_factory.mktemp("dryrun_standins")
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", a,
+         "--shape", s, "--mesh", "both", "--smoke", "--variant", v,
+         "--out-dir", str(out)], env=_env(), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+        for v, a, s in STANDIN_VARIANTS]
+    for p in procs:
+        log, _ = p.communicate(timeout=600)
+        assert p.returncode == 0, log[-4000:]
+    return {(v, m): json.loads((out / f"{a}__{s}__{m}__{v}.json").read_text())
+            for v, a, s in STANDIN_VARIANTS for m in ("single", "multi")}
+
+
+@pytest.mark.parametrize("mesh", ["single", "multi"])
+@pytest.mark.parametrize("variant", [v for v, _, _ in STANDIN_VARIANTS])
+def test_standin_variant_records(standin_records, production_records,
+                                 variant, mesh):
+    """``flash``, ``ssdk``, ``flash+kvint8`` and ``flash+ep`` are taken
+    on fake 256- and 512-rank groups: each record has every key of the
+    reference's record, its variant, ``kernel`` FLOPs from the variant's
+    stand-ins (counted by name in ``kernel_calls``), a note naming them,
+    and, for llama3.2-3b, a ``dot`` below the same cell's ``base``
+    record's (the attention products moved into the stand-ins)."""
+    from repro_torch.kernels import opaque
+
+    rec = standin_records[(variant, mesh)]
+    assert REF_KEYS <= set(rec) and REF_MEMORY_KEYS <= set(rec["memory"])
+    assert rec["status"] == "ok" and rec["variant"] == variant
+    assert rec["n_devices"] == (256 if mesh == "single" else 512)
+    assert set(rec["kernel_calls"]) == {"flash_attention", "ssd_scan",
+                                        *opaque.OPS}
+    ops = {"flash": ("flash_attention_fwd_standin",
+                     "flash_attention_bwd_standin"),
+           "ssdk": ("ssd_scan_fwd_standin", "ssd_scan_bwd_standin"),
+           "flash+kvint8": ("decode_attention_standin",),
+           "flash+ep": ("decode_attention_standin",)}[variant]
+    calls = {k: n for k, n in rec["kernel_calls"].items() if n}
+    assert set(calls) == set(ops)
+    assert all(op in rec["variant_note"] for op in ops)
+    assert rec["flops_breakdown"]["kernel"] > 0 and rec["kernel_bytes"] > 0
+    shape = {"flash": "train_4k", "flash+kvint8": "decode_32k"}.get(variant)
+    if shape is not None:
+        base = production_records[(shape, mesh)]
+        assert rec["flops_breakdown"]["dot"] < base["flops_breakdown"]["dot"]
 
 
 def test_serve_dry_run(tmp_path):

@@ -153,6 +153,37 @@ def test_dryrun_imports_without_jax(tmp_path):
     assert out.stdout.strip() == "ok"
 
 
+def test_standins_import_without_jax():
+    """The dry-run's kernel stand-ins (``kernels.opaque``) import with JAX
+    blocked, register their ops, trace a loss through the flash
+    stand-in's backward on fake tensors, and load neither JAX nor the
+    reference package."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "import torch\n"
+        "from torch._subclasses.fake_tensor import FakeTensorMode\n"
+        "from repro_torch.kernels import opaque\n"
+        "from repro_torch.launch import dryrun\n"
+        "assert all(hasattr(torch.ops.repro_torch, op) for op in opaque.OPS)\n"
+        "assert dryrun.variant_flags('flash+kvint8') == {'flash', 'kvint8'}\n"
+        "with FakeTensorMode():\n"
+        "    q = torch.empty(1, 8, 2, 2, 16, requires_grad=True)\n"
+        "    k = torch.empty(1, 8, 2, 16, requires_grad=True)\n"
+        "    opaque.flash_attention(q, k, k, causal=True).sum().backward()\n"
+        "    assert q.grad.shape == q.shape\n"
+        "assert sys.modules['jax'] is None\n"
+        "bad = [m for m in sys.modules if m == 'repro' "
+        "or m.startswith('repro.')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
 def test_no_jax_or_reference_imports():
     files = sorted((SRC / "repro_torch").rglob("*.py"))
     assert len(files) > 20
