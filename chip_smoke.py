@@ -668,6 +668,11 @@ DIST_LOSS_RTOL = 1e-5
 DIST_COMPRESS_SEED = 19
 DIST_MOE_ARCH = "olmoe-1b-7b"
 DIST_DECODE_STEPS = 3
+#: The collective calls one sharded train step should make on the
+#: one-rank (1, 1) mesh, counted from the code: global_norm's all-reduce
+#: over each mesh dim and the heartbeat's all-gather.  The
+#: tensor-parallel pieces add none where "model" has one rank.
+DIST_STEP_COLLECTIVES = {"c10d.allreduce_": 2, "c10d._allgather_base_": 1}
 
 # Phase 20: the dry-run.  Full-width cells (arch, shape, variant) traced
 # over a fake 16 x 16 group, one process each, all at once (the last
@@ -4389,10 +4394,14 @@ def dist_phase(smi, train_losses=None):
     """Phase 19: (a) a one-rank NCCL process group through a FileStore
     under build/, the host mesh on the card and one all-reduce; (b)
     llama3.2-3b's sharded train step (``launch.train.train`` on the
-    (1, 1) mesh: ``distributed.steps.make_train_step``) at full width and
-    depth for three steps, held against phase 15's losses
-    (``train_losses``; run unsharded here when not given), and
-    ``compress_grads`` against the CPU bit for bit; (c) olmoe-1b-7b at
+    (1, 1) mesh: ``distributed.steps.make_train_step``, through the
+    tensor-parallel pieces at "model" 1) at full width and depth for
+    three steps, held against phase 15's losses (``train_losses``; run
+    unsharded here when not given), then again under ``launch.cost.trace``
+    for its collectives (none moves data on one rank, and the calls are
+    the expected ``DIST_STEP_COLLECTIVES`` a step: none from the
+    tensor-parallel pieces), and ``compress_grads`` against the CPU bit
+    for bit; (c) olmoe-1b-7b at
     full width and depth under ``REPRO_MOE_EP=1``: ``make_prefill_step``
     on the long set through the expert-parallel body (64 local experts),
     every B4 launch held, the logits against the dense dispatch's
@@ -4410,6 +4419,7 @@ def dist_phase(smi, train_losses=None):
     from repro_torch.distributed.elastic import reshard_state
     from repro_torch.kernels.flash_attention import ops as FA
     from repro_torch.kernels.flash_attention.plain import bf16_err_ratio
+    from repro_torch.launch import cost as C
     from repro_torch.launch import mesh as M
     from repro_torch.launch import train as TL
     from repro_torch.models import build_model
@@ -4476,6 +4486,30 @@ def dist_phase(smi, train_losses=None):
               f"{[round(t, 3) for t in run.step_s]} s, {state_gb:.1f} GB "
               f"of DTensor state, peak {peak:.1f} GB allocated", flush=True)
         del run, leaves
+        torch.cuda.empty_cache()
+        # The same steps again under the cost counter, for its collective
+        # count (its dispatch modes move the card's roundings, so these
+        # losses are printed, not held).
+        tr = C.trace(TL.train, cfg, mesh=mesh, **kw)
+        moved = {k: v for k, v in tr.cost.coll_counts.items() if v}
+        calls = {k: v for k, v in tr.calls.items()
+                 if k.partition(".")[0] in C._COLLECTIVE_NS
+                 and k.partition(".")[2] in C.COLLECTIVES}
+        want_calls = {k: n * DIST_TRAIN_STEPS
+                      for k, n in DIST_STEP_COLLECTIVES.items()}
+        if moved or calls != want_calls:
+            raise AssertionError(f"the one-rank sharded steps moved data "
+                                 f"({moved}) or called collectives {calls} "
+                                 f"!= the expected {want_calls}")
+        print(f"(b) the same {DIST_TRAIN_STEPS} steps under the cost "
+              f"counter ({tr.seconds:.3f} s; losses "
+              f"{[tr.out.losses[i] for i in sorted(tr.out.losses)]}): "
+              f"collectives {dict(tr.cost.coll_counts)} (0: a one-rank "
+              f"group moves nothing); collective calls {calls} = the "
+              f"expected (a step: global_norm's all-reduce a "
+              f"mesh dim, the heartbeat's all-gather), none from the "
+              f"tensor-parallel pieces", flush=True)
+        del tr
         torch.cuda.empty_cache()
         torch.use_deterministic_algorithms(False)
         launched = _launched_since(before)

@@ -18,10 +18,14 @@ per tensor dim, ``None`` or a tuple of mesh axis names.
 mesh dim): a tensor dim over mesh axes becomes ``Shard(dim)`` on each of
 them, in mesh-dim order, which is pod-major for ("pod", "data").
 
-Computation runs on plain local tensors: :func:`gather` turns a DTensor
-weight into the full tensor just where it is used, with its gradient
-summed over the batch axes (``Partial``) and replicated over ``model``,
-so the backward pass leaves each gradient on its parameter's placements.
+Computation runs on plain local tensors: :func:`gather_tree` turns a
+DTensor weight into a local tensor just where it is used, with its
+gradient summed over the batch axes (``Partial``), so the backward pass
+leaves each gradient on its parameter's placements.  A weight whose
+products are divided over "model" (:data:`TP_LEAVES`) is gathered to
+this rank's "model" shard (:func:`gather_tp`; the products are
+``distributed.tensor_parallel``'s); any other is gathered whole
+(:func:`gather`), its gradient replicated over "model".
 """
 
 from __future__ import annotations
@@ -275,14 +279,68 @@ def gather(x):
     return x.full_tensor(grad_placements=grad_placements(x.device_mesh))
 
 
-def gather_tree(tree, keep: Tuple[str, ...] = ()):
-    """:func:`gather` over nested dicts / lists, except the dict entries
-    named in ``keep``."""
+def model_share(n: int, model: int) -> int:
+    """The rows of a dim of ``n`` that each rank of a "model" axis of
+    ``model`` ranks holds where the products over that dim are divided:
+    ``n / model`` where ``model`` divides ``n``, else ``n`` (whole on
+    every rank, as ``_guarded`` drops an axis that does not divide).
+    The one rule of ROADMAP D15c-1: :func:`gather_tp` divides the
+    weights by it, and the layers and the serve steps read it through
+    ``distributed.tensor_parallel.local``."""
+    return n // model if n % model == 0 else n
+
+
+def gather_tp(x, dim: int):
+    """A weight gathered over every mesh axis but "model", as this
+    rank's local tensor: divided over "model" along ``dim`` where
+    :func:`model_share` divides it, else whole.  A DTensor's gradient is
+    summed over the batch axes and stays divided along ``dim`` (a weight
+    that ``param_specs`` leaves replicated over "model" gets it back
+    whole, all-gathered).  Plain tensors pass through: a weight gathered
+    once is already this rank's (the dense MoE gathers its unit's
+    weights again)."""
+    if not isinstance(x, DTensor):
+        return x
+    mesh = x.device_mesh
+    size = mesh_shape(mesh).get("model")
+    split = (size is not None
+             and model_share(x.shape[dim], size) * size == x.shape[dim])
+    model = Shard(dim) if split else Replicate()
+    want = tuple(model if n == "model" else Replicate()
+                 for n in _axis_names(mesh))
+    return x.redistribute(mesh, want).to_local(
+        grad_placements=grad_placements(mesh, model=model))
+
+
+#: The leaves whose products are divided over "model" (ROADMAP D15c-1),
+#: each with the dim it is divided along: attention's projections over
+#: the heads, the dense MLP's over ff (in every layer that has one and
+#: in the MoE's shared expert), the embedding and the head over the
+#: vocab.  Each is divided where "model" divides that dim, as the
+#: reference's partitioner divides it: ``param_specs`` shards the same
+#: dim over "model" where it divides (``_guarded``), and where it leaves
+#: a weight replicated (the whisper units' paths match no rule), the
+#: consumer's ``constrain`` hint ("kv_heads", "ff", "vocab") divides the
+#: product.  :func:`gather_tree` gathers them with :func:`gather_tp`,
+#: every other leaf whole: Mamba-2's and RG-LRU's products (D15c-3),
+#: the router and the dense experts (D15c-2).
+TP_LEAVES = {"wq": 1, "wk": 1, "wv": 1, "wo": 0,     # (d, H, hd), (H, hd, d)
+             "wi": 1, "wg": 1, "wd": 0,              # (d, ff), (ff, d)
+             "embed": 0, "unembed": 1}               # (V, d), (d, V)
+
+
+def gather_tree(tree, keep: Tuple[str, ...] = (), name: str = ""):
+    """The weights of nested dicts / lists gathered: a leaf named in
+    :data:`TP_LEAVES` by :func:`gather_tp` along its dim, any other
+    whole (:func:`gather`); the dict entries named in ``keep`` stay as
+    they are."""
     if isinstance(tree, dict):
-        return {k: v if k in keep else gather_tree(v, keep)
+        return {k: v if k in keep else gather_tree(v, keep, k)
                 for k, v in tree.items()}
     if isinstance(tree, list):
-        return [gather_tree(v, keep) for v in tree]
+        return [gather_tree(v, keep, name) for v in tree]
+    if name in TP_LEAVES:
+        return gather_tp(tree, TP_LEAVES[name])
     return gather(tree)
 
 

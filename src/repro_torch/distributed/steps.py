@@ -18,11 +18,25 @@ global norm over the whole mesh.
 
 The prefill and decode steps split the batch the same way and gather
 the logits and cache back over the batch axes, so they take and return
-global tensors.  Tensor-parallel products are not here: every "model"
-rank computes its batch rows in full (ROADMAP D15c); the expert-parallel
-MoE (``REPRO_MOE_EP=1``) is the one layer that divides work over
-"model".  :func:`build_cell` gives the dry-run one (arch x shape x mesh)
-cell: the step, its arguments as meta tensors and their placements.
+global tensors.
+
+What "model" divides (ROADMAP D15c-1): attention, the dense MLP (also
+in RG-LRU layers and as the MoE's shared expert), the embedding and the
+head, Megatron-style (``distributed.tensor_parallel``), each where
+"model" divides its heads, ff or vocab: each rank computes its q heads
+and, where they divide, its kv heads (else whole k/v, each q head with
+its kv head), its ff columns and its vocab rows; the row-parallel
+products and the embedding are summed over "model", the loss is the
+vocab-parallel cross-entropy.  The serve steps hand each rank its kv
+heads of the cache it is given and gather the logits (which the
+reference replicates over "model") and the new cache back over
+"model".  What it does not divide: Mamba-2's and RG-LRU's products
+(D15c-3), which every "model" rank computes for its batch rows in
+full, and the router and the dense MoE's experts, whose dispatch
+gathers the global batch on every rank (D15c-2).  The expert-parallel
+MoE (``REPRO_MOE_EP=1``) divides the experts.
+:func:`build_cell` gives the dry-run one (arch x shape x mesh) cell:
+the step, its arguments as meta tensors and their placements.
 """
 
 from __future__ import annotations
@@ -36,6 +50,7 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.distributed import sharding as SH
+from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.distributed.elastic import reshard_state
 from repro_torch.models import moe as MOE
 from repro_torch.models.api import build_model, input_specs
@@ -288,10 +303,47 @@ def _local_cache(tree, mesh, axes):
     return SH.map_with_path(one, tree)
 
 
+def _kv_dim(path) -> Optional[int]:
+    """The kv-head dim of an attention cache leaf (``attn``, ``xattn``:
+    k, v and an int8 cache's scales, (B, K, S, ...) after any unit dim),
+    or None."""
+    return _cache_batch_dim(path) + 1 if {"attn", "xattn"} & set(path) \
+        else None
+
+
+def _local_kv_heads(cfg: ModelConfig, cache):
+    """This "model" rank's kv heads of each attention cache leaf, where
+    they are divided over "model" (as ``wk`` and ``wv`` are).  Call it
+    inside ``use_mesh``."""
+    if not TP.divided(cfg.n_kv_heads):
+        return cache
+    start, stop = TP.shard_range(TP.local(cfg.n_kv_heads))
+
+    def one(path, t):
+        d = _kv_dim(path)
+        return t if d is None else t.narrow(d, start, stop - start)
+
+    return SH.map_with_path(one, cache)
+
+
+def _whole_over_model(cfg: ModelConfig, logits, cache):
+    """The logits (this rank's vocab columns where the vocab is divided
+    over "model") and the cache (its kv heads where they are divided)
+    gathered over "model": the reference's out shardings replicate the
+    logits over "model"."""
+    if TP.divided(cfg.vocab):
+        logits = TP.gather_from_model(logits, -1)
+    if TP.divided(cfg.n_kv_heads):
+        cache = SH.map_with_path(
+            lambda path, t: t if _kv_dim(path) is None else
+            TP.gather_from_model(t, _kv_dim(path)), cache)
+    return logits, cache
+
+
 def make_prefill_step(cfg: ModelConfig, mesh):
     """-> (fn, parameter placements); ``fn(params, batch)`` is the
     model's prefill under the mesh on the global batch: (logits,
-    cache), gathered over the batch axes."""
+    cache), gathered over the batch axes and "model"."""
     model = build_model(cfg, mesh.device_type)
     p_place = SH.param_placements(param_shapes(cfg), mesh)
 
@@ -300,7 +352,8 @@ def make_prefill_step(cfg: ModelConfig, mesh):
         axes = _batch_axes(mesh, len(batch["tokens"]))
         local = _split(mesh, batch, axes)
         with SH.use_mesh(mesh, batch_axes=axes):
-            logits, cache = model.prefill(params, local)
+            logits, cache = _whole_over_model(cfg,
+                                              *model.prefill(params, local))
         return (_gather_rows(logits, mesh, axes, lambda _: 0),
                 _gather_rows(cache, mesh, axes))
 
@@ -310,7 +363,9 @@ def make_prefill_step(cfg: ModelConfig, mesh):
 def make_decode_step(cfg: ModelConfig, mesh):
     """-> (fn, parameter placements); ``fn(params, batch)`` is one decode
     step under the mesh on the global batch {"token", "pos", "cache"}:
-    (logits, new cache), gathered over the batch axes."""
+    (logits, new cache), gathered over the batch axes and "model".  Each
+    rank decodes its rows, and its kv heads where "model" divides them,
+    of the global cache it is given."""
     model = build_model(cfg, mesh.device_type)
     p_place = SH.param_placements(param_shapes(cfg), mesh)
 
@@ -319,9 +374,11 @@ def make_decode_step(cfg: ModelConfig, mesh):
         axes = _batch_axes(mesh, len(batch["token"]))
         local = _split(mesh, {k: v for k, v in batch.items()
                               if k != "cache"}, axes)
-        local["cache"] = _local_cache(batch["cache"], mesh, axes)
         with SH.use_mesh(mesh, batch_axes=axes):
-            logits, cache = model.decode_step(params, local)
+            local["cache"] = _local_kv_heads(
+                cfg, _local_cache(batch["cache"], mesh, axes))
+            logits, cache = _whole_over_model(
+                cfg, *model.decode_step(params, local))
         return (_gather_rows(logits, mesh, axes, lambda _: 0),
                 _gather_rows(cache, mesh, axes))
 

@@ -16,7 +16,8 @@ bfloat16 x.  The others round as the tensor cores would:
   * ``wgmma_scores``: C . B^T summed as ``wgmma`` sums it (``wgmma_sum``).
 
 A product of bfloat16 values is exact in float32, as on the tensor
-cores.  The tests and ``tools/ssd_rounding.py`` hold these variants
+cores; every float32 product sums over k in order (``plain.seq_matmul``),
+so the roundings do not depend on the host's SGEMM.  The tests and ``tools/ssd_rounding.py`` hold these variants
 against ``ssd_scan_plain`` by the element-wise bfloat16 rule.
 """
 
@@ -27,7 +28,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.ssd_scan.plain import CLIP, chunk_cumsum
+from repro_torch.kernels.ssd_scan.plain import CLIP, chunk_cumsum, seq_matmul
 
 
 def split_bf16(v: torch.Tensor, parts: int) -> list:
@@ -80,9 +81,10 @@ def tensor_core_emulation(x, Bm, Cm, dt, dA, chunk: int, *, w_parts: int = 2,
     total = cum[..., -1:]
     seg = torch.exp(torch.clamp(total - cum, CLIP, 0.0))
     if s_parts is None:
-        S = Bf.transpose(-1, -2) @ ((xf * dtf[..., None]) * seg[..., None])
+        S = seq_matmul(Bf.transpose(-1, -2),
+                       (xf * dtf[..., None]) * seg[..., None])
     else:
-        S = sum(p.transpose(-1, -2) @ xf
+        S = sum(seq_matmul(p.transpose(-1, -2), xf)
                 for p in split_bf16(Bf * (dtf * seg)[..., None], s_parts))
     H = torch.zeros((BH, ds, hd), device=dev)
     h_in = []
@@ -95,14 +97,14 @@ def tensor_core_emulation(x, Bm, Cm, dt, dA, chunk: int, *, w_parts: int = 2,
     decay = torch.exp(torch.clamp(cum[..., :, None] - cum[..., None, :],
                                   CLIP, 0.0))
     scores = (wgmma_sum(Cf, Bf.transpose(-1, -2)) if wgmma_scores
-              else Cf @ Bf.transpose(-1, -2))
+              else seq_matmul(Cf, Bf.transpose(-1, -2)))
     w = torch.where(tril, scores * decay, 0.0) * dtf[..., None, :]
     if exact_ch:
         ch = (Cf.double() @ h_in.double()).float()
     elif h_parts is None:
-        ch = Cf @ h_in
+        ch = seq_matmul(Cf, h_in)
     else:
-        ch = sum(Cf @ p for p in split_bf16(h_in, h_parts))
-    y = sum(p @ xf for p in split_bf16(w, w_parts)) \
+        ch = sum(seq_matmul(Cf, p) for p in split_bf16(h_in, h_parts))
+    y = sum(seq_matmul(p, xf) for p in split_bf16(w, w_parts)) \
         + ch * torch.exp(torch.clamp(cum, CLIP, 0.0))[..., None]
     return y.reshape(BH, nc * L, hd)[:, :T].to(x.dtype), H

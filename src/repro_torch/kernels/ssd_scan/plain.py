@@ -14,7 +14,8 @@ chunk of L = min(chunk, T) tokens), all in float32,
 with ``total = cum[-1]`` and ``seg = exp(clip(total - cum, -60, 0))``.
 The y of a chunk reads the H from before that chunk's update.  The
 cumulative sum is taken in the CUDA kernel's order (``chunk_cumsum``),
-so that the two round |cum| alike.  T is padded to a multiple of L with
+so that the two round |cum| alike, and every float32 product in the
+kernels' order (:func:`seq_matmul`).  T is padded to a multiple of L with
 dt = dA = 0, so padded tokens are inert.  y comes out in x's dtype, H in
 float32.  It is what CPU hosts run (it
 covers the reference's non-kernel ``ssd_chunked`` too), and what the
@@ -57,6 +58,25 @@ def chunk_cumsum(a: torch.Tensor) -> torch.Tensor:
     return torch.stack(out, dim=-1).flatten(-2)[..., :L]
 
 
+def seq_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b in float32 (a (..., M, K), b (..., K, N)), each output a
+    chain of fused multiply-adds over k in order: the CUDA kernels'
+    ``fmaf`` chains, and cuBLAS's SGEMM order on the card at these
+    shapes.  A CPU host's SGEMM orders k its own way (by BLAS build and
+    vector width), and a cancelling sum (left-padded rows) shows it, so
+    on the CPU the chain is taken explicitly: each step's a * b + acc in
+    float64, rounded to float32 once (a fused multiply-add, but for the
+    rare double rounding)."""
+    if a.device.type != "cpu":
+        return a @ b
+    a64, b64 = a.double(), b.double()
+    acc = (a64[..., :, :1] * b64[..., :1, :]).float()
+    for k in range(1, a.shape[-1]):
+        acc = (acc.double() + a64[..., :, k:k + 1] * b64[..., k:k + 1, :]
+               ).float()
+    return acc
+
+
 def _scan(x, Bm, Cm, dt, dA, chunk: int, fault: Optional[str] = None):
     BH, T, hd = x.shape
     BG, _, ds = Bm.shape
@@ -78,18 +98,19 @@ def _scan(x, Bm, Cm, dt, dA, chunk: int, fault: Optional[str] = None):
         Bc, Cc = Bf[:, c, None], Cf[:, c, None]           # (BG, 1, L, ds)
         cum = chunk_cumsum(dAc)                            # (BG, G, L)
         total = cum[..., -1:]
-        scores = Cc @ Bc.transpose(-1, -2)                 # (BG, 1, L, L)
+        scores = seq_matmul(Cc, Bc.transpose(-1, -2))      # (BG, 1, L, L)
         decay = torch.exp(torch.clamp(cum[..., :, None] - cum[..., None, :],
                                       CLIP, 0.0))
         w = torch.where(tril, scores * decay, 0.0)
         if fault == "w-bf16":
             w = w.to(torch.bfloat16).float()
         xdt = xc * dtc[..., None]                          # (BG, G, L, hd)
-        y = w @ xdt + (Cc @ H) * torch.exp(torch.clamp(cum, CLIP, 0.0)
-                                           )[..., None]
+        y = seq_matmul(w, xdt) + seq_matmul(Cc, H) * torch.exp(
+            torch.clamp(cum, CLIP, 0.0))[..., None]
         ys.append(y.to(x.dtype))
         seg = torch.exp(torch.clamp(total - cum, CLIP, 0.0))
-        S = Bc.transpose(-1, -2) @ (xdt * seg[..., None])  # (BG, G, ds, hd)
+        S = seq_matmul(Bc.transpose(-1, -2),
+                       xdt * seg[..., None])               # (BG, G, ds, hd)
         if fault == "no-decay":
             H = H + S
         else:

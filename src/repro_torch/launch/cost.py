@@ -44,7 +44,7 @@ import collections
 import dataclasses
 import time
 import weakref
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.distributed as dist
@@ -130,23 +130,22 @@ def _tensors(tree, out=None) -> list:
     return out
 
 
-def _group_size(args, kwargs) -> int:
-    """Ranks of the collective's process group (1 if it names none)."""
+def _group(args, kwargs) -> Optional[dist.ProcessGroup]:
+    """The collective's process group (None if it names none)."""
     for a in tree_flatten((args, kwargs))[0]:
         if isinstance(a, dist.ProcessGroup):
-            return a.size()
+            return a
         if isinstance(a, torch.ScriptObject):      # a c10d op's group
             try:
-                return dist.ProcessGroup.unbox(a).size()
+                return dist.ProcessGroup.unbox(a)
             except RuntimeError:
                 continue
         if isinstance(a, str) and dist.is_initialized():
             try:
-                return dist.distributed_c10d._resolve_process_group(
-                    a).size()
+                return dist.distributed_c10d._resolve_process_group(a)
             except (KeyError, RuntimeError, ValueError):
                 continue
-    return 1
+    return None
 
 
 @dataclasses.dataclass
@@ -189,6 +188,7 @@ class _Counter(TorchDispatchMode):
         self.cost = Cost()
         self.bytes_by = collections.Counter()
         self.calls = collections.Counter()
+        self.group_calls = collections.Counter()
         self.live = 0
         self.peak = 0
         self._info = {}
@@ -206,7 +206,12 @@ class _Counter(TorchDispatchMode):
         self.calls[key] += 1
         outs = _tensors(out)
         out_b = sum(_nbytes(t) for t in outs)
-        k = _group_size(args, kwargs) if kind is not None else 1
+        k = 1
+        if kind is not None:
+            group = _group(args, kwargs)
+            if group is not None:
+                k = group.size()
+                self.group_calls[group.group_name] += 1
         if k > 1:
             c = self.cost
             c.coll_bytes[kind] += out_b
@@ -244,13 +249,15 @@ class _Counter(TorchDispatchMode):
 @dataclasses.dataclass
 class Trace:
     """What :func:`trace` counted: the cost, the FLOPs by op, the bytes
-    by op, each op's calls, the peak of the live storages the step made
-    (bytes), the step's output and its seconds."""
+    by op, each op's calls, the collectives by process group name (those
+    over one rank too, which the cost leaves out), the peak of the live
+    storages the step made (bytes), the step's output and its seconds."""
 
     cost: Cost
     flops_by_op: Dict[str, int]
     bytes_by_op: Dict[str, float]
     calls: Dict[str, int]
+    group_calls: Dict[str, int]
     peak_bytes: int
     out: object
     seconds: float
@@ -285,7 +292,8 @@ def trace(fn, *args, **kwargs) -> Trace:
              flop.get_flop_counts().get("Global", {}).items()}
     counter.cost.flops = float(sum(by_op.values()))
     return Trace(counter.cost, by_op, dict(counter.bytes_by),
-                 dict(counter.calls), counter.peak, out, seconds)
+                 dict(counter.calls), dict(counter.group_calls),
+                 counter.peak, out, seconds)
 
 
 def analyze(fn, *args, **kwargs) -> Cost:

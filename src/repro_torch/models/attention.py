@@ -33,6 +33,16 @@ cache's clamped slot as it carries the data, and dequantizes the whole
 cache to the activation dtype before the scores, as the reference's
 plain path does.
 
+Under a mesh, the heads are divided over "model" where it divides them
+(``distributed.tensor_parallel``; :func:`_layout` reads the rule that
+divides the weights a layer receives): the q, k and v projections are
+column-parallel, the output projection row-parallel, its partial sums
+added over "model"; where "model" divides the q heads but not the kv
+heads, k and v are whole on every rank and each rank's q heads attend
+to their own kv head (the reference's partitioner does the same).
+The ``flash`` variant hints the sequence-parallel layout of the
+reference's flash mode (ROADMAP D15c-2); the hints are no-ops here.
+
 Under the dry-run's ``flash`` variant (``REPRO_ATTN_IMPL=flash`` and
 ``REPRO_OPAQUE_KERNELS=1``, :func:`repro_torch.kernels.opaque.flash_mode`)
 training and decode attention call the reference's kernel stand-ins
@@ -53,6 +63,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.distributed.sharding import constrain
 from repro_torch.kernels import opaque
 from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -84,28 +95,70 @@ def _proj(x, w):
         x.shape[:-1] + (n, hd))
 
 
+def _layout(cfg: ModelConfig):
+    """This rank's share of the heads (``tensor_parallel.local``, the
+    rule that divides the weights it receives): (K_l, G_l, kv).  Its q
+    heads are K_l groups of G_l.  ``kv`` is None where k/v are this
+    rank's own (whole, or its "model" shard of the kv heads alongside
+    its q heads), else the indices of the kv heads its q heads read
+    from whole k/v: q heads divided over "model" while the kv heads do
+    not divide it (the reference's partitioner computes k/v whole and
+    keeps each rank's q heads with their kv heads)."""
+    H, K = cfg.n_heads, cfg.n_kv_heads
+    G = H // K
+    H_l, K_l = TP.local(H), TP.local(K)
+    if H_l == H or K_l < K:
+        return K_l, G, None
+    h0 = TP.shard_range(H_l)[0]
+    if G % H_l == 0:
+        return 1, H_l, [h0 // G]
+    return H_l, 1, [h // G for h in range(h0, h0 + H_l)]
+
+
+def _take_kv(kv, *caches):
+    """The kv heads ``kv`` of whole (B, K, S, ...) caches; each as it is
+    where ``kv`` is None."""
+    if kv is None:
+        return caches
+    return tuple(c[:, kv] for c in caches)
+
+
 def _project_qkv(cfg: ModelConfig, p, x, kv_x=None):
-    """-> q (B,T,K,G,hd), k/v (B,S,K,hd) before rope; K and V project
-    ``kv_x`` (cross attention's encoder output) where given, else x."""
-    K = cfg.n_kv_heads
-    G = cfg.n_heads // K
+    """-> q (B,T,K_l,G_l,hd), k/v (B,S,K',hd) before rope; K and V
+    project ``kv_x`` (cross attention's encoder output) where given,
+    else x.  q holds this rank's heads (:func:`_layout`), k/v its kv
+    heads where they are divided, else all K."""
+    K_l, G_l, _ = _layout(cfg)
+    q_div = TP.divided(cfg.n_heads)
+    kv_div = TP.divided(cfg.n_kv_heads)
+    # The column-parallel products take their input, replicated over
+    # "model", through copy_to_model (its gradient summed over "model");
+    # so does a replicated qk-norm scale on divided heads.
+    xq = TP.copy_to_model(x) if q_div else x
     src = x if kv_x is None else kv_x
-    q = _proj(x, p["wq"])
+    if kv_div:
+        src = xq if kv_x is None else TP.copy_to_model(kv_x)
+    q = _proj(xq, p["wq"])
     k = _proj(src, p["wk"])
     v = _proj(src, p["wv"])
     if cfg.qk_norm:
-        q = rmsnorm(q, p["q_scale"])
-        k = rmsnorm(k, p["k_scale"])
+        q = rmsnorm(q, TP.copy_to_model(p["q_scale"]) if q_div
+                    else p["q_scale"])
+        k = rmsnorm(k, TP.copy_to_model(p["k_scale"]) if kv_div
+                    else p["k_scale"])
     B, T = q.shape[:2]
-    return q.reshape(B, T, K, G, q.shape[-1]), k, v
+    return q.reshape(B, T, K_l, G_l, q.shape[-1]), k, v
 
 
 def _merge_out(cfg: ModelConfig, p, o):
-    """o (B,T,K,G,hd) -> (B,T,d): einsum("bthk,hkd->btd")."""
+    """o (B,T,K_l,G_l,hd) -> (B,T,d): einsum("bthk,hkd->btd"), the
+    ranks' partial sums added over "model" where the heads are
+    divided (row-parallel)."""
     B, T = o.shape[:2]
     H, hd, d = p["wo"].shape
     o = o.reshape(B, T, H * hd)
-    return o @ p["wo"].to(o.dtype).reshape(H * hd, d)
+    y = o @ p["wo"].to(o.dtype).reshape(H * hd, d)
+    return TP.reduce_from_model(y) if TP.divided(cfg.n_heads) else y
 
 
 #: The attention kinds: decoder self-attention (global, sliding-window),
@@ -141,7 +194,9 @@ def _maybe_quantize_cache(cache: dict) -> dict:
 def _roped_qkv(cfg: ModelConfig, p, x, positions, kind, enc_out=None,
                enc_positions=None):
     """q, k, v of ``kind`` with rope applied as the reference applies it
-    (cross K/V, from ``enc_out``, unroped), and the keys' positions."""
+    (cross K/V, from ``enc_out``, unroped), and the keys' positions; k/v
+    as projected (all kv heads where this rank's q heads read whole
+    k/v: the prefill cache keeps them)."""
     if kind not in _KINDS:
         raise ValueError(kind)
     if (kind == "cross") != (enc_out is not None):
@@ -152,10 +207,22 @@ def _roped_qkv(cfg: ModelConfig, p, x, positions, kind, enc_out=None,
     kv_pos = positions if enc_out is None else enc_positions
     if kind != "cross":
         k = rope(k, kv_pos, cfg.rope_theta)
-    q = constrain(q, ("batch", None, "kv_heads", None, None))
+    # The reference's flash mode streams q over the sequence (D15c-2).
+    q_t = "act_seq" if opaque.flash_mode() else None
+    q = constrain(q, ("batch", q_t, "kv_heads", None, None))
     k = constrain(k, ("batch", None, "kv_heads", None))
     v = constrain(v, ("batch", None, "kv_heads", None))
     return q, k, v, kv_pos
+
+
+def _core_kv(cfg: ModelConfig, k, v):
+    """The k/v (B,S,K_l,hd) this rank's q heads attend to: k/v as they
+    are, or the kv heads of :func:`_layout` taken from whole k/v, whose
+    gradient the ranks' q heads each add to (summed over "model")."""
+    kv = _layout(cfg)[2]
+    if kv is None:
+        return k, v
+    return (TP.copy_to_model(k)[:, :, kv], TP.copy_to_model(v)[:, :, kv])
 
 
 def attention_fullseq(cfg: ModelConfig, p: dict, x, positions, kind: str,
@@ -166,14 +233,17 @@ def attention_fullseq(cfg: ModelConfig, p: dict, x, positions, kind: str,
     global cache holds exactly the T prompt slots (no decode headroom,
     as the reference's serving engine asks), a cross cache the S encoder
     positions, and a bidirectional layer none; under ``REPRO_KV_INT8=1``
-    the caches are int8 with their scales."""
+    the caches are int8 with their scales.  Where the kv heads are
+    divided over "model", the cache holds this rank's."""
     q, k, v, _ = _roped_qkv(cfg, p, x, positions, kind, enc_out,
                             enc_positions)
     window = cfg.window if kind == "local" else None
-    o = flash_attention(q, k, v, causal=kind in ("causal", "local"),
+    kq, vq = _core_kv(cfg, k, v)
+    o = flash_attention(q, kq, vq, causal=kind in ("causal", "local"),
                         window=window, softcap=cfg.attn_softcap,
                         device=x.device)
-    o = constrain(o, ("batch", "act_seq", None, None, None))
+    if opaque.flash_mode():
+        o = constrain(o, ("batch", "act_seq", None, None, None))
     y = _merge_out(cfg, p, o)
     if kind == "bidir":
         return y, None
@@ -201,8 +271,7 @@ def attention_decode(cfg: ModelConfig, p: dict, x, cache: dict, pos: int,
     it as it is)."""
     if kind not in ("causal", "local", "cross"):
         raise ValueError(kind)
-    K = cfg.n_kv_heads
-    G = cfg.n_heads // K
+    K_l, G_l, kv = _layout(cfg)
     hd = cfg.resolved_head_dim
     B = x.shape[0]
     positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
@@ -210,7 +279,7 @@ def attention_decode(cfg: ModelConfig, p: dict, x, cache: dict, pos: int,
     q = _proj(x, p["wq"])
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_scale"])
-    q = rope(q, positions, cfg.rope_theta).reshape(B, 1, K, G, hd)
+    q = rope(q, positions, cfg.rope_theta).reshape(B, 1, K_l, G_l, hd)
 
     int8 = "k_s" in cache
     if kind == "cross":
@@ -241,14 +310,15 @@ def attention_decode(cfg: ModelConfig, p: dict, x, cache: dict, pos: int,
                 new_cache[n] = cache[n].clone()
                 new_cache[n][:, :, slot] = new[n][:, :, 0]
             valid = torch.arange(S, device=x.device) <= pos
-    ck, cv = new_cache["k"], new_cache["v"]
+    ck, cv = _take_kv(kv, new_cache["k"], new_cache["v"])
+    if int8:
+        scales = _take_kv(kv, new_cache["k_s"], new_cache["v_s"])
     if opaque.flash_mode():
-        scales = (new_cache["k_s"], new_cache["v_s"]) if int8 else None
-        o = opaque.decode_attention(q, ck, cv, pos, scales)
+        o = opaque.decode_attention(q, ck, cv, pos, scales if int8 else None)
         return _merge_out(cfg, p, o), new_cache
     if int8:
-        ck = _dequant_kv(ck, new_cache["k_s"], x.dtype)
-        cv = _dequant_kv(cv, new_cache["v_s"], x.dtype)
+        ck = _dequant_kv(ck, scales[0], x.dtype)
+        cv = _dequant_kv(cv, scales[1], x.dtype)
     return _decode_attend(cfg, p, q, ck, cv, valid), new_cache
 
 
@@ -387,6 +457,7 @@ def attention_train(cfg: ModelConfig, p: dict, x, positions, kind: str,
     stand-ins, the reference's flash stand-in and its backward instead."""
     q, k, v, kv_pos = _roped_qkv(cfg, p, x, positions, kind, enc_out,
                                  enc_positions)
+    k, v = _core_kv(cfg, k, v)
     if opaque.flash_mode():
         o = opaque.flash_attention(
             q, k, v, causal=kind in ("causal", "local"),

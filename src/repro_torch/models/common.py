@@ -13,6 +13,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.distributed.sharding import constrain
 
 
@@ -111,8 +112,15 @@ def softplus(x):
     return torch.clamp(x, min=0.0) + torch.log1p(torch.exp(-x.abs()))
 
 
-def mlp_apply(cfg: ModelConfig, p, x):
+def mlp_apply(cfg: ModelConfig, p, x, ff: Optional[int] = None):
+    """The MLP of x (B, T, d), ``ff`` wide (default ``cfg.d_ff``).  Where
+    ff is divided over "model" (its weights this rank's ff columns:
+    ``wi`` and ``wg`` column-parallel, ``wd`` row-parallel), the ranks'
+    partial outputs are summed over "model"."""
     dt = x.dtype
+    divided = TP.divided(ff or cfg.d_ff)
+    if divided:
+        x = TP.copy_to_model(x)
     h = x @ p["wi"].to(dt)
     if cfg.mlp in ("swiglu", "geglu"):
         g = x @ p["wg"].to(dt)
@@ -121,7 +129,8 @@ def mlp_apply(cfg: ModelConfig, p, x):
     else:
         h = gelu(h)
     h = constrain(h, ("batch", None, "ff"))
-    return h @ p["wd"].to(dt)
+    y = h @ p["wd"].to(dt)
+    return TP.reduce_from_model(y) if divided else y
 
 
 # -- embeddings / head ---------------------------------------------------------
@@ -137,7 +146,9 @@ def embed_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
 
 
 def embed_apply(cfg: ModelConfig, p, tokens):
-    x = p["embed"][tokens].to(act_dtype(cfg))
+    """The token embeddings in the activation dtype (vocab-parallel where
+    ``embed`` is this rank's rows divided over "model")."""
+    x = TP.embed_lookup(p["embed"], tokens, act_dtype(cfg), cfg.vocab)
     if cfg.scale_embed:
         # The reference rounds the scale to the activation dtype first.
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
@@ -148,25 +159,25 @@ def embed_apply(cfg: ModelConfig, p, tokens):
 def logits_apply(cfg: ModelConfig, p, x):
     """float32 logits of ``x`` (B, T, d): the products of the activation
     dtype's values, summed in float32 (the reference's
-    ``preferred_element_type``), then the final softcap."""
+    ``preferred_element_type``), then the final softcap.  Where the head
+    is divided over "model", this rank's vocab columns."""
     w = p["embed"].T if cfg.tie_embeddings else p["unembed"]
+    if TP.divided(cfg.vocab):
+        x = TP.copy_to_model(x)
     logits = x.float() @ w.to(x.dtype).float()
     logits = constrain(logits, ("batch", None, "vocab"))
     return softcap(logits, cfg.final_softcap)
 
 
-def cross_entropy(logits, labels, mask=None):
+def cross_entropy(logits, labels, mask=None, vocab: Optional[int] = None):
     """Mean token cross-entropy in float32; ``mask`` 1.0 counts a
     position.  The reference's form: ``log sum exp(logits - m) + m``
     with the max ``m`` held constant, minus the gold logit (picked by a
-    select and a sum, whose backward is deterministic on the card)."""
-    logits = logits.float()
-    m = logits.amax(dim=-1, keepdim=True).detach()
-    logz = torch.log(torch.exp(logits - m).sum(dim=-1)) + m[..., 0]
-    vocab = torch.arange(logits.shape[-1], device=logits.device)
-    onehot = labels[..., None].long() == vocab
-    gold = torch.where(onehot, logits, 0.0).sum(dim=-1)
-    nll = logz - gold
+    select and a sum, whose backward is deterministic on the card).
+    Where ``vocab`` (the head's width) is divided over "model", the
+    logits are this rank's columns
+    (``distributed.tensor_parallel.cross_entropy``)."""
+    nll = TP.cross_entropy(logits, labels, vocab)
     if mask is None:
         return nll.mean()
     mask = mask.float()

@@ -16,7 +16,9 @@ carries the reference's weights over unchanged; a prefill cache is
 way.  The reference's encoder and decoder scans have no remat, and
 neither has this module.  DTensor parameters are gathered as in
 ``models.lm``: each unit's where the stack takes it, the rest where an
-entry point starts.  Prefill attention goes through the
+entry point starts; the encoder's, decoder's and cross attention, the
+MLPs, the embedding and the head divide their products over "model"
+as there.  Prefill attention goes through the
 flash-attention kernel (bidirectional, causal and cross), training
 through the blockwise attention by autograd.
 """
@@ -130,7 +132,8 @@ def train_loss(cfg: ModelConfig, params, batch):
     enc_out = encode(cfg, params, batch["audio_embed"], train=True)
     x, _ = _decoder_fullseq(cfg, params, batch["tokens"], enc_out, train=True)
     logits = logits_apply(cfg, params["embed_p"], x)
-    return cross_entropy(logits[:, :-1], batch["labels"][:, 1:])
+    return cross_entropy(logits[:, :-1], batch["labels"][:, 1:],
+                         vocab=cfg.vocab)
 
 
 def prefill(cfg: ModelConfig, params, batch):

@@ -18,12 +18,18 @@ units' MoE layers: the reference drops the tail's aux, and so does the
 port (ROADMAP C13).
 
 Parameters may be DTensors (``distributed.steps``): each unit's weights
-are gathered to full local tensors just where the backbone takes the
-unit (inside the remat region in training, so the backward pass
-gathers them again rather than keeping them), the other weights where
-an entry point starts; an expert-parallel MoE keeps its experts as
-local shards (``models.moe.kept_sharded``).  Activations stay plain
-local tensors; the ``constrain`` hints are no-ops on them.
+are gathered just where the backbone takes the unit (inside the remat
+region in training, so the backward pass gathers them again rather
+than keeping them, its collectives issued again under the restored
+mesh context), the other weights where an entry point starts
+(``distributed.sharding.gather_tree``).  Attention's, the dense MLP's,
+the embedding's and the head's weights arrive as this rank's "model"
+shard where "model" divides them, and those layers compute their share
+of the products (``distributed.tensor_parallel``; ``train_loss`` takes
+the vocab-parallel cross-entropy); every other weight arrives whole,
+and an expert-parallel MoE keeps its experts as local shards
+(``models.moe.kept_sharded``).  Activations stay plain local tensors;
+the ``constrain`` hints are no-ops on them.
 
 The VLM (``family == "vlm"``, internvl2) takes ``batch["patches"]`` (B,
 n_patches, d), the stub vision frontend's output, in front of the token
@@ -224,7 +230,8 @@ def train_loss(cfg: ModelConfig, params, batch, return_aux: bool = False):
         x, _ = B.block_train(cfg, kind, params["tail"][i], x, positions)
     x = apply_norm(cfg, params["final_norm"], x)[:, n_prefix:]
     logits = logits_apply(cfg, params["embed_p"], x)
-    loss = cross_entropy(logits[:, :-1], batch["labels"][:, 1:])
+    loss = cross_entropy(logits[:, :-1], batch["labels"][:, 1:],
+                         vocab=cfg.vocab)
     if cfg.moe is not None:
         loss = loss + 0.01 * aux_total   # load-balance coefficient (OLMoE)
     return (loss, aux_total) if return_aux else loss

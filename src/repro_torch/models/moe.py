@@ -22,7 +22,9 @@ expert-parallel dispatch, :func:`moe_apply_ep`: each "model" rank owns
 ``E / tp`` experts (the local shards of ``moe_wi``, ``moe_wg`` and
 ``moe_wd`` along dim 0) and dispatches its local tokens to them with a
 local capacity; one all-reduce of the (B, T, d) combine over the
-"model" group is the only communication.  With no mesh, or where tp
+"model" group is the only communication of the forward pass
+(``distributed.tensor_parallel``'s reduce-from-model, and its
+copy-to-model for the tokens' and gates' gradients).  With no mesh, or where tp
 does not divide E, the reference means to fall back to the dense
 dispatch and recurses instead (ROADMAP C11); the port computes the
 dense dispatch.  The dense dispatch under a mesh whose step split the
@@ -36,11 +38,11 @@ from __future__ import annotations
 import os
 
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, MoEConfig
 from repro_torch.distributed import sharding as SH
+from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.models.common import init_dense, mlp_apply, mlp_init
 
 #: The expert leaves an expert-parallel MoE keeps as "model" shards.
@@ -194,58 +196,19 @@ def _dense(cfg: ModelConfig, moe: MoEConfig, p: dict, x,
     y = _experts(moe, tokens, gate_v, gate_i,
                  *(p[name] for name in EXPERT_LEAVES))
     if moe.shared_expert:
-        y = y + mlp_apply(cfg, p["shared"], x).reshape(B * T, d)
+        y = y + mlp_apply(cfg, p["shared"], x,
+                          moe.d_ff_expert).reshape(B * T, d)
     y = y.reshape(B, T, d)
     return (y, aux) if with_aux else y
 
 
-class _ToExperts(torch.autograd.Function):
-    """Tokens and gates into the expert ranks' partial computation:
-    identity forward; the backward sums their partial gradients over the
-    "model" group (one all-reduce of both, packed)."""
-
-    @staticmethod
-    def forward(ctx, tokens, gates, group):
-        ctx.group = group
-        ctx.split = tokens.numel()
-        return tokens.view_as(tokens), gates.view_as(gates)
-
-    @staticmethod
-    def backward(ctx, g_tok, g_gate):
-        flat = torch.cat([g_tok.reshape(-1), g_gate.reshape(-1).to(
-            g_tok.dtype)])
-        dist.all_reduce(flat, group=ctx.group)
-        return (flat[:ctx.split].view_as(g_tok),
-                flat[ctx.split:].view_as(g_gate).to(g_gate.dtype), None)
-
-
-class _SumOverModel(torch.autograd.Function):
-    """The expert ranks' partial combines summed over the "model" group
-    (one all-reduce); the gradient passes through unchanged, since every
-    model rank carries the same downstream gradient of the sum."""
-
-    @staticmethod
-    def forward(ctx, y, group):
-        y = y.clone()
-        dist.all_reduce(y, group=group)
-        return y
-
-    @staticmethod
-    def backward(ctx, g):
-        return g, None
-
-
-def _local_experts(w, mesh, e0: int, n: int):
+def _local_experts(w, e0: int, n: int):
     """This "model" rank's experts [e0, e0 + n) of an expert leaf: the
     local shard of a DTensor (gathered over the batch axes, its gradient
     summed back over them), or a slice of a plain tensor."""
     if not isinstance(w, SH.DTensor):
         return w[e0:e0 + n]
-    names = mesh.mesh_dim_names
-    want = tuple(SH.Shard(0) if a == "model" else SH.Replicate()
-                 for a in names)
-    grad = SH.grad_placements(mesh, model=SH.Shard(0))
-    return w.redistribute(mesh, want).to_local(grad_placements=grad)
+    return SH.gather_tp(w, 0)
 
 
 def moe_apply_ep(cfg: ModelConfig, moe: MoEConfig, p: dict, x,
@@ -277,15 +240,18 @@ def moe_apply_ep(cfg: ModelConfig, moe: MoEConfig, p: dict, x,
     tokens = x.reshape(B * T, d)
     gate_v, gate_i, aux = _route(moe, SH.gather(p["router"]), tokens,
                                  with_aux)
-    group = mesh.get_group("model")
-    tokens, gate_v = _ToExperts.apply(tokens, gate_v, group)
+    # The experts' partial computation: the tokens' and gates' gradients
+    # summed over "model" (one all-reduce) ...
+    tokens, gate_v = TP.copy_to_model(tokens, gate_v)
     y = _experts(moe, tokens, gate_v, gate_i,
-                 *(_local_experts(p[name], mesh, e0, E_local)
+                 *(_local_experts(p[name], e0, E_local)
                    for name in EXPERT_LEAVES), e0=e0).reshape(B, T, d)
-    # Each token's k experts may live on other ranks: the one collective.
-    y = _SumOverModel.apply(y, group)
+    # ... and each token's k experts may live on other ranks: the one
+    # collective of the forward pass.
+    y = TP.reduce_from_model(y)
     if moe.shared_expert:
-        y = y + mlp_apply(cfg, SH.gather_tree(p["shared"]), x)
+        y = y + mlp_apply(cfg, SH.gather_tree(p["shared"]), x,
+                          moe.d_ff_expert)
     return (y, aux) if with_aux else y
 
 

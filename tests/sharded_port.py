@@ -6,7 +6,10 @@ port).  Imports no JAX.
 ``run(world, work_dir)`` reads ``work_dir/cases.json`` and the
 reference's initial parameters (``work_dir/params.pkl``: nested numpy
 trees by arch, and the MoE case's layer and input), runs the cases of
-that world size and writes ``work_dir/port_<world>.json`` from rank 0.
+that world size (train, MoE and serve cases; at world size 2 also the
+collectives a step issues on each mesh axis's group,
+:func:`_group_collectives`) and writes ``work_dir/port_<world>.json``
+from rank 0.
 """
 
 from __future__ import annotations
@@ -24,6 +27,8 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 B, T = 4, 16
+#: Greedy decode steps after a serve case's prefill.
+SERVE_STEPS = 3
 #: Depths other than the reduced config's (recurrentgemma with a tail).
 OVERRIDES = {"recurrentgemma-2b": dict(n_layers=8)}
 
@@ -110,6 +115,76 @@ def _moe(shape, ref):
     return y.numpy().tolist(), float(aux)
 
 
+def _serve(arch, shape, ref_params, steps=SERVE_STEPS):
+    """``make_prefill_step`` and ``steps`` greedy ``make_decode_step``
+    steps on a mesh of ``shape`` (``sharded_reference.serve_case``):
+    each step's last-position logits and greedy tokens."""
+    from repro_torch.distributed import steps as ST
+    from repro_torch.distributed.elastic import reshard_state
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.convert import params_from_jax
+
+    cfg = config(arch)
+    mesh = make_mesh(shape, device="cpu")
+    prefill, place = ST.make_prefill_step(cfg, mesh)
+    decode, _ = ST.make_decode_step(cfg, mesh)
+    params = reshard_state(params_from_jax(ref_params[arch], device="cpu"),
+                           mesh, place)
+    batch = {k: v for k, v in batches(cfg, 1)[0].items() if k != "labels"}
+    logits, cache = prefill(params, batch)
+    pos = T + (cfg.n_patches if cfg.family == "vlm" else 0)
+    all_logits, tokens = [], []
+    for i in range(steps + 1):
+        last = logits[:, -1]
+        all_logits.append(last.tolist())
+        tokens.append(last.argmax(-1).tolist())
+        if i == steps:
+            break
+        tok = torch.tensor(tokens[-1], dtype=torch.int32)[:, None]
+        logits, cache = decode(params, {"token": tok, "pos": pos + i,
+                                        "cache": cache})
+    return all_logits, tokens
+
+
+def _group_collectives(ref_params):
+    """On meshes (2, 1) and (1, 2) of the two ranks: the collectives one
+    train step, one prefill and one decode step of reduced llama3.2-3b
+    issue on the "model" group and on the "data" group
+    (``launch.cost.trace``'s ``group_calls``: one-rank groups too)."""
+    from repro_torch.distributed import steps as ST
+    from repro_torch.distributed.elastic import reshard_state
+    from repro_torch.launch import cost as C
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.convert import params_from_jax
+
+    arch = "llama3.2-3b"
+    cfg = config(arch)
+    out = {}
+    for shape in ((2, 1), (1, 2)):
+        mesh = make_mesh(shape, device="cpu")
+        step, place = ST.make_train_step(cfg, mesh)
+        state = ST.init_train_state(
+            cfg, mesh, place,
+            params=params_from_jax(ref_params[arch], device="cpu"))
+        prefill, p_place = ST.make_prefill_step(cfg, mesh)
+        decode, _ = ST.make_decode_step(cfg, mesh)
+        params = reshard_state(params_from_jax(ref_params[arch],
+                                               device="cpu"), mesh, p_place)
+        b = batches(cfg, 1)[0]
+
+        def steps():
+            step(state, b)
+            logits, cache = prefill(params, {"tokens": b["tokens"]})
+            tok = logits[:, -1].argmax(-1)[:, None].int()
+            decode(params, {"token": tok, "pos": T, "cache": cache})
+
+        calls = C.trace(steps).group_calls
+        out[f"{shape[0]}x{shape[1]}"] = {
+            ax: calls.get(mesh.get_group(ax).group_name, 0)
+            for ax in ("data", "model")}
+    return out
+
+
 def _unsharded_vs_mesh(ref_params):
     """``launch.train.train`` on one device and on a (1, 1) mesh."""
     from repro_torch.core import characterize as TC
@@ -182,7 +257,7 @@ def _worker(rank, world, work_dir):
     try:
         cases = json.loads((work / "cases.json").read_text())
         ref = pickle.loads((work / "params.pkl").read_bytes())
-        out = {"train": {}, "bytes": {}, "moe": {}}
+        out = {"train": {}, "bytes": {}, "moe": {}, "serve": {}}
         for arch, shape, ep, steps in cases["train"]:
             if shape[0] * shape[1] != world:
                 continue
@@ -195,6 +270,10 @@ def _worker(rank, world, work_dir):
         for shape in cases["moe"]:
             if shape[0] * shape[1] == world:
                 out["moe"][f"{shape[0]}x{shape[1]}"] = _moe(shape, ref)
+        for arch, shape in cases.get("serve", []):
+            if shape[0] * shape[1] == world:
+                out["serve"][f"{arch}/{shape[0]}x{shape[1]}"] = _serve(
+                    arch, shape, ref["params"])
         arch = "llama3.2-3b"
         bs = batches(config(arch), 4, seed=1)
         ckpt = work / "elastic_ckpt"
@@ -210,6 +289,7 @@ def _worker(rank, world, work_dir):
             out["elastic_saved"] = metrics
             out["compress"] = _sharded_compress(ref["params"])
         if world == 2:
+            out["groups"] = _group_collectives(ref["params"])
             plan = plan_mesh(2, (2, 2), global_batch=B)
             cfg = config(arch)
             mesh = build_mesh_from_plan(plan, device="cpu")

@@ -5,14 +5,16 @@
     python tests/sharded_reference.py WORK_DIR PART N_PARTS
 
 ``WORK_DIR/cases.json`` lists ``[arch, [data, model], ep, steps]`` train
-cases and ``[data, model]`` MoE cases; this process runs every
-``N_PARTS``-th of them from ``PART`` on.  Part 0 first writes
+cases, ``[data, model]`` MoE cases and ``[arch, [data, model]]`` serve
+cases; this process runs every ``N_PARTS``-th of them from ``PART``
+on.  Part 0 first writes
 ``WORK_DIR/params.pkl``: the initial parameters of every arch (seed 0)
 and the MoE case's layer and input, as nested numpy trees.  Each part
 writes ``WORK_DIR/ref_<PART>.npz``: each train case's per-step loss and
 grad_norm on the batches of :func:`batches` and the bytes of one
-device's share of the state, and each MoE case's expert-parallel ``y``
-and aux.
+device's share of the state, each MoE case's expert-parallel ``y``
+and aux, and each serve case's logits and greedy tokens
+(:func:`serve_case`).
 """
 
 import dataclasses
@@ -38,6 +40,8 @@ from repro.models.api import build_model  # noqa: E402
 from repro.optim.adamw import AdamWConfig, init_opt_state  # noqa: E402
 
 B, T = 4, 16
+#: Greedy decode steps after a serve case's prefill.
+SERVE_STEPS = 3
 #: Depths other than the reduced config's (recurrentgemma with a tail).
 OVERRIDES = {"recurrentgemma-2b": dict(n_layers=8)}
 
@@ -116,12 +120,47 @@ def moe_case(shape, p, x, out):
     out[f"moe/aux/{tag}"] = np.asarray(aux)
 
 
+def serve_batch(cfg):
+    """The serve cases' prompt batch: the first train batch's tokens
+    (and frontend input)."""
+    return {k: v for k, v in batches(cfg, 1)[0].items() if k != "labels"}
+
+
+def serve_case(arch, shape, params, out, steps=SERVE_STEPS):
+    """``make_prefill_step`` on :func:`serve_batch`, then ``steps``
+    greedy ``make_decode_step`` steps from the prefill's cache: each
+    step's last-position logits (B, V) and the greedy tokens (B,)."""
+    cfg = config(arch)
+    m = mesh(shape)
+    prefill, p_shard = ST.make_prefill_step(cfg, m)
+    decode, _ = ST.make_decode_step(cfg, m)
+    p = jax.device_put(jax.tree.map(np.array, params), p_shard)
+    batch = serve_batch(cfg)
+    logits, cache = jax.jit(prefill)(p, batch)
+    pos = batch["tokens"].shape[1] + (cfg.n_patches if cfg.family == "vlm"
+                                      else 0)
+    decode = jax.jit(decode)
+    all_logits, tokens = [], []
+    for i in range(steps + 1):
+        last = np.asarray(logits)[:, -1]
+        all_logits.append(last)
+        tokens.append(last.argmax(-1).astype(np.int32))
+        if i == steps:
+            break
+        logits, cache = decode(p, {"token": tokens[-1][:, None],
+                                   "pos": pos + i, "cache": cache})
+    tag = f"{arch}/{shape[0]}x{shape[1]}"
+    out[f"serve/logits/{tag}"] = np.stack(all_logits)
+    out[f"serve/tokens/{tag}"] = np.stack(tokens)
+
+
 def main(work_dir, part, n_parts):
     work, part, n_parts = Path(work_dir), int(part), int(n_parts)
     cases = json.loads((work / "cases.json").read_text())
-    mine = (cases["train"] + cases["moe"])[part::n_parts]
-    archs = {c[0] for c in (cases["train"] if part == 0 else mine)
-             if len(c) == 4}
+    serve = cases.get("serve", [])
+    mine = (cases["train"] + cases["moe"] + serve)[part::n_parts]
+    archs = {c[0] for c in (cases["train"] + serve if part == 0 else mine)
+             if len(c) in (2, 4) and isinstance(c[0], str)}
     params = {a: init_params(a) for a in sorted(archs)}
     moe_p, moe_x = moe_inputs()
     if part == 0:
@@ -133,6 +172,8 @@ def main(work_dir, part, n_parts):
     for case in mine:
         if len(case) == 4:
             train_case(*case, params[case[0]], out)
+        elif isinstance(case[0], str):
+            serve_case(*case, params[case[0]], out)
         else:
             moe_case(case, moe_p, moe_x, out)
     np.savez(work / f"ref_{part}.npz", **out)

@@ -188,6 +188,31 @@ def test_mesh_builders(fake_mesh):
         TM.make_production_mesh(multi_pod=True, device="cpu")
 
 
+def test_gather_tree_divides_tp_leaves_once(fake_mesh):
+    """Under the (2, 2) mesh a leaf of ``TP_LEAVES`` arrives as this
+    rank's "model" shard where "model" divides its dim, whole where it
+    does not (``wq``'s 3 heads), any other leaf whole; ``tensor_parallel
+    .local`` reads the same rule; and gathering the gathered tree again
+    changes nothing (the dense MoE gathers its unit's weights twice)."""
+    from repro_torch.distributed import tensor_parallel as TP
+
+    def weight(*shape):
+        return DTensor.from_local(torch.zeros(shape), fake_mesh,
+                                  [Replicate(), Replicate()],
+                                  run_check=False)
+
+    tree = {"wi": weight(6, 8), "wd": weight(8, 6), "wq": weight(6, 3, 4),
+            "router": weight(6, 8)}
+    with TS.use_mesh(fake_mesh):
+        once = TS.gather_tree(tree)
+        twice = TS.gather_tree(once)
+        shares = TP.local(8), TP.local(3)
+    assert {k: tuple(v.shape) for k, v in once.items()} == {
+        "wi": (6, 4), "wd": (4, 6), "wq": (6, 3, 4), "router": (6, 8)}
+    assert shares == (4, 3)
+    assert all(twice[k] is once[k] for k in once)
+
+
 @pytest.mark.parametrize("arch", ["llama3.2-3b", "gemma2-2b", "mamba2-130m",
                                   "recurrentgemma-2b", "whisper-large-v3",
                                   "internvl2-1b", "olmoe-1b-7b"])

@@ -16,14 +16,18 @@ Reduced configs; the shapes of :data:`SHAPES`.
     :data:`CELLS`: each rank's argument and output bytes equal to the
     reference's ``memory_analysis`` (a differing leaf is named; XLA's
     output size also holds the output tuple's index table, 8 bytes a
-    leaf, which is not data); on
-    meshes whose "model" axis is 1, ``dot`` FLOPs equal to
-    ``hlo_cost.breakdown``'s, and a prefill's ``dot + kernel`` equal to
-    the reference's cell with its kernel stand-ins (``dot +
-    custom-call(kernel)``); on (2, 2) and (1, 4) the port's FLOPs over
-    the reference's at most the model axis size (ROADMAP D15c: every
-    "model" rank computes its rows in full, so the port's count is the
-    model-1 mesh's) and above 1, printed;
+    leaf, which is not data); ``dot`` FLOPs equal to
+    ``hlo_cost.breakdown``'s, and a prefill's ``dot`` and ``kernel``
+    equal to the reference's cell with its kernel stand-ins (``dot``,
+    ``custom-call(kernel)``), where the training cells differ by the
+    reference's nested remat and the (1, 4) cells by the partitioner
+    decisions :func:`test_flops_match_reference` names (the products
+    are divided over "model", ROADMAP D15c-1); mamba2-130m and
+    olmoe-1b-7b, whose SSM and expert products stay whole over "model",
+    between the reference's count and the port's without "model";
+  * at (1, 1) and (2, 1), each cell's FLOPs and collectives equal to the
+    records of the code before the products were divided over "model"
+    (:data:`MODEL_ONE`);
   * one rank issues no collective;
   * the collectives of a fake-group trace equal those the same step
     issues on a real 4-rank gloo run at (2, 2), for train and prefill
@@ -128,20 +132,18 @@ def _port_records(mesh, tmp_path_factory):
 @pytest.fixture(scope="module", params=MESHES, ids=_tag)
 def mesh_run(request, tmp_path_factory):
     """(mesh, the reference's cells, the port's records) of one mesh
-    shape; on a mesh without a "model" axis the reference's prefill
-    cells also with its kernel stand-ins (variant ``opaque``)."""
+    shape; the reference's prefill cells also with its kernel stand-ins
+    (variant ``opaque``)."""
     mesh = tuple(request.param)
     work = tmp_path_factory.mktemp(f"dryrun_{_tag(mesh)}")
     cells = _port_cells(mesh)
-    ref_cells = cells + ([[a, k, list(mesh), "opaque", SHAPES[k]]
-                          for a, k in CELLS if k == "prefill"]
-                         if mesh[1] == 1 else [])
+    ref_cells = cells + [[a, k, list(mesh), "opaque", SHAPES[k]]
+                         for a, k in CELLS if k == "prefill"]
     ref = _reference(work, "ref", ref_cells)
     if mesh not in _PORT:
         port = _port(work, "port", cells)
         _PORT[mesh] = _result(work, "port", port)
     ref = _result(work, "ref", ref)
-    _REF_DOTS.setdefault(mesh, {k: v["dot"] for k, v in ref.items()})
     return mesh, ref, _PORT[mesh]
 
 
@@ -273,6 +275,34 @@ def _moe_flops(arch, n_tokens):
     return layers * fc.get_total_flops()
 
 
+#: The cells whose products the port leaves whole over "model": Mamba-2's
+#: (ROADMAP D15c-3) and the dense MoE's experts (D15c-2).
+WHOLE_OVER_MODEL = ("mamba2-130m", "olmoe-1b-7b")
+
+
+def _local_heads(arch, model: int) -> float:
+    """The share of the q heads a "model" rank computes, by the port's
+    rule (``sharding.model_share``: 1 / model where "model" divides the
+    heads, as ``param_specs`` divides ``wq``, else 1)."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.distributed.sharding import model_share
+
+    H = reduced_config(get_config(arch)).n_heads
+    return model_share(H, model) / H
+
+
+def _kv_products(arch, B, T):
+    """The port's k and v projections in one train step at B rows of T
+    positions: the forward, the unit's remat recomputation and the two
+    backward products (input and weight gradients) of each, every
+    layer."""
+    from repro_torch.configs import get_config, reduced_config
+
+    cfg = reduced_config(get_config(arch))
+    kv = cfg.n_kv_heads * cfg.resolved_head_dim
+    return len(_layer_kinds(cfg)) * 4 * 2 * (2 * B * T * cfg.d_model * kv)
+
+
 @pytest.mark.parametrize("cell", CELLS, ids=lambda c: f"{c[0]}-{c[1]}")
 def test_flops_match_reference(mesh_run, cell, tmp_path_factory):
     """Where "model" is 1, against ``hlo_cost.breakdown``:
@@ -286,7 +316,7 @@ def test_flops_match_reference(mesh_run, cell, tmp_path_factory):
       * decode: ``dot`` equal exactly at (1, 1); at (2, 1) the port's
         dense MoE dispatch computes the global batch's experts on every
         data rank (it gathers the tokens for the reference's global
-        capacity; ROADMAP D15c), so the port counts the reference's
+        capacity; ROADMAP D15c-2), so the port counts the reference's
         FLOPs plus (1 - 1/data) of the MoE products, exactly;
       * train: the reference's attention rematerializes its tiles once
         more inside the attention's backward (``jax.checkpoint`` on its
@@ -295,70 +325,132 @@ def test_flops_match_reference(mesh_run, cell, tmp_path_factory):
         two forward passes of the attention tile products (the
         tolerance), and no more.
 
-    Where "model" is above 1 (ROADMAP D15c): the port's count is the
-    mesh without the model axis's, exactly (each "model" rank computes
-    its batch rows in full), and its ratio to the reference's is above 1
-    and at most the model axis size times that mesh's ratio (the
-    reference divides its work by at most the model axis size)."""
+    Where "model" is above 1, the port divides attention, the dense MLP,
+    the embedding and the head over "model" (ROADMAP D15c-1):
+
+      * prefill: ``kernel`` as at "model" 1; ``dot`` equal to the
+        ``opaque`` cell's where "model" divides the kv heads.  Where it
+        does not (llama3.2-3b at (1, 4): 2 kv heads), the ``opaque``
+        cell runs the reference's flash mode, whose sequence-parallel
+        stream (q on ``act_seq``, ``repro/models/attention.py:307``;
+        D15c-2) has the partitioner compute one of k and v on the T/4
+        tokens of a sequence shard; the port is held to the base cell
+        instead: its ``dot`` less the blockwise tile products that B4
+        takes over, at the port's local q heads, exactly;
+      * train: as at "model" 1, the reference's count less the port's
+        within one to two attention tile forwards, at the local q
+        heads.  Where "model" does not divide the kv heads (gemma2-2b
+        and internvl2-1b at (1, 4)), the port computes k and v whole on
+        every rank (the q heads are divided; each rank takes its q
+        heads' kv head), while the reference's partitioner keeps the
+        remat carry's sequence shard (``act_seq``,
+        ``repro/models/lm.py:92``) for six of the eight k/v products a
+        layer (the forward and recomputation of one projection and the
+        four backward products, on T/4 tokens) and computes two whole
+        (the other projection's forward and recomputation): 7/16 of the
+        port's k/v FLOPs at "model" 4, read from the dot shapes of the
+        compiled HLO.  The port's count is held with its k/v products
+        at the reference's share;
+      * mamba2-130m prefill and olmoe-1b-7b decode, whose SSM and expert
+        products stay whole (ROADMAP D15c-3, D15c-2): strictly below the
+        port's count without the model axis, and at least the
+        reference's."""
+    from repro_torch.configs import get_config, reduced_config
+
     mesh, ref, port = mesh_run
     arch, kind = cell
+    cfg = reduced_config(get_config(arch))
     p = port[_key(*cell, mesh)]
     split = p["flops_breakdown"]
-    total = split["dot"] + split["kernel"]
-    if mesh[1] == 1:
-        r = ref[_key(*cell, mesh)]
-        if kind == "prefill":
-            o = ref[_key(*cell, mesh, "opaque")]
-            assert split["dot"] == o["dot"]
-            if arch == "mamba2-130m":
-                assert o["kernel"] == 0.0        # ROADMAP C15
-                assert split["kernel"] == _ssd_formula_flops(p, SHAPES[kind])
-            else:
-                assert split["kernel"] == o["kernel"] > 0
-        elif kind == "decode":
-            assert split["kernel"] == 0.0
-            _, T, B = SHAPES[kind]
-            excess = (1 - 1 / mesh[0]) * _moe_flops(arch, B)
-            assert split["dot"] == r["dot"] + excess
-        else:
-            assert split["kernel"] == 0.0
-            _, T, B = SHAPES[kind]
-            from repro_torch.configs import get_config, reduced_config
-
-            cfg = reduced_config(get_config(arch))
-            T += cfg.n_patches if cfg.family == "vlm" else 0
-            tile = _attention_tile_flops(arch, B // mesh[0], T)
-            gap = r["dot"] - split["dot"]
-            print(f"{arch} train {mesh}: reference - port = {gap:.0f} "
-                  f"FLOPs, {gap / tile:.3f} attention tile forwards")
-            assert tile <= gap <= 2 * tile
-        return
-    base_mesh = (mesh[0], 1)
-    no_model = _port_records(base_mesh, tmp_path_factory)
-    assert split == no_model[_key(*cell, base_mesh)]["flops_breakdown"]
-    ref_base = _reference_dots(base_mesh, tmp_path_factory)[
-        _key(*cell, base_mesh)]
     r = ref[_key(*cell, mesh)]
-    ratio, base_ratio = total / r["dot"], total / ref_base
-    print(f"{arch} {kind} mesh {mesh}: port/reference FLOPs {ratio:.4f}; "
-          f"the reference divides its {base_mesh} count by "
-          f"{ref_base / r['dot']:.4f} over the model axis (D15c bound "
-          f"{mesh[1] * base_ratio:.4f})")
-    assert 1.0 < ratio <= mesh[1] * base_ratio * (1 + 1e-12)
+    _, T, B = SHAPES[kind]
+    B //= mesh[0]
+    heads = _local_heads(arch, mesh[1])
+    if arch in WHOLE_OVER_MODEL and mesh[1] > 1:
+        base_mesh = (mesh[0], 1)
+        no_model = _port_records(base_mesh, tmp_path_factory)[
+            _key(*cell, base_mesh)]["flops_breakdown"]
+        total = split["dot"] + split["kernel"]
+        whole = no_model["dot"] + no_model["kernel"]
+        print(f"{arch} {kind} mesh {mesh}: port {total:.0f} FLOPs, "
+              f"without the model axis {whole:.0f}, reference "
+              f"{r['dot']:.0f}")
+        assert r["dot"] <= total < whole
+        return
+    if kind == "prefill":
+        o = ref[_key(*cell, mesh, "opaque")]
+        if arch == "mamba2-130m":
+            assert o["kernel"] == 0.0        # ROADMAP C15
+            assert split["kernel"] == _ssd_formula_flops(p, SHAPES[kind])
+        else:
+            assert split["kernel"] == o["kernel"] > 0
+        if cfg.n_kv_heads % mesh[1] == 0:
+            assert split["dot"] == o["dot"]
+        else:
+            tile = _attention_tile_flops(arch, B, T) * heads
+            assert split["dot"] == r["dot"] - tile
+    elif kind == "decode":
+        assert split["kernel"] == 0.0
+        excess = (1 - 1 / mesh[0]) * _moe_flops(arch, SHAPES[kind][2])
+        assert split["dot"] == r["dot"] + excess
+    else:
+        assert split["kernel"] == 0.0
+        T += cfg.n_patches if cfg.family == "vlm" else 0
+        tile = _attention_tile_flops(arch, B, T) * heads
+        dot = split["dot"]
+        if cfg.n_kv_heads % mesh[1]:
+            kv = _kv_products(arch, B, T)
+            dot += kv * (2 + 6 / mesh[1]) / 8 - kv
+        gap = r["dot"] - dot
+        print(f"{arch} train {mesh}: reference - port = {gap:.0f} "
+              f"FLOPs, {gap / tile:.3f} attention tile forwards")
+        assert tile <= gap <= 2 * tile
 
 
-#: The reference's base-variant ``dot`` by mesh, as a test first needs it.
-_REF_DOTS = {}
+#: The records at meshes whose "model" axis is 1, as the port gave them
+#: before its products were divided over "model" (the parent of ROADMAP
+#: D15c-1): (``dot``, ``kernel``) FLOPs and, by collective kind issued,
+#: (count, output bytes, ring traffic).  At (1, 1) no collective.
+MODEL_ONE = {
+    ("gemma2-2b", "train", (1, 1)): (197132288, 0, {}),
+    ("llama3.2-3b", "prefill", (1, 1)): (38010880, 4194304, {}),
+    ("mamba2-130m", "prefill", (1, 1)): (28049408, 12582912, {}),
+    ("olmoe-1b-7b", "decode", (1, 1)): (6955008, 0, {}),
+    ("whisper-large-v3", "prefill", (1, 1)): (52690944, 6815744, {}),
+    ("internvl2-1b", "train", (1, 1)): (127401984, 0, {}),
+    ("gemma2-2b", "train", (2, 1)): (98566144, 0, {
+        "all-gather": (57, 1310720, 655360),
+        "all-reduce": (11, 2312, 2312),
+        "reduce-scatter": (29, 360448, 360448)}),
+    ("llama3.2-3b", "prefill", (2, 1)): (19005440, 2097152, {
+        "all-gather": (18, 286720, 143360)}),
+    ("mamba2-130m", "prefill", (2, 1)): (14024704, 6291456, {
+        "all-gather": (8, 255488, 127744)}),
+    ("olmoe-1b-7b", "decode", (2, 1)): (6627328, 0, {
+        "all-gather": (23, 1125376, 562688)}),
+    ("whisper-large-v3", "prefill", (2, 1)): (26345472, 3407872, {
+        "all-gather": (7, 4431872, 2215936)}),
+    ("internvl2-1b", "train", (2, 1)): (63700992, 0, {
+        "all-gather": (29, 720896, 360448),
+        "all-reduce": (7, 1288, 1288),
+        "reduce-scatter": (15, 212992, 212992)}),
+}
 
 
-def _reference_dots(mesh, tmp_path_factory):
-    mesh = tuple(mesh)
-    if mesh not in _REF_DOTS:
-        work = tmp_path_factory.mktemp(f"dryrun_ref_{_tag(mesh)}")
-        out = _result(work, "ref", _reference(work, "ref",
-                                              _port_cells(mesh)))
-        _REF_DOTS[mesh] = {k: v["dot"] for k, v in out.items()}
-    return _REF_DOTS[mesh]
+@pytest.mark.parametrize("mesh", [(1, 1), (2, 1)], ids=_tag)
+@pytest.mark.parametrize("cell", CELLS, ids=lambda c: f"{c[0]}-{c[1]}")
+def test_model_one_records_unchanged(cell, mesh, tmp_path_factory):
+    """Where "model" is 1 the tensor-parallel pieces are the identity:
+    each cell's ``flops_breakdown`` and collectives (count, bytes and
+    traffic of every kind) equal :data:`MODEL_ONE`'s exactly."""
+    dot, kernel, kinds = MODEL_ONE[tuple(cell) + (mesh,)]
+    rec = _port_records(mesh, tmp_path_factory)[_key(*cell, mesh)]
+    assert rec["flops_breakdown"] == {"dot": dot, "kernel": kernel}
+    coll = rec["collectives"]
+    assert {k: (n, coll["bytes"][k], coll["traffic"][k])
+            for k, n in coll["counts"].items() if n} == kinds
+    assert not any(coll["bytes"][k] or coll["traffic"][k]
+                   for k in coll["counts"] if k not in kinds)
 
 
 def _ssd_formula_flops(rec, shape):

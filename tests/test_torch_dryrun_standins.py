@@ -15,8 +15,9 @@ once, at reduced configs:
     ``custom-call(kernel)`` bytes up to the operands named in
     :func:`test_standin_bytes_match_reference`; argument and output
     bytes equal to ``memory_analysis``'s; the stand-ins' calls;
-  * mesh (2, 2), gemma2-2b's train cell under ``flash``: the D15c bound
-    of ``test_torch_dryrun.py`` against (2, 1);
+  * mesh (2, 2), gemma2-2b's train cell under ``flash``: its (2, 1)
+    count halved and the reference's ``dot`` and ``kernel``, exactly
+    (the products divided over "model", ROADMAP D15c-1);
   * each op: its fake results against the reference stand-in's result
     shapes and dtypes (``jax.eval_shape``), its FLOP formula against
     ``hlo_cost._opaque_kernel_cost`` on the same operand shapes, its
@@ -221,11 +222,13 @@ def test_standin_memory_matches_reference(mesh_run, cell):
 
 
 def test_model_axis_flash_cell(tmp_path_factory):
-    """(2, 2), gemma2-2b's train cell under ``flash`` (ROADMAP D15c):
-    the port's count is its (2, 1) count exactly (each "model" rank
-    computes its rows in full), and its ratio to the reference's
-    ``dot + kernel`` is above 1 and at most the model axis size times
-    the (2, 1) ratio (the reference divides at most that)."""
+    """(2, 2), gemma2-2b's train cell under ``flash``: the port divides
+    its products over "model" (ROADMAP D15c-1), and "model" divides
+    every one of them (heads 4, kv heads 2, ff 128, vocab 512), so its
+    count is its (2, 1) count halved, exactly, and equals the
+    reference's ``dot`` and ``custom-call(kernel)`` exactly: the
+    reference's sequence-parallel stream under ``flash`` (D15c-2) moves
+    where its products run, not how many there are."""
     cell = ("gemma2-2b", "train", "flash")
     work = tmp_path_factory.mktemp("standins_2x2")
     procs = [_start(work, "ref", _cells((2, 1), [cell]) +
@@ -235,14 +238,13 @@ def test_model_axis_flash_cell(tmp_path_factory):
     ref, port21, port22 = (_result(work, n, p) for n, p in
                            zip(("ref", "port1", "port2"), procs))
     split = port22[_key(*cell, (2, 2))]["flops_breakdown"]
-    assert split == port21[_key(*cell, (2, 1))]["flops_breakdown"]
-    total = split["dot"] + split["kernel"]
-    r, r21 = ref[_key(*cell, (2, 2))], ref[_key(*cell, (2, 1))]
-    ratio = total / (r["dot"] + r["kernel"])
-    base_ratio = total / (r21["dot"] + r21["kernel"])
-    print(f"gemma2-2b train flash (2, 2): port/reference FLOPs {ratio:.4f} "
-          f"(D15c bound {2 * base_ratio:.4f})")
-    assert 1.0 < ratio <= 2 * base_ratio * (1 + 1e-12)
+    half = {k: v / 2 for k, v in
+            port21[_key(*cell, (2, 1))]["flops_breakdown"].items()}
+    r = ref[_key(*cell, (2, 2))]
+    print(f"gemma2-2b train flash (2, 2): port {split}, reference dot "
+          f"{r['dot']:.0f}, kernel {r['kernel']:.0f}")
+    assert split == half
+    assert split == {"dot": r["dot"], "kernel": r["kernel"]}
 
 
 # ---------------------------------------------------------------------------

@@ -21,6 +21,13 @@ its cases), float32 activations, batch 4 x 16.
     reference's state;
   * at (1, 1), ``launch.train.train`` on a mesh equal to the
     single-device loop bit for bit;
+  * the tensor-parallel products over "model" (ROADMAP D15c-1):
+    llama3.2-3b at (1, 2), (2, 2), (1, 4), gemma2-2b at (1, 4) and
+    internvl2-1b at (2, 2) among the train cases; ``make_prefill_step``
+    and three greedy ``make_decode_step`` steps of llama3.2-3b and
+    whisper-large-v3 at (1, 2), (2, 2) and (1, 4) against the
+    reference's: logits within 1e-4 of the largest, greedy tokens
+    equal; at (2, 1) no collective on the "model" group;
   * the expert-parallel layer's y and aux against the reference's
     ``moe_apply_ep`` at (1, 2), (1, 4) and (2, 2) within 1e-5;
   * ``compress_grads`` and ``global_norm`` on DTensor gradients over
@@ -56,8 +63,18 @@ TRAIN_CASES = [
     ["olmoe-1b-7b", [2, 2], 0, 3],
     ["olmoe-1b-7b", [1, 4], 1, 3],
     ["olmoe-1b-7b", [2, 2], 1, 3],
+    # Tensor-parallel products over "model" (ROADMAP D15c-1); gemma2-2b
+    # at (1, 4): tied embeddings, softcaps, kv heads (2) that "model"
+    # does not divide; internvl2-1b: the VLM's patch rows.
+    ["llama3.2-3b", [1, 2], 0, 3],
+    ["llama3.2-3b", [2, 2], 0, 3],
+    ["llama3.2-3b", [1, 4], 0, 3],
+    ["gemma2-2b", [1, 4], 0, 3],
+    ["internvl2-1b", [2, 2], 0, 3],
 ]
 MOE_CASES = [[1, 2], [1, 4], [2, 2]]
+SERVE_CASES = [[a, s] for a in ("llama3.2-3b", "whisper-large-v3")
+               for s in ([1, 2], [2, 2], [1, 4])]
 
 
 def _tag(case):
@@ -74,7 +91,7 @@ def runs(tmp_path_factory):
     """(the reference's results, the port's by world size)."""
     work = tmp_path_factory.mktemp("sharded")
     (work / "cases.json").write_text(json.dumps(
-        {"train": TRAIN_CASES, "moe": MOE_CASES}))
+        {"train": TRAIN_CASES, "moe": MOE_CASES, "serve": SERVE_CASES}))
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
     refs = [subprocess.Popen(
         [sys.executable, str(ROOT / "tests" / "sharded_reference.py"),
@@ -137,6 +154,34 @@ def test_expert_parallel_layer_matches_reference(runs, shape):
     np.testing.assert_allclose(np.array(y), want, rtol=1e-5,
                                atol=1e-5 * np.abs(want).max())
     np.testing.assert_allclose(aux, float(ref[f"moe/aux/{tag}"]), rtol=1e-5)
+
+
+@pytest.mark.parametrize("case", SERVE_CASES,
+                         ids=lambda c: f"{c[0]}/{c[1][0]}x{c[1][1]}")
+def test_serve_steps_match_reference(runs, case):
+    """``make_prefill_step`` and three greedy ``make_decode_step`` steps
+    against the reference's on the same mesh: each step's float32
+    logits within 1e-4 relative of the reference's largest, the greedy
+    tokens equal."""
+    ref, port = runs
+    arch, shape = case
+    tag = f"{arch}/{shape[0]}x{shape[1]}"
+    logits, tokens = port[shape[0] * shape[1]]["serve"][tag]
+    want = ref[f"serve/logits/{tag}"]
+    np.testing.assert_allclose(np.array(logits), want, rtol=1e-4,
+                               atol=1e-4 * np.abs(want).max())
+    np.testing.assert_array_equal(np.array(tokens), ref[f"serve/tokens/{tag}"])
+
+
+def test_model_axis_of_one_issues_no_model_collective(runs):
+    """A train step, a prefill and a decode step of reduced llama3.2-3b on
+    the two ranks: at (2, 1) no collective on the "model" group (the
+    tensor-parallel pieces are the identity there) and some on "data";
+    at (1, 2) some on "model" (the pieces' all-reduces and gathers)."""
+    _, port = runs
+    groups = port[2]["groups"]
+    assert groups["2x1"]["model"] == 0 and groups["2x1"]["data"] > 0
+    assert groups["1x2"]["model"] > 0
 
 
 def test_compression_and_norm_span_the_mesh(runs):
