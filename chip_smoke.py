@@ -364,7 +364,12 @@ exits non-zero):
                      version with the bfloat16 rule; the logits against
                      the dense dispatch's prefill of the same weights by
                      the same rule; three ``make_decode_step`` steps whose
-                     greedy tokens equal the unsharded ``decode_step``'s.
+                     greedy tokens equal the unsharded ``decode_step``'s;
+                     the serve steps take and return the cell's
+                     placements (DTensors, whole on one rank), and one
+                     prefill and decode step of each dispatch under
+                     ``launch.cost.trace`` issue no collective on the
+                     "model" group.
  20. dryrun        — ``repro_torch.launch.dryrun`` on the card's host: (a)
                      for each distinct B4 and B5 launch of phases 6-19
                      (inputs' shapes, dtypes and strides, the static
@@ -382,9 +387,12 @@ exits non-zero):
                      101/102) and ``decode_32k`` under ``flash+kvint8``
                      (402), mamba2-130m ``train_4k`` under ``ssdk``
                      (30256/40256), each record's bytes, FLOPs,
-                     collectives and ``trace_s`` printed, each stand-in
-                     cell's ``kernel`` FLOPs equal to the marker formula
-                     summed over the config's layers (computed here) and
+                     collectives and ``trace_s`` printed, each serve
+                     cell's ``step_argument_bytes`` equal to its
+                     ``argument_bytes`` (the steps take their shards),
+                     each stand-in cell's ``kernel`` FLOPs equal to the
+                     marker formula summed over the config's layers
+                     (computed here) and
                      its ``dot`` below the ``base`` cell's where that cell
                      runs; (c) one real cell: llama3.2-3b's
                      prefill at B 1 x T 2048 from ``build_cell`` on a
@@ -4423,7 +4431,7 @@ def dist_phase(smi, train_losses=None):
     from repro_torch.launch import mesh as M
     from repro_torch.launch import train as TL
     from repro_torch.models import build_model
-    from repro_torch.optim.adamw import AdamWConfig, tree_leaves
+    from repro_torch.optim.adamw import AdamWConfig, tree_leaves, tree_map
 
     store = ROOT / "build" / "chip_smoke_dist_store"
     store.parent.mkdir(parents=True, exist_ok=True)
@@ -4544,6 +4552,9 @@ def dist_phase(smi, train_losses=None):
             dense, dense_cache = prefill(params, batch)
             torch.cuda.synchronize()
             dense_s = time.perf_counter() - t1
+            # The steps' DTensors are whole on one rank.
+            dense = dense.to_local()
+            dense_cache = tree_map(SH.local, dense_cache)
             os.environ["REPRO_MOE_EP"] = "1"
             prefill(params, batch)          # warm-up: the model group
             FA.launches = FA.tc_launches = 0
@@ -4553,13 +4564,14 @@ def dist_phase(smi, train_losses=None):
                 logits, cache = prefill(params, batch)
                 torch.cuda.synchronize()
                 prefill_s = time.perf_counter() - t1
+                logits = logits.to_local()
                 toks = [logits[:, -1].argmax(-1)]
                 pos = batch["tokens"].shape[1]
                 for i in range(DIST_DECODE_STEPS):
                     lg, cache = decode(params, {"token": toks[-1][:, None],
                                                 "pos": pos + i,
                                                 "cache": cache})
-                    toks.append(lg[:, -1].argmax(-1))
+                    toks.append(lg.to_local()[:, -1].argmax(-1))
             launches, tc = FA.launches, FA.tc_launches
             os.environ["REPRO_MOE_EP"] = "0"
             want_toks = [dense[:, -1].argmax(-1)]
@@ -4588,7 +4600,11 @@ def dist_phase(smi, train_losses=None):
         held = [_hold_fa(f"dist prefill launch {i}", a.pop("q"), a.pop("k"),
                          a.pop("v"), a, got=o, quiet=True)
                 for i, (a, o) in enumerate(rec.calls)]
-        del rec, params, cache, dense_cache
+        del rec, cache, dense_cache
+        torch.cuda.empty_cache()
+        model_calls = _model_group_calls(mesh, prefill, decode, params,
+                                         cfg.vocab)
+        del params
         torch.cuda.empty_cache()
         print(f"(c) {DIST_MOE_ARCH} full width and depth, REPRO_MOE_EP=1 on "
               f"the (1, 1) mesh ({cfg.moe.n_experts} local experts), long "
@@ -4599,7 +4615,9 @@ def dist_phase(smi, train_losses=None):
               f"{ratio:.3g}), {DIST_DECODE_STEPS} decode steps' greedy "
               f"tokens equal the unsharded decode's, peak {peak:.2f} GiB "
               f"(placing the parameters {init_peak:.2f}); "
-              f"B4 {launches} launches (tc_launches {tc})", flush=True)
+              f"B4 {launches} launches (tc_launches {tc}); collectives on "
+              f"the \"model\" group, a prefill and a decode step of each "
+              f"dispatch under the cost counter: {model_calls}", flush=True)
         _print_held("  dist prefill flash_attention", held)
         out.update(prefill_ms=prefill_s * 1e3, dense_ms=dense_s * 1e3,
                    logits_ratio=ratio)
@@ -4608,6 +4626,36 @@ def dist_phase(smi, train_losses=None):
         os.environ.pop("REPRO_MOE_EP", None)
         dist.destroy_process_group()
         store.unlink(missing_ok=True)
+
+
+def _model_group_calls(mesh, prefill, decode, params, vocab):
+    """The collectives a prefill of the short set and one decode step of
+    phase 19 (c) issue on the one-rank mesh's "model" group, under the
+    dense dispatch and the expert-parallel body (``launch.cost.trace``'s
+    ``group_calls``): {dispatch: calls}, which must be 0."""
+    import torch
+
+    from repro_torch.launch import cost as C
+
+    toks = torch.as_tensor(_pad_left(_request_sets(vocab)[0][1]),
+                           device=DEVICE)
+
+    def steps():
+        logits, cache = prefill(params, {"tokens": toks})
+        tok = logits.to_local()[:, -1].argmax(-1)[:, None]
+        decode(params, {"token": tok, "pos": toks.shape[1], "cache": cache})
+
+    name = mesh.get_group("model").group_name
+    out = {}
+    with torch.no_grad():
+        for ep, dispatch in (("0", "dense"), ("1", "expert-parallel")):
+            os.environ["REPRO_MOE_EP"] = ep
+            out[dispatch] = C.trace(steps).group_calls.get(name, 0)
+    os.environ["REPRO_MOE_EP"] = "0"
+    if any(out.values()):
+        raise AssertionError(f"the one-rank serve steps issued collectives "
+                             f"on the \"model\" group: {out}")
+    return out
 
 
 def _fake_launch_checks():
@@ -4720,7 +4768,7 @@ def _real_prefill_cell(smi, params, gen):
         peak = torch.cuda.max_memory_allocated() - base
         launches = FA.launches - n0
         calls = tr.calls.get("repro_torch.flash_attention", 0)
-        logits = tr.out[0]
+        logits = tr.out[0].to_local()
         finite = bool(torch.isfinite(logits.float()).all())
     finally:
         dist.destroy_process_group()
@@ -4806,7 +4854,7 @@ def _real_decode_cells(smi, params, gen):
                                             dtype=torch.int32),
                      "pos": S, "cache": tree_map(leaf, specs[1]["cache"])}
             tr = C.trace(step, placed, batch)
-            logits = tr.out[0]
+            logits = tr.out[0].to_local()
             split = rec["flops_breakdown"]
             want = split["dot"] + split["kernel"]
             calls = rec["kernel_calls"]["decode_attention_standin"]
@@ -4881,7 +4929,10 @@ def _standin_formula(arch, shape_name, variant):
     (b) cell, from the reference's marker formulas summed over the
     config's layers: under the unit's remat two forwards and a backward
     a layer (flash x 2.5, the scan x 3), decode one fused call a layer
-    over the cache's ``seq_len`` slots."""
+    over this rank's share of the cache, as the reference's
+    ``shard_map`` divides it over "model" 16: its kv heads where 16
+    divides them, else its ``seq_len`` / 16 slots where 16 divides
+    those."""
     from repro_torch.configs import SHAPES, get_config
 
     cfg, shape = get_config(arch), SHAPES[shape_name]
@@ -4896,7 +4947,8 @@ def _standin_formula(arch, shape_name, variant):
     K, hd = cfg.n_kv_heads, cfg.resolved_head_dim
     G = cfg.n_heads // K
     if shape.kind == "decode":
-        return cfg.n_layers * 4 * B * K * G * hd * T
+        share = 16 if K % 16 == 0 or T % 16 == 0 else 1
+        return cfg.n_layers * 4 * B * K * G * hd * T // share
     fwd = 4 * B * T * K * G * hd * T // 2             # causal (101)
     return cfg.n_layers * (2 * fwd + fwd * 5 // 2)
 
@@ -5010,6 +5062,14 @@ def dryrun_phase(smi):
                                      base["flops_breakdown"]["dot"]):
             raise AssertionError(f"{arch} {shape} {variant}: dot not below "
                                  f"base's")
+    for (arch, shape, variant), rec in recs.items():
+        m = rec["memory"]
+        if "train" not in shape and (m["step_argument_bytes"]
+                                     != m["argument_bytes"]):
+            raise AssertionError(f"{arch} {shape} {variant}: the step "
+                                 f"holds {m['step_argument_bytes']} bytes "
+                                 f"of arguments, its placements "
+                                 f"{m['argument_bytes']}")
     phase_s = time.perf_counter() - t0
     print(f"dryrun phase {phase_s:.1f} s (budget {DRYRUN_BUDGET_S:.0f} s): "
           + ", ".join(f"({k}) {v:.1f} s" for k, v in parts.items()),

@@ -24,8 +24,11 @@ gradient summed over the batch axes (``Partial``), so the backward pass
 leaves each gradient on its parameter's placements.  A weight whose
 products are divided over "model" (:data:`TP_LEAVES`) is gathered to
 this rank's "model" shard (:func:`gather_tp`; the products are
-``distributed.tensor_parallel``'s); any other is gathered whole
-(:func:`gather`), its gradient replicated over "model".
+``distributed.tensor_parallel``'s); a leaf of :data:`KEPT_LEAVES` (the
+MoE's experts) stays a DTensor for its layer to take its shards; any
+other is gathered whole (:func:`gather`), its gradient replicated over
+"model".  A serve step's cache leaf is a DTensor on
+:func:`cache_leaf_spec`'s placements.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ import threading
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 _state = threading.local()
@@ -261,6 +265,27 @@ def batch_size_of(mesh, axes) -> int:
     return n
 
 
+def cache_leaf_spec(shape, n_lead: int, mesh) -> tuple:
+    """The reference's rule for a decode-cache leaf of global ``shape``
+    (``cache_shardings``, ``repro/distributed/steps.py:58-86``): the
+    batch dim (``n_lead``, after a stacked unit dim) over the batch axes
+    where they divide it, and the largest later dim that "model" divides
+    over "model" (of equal ones the last).  The serve steps place the
+    cache by it and the layers read and write their cache leaves by it
+    (``distributed.tensor_parallel.cache_part``)."""
+    b_axes = rules_for_mesh(mesh)["batch"]
+    model = mesh_shape(mesh)["model"]
+    parts = [None] * len(shape)
+    if len(shape) > n_lead and shape[n_lead] % batch_size_of(mesh,
+                                                             b_axes) == 0:
+        parts[n_lead] = tuple(b_axes)
+    cand = [(shape[i], i) for i in range(n_lead + 1, len(shape))
+            if shape[i] % model == 0 and shape[i] >= model]
+    if cand:
+        parts[max(cand)[1]] = ("model",)
+    return tuple(parts)
+
+
 def grad_placements(mesh, model=None) -> list:
     """Placements of a gathered weight's gradient: summed over the batch
     axes, ``model`` (default replicated) over "model"."""
@@ -322,26 +347,83 @@ def gather_tp(x, dim: int):
 #: a weight replicated (the whisper units' paths match no rule), the
 #: consumer's ``constrain`` hint ("kv_heads", "ff", "vocab") divides the
 #: product.  :func:`gather_tree` gathers them with :func:`gather_tp`,
-#: every other leaf whole: Mamba-2's and RG-LRU's products (D15c-3),
-#: the router and the dense experts (D15c-2).
+#: the leaves of :data:`KEPT_LEAVES` not at all, every other leaf
+#: whole: Mamba-2's and RG-LRU's products (D15c-3) and the router.
 TP_LEAVES = {"wq": 1, "wk": 1, "wv": 1, "wo": 0,     # (d, H, hd), (H, hd, d)
              "wi": 1, "wg": 1, "wd": 0,              # (d, ff), (ff, d)
              "embed": 0, "unembed": 1}               # (V, d), (d, V)
 
+#: The leaves whose layer takes its own shards (ROADMAP D15c-2a): the
+#: MoE's experts (E, d, ff) and (E, ff, d), divided over "model" along
+#: the experts and over the batch axes along d (``param_specs``).
+#: :func:`gather_tree` leaves them as they are; ``models.moe`` gathers
+#: what its dispatch needs (the expert-parallel body and the dense
+#: dispatch's prefill: d whole; the dense decode: nothing).
+KEPT_LEAVES = ("moe_wi", "moe_wg", "moe_wd")
 
-def gather_tree(tree, keep: Tuple[str, ...] = (), name: str = ""):
+
+def gather_tree(tree, name: str = ""):
     """The weights of nested dicts / lists gathered: a leaf named in
-    :data:`TP_LEAVES` by :func:`gather_tp` along its dim, any other
-    whole (:func:`gather`); the dict entries named in ``keep`` stay as
-    they are."""
+    :data:`TP_LEAVES` by :func:`gather_tp` along its dim, one in
+    :data:`KEPT_LEAVES` not at all, any other whole (:func:`gather`)."""
     if isinstance(tree, dict):
-        return {k: v if k in keep else gather_tree(v, keep, k)
-                for k, v in tree.items()}
+        return {k: gather_tree(v, k) for k, v in tree.items()}
     if isinstance(tree, list):
-        return [gather_tree(v, keep, name) for v in tree]
+        return [gather_tree(v, name) for v in tree]
+    if name in KEPT_LEAVES:
+        return tree
     if name in TP_LEAVES:
         return gather_tp(tree, TP_LEAVES[name])
     return gather(tree)
+
+
+def as_dtensor(local_t, mesh, placements, shape) -> DTensor:
+    """This rank's ``local_t`` as the shard of a DTensor of global
+    ``shape`` on ``placements`` (no collective, and no tensor of the
+    global shape: the cost counter would count a meta one's bytes)."""
+    stride, n = [], 1
+    for d in reversed(tuple(shape)):
+        stride.append(n)
+        n *= d
+    return DTensor.from_local(local_t.contiguous(), mesh, tuple(placements),
+                              run_check=False, shape=torch.Size(shape),
+                              stride=tuple(reversed(stride)))
+
+
+def unit_of(x, u: int):
+    """Unit ``u`` of a stacked leaf (its dim 0, never divided): a
+    DTensor's taken from its local shard and wrapped again, its
+    placements moved down a dim (no DTensor op: their sharding
+    propagation runs the op on the global shape), else ``x[u]``."""
+    if not isinstance(x, DTensor):
+        return x[u]
+    place = tuple(Shard(p.dim - 1) if isinstance(p, Shard) else p
+                  for p in x.placements)
+    return as_dtensor(x.to_local()[u], x.device_mesh, place, x.shape[1:])
+
+
+def stack_units(xs):
+    """Equal leaves stacked along a new dim 0: DTensors by their local
+    shards (:func:`unit_of`'s inverse), else ``torch.stack``."""
+    if not isinstance(xs[0], DTensor):
+        return torch.stack(xs)
+    place = tuple(Shard(p.dim + 1) if isinstance(p, Shard) else p
+                  for p in xs[0].placements)
+    return as_dtensor(torch.stack([x.to_local() for x in xs]),
+                      xs[0].device_mesh, place,
+                      (len(xs),) + tuple(xs[0].shape))
+
+
+def place(t: torch.Tensor, mesh, placements) -> DTensor:
+    """A tensor whole on every rank as a DTensor on ``placements``: each
+    rank keeps its slice (no collective)."""
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    shape, offset = compute_local_shape_and_global_offset(
+        t.shape, mesh, tuple(placements))
+    part = t[tuple(slice(o, o + n) for o, n in zip(offset, shape))]
+    return as_dtensor(part, mesh, placements, t.shape)
 
 
 def local(x) -> torch.Tensor:
@@ -357,14 +439,41 @@ def batch_index(mesh, axes) -> int:
     return idx
 
 
-def gather_batch(x: torch.Tensor, mesh, axes) -> torch.Tensor:
-    """The global batch of a local batch shard (rows over ``axes``,
-    pod-major); the gradient is summed back over ``axes``."""
+def gather_batch(x: torch.Tensor, mesh, axes, dim: int = 0) -> torch.Tensor:
+    """``x`` divided over ``axes`` along ``dim`` (pod-major) made whole:
+    the global batch of a local batch shard; the gradient is summed back
+    over ``axes`` (a reduce-scatter)."""
     names = _axis_names(mesh)
-    shard = [Shard(0) if n in axes else Replicate() for n in names]
+    shard = [Shard(dim) if n in axes else Replicate() for n in names]
     grad = [Partial() if n in axes else Replicate() for n in names]
-    return DTensor.from_local(x, mesh, shard).full_tensor(
+    return DTensor.from_local(x, mesh, shard, run_check=False).full_tensor(
         grad_placements=grad)
+
+
+class _AllReduceBatch(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, groups):
+        ctx.groups = groups
+        x = x.contiguous().clone()
+        for g in groups:
+            dist.all_reduce(x, group=g)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        for grp in ctx.groups:
+            dist.all_reduce(g, group=grp)
+        return g, None
+
+
+def all_reduce_batch(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """The sum over the ranks of ``axes`` of each rank's ``x``, whole on
+    each: one all-reduce an axis forward and, its own adjoint, backward
+    (each rank's loss is its rows', the gradient their sum)."""
+    if not axes:
+        return x
+    return _AllReduceBatch.apply(x, tuple(mesh.get_group(a) for a in axes))
 
 
 def local_rows(x: torch.Tensor, mesh, axes) -> torch.Tensor:

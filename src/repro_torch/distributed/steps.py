@@ -16,9 +16,11 @@ batch-group size, so the gradients are those of the loss's mean over
 the global batch.  The update is AdamW on the local shards, with the
 global norm over the whole mesh.
 
-The prefill and decode steps split the batch the same way and gather
-the logits and cache back over the batch axes, so they take and return
-global tensors.
+The prefill and decode steps take and return DTensors on the
+reference's placements (``batch_shardings``, ``cache_shardings``,
+``_logits_sharding``): each rank runs its rows over its shard of the
+cache, the cache divided over "model" along the dim
+``sharding.cache_leaf_spec`` picks, and never holds more of either.
 
 What "model" divides (ROADMAP D15c-1): attention, the dense MLP (also
 in RG-LRU layers and as the MoE's shared expert), the embedding and the
@@ -27,14 +29,15 @@ head, Megatron-style (``distributed.tensor_parallel``), each where
 and, where they divide, its kv heads (else whole k/v, each q head with
 its kv head), its ff columns and its vocab rows; the row-parallel
 products and the embedding are summed over "model", the loss is the
-vocab-parallel cross-entropy.  The serve steps hand each rank its kv
-heads of the cache it is given and gather the logits (which the
-reference replicates over "model") and the new cache back over
-"model".  What it does not divide: Mamba-2's and RG-LRU's products
-(D15c-3), which every "model" rank computes for its batch rows in
-full, and the router and the dense MoE's experts, whose dispatch
-gathers the global batch on every rank (D15c-2).  The expert-parallel
-MoE (``REPRO_MOE_EP=1``) divides the experts.
+vocab-parallel cross-entropy.  Decode attention runs over the cache's
+shard (its kv heads, slots or head dim: ``models.attention``), and the
+serve steps gather the logits over "model" (the reference replicates
+them).  The dense MoE divides its experts over "model" and its products
+over the batch axes as the reference's partitioner does, and the
+expert-parallel MoE (``REPRO_MOE_EP=1``) its experts
+(``models.moe``; ROADMAP D15c-2a).  What it does not divide: Mamba-2's
+and RG-LRU's products (D15c-3), which every "model" rank computes for
+its batch rows in full, their decode states gathered on entry.
 :func:`build_cell` gives the dry-run one (arch x shape x mesh) cell:
 the step, its arguments as meta tensors and their placements.
 """
@@ -46,7 +49,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 import torch.distributed as dist
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.distributed import sharding as SH
@@ -104,26 +107,11 @@ def _cache_batch_dim(path) -> int:
 def cache_specs(cfg: ModelConfig, mesh, cache_spec) -> Any:
     """Decode-cache specs: the batch over the batch axes, and the
     largest non-batch dim that "model" divides over "model" (heads where
-    they divide, else the KV sequence)."""
-    b_axes = SH.rules_for_mesh(mesh)["batch"]
-    batch_size = SH.batch_size_of(mesh, b_axes)
-    model_size = SH.mesh_shape(mesh)["model"]
-
-    def leaf_spec(path, leaf):
-        n_lead = _cache_batch_dim(path)
-        ndim = leaf.ndim
-        parts = [None] * ndim
-        if ndim > n_lead and leaf.shape[n_lead] % batch_size == 0:
-            parts[n_lead] = tuple(b_axes)
-        cand = [(leaf.shape[i], i) for i in range(n_lead + 1, ndim)
-                if leaf.shape[i] % model_size == 0
-                and leaf.shape[i] >= model_size]
-        if cand:
-            _, i = max(cand)
-            parts[i] = ("model",)
-        return tuple(parts)
-
-    return SH.map_with_path(leaf_spec, cache_spec)
+    they are largest, else the KV sequence or the head dim):
+    ``sharding.cache_leaf_spec``, the rule the layers read too."""
+    return SH.map_with_path(
+        lambda path, leaf: SH.cache_leaf_spec(
+            tuple(leaf.shape), _cache_batch_dim(path), mesh), cache_spec)
 
 
 def cache_shardings(cfg: ModelConfig, mesh, cache_spec) -> Any:
@@ -173,18 +161,20 @@ def place_train_state(host, mesh, placements):
     return state
 
 
+def _on_mesh(mesh, t) -> torch.Tensor:
+    """A batch entry as a tensor on the mesh's device."""
+    if isinstance(t, torch.Tensor):
+        return t if t.device.type == mesh.device_type else t.to(
+            mesh.device_type)
+    return torch.as_tensor(np.asarray(t), device=mesh.device_type)
+
+
 def _split(mesh, batch: Dict, axes) -> Dict:
     """This rank's rows of each batch entry (all rows where ``axes`` is
     empty), as tensors on the mesh's device."""
     out = {}
-    kind = mesh.device_type
     for k, v in batch.items():
-        if k == "pos":
-            t = v
-        elif isinstance(v, torch.Tensor):
-            t = v if v.device.type == kind else v.to(kind)
-        else:
-            t = torch.as_tensor(np.asarray(v), device=kind)
+        t = v if k == "pos" else _on_mesh(mesh, v)
         out[k] = SH.local_rows(t, mesh, axes) if axes and k != "pos" else t
     return out
 
@@ -221,7 +211,7 @@ def make_train_step(cfg: ModelConfig, mesh, opt: Optional[AdamWConfig] = None,
         local = _split(mesh, batch, axes)
         aux = None
         with SH.use_mesh(mesh, batch_axes=axes):
-            if cfg.moe is not None and axes and MOE.kept_sharded(cfg):
+            if cfg.moe is not None and axes and MOE.expert_parallel(cfg):
                 loss, aux = model.train_loss(params, local, return_aux=True)
             else:
                 loss = model.train_loss(params, local)
@@ -278,109 +268,93 @@ def host_state(state) -> Any:
 # ---------------------------------------------------------------------------
 
 
-def _gather_rows(tree, mesh, axes, path_dim=_cache_batch_dim):
-    """Each leaf's rows gathered over ``axes`` (batch dim per leaf)."""
-    if not axes:
-        return tree
-    names = mesh.mesh_dim_names
-
+def place_serve_batch(cfg: ModelConfig, mesh, batch: Dict) -> Dict:
+    """A serve step's batch on the placements of :func:`batch_shardings`:
+    a DTensor entry or cache leaf as it is, a plain one (whole on every
+    rank) cut to this rank's shard without a collective; ``pos`` as it
+    is."""
     def one(path, t):
-        d = path_dim(path)
-        place = [Shard(d) if n in axes else Replicate() for n in names]
-        return DTensor.from_local(t, mesh, place).full_tensor()
+        if path[0] == "pos" or isinstance(t, DTensor):
+            return t
+        t = _on_mesh(mesh, t)
+        if path[0] == "cache":
+            spec = SH.cache_leaf_spec(tuple(t.shape),
+                                      _cache_batch_dim(path), mesh)
+        else:
+            spec = batch_specs(cfg, mesh, {path[0]: t})[path[0]]
+        return SH.place(t, mesh, SH.spec_to_placements(spec, mesh))
 
-    return SH.map_with_path(one, tree)
-
-
-def _local_cache(tree, mesh, axes):
-    if not axes:
-        return tree
-
-    def one(path, t):
-        d = _cache_batch_dim(path)
-        return SH.local_rows(t.transpose(0, d), mesh, axes).transpose(0, d)
-
-    return SH.map_with_path(one, tree)
+    return SH.map_with_path(one, batch)
 
 
-def _kv_dim(path) -> Optional[int]:
-    """The kv-head dim of an attention cache leaf (``attn``, ``xattn``:
-    k, v and an int8 cache's scales, (B, K, S, ...) after any unit dim),
-    or None."""
-    return _cache_batch_dim(path) + 1 if {"attn", "xattn"} & set(path) \
-        else None
-
-
-def _local_kv_heads(cfg: ModelConfig, cache):
-    """This "model" rank's kv heads of each attention cache leaf, where
-    they are divided over "model" (as ``wk`` and ``wv`` are).  Call it
-    inside ``use_mesh``."""
-    if not TP.divided(cfg.n_kv_heads):
-        return cache
-    start, stop = TP.shard_range(TP.local(cfg.n_kv_heads))
-
-    def one(path, t):
-        d = _kv_dim(path)
-        return t if d is None else t.narrow(d, start, stop - start)
-
-    return SH.map_with_path(one, cache)
-
-
-def _whole_over_model(cfg: ModelConfig, logits, cache):
-    """The logits (this rank's vocab columns where the vocab is divided
-    over "model") and the cache (its kv heads where they are divided)
-    gathered over "model": the reference's out shardings replicate the
-    logits over "model"."""
+def _serve_logits(cfg: ModelConfig, mesh, logits):
+    """This rank's (B_l, T, V_l) logits gathered over the vocab where
+    "model" divides it (the reference replicates them over "model"), as
+    a DTensor on :func:`_logits_sharding`.  Call it inside
+    ``use_mesh``."""
     if TP.divided(cfg.vocab):
         logits = TP.gather_from_model(logits, -1)
-    if TP.divided(cfg.n_kv_heads):
-        cache = SH.map_with_path(
-            lambda path, t: t if _kv_dim(path) is None else
-            TP.gather_from_model(t, _kv_dim(path)), cache)
-    return logits, cache
+    B = logits.shape[0] * SH.batch_size_of(mesh, SH.current_batch_axes())
+    return SH.as_dtensor(logits, mesh, _logits_sharding(mesh, B),
+                         (B,) + tuple(logits.shape[1:]))
 
 
 def make_prefill_step(cfg: ModelConfig, mesh):
     """-> (fn, parameter placements); ``fn(params, batch)`` is the
-    model's prefill under the mesh on the global batch: (logits,
-    cache), gathered over the batch axes and "model"."""
+    model's prefill under the mesh.  ``batch`` holds DTensors on
+    :func:`batch_shardings` (plain tensors, whole on every rank, are
+    cut to them: :func:`place_serve_batch`); each rank runs its rows.
+    Returns DTensors: the logits on :func:`_logits_sharding` and each
+    cache leaf on :func:`cache_shardings`, every rank holding only its
+    shard."""
     model = build_model(cfg, mesh.device_type)
     p_place = SH.param_placements(param_shapes(cfg), mesh)
 
     @torch.no_grad()
     def fn(params, batch):
-        axes = _batch_axes(mesh, len(batch["tokens"]))
-        local = _split(mesh, batch, axes)
+        batch = place_serve_batch(cfg, mesh, batch)
+        axes = _batch_axes(mesh, batch["tokens"].shape[0])
+        local = {k: SH.local(v) for k, v in batch.items()}
         with SH.use_mesh(mesh, batch_axes=axes):
-            logits, cache = _whole_over_model(cfg,
-                                              *model.prefill(params, local))
-        return (_gather_rows(logits, mesh, axes, lambda _: 0),
-                _gather_rows(cache, mesh, axes))
+            logits, cache = model.prefill(params, local)
+            return _serve_logits(cfg, mesh, logits), cache
 
     return fn, p_place
 
 
+def _host_int(pos) -> int:
+    """A decode's ``pos``: an int, or a host scalar tensor (the
+    dry-run's argument, real under its fake tensor mode) read on the
+    host."""
+    if not isinstance(pos, torch.Tensor):
+        return int(pos)
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+
+    with unset_fake_temporarily():
+        return int(pos)
+
+
 def make_decode_step(cfg: ModelConfig, mesh):
     """-> (fn, parameter placements); ``fn(params, batch)`` is one decode
-    step under the mesh on the global batch {"token", "pos", "cache"}:
-    (logits, new cache), gathered over the batch axes and "model".  Each
-    rank decodes its rows, and its kv heads where "model" divides them,
-    of the global cache it is given."""
+    step under the mesh on {"token", "pos", "cache"}, DTensors on
+    :func:`batch_shardings` (plain tensors, whole on every rank, are
+    cut to them) and ``pos`` an int or a host scalar: (the logits on
+    :func:`_logits_sharding`, the new cache on :func:`cache_shardings`),
+    DTensors.  Each rank decodes its rows over its shard of the cache
+    (``models.attention.attention_decode``)."""
     model = build_model(cfg, mesh.device_type)
     p_place = SH.param_placements(param_shapes(cfg), mesh)
 
     @torch.no_grad()
     def fn(params, batch):
-        axes = _batch_axes(mesh, len(batch["token"]))
-        local = _split(mesh, {k: v for k, v in batch.items()
-                              if k != "cache"}, axes)
+        batch = place_serve_batch(cfg, mesh, batch)
+        axes = _batch_axes(mesh, batch["token"].shape[0])
+        local = {k: v if k == "cache" else SH.local(v)
+                 for k, v in batch.items()}
+        local["pos"] = _host_int(batch["pos"])
         with SH.use_mesh(mesh, batch_axes=axes):
-            local["cache"] = _local_kv_heads(
-                cfg, _local_cache(batch["cache"], mesh, axes))
-            logits, cache = _whole_over_model(
-                cfg, *model.decode_step(params, local))
-        return (_gather_rows(logits, mesh, axes, lambda _: 0),
-                _gather_rows(cache, mesh, axes))
+            logits, cache = model.decode_step(params, local)
+            return _serve_logits(cfg, mesh, logits), cache
 
     return fn, p_place
 
@@ -415,8 +389,8 @@ def build_cell(cfg: ModelConfig, shape: ShapeConfig, mesh):
     state, or the serve parameters in bfloat16, and the batch of
     :func:`~repro_torch.models.api.input_specs`); the placements each
     argument has on the reference's mesh (``None``: replicated).  The
-    port's serve steps take and return global batches: they split the
-    rows over the batch axes themselves."""
+    serve steps take and return DTensors on those placements, each rank
+    holding its shard."""
     specs = input_specs(cfg, shape)
     b_place = batch_shardings(cfg, mesh, specs)
     if shape.kind == "train":

@@ -17,7 +17,17 @@ Megatron's pieces, each over the active mesh's "model" group
   * :func:`embed_lookup`: a vocab-parallel embedding lookup (the rows
     this rank does not hold masked to 0, then summed over "model");
   * :func:`cross_entropy`: a vocab-parallel cross-entropy, in the form of
-    ``models.common.cross_entropy``.
+    ``models.common.cross_entropy``;
+  * the decode cache divided over "model" (ROADMAP D15c-2a), each leaf
+    along the dim ``sharding.cache_leaf_spec`` picks: :func:`cache_part`
+    reads a leaf, :func:`relayout` moves it between dims (a local slice,
+    an all-gather or an all-to-all), :func:`to_cache` and
+    :func:`cache_like` make a layer's new leaf the serve steps' DTensor;
+    :func:`softmax_over_model` is decode attention's softmax over slots
+    divided over "model" (an all-reduce of the max and one of the sum;
+    :func:`reduce_from_model` adds the partial p.v), and
+    :func:`from_next` moves a window cache's slot across shards (a
+    collective-permute).
 
 Where there is no mesh, or its "model" axis has one rank, every piece
 is the identity (and the two vocab-parallel pieces the plain lookup and
@@ -36,6 +46,7 @@ from typing import NamedTuple, Optional
 
 import torch
 import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Shard
 
 from repro_torch.distributed import sharding as SH
 
@@ -186,3 +197,114 @@ def cross_entropy(logits, labels, vocab: Optional[int] = None):
         sumexp, gold = reduce_from_model(torch.stack([sumexp, gold])
                                          ).unbind(0)
     return torch.log(sumexp) + m[..., 0] - gold
+
+
+# -- the decode cache divided over "model" --------------------------------------
+
+
+class CachePart(NamedTuple):
+    """A cache leaf as a layer reads it: this rank's ``local`` tensor, the
+    dim divided over "model" (None: whole over "model") and the leaf's
+    global shape."""
+    local: torch.Tensor
+    dim: Optional[int]
+    shape: tuple
+
+
+def cache_part(t) -> CachePart:
+    """A cache leaf: a DTensor (the serve steps') read by its placement
+    on "model", a plain tensor whole."""
+    if not isinstance(t, DTensor):
+        return CachePart(t, None, tuple(t.shape))
+    names = t.device_mesh.mesh_dim_names
+    i = names.index("model")
+    place = t.placements[i]
+    dim = place.dim if (isinstance(place, Shard)
+                        and t.device_mesh.size(i) > 1) else None
+    return CachePart(t.to_local(), dim, tuple(t.shape))
+
+
+def relayout(t, have: Optional[int], want: Optional[int]):
+    """``t``, divided over "model" along ``have`` (None: whole), divided
+    along ``want`` instead: this rank's slice of a whole tensor (no
+    collective), the whole of a divided one (an all-gather), or another
+    dim's slice (an all-to-all).  The identity at "model" 1."""
+    mg = model_group()
+    if mg is None or have == want:
+        return t
+    if have is None:
+        n = t.shape[want] // mg.size
+        return t.narrow(want, mg.rank * n, n)
+    if want is None:
+        return gather_from_model(t, have)
+    chunks = torch.stack(t.chunk(mg.size, dim=want))
+    out = torch.empty_like(chunks)
+    dist.all_to_all_single(out, chunks, group=mg.group)
+    return torch.cat(out.unbind(0), dim=have)
+
+
+def _cache_dim(spec) -> Optional[int]:
+    return next((i for i, a in enumerate(spec) if a == ("model",)), None)
+
+
+def to_cache(t, have: Optional[int] = None):
+    """A layer's new cache leaf ``t`` (this rank's batch rows; divided
+    over "model" along ``have``, or whole) as the serve steps hold it:
+    under a mesh a DTensor of this rank's shard on
+    ``sharding.cache_leaf_spec``'s placements for the leaf's global
+    shape, cut or moved from ``t`` (never gathered whole first); ``t``
+    itself without a mesh."""
+    mesh = SH.current_mesh()
+    if mesh is None:
+        return t
+    mg = model_group()
+    shape = list(t.shape)
+    shape[0] *= SH.batch_size_of(mesh, SH.current_batch_axes())
+    if have is not None and mg is not None:
+        shape[have] *= mg.size
+    spec = SH.cache_leaf_spec(shape, 0, mesh)
+    want = _cache_dim(spec) if mg is not None else None
+    return SH.as_dtensor(relayout(t, have, want), mesh,
+                         SH.spec_to_placements(spec, mesh), shape)
+
+
+def cache_like(orig, t, have: Optional[int] = None):
+    """``t`` (divided over "model" along ``have``, or whole) in the layout
+    of the cache leaf ``orig`` it replaces: a DTensor of ``orig``'s
+    placements where ``orig`` is one, else ``t``."""
+    if not isinstance(orig, DTensor):
+        return t
+    return SH.as_dtensor(relayout(t, have, cache_part(orig).dim),
+                         orig.device_mesh, orig.placements, orig.shape)
+
+
+def softmax_over_model(s):
+    """The softmax of ``s`` along its last dim, that dim divided over
+    "model": the max and the sum of the exponentials each all-reduced
+    (``torch.softmax`` at "model" 1)."""
+    mg = model_group()
+    if mg is None:
+        return torch.softmax(s, dim=-1)
+    m = s.amax(dim=-1, keepdim=True)
+    dist.all_reduce(m, op=dist.ReduceOp.MAX, group=mg.group)
+    e = torch.exp(s - m)
+    total = e.sum(dim=-1, keepdim=True)
+    dist.all_reduce(total, group=mg.group)
+    return e / total
+
+
+def from_next(t):
+    """Each "model" rank's ``t`` from the next rank (the last rank's from
+    the first): one send and one receive a rank, a collective-permute.
+    ``t`` itself at "model" 1."""
+    mg = model_group()
+    if mg is None:
+        return t
+    t = t.contiguous()
+    out = torch.empty_like(t)
+    rank = lambda i: dist.get_global_rank(mg.group, i % mg.size)  # noqa
+    ops = [dist.P2POp(dist.isend, t, rank(mg.rank - 1), mg.group),
+           dist.P2POp(dist.irecv, out, rank(mg.rank + 1), mg.group)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return out

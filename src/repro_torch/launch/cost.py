@@ -27,9 +27,12 @@ and counts what it dispatches, rank 0's share:
     (``torch.distributed.all_reduce``, ``broadcast``), by kind: its
     output bytes on this rank and its ring traffic for a group of k
     (:data:`RING`, the reference's multipliers); a broadcast counts as
-    a collective-permute (it moves its output once), and a collective
-    over a group of one rank moves nothing and is not counted (XLA drops
-    it from the reference's program);
+    a collective-permute (it moves its output once), so does a send and
+    receive pair, counted once at its receive; a c10d op that returns
+    no tensor (an all-to-all, a receive) has its output buffer, its
+    first tensor argument, counted as its output; a collective over a
+    group of one rank moves nothing and is not counted (XLA drops it
+    from the reference's program);
   * memory: the peak of the live storages the step made, outputs
     included while they live (the eager ``temp``).
 
@@ -93,7 +96,6 @@ COLLECTIVES = {
     "alltoall_base_": "all-to-all",
     "broadcast": "collective-permute",
     "broadcast_": "collective-permute",
-    "send": "collective-permute",
     "recv_": "collective-permute",
 }
 _COLLECTIVE_NS = ("_c10d_functional", "c10d_functional", "c10d")
@@ -207,6 +209,9 @@ class _Counter(TorchDispatchMode):
         outs = _tensors(out)
         out_b = sum(_nbytes(t) for t in outs)
         k = 1
+        if kind is not None and not outs:
+            buf = _tensors((args, kwargs))
+            out_b = _nbytes(buf[0]) if buf else 0
         if kind is not None:
             group = _group(args, kwargs)
             if group is not None:

@@ -12,8 +12,8 @@ counts (``launch.cost``) give each rank's share:
 
   * memory: the arguments' and outputs' bytes on the cell's placements
     (the reference's ``memory_analysis``), what the port's step takes and
-    returns on the rank (its serve steps take and return global
-    batches), and the peak of the live storages the step makes; whether
+    returns on the rank (the same: every step takes and returns its
+    shards), and the peak of the live storages the step makes; whether
     that total fits the card (:data:`CARD_MEMORY_BYTES`);
   * FLOPs (products as ``dot``, the custom ops as ``kernel``), eager
     bytes (the custom ops' own as ``kernel_bytes``), transcendentals;
@@ -251,15 +251,18 @@ def step_arguments(cfg, shape, mesh, specs, places):
     """The step's arguments as fake tensors (inside a ``FakeTensorMode``):
     the train state as DTensors on its placements (parameters requiring
     grad; AdamW's ``step`` a host scalar, which the update reads on the
-    host), or the serve parameters as DTensors; the batch whole (the
-    port's steps split it); a decode's ``pos`` the position after the
-    cache, ``seq_len``."""
+    host), or the serve parameters as DTensors; the batch whole for the
+    train step (it splits the rows itself), for the serve steps as
+    DTensors on its placements (the cache's leaves too); a decode's
+    ``pos`` the position after the cache, ``seq_len``, a host int32
+    scalar (the reference's 4-byte argument)."""
     import torch
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
 
     from repro_torch.optim.adamw import tree_map
 
     first, batch = specs
-    first_place, _ = places
+    first_place, b_place = places
     if shape.kind == "train":
         state = {"params": _fake_tree(first["params"],
                                       first_place["params"], mesh),
@@ -267,14 +270,18 @@ def step_arguments(cfg, shape, mesh, specs, places):
                                        first_place["params"], mesh)
                          for k in ("m", "v")}}
         tree_map(lambda p: p.requires_grad_(True), state["params"])
-        from torch._subclasses.fake_tensor import unset_fake_temporarily
         with unset_fake_temporarily():
             state["opt"]["step"] = torch.zeros((), dtype=torch.int32)
         arg0 = state
     else:
         arg0 = _fake_tree(first, first_place, mesh)
-    b = {k: (shape.seq_len if k == "pos" else _fake_tree(v, None, mesh))
-         for k, v in batch.items()}
+    if shape.kind == "train":
+        b_place = {}
+    b = {k: _fake_tree(v, b_place.get(k), mesh)
+         for k, v in batch.items() if k != "pos"}
+    if "pos" in batch:       # a host scalar, read on the host
+        with unset_fake_temporarily():
+            b["pos"] = torch.tensor(shape.seq_len, dtype=torch.int32)
     return arg0, b
 
 
@@ -403,8 +410,9 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str,
             "fits": total <= CARD_MEMORY_BYTES,
             "note": "argument/output bytes: the local shards on the "
                     "cell's placements (the reference's); step_*: what "
-                    "the port's step holds on the rank (serve steps take "
-                    "and return global batches); temp: the eager peak of "
+                    "the port's step holds on the rank (the train step "
+                    "takes the global batch; the serve steps take and "
+                    "return their shards); temp: the eager peak of "
                     "the live storages the step made; total = "
                     "step_argument + temp.  alias and generated code: "
                     "null, as eager torch donates no buffer and "

@@ -39,9 +39,13 @@ divides the weights a layer receives): the q, k and v projections are
 column-parallel, the output projection row-parallel, its partial sums
 added over "model"; where "model" divides the q heads but not the kv
 heads, k and v are whole on every rank and each rank's q heads attend
-to their own kv head (the reference's partitioner does the same).
-The ``flash`` variant hints the sequence-parallel layout of the
-reference's flash mode (ROADMAP D15c-2); the hints are no-ops here.
+to their own kv head (the reference's partitioner does the same).  The
+cache leaves a prefill returns and a decode step takes are the serve
+steps' DTensors, divided over "model" along the dim
+``sharding.cache_leaf_spec`` picks (kv heads, slots or head dim), and
+decode attends over a rank's shard (:func:`attention_decode`).  The
+``flash`` variant hints the sequence-parallel layout of the reference's
+flash mode (ROADMAP D15c-2b); the hints are no-ops here.
 
 Under the dry-run's ``flash`` variant (``REPRO_ATTN_IMPL=flash`` and
 ``REPRO_OPAQUE_KERNELS=1``, :func:`repro_torch.kernels.opaque.flash_mode`)
@@ -207,7 +211,7 @@ def _roped_qkv(cfg: ModelConfig, p, x, positions, kind, enc_out=None,
     kv_pos = positions if enc_out is None else enc_positions
     if kind != "cross":
         k = rope(k, kv_pos, cfg.rope_theta)
-    # The reference's flash mode streams q over the sequence (D15c-2).
+    # The reference's flash mode streams q over the sequence (D15c-2b).
     q_t = "act_seq" if opaque.flash_mode() else None
     q = constrain(q, ("batch", q_t, "kv_heads", None, None))
     k = constrain(k, ("batch", None, "kv_heads", None))
@@ -233,8 +237,10 @@ def attention_fullseq(cfg: ModelConfig, p: dict, x, positions, kind: str,
     global cache holds exactly the T prompt slots (no decode headroom,
     as the reference's serving engine asks), a cross cache the S encoder
     positions, and a bidirectional layer none; under ``REPRO_KV_INT8=1``
-    the caches are int8 with their scales.  Where the kv heads are
-    divided over "model", the cache holds this rank's."""
+    the caches are int8 with their scales, quantized from whole rows.
+    Under a mesh each cache leaf leaves as this rank's shard
+    (``tensor_parallel.to_cache``): cut from its k/v, or moved from its
+    kv heads by an all-to-all, never gathered whole."""
     q, k, v, _ = _roped_qkv(cfg, p, x, positions, kind, enc_out,
                             enc_positions)
     window = cfg.window if kind == "local" else None
@@ -256,8 +262,44 @@ def attention_fullseq(cfg: ModelConfig, p: dict, x, positions, kind: str,
             pad = (0, 0, w - kc.shape[2], 0)
             kc = torch.nn.functional.pad(kc, pad)
             vc = torch.nn.functional.pad(vc, pad)
-    return y, _maybe_quantize_cache({"k": kc.contiguous(),
-                                     "v": vc.contiguous()})
+    cache = _maybe_quantize_cache({"k": kc.contiguous(), "v": vc.contiguous()})
+    have = 1 if TP.divided(cfg.n_kv_heads) else None
+    return y, {n: TP.to_cache(t, have) for n, t in cache.items()}
+
+
+def _all_heads(cfg: ModelConfig, q):
+    """q (B, 1, K_l, G_l, hd) of this rank's heads -> all H heads (B, 1,
+    K, G, hd), gathered over "model" where the heads are divided (a
+    rank's q heads are contiguous in both of :func:`_layout`'s forms)."""
+    if not TP.divided(cfg.n_heads):
+        return q
+    B, hd = q.shape[0], q.shape[-1]
+    K = cfg.n_kv_heads
+    q = TP.gather_from_model(q.reshape(B, 1, -1, hd), 2)
+    return q.reshape(B, 1, K, cfg.n_heads // K, hd)
+
+
+def _own_heads(cfg: ModelConfig, o):
+    """o (B, 1, K, G, hd) of all heads -> this rank's (B, 1, K_l, G_l,
+    hd), the inverse of :func:`_all_heads`."""
+    if not TP.divided(cfg.n_heads):
+        return o
+    B, hd = o.shape[0], o.shape[-1]
+    K_l, G_l, _ = _layout(cfg)
+    h0, h1 = TP.shard_range(TP.local(cfg.n_heads))
+    return o.reshape(B, 1, -1, hd)[:, :, h0:h1].reshape(B, 1, K_l, G_l, hd)
+
+
+def _new_row(cfg: ModelConfig, row, work: Optional[int]):
+    """The new token's cache row (B, K', 1, ...) as the work layout
+    ``work`` of its leaf needs it: this rank's kv heads (1), or all K
+    heads (gathered where "model" divides them), whole or, at 3, this
+    rank's part of the last dim."""
+    if work == 1 or not TP.divided(cfg.n_kv_heads):
+        full = row
+    else:
+        full = TP.gather_from_model(row, 1)
+    return TP.relayout(full, None, 3) if work == 3 else full
 
 
 def attention_decode(cfg: ModelConfig, p: dict, x, cache: dict, pos: int,
@@ -268,7 +310,22 @@ def attention_decode(cfg: ModelConfig, p: dict, x, cache: dict, pos: int,
     key valid) is returned as it came.  A cache with scales (``"k_s"``)
     is int8: the new row is quantized, and the cache dequantized before
     the scores (under the ``flash`` stand-ins, the decode stand-in takes
-    it as it is)."""
+    it as it is).
+
+    Under a mesh each leaf is a DTensor divided over "model" along the
+    dim ``sharding.cache_leaf_spec`` picks (``tensor_parallel.
+    cache_part``), and the new cache keeps each leaf's placements.  By
+    the k/v leaves' dim: kv heads (1), as the weights divide them: each
+    rank attends with its heads; none (no dim divides): whole k/v, each
+    rank's q heads with their kv heads (:func:`_layout`); slots (2):
+    every rank takes all q heads over its slots, the softmax's max and
+    sum and the partial p.v all-reduced over "model", the new token
+    written by the rank whose slots hold ``pos`` (clamped to the global
+    S - 1, C6) and a window's shift moving one slot from each shard to
+    the one before (a collective-permute); head dim (3): every rank's
+    partial scores all-reduced, its part of p.v gathered.  An int8
+    cache's scales are read in the k/v leaves' layout (whole where k/v
+    divide their head dim), quantized from whole rows."""
     if kind not in ("causal", "local", "cross"):
         raise ValueError(kind)
     K_l, G_l, kv = _layout(cfg)
@@ -281,60 +338,111 @@ def attention_decode(cfg: ModelConfig, p: dict, x, cache: dict, pos: int,
         q = rmsnorm(q, p["q_scale"])
     q = rope(q, positions, cfg.rope_theta).reshape(B, 1, K_l, G_l, hd)
 
+    parts = {n: TP.cache_part(t) for n, t in cache.items()}
+    dk = parts["k"].dim
+    S = parts["k"].shape[2]
+    work = {n: dk if n in ("k", "v") or dk in (1, 2) else None
+            for n in parts}
+    loc = {n: TP.relayout(pt.local, pt.dim, work[n])
+           for n, pt in parts.items()}
+    S_l = loc["k"].shape[2]
+    first = TP.shard_range(S_l)[0] if dk == 2 else 0
+    slots = first + torch.arange(S_l, device=x.device)
     int8 = "k_s" in cache
     if kind == "cross":
-        new_cache = cache
-        valid = torch.ones((cache["k"].shape[2],), dtype=torch.bool,
-                           device=x.device)
+        new = loc
+        valid = torch.ones((S_l,), dtype=torch.bool, device=x.device)
     else:
         knew = _proj(x, p["wk"])
         vnew = _proj(x, p["wv"])
         if cfg.qk_norm:
             knew = rmsnorm(knew, p["k_scale"])
-        new = {"k": rope(knew, positions, cfg.rope_theta).transpose(1, 2),
-               "v": vnew.transpose(1, 2)}                 # (B, K, 1, hd)
+        rows = {"k": rope(knew, positions, cfg.rope_theta).transpose(1, 2),
+                "v": vnew.transpose(1, 2)}                # (B, K', 1, hd)
         if int8:
             for n in ("k", "v"):
-                new[n], new[n + "_s"] = _quant_kv(new[n])
+                rows[n], rows[n + "_s"] = _quant_kv(rows[n])
+        rows = {n: _new_row(cfg, r, work[n]) for n, r in rows.items()}
+        new = {}
         if kind == "local":
-            new_cache = {n: torch.cat([cache[n][:, :, 1:], new[n]], dim=2)
-                         for n in new}
-            W = new_cache["k"].shape[2]
-            n_valid = min(pos + 1, W)
-            valid = torch.arange(W, device=x.device) >= (W - n_valid)
+            for n, t in loc.items():
+                head = t[:, :, :1] if work[n] == 2 else rows[n]
+                t = torch.cat([t[:, :, 1:], TP.from_next(head)
+                               if work[n] == 2 else head], dim=2)
+                if work[n] == 2 and first + S_l == S:   # the last shard
+                    t[:, :, -1:] = rows[n]
+                new[n] = t
+            valid = slots >= (S - min(pos + 1, S))
         else:
-            S = cache["k"].shape[2]
             slot = min(max(pos, 0), S - 1)     # the reference's clamp (C6)
-            new_cache = {}
-            for n in new:
-                new_cache[n] = cache[n].clone()
-                new_cache[n][:, :, slot] = new[n][:, :, 0]
-            valid = torch.arange(S, device=x.device) <= pos
-    ck, cv = _take_kv(kv, new_cache["k"], new_cache["v"])
-    if int8:
-        scales = _take_kv(kv, new_cache["k_s"], new_cache["v_s"])
+            for n, t in loc.items():
+                new[n] = t.clone()
+                off = TP.shard_range(t.shape[2])[0] if work[n] == 2 else 0
+                if off <= slot < off + t.shape[2]:
+                    new[n][:, :, slot - off] = rows[n][:, :, 0]
+            valid = slots <= pos
+    new_cache = {n: TP.cache_like(cache[n], t, work[n])
+                 for n, t in new.items()} if kind != "cross" else cache
+    ck, cv = new["k"], new["v"]
+    scales = (new["k_s"], new["v_s"]) if int8 else None
     if opaque.flash_mode():
-        o = opaque.decode_attention(q, ck, cv, pos, scales if int8 else None)
-        return _merge_out(cfg, p, o), new_cache
+        return _merge_out(cfg, p, _flash_decode(cfg, q, ck, cv, scales,
+                                                work, pos)), new_cache
     if int8:
         ck = _dequant_kv(ck, scales[0], x.dtype)
         cv = _dequant_kv(cv, scales[1], x.dtype)
-    return _decode_attend(cfg, p, q, ck, cv, valid), new_cache
+    if dk in (None, 1):
+        ck, cv = _take_kv(kv, ck, cv)
+        return _merge_out(cfg, p, _decode_attend(cfg, q, ck, cv, valid)), \
+            new_cache
+    o = _decode_attend(cfg, _all_heads(cfg, q), ck, cv, valid, over=dk)
+    return _merge_out(cfg, p, _own_heads(cfg, o)), new_cache
 
 
-def _decode_attend(cfg: ModelConfig, p, q, ck, cv, valid):
+def _flash_decode(cfg: ModelConfig, q, ck, cv, scales, work, pos):
+    """The fused decode stand-in as the reference's ``shard_map`` calls
+    it (``repro/kernels/opaque.py:223-235``: q on ("batch", "act_seq",
+    "kv_heads"), the cache on ("batch", "kv_heads", "kv_seq")): over
+    this rank's kv heads where "model" divides them, else all q heads
+    over this rank's slots where it divides those, else whole."""
+    mg = TP.model_group()
+    K, S = cfg.n_kv_heads, ck.shape[2] * (mg.size if work["k"] == 2 else 1)
+    want = None if mg is None else (1 if K % mg.size == 0 else
+                                    2 if S % mg.size == 0 else None)
+    ck, cv = (TP.relayout(t, work["k"], want) for t in (ck, cv))
+    if scales is not None:
+        scales = tuple(TP.relayout(t, work["k_s"], want) for t in scales)
+    if want == 1:
+        return opaque.decode_attention(q, ck, cv, pos, scales)
+    o = opaque.decode_attention(_all_heads(cfg, q), ck, cv, pos, scales)
+    return _own_heads(cfg, o)
+
+
+def _decode_attend(cfg: ModelConfig, q, ck, cv, valid, over=None):
     """One query token q (B, 1, K, G, hd) over a cache ck, cv (B, K, S,
-    hd) where ``valid`` (S,): the output projection of the softmax."""
-    hd = q.shape[-1]
+    hd) where ``valid`` (S,) -> o (B, 1, K, G, hd).  ``over``: the cache
+    dim divided over "model" (2: the slots, the softmax and p.v
+    combined over "model"; 3: the head dim, this rank's part of q
+    against it, the scores summed and p.v gathered over "model")."""
+    hd = cfg.resolved_head_dim
+    if over == 3:
+        q = TP.relayout(q, None, 4)
     # s: (B, K, G, 1, S), products of the activation dtype's values
     # summed in float32.
     qf = q.float().permute(0, 2, 3, 1, 4)                 # (B,K,G,1,hd)
     s = torch.matmul(qf, ck.float()[:, :, None].transpose(-1, -2))
+    if over == 3:
+        s = TP.reduce_from_model(s)
     s = softcap(s * (hd ** -0.5), cfg.attn_softcap)
     s = torch.where(valid, s, NEG)
-    w = torch.softmax(s, dim=-1).to(q.dtype)
+    w = (TP.softmax_over_model(s) if over == 2
+         else torch.softmax(s, dim=-1)).to(q.dtype)
     o = torch.matmul(w, cv[:, :, None])                   # (B,K,G,1,hd)
-    return _merge_out(cfg, p, o.permute(0, 3, 1, 2, 4))
+    if over == 2:
+        o = TP.reduce_from_model(o)
+    elif over == 3:
+        o = TP.gather_from_model(o, -1)
+    return o.permute(0, 3, 1, 2, 4)
 
 
 # -- training: the reference's blockwise and windowed attention -----------------

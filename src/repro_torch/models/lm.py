@@ -26,9 +26,10 @@ mesh context), the other weights where an entry point starts
 the embedding's and the head's weights arrive as this rank's "model"
 shard where "model" divides them, and those layers compute their share
 of the products (``distributed.tensor_parallel``; ``train_loss`` takes
-the vocab-parallel cross-entropy); every other weight arrives whole,
-and an expert-parallel MoE keeps its experts as local shards
-(``models.moe.kept_sharded``).  Activations stay plain local tensors;
+the vocab-parallel cross-entropy); the MoE's experts stay DTensors
+(``sharding.KEPT_LEAVES``) for its dispatch to take its shards; every
+other weight arrives whole.  Activations stay plain local tensors (the
+serve steps' cache leaves DTensors, ``tensor_parallel.cache_part``);
 the ``constrain`` hints are no-ops on them.
 
 The VLM (``family == "vlm"``, internvl2) takes ``batch["patches"]`` (B,
@@ -45,9 +46,9 @@ import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import (constrain, gather_tree,
-                                              restored, snapshot)
+                                              restored, snapshot,
+                                              stack_units, unit_of)
 from repro_torch.models import blocks as B
-from repro_torch.models import moe as MOE
 from repro_torch.models.common import (
     apply_norm,
     cross_entropy,
@@ -66,30 +67,31 @@ def _moe_here(cfg: ModelConfig, member_idx: int) -> bool:
 
 
 def _stack(trees):
-    """Stack a list of equal nested dicts of tensors along a new dim 0."""
+    """Stack a list of equal nested dicts of tensors along a new dim 0
+    (DTensors by their local shards: ``sharding.stack_units``)."""
     first = trees[0]
     if isinstance(first, dict):
         return {k: _stack([t[k] for t in trees]) for k in first}
-    return torch.stack(trees)
+    return stack_units(trees)
 
 
 def _index(tree, u: int):
-    """Unit ``u`` of a stacked nested dict."""
+    """Unit ``u`` of a stacked nested dict (a DTensor's from its local
+    shard: ``sharding.unit_of``)."""
     if isinstance(tree, dict):
         return {k: _index(v, u) for k, v in tree.items()}
-    return tree[u]
+    return unit_of(tree, u)
 
 
 def unit_params(cfg: ModelConfig, units, u: int):
     """Unit ``u``'s weights, DTensors gathered (plain tensors as they
     are)."""
-    return gather_tree(_index(units, u), keep=MOE.kept_sharded(cfg))
+    return gather_tree(_index(units, u))
 
 
 def outer_params(cfg: ModelConfig, params, stacked=("units",)) -> dict:
     """``params`` with every entry but the stacked units gathered."""
-    keep = MOE.kept_sharded(cfg)
-    return {k: v if k in stacked else gather_tree(v, keep)
+    return {k: v if k in stacked else gather_tree(v)
             for k, v in params.items()}
 
 
@@ -199,7 +201,7 @@ def _unit_train(cfg: ModelConfig, snap, unit_p, x, positions):
     remat region, under the mesh context ``snap`` (the recomputation may
     run on the autograd engine's device thread)."""
     with restored(snap):
-        unit_p = gather_tree(unit_p, MOE.kept_sharded(cfg))
+        unit_p = gather_tree(unit_p)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, kind in enumerate(cfg.block_pattern):
             x, a = B.block_train(cfg, kind, unit_p[f"b{i}"], x, positions)

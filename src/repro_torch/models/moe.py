@@ -27,10 +27,26 @@ local capacity; one all-reduce of the (B, T, d) combine over the
 copy-to-model for the tokens' and gates' gradients).  With no mesh, or where tp
 does not divide E, the reference means to fall back to the dense
 dispatch and recurses instead (ROADMAP C11); the port computes the
-dense dispatch.  The dense dispatch under a mesh whose step split the
-batch over data ranks dispatches the global batch, as the reference's
-SPMD program does: the tokens are gathered over the batch axes, so the
-capacity, the drops and the aux loss are the global ones.
+dense dispatch.
+
+The dense dispatch under a mesh (:func:`_dense_divided`, ROADMAP
+D15c-2a) keeps the reference's semantics, the global batch's routing,
+capacity, drops and aux loss, and divides its products as the
+reference's SPMD partitioner does (read from the compiled HLO of the
+reduced olmoe-1b-7b cells): each rank routes its own rows and the
+expert indices (and, for the aux loss, the probabilities) are gathered
+over the batch axes; each "model" rank runs its ``E / model`` experts
+(``sharding.KEPT_LEAVES``, their "model" shards) on a (E / model,
+capacity, d) buffer, which each data rank fills with its rows and the
+data ranks sum (an all-reduce).  Then, by the buffer's size against
+the weights': where the capacity is below d (decode), ``moe_wi`` and
+``moe_wg`` contract this rank's d / data on their FSDP shards, never
+gathered, and the partial products are all-reduced over the batch
+axes; else (prefill, training) they are gathered over the batch axes
+and contract all of d.  ``moe_wd`` writes this rank's d / data, which
+an all-gather over the batch axes makes whole; each rank combines its
+rows' assignments to its experts and one all-reduce over "model" sums
+the experts' shares.
 """
 
 from __future__ import annotations
@@ -45,8 +61,9 @@ from repro_torch.distributed import sharding as SH
 from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.models.common import init_dense, mlp_apply, mlp_init
 
-#: The expert leaves an expert-parallel MoE keeps as "model" shards.
-EXPERT_LEAVES = ("moe_wi", "moe_wg", "moe_wd")
+#: The expert leaves, in ``_experts``' argument order: the unit gathers
+#: leave them as DTensors.
+EXPERT_LEAVES = SH.KEPT_LEAVES
 
 
 def moe_init(gen: torch.Generator, cfg: ModelConfig, moe: MoEConfig) -> dict:
@@ -107,10 +124,9 @@ def _ep_tp(moe: MoEConfig):
     return tp if moe.n_experts % tp == 0 else None
 
 
-def kept_sharded(cfg: ModelConfig) -> tuple:
-    """Leaf names that unit gathers leave as DTensors: the experts, when
-    the expert-parallel dispatch runs."""
-    return EXPERT_LEAVES if cfg.moe and _ep_tp(cfg.moe) else ()
+def expert_parallel(cfg: ModelConfig) -> bool:
+    """Whether the expert-parallel dispatch runs (inside ``use_mesh``)."""
+    return bool(cfg.moe and _ep_tp(cfg.moe))
 
 
 def moe_apply(cfg: ModelConfig, moe: MoEConfig, p: dict, x,
@@ -118,28 +134,72 @@ def moe_apply(cfg: ModelConfig, moe: MoEConfig, p: dict, x,
     """x (B, T, d) -> (B, T, d) [, float32 load-balance aux loss]."""
     if _ep_tp(moe):
         return moe_apply_ep(cfg, moe, p, x, with_aux)
-    mesh, axes = SH.current_mesh(), SH.current_batch_axes()
-    if mesh is None or not axes:
+    if SH.current_mesh() is None or (not SH.current_batch_axes()
+                                     and TP.model_group() is None):
         return _dense(cfg, moe, p, x, with_aux)
-    # The global batch's dispatch (gathered over the batch axes, the
-    # gradient summed back), then this rank's rows.
-    xg = SH.gather_batch(x, mesh, axes)
-    out = _dense(cfg, moe, p, xg, with_aux)
-    y = SH.local_rows(out[0] if with_aux else out, mesh, axes)
-    return (y, out[1]) if with_aux else y
+    return _dense_divided(cfg, moe, p, x, with_aux)
+
+
+def _aux(moe: MoEConfig, probs, top1):
+    """The load-balance aux loss of router probabilities (N, E) and top-1
+    experts (N,)."""
+    if moe.router != "softmax":
+        probs = probs / torch.clamp(probs.sum(-1, keepdim=True), min=1e-9)
+    return _balance(moe, probs, top1)
 
 
 def _route(moe: MoEConfig, router, tokens, with_aux: bool):
     """(gates (N, k), expert indices (N, k), the load-balance aux loss
     or None)."""
     probs, gate_v, gate_i = route(moe, {"router": router}, tokens)
-    aux = None
-    if with_aux:
-        if moe.router != "softmax":
-            probs = probs / torch.clamp(probs.sum(-1, keepdim=True),
-                                        min=1e-9)
-        aux = _balance(moe, probs, gate_i[:, 0])
+    aux = _aux(moe, probs, gate_i[:, 0]) if with_aux else None
     return gate_v, gate_i, aux
+
+
+def _slots(moe: MoEConfig, gate_i, n: int, e0: int, cap: int):
+    """(kept, slot, local expert) of each assignment (N k,) of ``gate_i``
+    to the experts [e0, e0 + n): its position within its expert is the
+    exclusive cumsum of the routing one-hot, token-major, k-minor (other
+    experts' assignments count in a drop row n); one past ``cap`` or to
+    another expert is not kept and points at slot cap - 1 of local expert
+    ``e mod n``.  The cumsum runs along the last dim: along dim 0 CUDA
+    scans each column in one thread (371 of olmoe's 614 ms long prefill
+    on an H100)."""
+    flat_e = gate_i.reshape(-1)
+    mine = (flat_e >= e0) & (flat_e < e0 + n)
+    le = torch.where(mine, flat_e - e0, n)
+    onehot = F.one_hot(le, n + 1)
+    pos = (torch.cumsum(onehot.T, dim=1).T - onehot).gather(
+        1, le[:, None])[:, 0]
+    keep = mine & (pos < cap)
+    return (keep, torch.where(keep, pos, cap - 1),
+            torch.where(keep, le, flat_e % n))
+
+
+def _capacity(moe: MoEConfig, n_tokens: int) -> int:
+    return max(int(n_tokens * moe.top_k / moe.n_experts
+                   * moe.capacity_factor), 4)
+
+
+def _scatter(tokens, keep, slot, le, n: int, cap: int):
+    """The (n, cap, d) buffer of ``tokens``' kept assignments (k a
+    token, token-major): a not-kept one adds zeros to its slot.  Spread
+    so: sent all to one slot, the scatter-add's duplicates made olmoe's
+    long prefill 3.3x slower on an H100 (PERF.md)."""
+    k = keep.shape[0] // tokens.shape[0]
+    tok_rep = tokens.repeat_interleave(k, dim=0)
+    return tokens.new_zeros((n, cap, tokens.shape[1])).index_put(
+        (le, slot), tok_rep * keep[:, None].to(tokens.dtype), accumulate=True)
+
+
+def _combine(out_buf, keep, slot, le, gate_v):
+    """Each token's gated outputs of its kept assignments summed: (N,
+    d)."""
+    N, k = gate_v.shape
+    out_tok = out_buf[le, slot]
+    out_tok = out_tok * (keep[:, None]
+                         * gate_v.reshape(N * k, 1)).to(out_buf.dtype)
+    return out_tok.reshape(N, k, -1).sum(dim=1)
 
 
 def _experts(moe: MoEConfig, tokens, gate_v, gate_i, wi, wg, wd,
@@ -149,47 +209,26 @@ def _experts(moe: MoEConfig, tokens, gate_v, gate_i, wi, wg, wd,
     (N, d), each token's gated outputs of its assignments to those
     experts summed.
 
-    An assignment's slot is its position within its expert (the
-    exclusive cumsum of the routing one-hot, token-major, k-minor; other
-    experts' assignments count in a drop row n); one past the capacity
-    ``max(int(N k / E cf), 4)``, or to another expert, adds zeros to
-    slot capacity - 1 of local expert ``e mod n``.  Spread so: sent all
-    to one slot, the scatter-add's duplicates made olmoe's long prefill
-    3.3x slower on an H100 (PERF.md, PR 27).  The cumsum runs along the
-    last dim: along dim 0 CUDA scans each column in one thread (371 of
-    olmoe's 614 ms long prefill on an H100)."""
-    N, d = tokens.shape
+    An assignment's slot and whether it is kept: :func:`_slots`, with
+    the capacity ``max(int(N k / E cf), 4)``."""
     dt = tokens.dtype
-    E, k, n = moe.n_experts, moe.top_k, wi.shape[0]
-    cap = max(int(N * k / E * moe.capacity_factor), 4)
-    flat_e = gate_i.reshape(N * k)
-    mine = (flat_e >= e0) & (flat_e < e0 + n)
-    le = torch.where(mine, flat_e - e0, n)
-    onehot = F.one_hot(le, n + 1)
-    pos = (torch.cumsum(onehot.T, dim=1).T - onehot).gather(
-        1, le[:, None])[:, 0]
-    keep = mine & (pos < cap)
-    safe_pos = torch.where(keep, pos, cap - 1)
-    safe_le = torch.where(keep, le, flat_e % n)
-    tok_rep = tokens.repeat_interleave(k, dim=0)
-    buf = tokens.new_zeros((n, cap, d)).index_put(
-        (safe_le, safe_pos), tok_rep * keep[:, None].to(dt), accumulate=True)
-    buf = SH.constrain(buf, ("experts", None, None))
+    n = wi.shape[0]
+    cap = _capacity(moe, tokens.shape[0])
+    keep, slot, le = _slots(moe, gate_i, n, e0, cap)
+    buf = SH.constrain(_scatter(tokens, keep, slot, le, n, cap),
+                       ("experts", None, None))
     # Expert SwiGLU, batched over the experts.
     h = torch.bmm(buf, wi.to(dt))
     g = torch.bmm(buf, wg.to(dt))
     h = SH.constrain(F.silu(g) * h, ("experts", None, None))
-    out_buf = torch.bmm(h, wd.to(dt))
-    # Gather back and combine with the gates.
-    out_tok = out_buf[safe_le, safe_pos]
-    out_tok = out_tok * (keep[:, None] * gate_v.reshape(N * k, 1)).to(dt)
-    return out_tok.reshape(N, k, d).sum(dim=1)
+    return _combine(torch.bmm(h, wd.to(dt)), keep, slot, le, gate_v)
 
 
 def _dense(cfg: ModelConfig, moe: MoEConfig, p: dict, x,
            with_aux: bool = False):
-    """The dense dispatch on the tokens of x."""
+    """The dense dispatch on the tokens of x, every expert whole."""
     p = SH.gather_tree(p)
+    p.update({n: SH.gather(p[n]) for n in EXPERT_LEAVES})
     B, T, d = x.shape
     tokens = x.reshape(B * T, d)
     gate_v, gate_i, aux = _route(moe, p["router"], tokens, with_aux)
@@ -199,6 +238,85 @@ def _dense(cfg: ModelConfig, moe: MoEConfig, p: dict, x,
         y = y + mlp_apply(cfg, p["shared"], x,
                           moe.d_ff_expert).reshape(B * T, d)
     y = y.reshape(B, T, d)
+    return (y, aux) if with_aux else y
+
+
+def _expert_shard(w, n: int, e0: int, d_split: bool):
+    """This rank's experts [e0, e0 + n) of an expert leaf: with
+    ``d_split`` its FSDP shard as it is (d divided over the batch axes;
+    its gradient complete), else d whole (gathered over the batch axes,
+    the gradient summed back).  A plain tensor (whole) is sliced."""
+    if not isinstance(w, SH.DTensor):
+        return w[e0:e0 + n]
+    return w.to_local() if d_split else SH.gather_tp(w, 0)
+
+
+def _d_split(w, mesh, axes, d_dim: int) -> bool:
+    """Whether an expert leaf (a DTensor) holds d divided over the batch
+    axes: ``param_specs`` shards it over them where they divide it."""
+    if not axes or not isinstance(w, SH.DTensor):
+        return False
+    names = mesh.mesh_dim_names
+    return all(w.placements[names.index(a)] == SH.Shard(d_dim)
+               for a in axes)
+
+
+def _dense_divided(cfg: ModelConfig, moe: MoEConfig, p: dict, x,
+                   with_aux: bool = False):
+    """The dense dispatch under a mesh, divided over "model" and the
+    batch axes the step split its rows over (module docstring); the
+    same function of the global batch as :func:`_dense`."""
+    mesh, axes = SH.current_mesh(), SH.current_batch_axes()
+    B, T, d = x.shape
+    dt = x.dtype
+    n_b = SH.batch_size_of(mesh, axes)
+    tokens = x.reshape(B * T, d)
+    N_l, k = tokens.shape[0], moe.top_k
+    probs, gate_v, gate_i = route(moe, {"router": SH.gather(p["router"])},
+                                  tokens)
+    aux = None
+    if axes:
+        gate_i = SH.gather_batch(gate_i, mesh, axes)
+        if with_aux:
+            probs = SH.gather_batch(probs, mesh, axes)
+    if with_aux:
+        aux = _aux(moe, probs, gate_i[:, 0])
+    n = TP.local(moe.n_experts)
+    e0 = TP.shard_range(n)[0]
+    cap = _capacity(moe, N_l * n_b)
+    keep, slot, le = _slots(moe, gate_i, n, e0, cap)
+    if axes:         # this rank's rows' assignments
+        r = SH.batch_index(mesh, axes) * N_l * k
+        keep, slot, le = (t[r:r + N_l * k] for t in (keep, slot, le))
+    if TP.model_group() is not None:
+        tokens, gate_v = TP.copy_to_model(tokens, gate_v)
+    # The data ranks' scatters summed: every rank's buffer holds the
+    # global batch's assignments to its experts.
+    buf = SH.all_reduce_batch(_scatter(tokens, keep, slot, le, n, cap),
+                              mesh, axes)
+    wi, wg, wd = (p[name] for name in EXPERT_LEAVES)
+    if cap < d and _d_split(wi, mesh, axes, 1):
+        # decode: d contracted on the FSDP shards (wg's are wi's)
+        wi, wg = (_expert_shard(w, n, e0, True) for w in (wi, wg))
+        part = SH.batch_index(mesh, axes) * wi.shape[1]
+        b = buf.narrow(2, part, wi.shape[1])
+        hg = SH.all_reduce_batch(torch.stack([torch.bmm(b, wi.to(dt)),
+                                              torch.bmm(b, wg.to(dt))]),
+                                 mesh, axes)
+        h, g = hg.unbind(0)
+    else:            # prefill and training: wi, wg gathered
+        wi, wg = (_expert_shard(w, n, e0, False) for w in (wi, wg))
+        h, g = torch.bmm(buf, wi.to(dt)), torch.bmm(buf, wg.to(dt))
+    d_out = _d_split(wd, mesh, axes, 2)
+    out_buf = torch.bmm(F.silu(g) * h,
+                        _expert_shard(wd, n, e0, d_out).to(dt))
+    if d_out:
+        out_buf = SH.gather_batch(out_buf, mesh, axes, dim=2)
+    y = TP.reduce_from_model(_combine(out_buf, keep, slot, le, gate_v))
+    y = y.reshape(B, T, d)
+    if moe.shared_expert:
+        y = y + mlp_apply(cfg, SH.gather_tree(p["shared"]), x,
+                          moe.d_ff_expert)
     return (y, aux) if with_aux else y
 
 

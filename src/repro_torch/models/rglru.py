@@ -24,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.models.common import gelu, init_dense, softplus
 
 _C = 8.0
@@ -119,19 +120,25 @@ def rglru_fullseq(cfg: ModelConfig, p: dict, x, return_cache: bool = True):
     y = (gate * h) @ p["w_out"].to(dt)
     if not return_cache:
         return y, None
-    return y, {"conv": conv_state, "h": h[:, -1].float()}
+    return y, {"conv": TP.to_cache(conv_state),
+               "h": TP.to_cache(h[:, -1].float())}
 
 
 def rglru_decode(cfg: ModelConfig, p: dict, x, cache: dict):
-    """x (B, 1, d); one O(1) recurrent step."""
+    """x (B, 1, d); one O(1) recurrent step.  A state divided over
+    "model" (the serve steps' DTensor) is gathered whole and the new
+    state kept in its layout: the products stay whole (D15c-3)."""
     dt = x.dtype
     gate = gelu(x @ p["w_gate"].to(dt))
     u = x @ p["w_rec"].to(dt)
-    window = torch.cat([cache["conv"].to(dt), u], dim=1)      # (B, K, w)
+    state = {n: TP.relayout(*TP.cache_part(t)[:2], None)
+             for n, t in cache.items()}
+    window = torch.cat([state["conv"].to(dt), u], dim=1)      # (B, K, w)
     # The reference's einsum over the K taps, summed in float32.
     u_t = (window.float() * p["conv_w"].to(dt).float()).sum(dim=1).to(dt) \
         + p["conv_b"].to(dt)
     log_a, b = _gates(p, u_t[:, None, :])
-    h = cache["h"] * torch.exp(log_a[:, 0]) + b[:, 0]
+    h = state["h"] * torch.exp(log_a[:, 0]) + b[:, 0]
     y = (gate * h[:, None, :].to(dt)) @ p["w_out"].to(dt)
-    return y, {"conv": window[:, 1:], "h": h}
+    return y, {"conv": TP.cache_like(cache["conv"], window[:, 1:]),
+               "h": TP.cache_like(cache["h"], h)}

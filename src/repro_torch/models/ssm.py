@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.kernels import opaque
 from repro_torch.kernels.ssd_scan.ops import ssd_scan
 from repro_torch.models.common import init_dense, rmsnorm, softplus
@@ -122,15 +123,19 @@ def ssm_fullseq(cfg: ModelConfig, p: dict, u, return_cache: bool = True):
     out = _out(cfg, p, y, z)
     if not return_cache:
         return out, None
-    return out, {"conv": conv_state, "ssm": H}
+    return out, {"conv": TP.to_cache(conv_state), "ssm": TP.to_cache(H)}
 
 
 def ssm_decode(cfg: ModelConfig, p: dict, u, cache: dict):
-    """Single-token recurrent step.  u (B, 1, d)."""
+    """Single-token recurrent step.  u (B, 1, d).  A state divided over
+    "model" (the serve steps' DTensor) is gathered whole and the new
+    state kept in its layout: the products stay whole (D15c-3)."""
     s = cfg.ssm
     z, xBC, dt = _split_proj(cfg, p, u)
+    state = {n: TP.relayout(*TP.cache_part(t)[:2], None)
+             for n, t in cache.items()}
     # Conv ring update: the reference's einsum, summed in float32.
-    window = torch.cat([cache["conv"].to(xBC.dtype), xBC], dim=1)  # (B,K,C)
+    window = torch.cat([state["conv"].to(xBC.dtype), xBC], dim=1)  # (B,K,C)
     w = p["conv_w"].to(xBC.dtype)
     out = (window.float() * w.float()).sum(dim=1).to(xBC.dtype) \
         + p["conv_b"].to(xBC.dtype)
@@ -138,7 +143,7 @@ def ssm_decode(cfg: ModelConfig, p: dict, u, cache: dict):
 
     x, Bm, Cm, dtv, A = _heads(cfg, xBC_t, dt, p)
     # x (B, 1, nh, hd); Bm, Cm (B, 1, ds); dtv (B, 1, nh)
-    H = cache["ssm"].float()                          # (B, nh, hd, ds)
+    H = state["ssm"].float()                          # (B, nh, hd, ds)
     g = torch.exp(dtv[:, 0, :, None, None] * A[None, :, None, None])
     dBx = (Bm[:, 0, None, None, :].float() * x[:, 0, :, :, None].float()
            * dtv[:, 0, :, None, None])
@@ -146,4 +151,6 @@ def ssm_decode(cfg: ModelConfig, p: dict, u, cache: dict):
     y = torch.einsum("bd,bhpd->bhp", Cm[:, 0].float(), H_new)
     y = y + x[:, 0].float() * p["d_skip"][None, :, None]
     y = y.reshape(y.shape[0], 1, s.d_inner(cfg.d_model)).to(u.dtype)
-    return _out(cfg, p, y, z), {"conv": window[:, 1:], "ssm": H_new}
+    return _out(cfg, p, y, z), {"conv": TP.cache_like(cache["conv"],
+                                                      window[:, 1:]),
+                                "ssm": TP.cache_like(cache["ssm"], H_new)}

@@ -6,7 +6,8 @@ port).  Imports no JAX.
 ``run(world, work_dir)`` reads ``work_dir/cases.json`` and the
 reference's initial parameters (``work_dir/params.pkl``: nested numpy
 trees by arch, and the MoE case's layer and input), runs the cases of
-that world size (train, MoE and serve cases; at world size 2 also the
+that world size (train, MoE, dense MoE and serve cases; at world size
+2 also the
 collectives a step issues on each mesh axis's group,
 :func:`_group_collectives`) and writes ``work_dir/port_<world>.json``
 from rank 0.
@@ -41,7 +42,7 @@ def config(arch):
                                **OVERRIDES.get(arch, {}))
 
 
-def batches(cfg, steps, seed=0):
+def batches(cfg, steps, seed=0, T=T):
     """The reference driver's batches (``tests/sharded_reference.py``)."""
     rng = np.random.default_rng(seed)
     out = []
@@ -115,27 +116,89 @@ def _moe(shape, ref):
     return y.numpy().tolist(), float(aux)
 
 
-def _serve(arch, shape, ref_params, steps=SERVE_STEPS):
+#: A serve case's variant: its switches, and its prompt length where it
+#: is not T (``sharded_reference.VARIANTS``, ``PROMPT``).
+VARIANTS = {"": {}, "kvint8": {"REPRO_KV_INT8": "1"}, "slots": {}}
+PROMPT = {"slots": 64}
+
+
+def _dense_moe(shape, ref, T_moe):
+    """The dense MoE layer divided over the mesh (``models.moe.
+    _dense_divided``) on this rank's rows of the MoE case's input cut to
+    ``T_moe`` positions (1: a capacity below d, the decode's division; 8:
+    the prefill's and training's), against the whole layer on the whole
+    input: the largest differences of y, the aux loss, and the gradients
+    of the input, the router and the experts of the loss sum(y * w) +
+    aux (w seeded), each relative to the whole's largest."""
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed.elastic import reshard_state
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.convert import params_from_jax
+    from repro_torch.optim.adamw import tree_map
+
+    cfg = config("olmoe-1b-7b")
+    mesh = make_mesh(shape, device="cpu")
+    p = tree_map(lambda t: t.requires_grad_(True),
+                 params_from_jax(ref["moe_p"], device="cpu"))
+    x = torch.from_numpy(ref["moe_x"][:, :T_moe].copy()).requires_grad_(True)
+    w = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        x.shape).astype(np.float32))
+    y, aux = MOE.moe_apply(cfg, cfg.moe, p, x, with_aux=True)
+    ((y * w).sum() + aux).backward()
+    want = {"y": y.detach(), "aux": aux.detach(), "x": x.grad,
+            **{k: v.grad for k, v in p.items()}}
+
+    axes = ("data",) if shape[0] > 1 else ()
+    pd = tree_map(lambda t: t.detach().requires_grad_(True),
+                  reshard_state(tree_map(lambda t: t.detach(), p), mesh,
+                                SH.param_placements(p, mesh)))
+    xl = (SH.local_rows(x.detach(), mesh, axes) if axes
+          else x.detach()).requires_grad_(True)
+    with SH.use_mesh(mesh, batch_axes=axes):
+        y, aux = MOE.moe_apply(cfg, cfg.moe, pd, xl, with_aux=True)
+    n_b = shape[0]
+    wl = SH.local_rows(w, mesh, axes) if axes else w
+    ((y * wl).sum() + aux / n_b).backward()
+    got = {"y": y.detach(), "aux": aux.detach(), "x": xl.grad,
+           **{k: v.grad.full_tensor() for k, v in pd.items()}}
+    if axes:
+        for k in ("y", "x"):
+            parts = [torch.empty_like(got[k]) for _ in range(n_b)]
+            dist.all_gather(parts, got[k].contiguous(),
+                            group=mesh.get_group("data"))
+            got[k] = torch.cat(parts)
+    return {k: float((got[k] - want[k]).abs().max()
+                     / want[k].abs().max()) for k in want}
+
+
+def _serve(arch, shape, ref_params, variant="", steps=SERVE_STEPS):
     """``make_prefill_step`` and ``steps`` greedy ``make_decode_step``
-    steps on a mesh of ``shape`` (``sharded_reference.serve_case``):
-    each step's last-position logits and greedy tokens."""
+    steps on a mesh of ``shape`` (``sharded_reference.serve_case``),
+    handed the prompt whole (each rank keeps its shard) and then the
+    steps' own DTensors: each step's last-position logits and greedy
+    tokens (gathered), and each rank's bytes of the last cache."""
     from repro_torch.distributed import steps as ST
     from repro_torch.distributed.elastic import reshard_state
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.convert import params_from_jax
+    from repro_torch.optim.adamw import tree_leaves
 
+    os.environ.update(VARIANTS[variant])
     cfg = config(arch)
     mesh = make_mesh(shape, device="cpu")
     prefill, place = ST.make_prefill_step(cfg, mesh)
     decode, _ = ST.make_decode_step(cfg, mesh)
     params = reshard_state(params_from_jax(ref_params[arch], device="cpu"),
                            mesh, place)
-    batch = {k: v for k, v in batches(cfg, 1)[0].items() if k != "labels"}
+    T_p = PROMPT.get(variant, T)
+    batch = {k: v for k, v in batches(cfg, 1, T=T_p)[0].items()
+             if k != "labels"}
     logits, cache = prefill(params, batch)
-    pos = T + (cfg.n_patches if cfg.family == "vlm" else 0)
+    pos = T_p + (cfg.n_patches if cfg.family == "vlm" else 0)
     all_logits, tokens = [], []
     for i in range(steps + 1):
-        last = logits[:, -1]
+        last = logits.full_tensor()[:, -1]
         all_logits.append(last.tolist())
         tokens.append(last.argmax(-1).tolist())
         if i == steps:
@@ -143,7 +206,12 @@ def _serve(arch, shape, ref_params, steps=SERVE_STEPS):
         tok = torch.tensor(tokens[-1], dtype=torch.int32)[:, None]
         logits, cache = decode(params, {"token": tok, "pos": pos + i,
                                         "cache": cache})
-    return all_logits, tokens
+    nbytes = [None] * dist.get_world_size()
+    dist.all_gather_object(nbytes, sum(
+        x.to_local().numel() * x.element_size() for x in tree_leaves(cache)))
+    for k in VARIANTS[variant]:
+        os.environ.pop(k)
+    return all_logits, tokens, nbytes
 
 
 def _group_collectives(ref_params):
@@ -156,6 +224,7 @@ def _group_collectives(ref_params):
     from repro_torch.launch import cost as C
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.convert import params_from_jax
+    from torch.distributed.tensor import DTensor
 
     arch = "llama3.2-3b"
     cfg = config(arch)
@@ -175,7 +244,9 @@ def _group_collectives(ref_params):
         def steps():
             step(state, b)
             logits, cache = prefill(params, {"tokens": b["tokens"]})
-            tok = logits[:, -1].argmax(-1)[:, None].int()
+            tok = logits.to_local()[:, -1].argmax(-1)[:, None].int()
+            tok = DTensor.from_local(tok, mesh, logits.placements,
+                                     run_check=False)
             decode(params, {"token": tok, "pos": T, "cache": cache})
 
         calls = C.trace(steps).group_calls
@@ -257,7 +328,8 @@ def _worker(rank, world, work_dir):
     try:
         cases = json.loads((work / "cases.json").read_text())
         ref = pickle.loads((work / "params.pkl").read_bytes())
-        out = {"train": {}, "bytes": {}, "moe": {}, "serve": {}}
+        out = {"train": {}, "bytes": {}, "moe": {}, "serve": {},
+               "dense_moe": {}}
         for arch, shape, ep, steps in cases["train"]:
             if shape[0] * shape[1] != world:
                 continue
@@ -270,10 +342,15 @@ def _worker(rank, world, work_dir):
         for shape in cases["moe"]:
             if shape[0] * shape[1] == world:
                 out["moe"][f"{shape[0]}x{shape[1]}"] = _moe(shape, ref)
-        for arch, shape in cases.get("serve", []):
+        for shape, T_moe in cases.get("dense_moe", []):
             if shape[0] * shape[1] == world:
-                out["serve"][f"{arch}/{shape[0]}x{shape[1]}"] = _serve(
-                    arch, shape, ref["params"])
+                out["dense_moe"][f"{shape[0]}x{shape[1]}/T{T_moe}"] = \
+                    _dense_moe(shape, ref, T_moe)
+        for arch, shape, *variant in cases.get("serve", []):
+            if shape[0] * shape[1] == world:
+                tag = "/".join([arch, f"{shape[0]}x{shape[1]}"] + variant)
+                out["serve"][tag] = _serve(arch, shape, ref["params"],
+                                           *variant)
         arch = "llama3.2-3b"
         bs = batches(config(arch), 4, seed=1)
         ckpt = work / "elastic_ckpt"
@@ -323,7 +400,8 @@ def _cost_worker(rank, world, work_dir):
     model], variant, [shape name, seq_len, global batch]]``, reduced
     configs) built by ``build_cell`` on a gloo mesh and run once for
     real under ``launch.cost.trace``, on seeded parameters (bfloat16 for
-    serving) and a seeded batch; rank 0 writes each case's collectives
+    serving) and a seeded batch (a decode's cache whole, each rank
+    keeping its shard); rank 0 writes each case's collectives
     to ``work_dir/cost_<world>.json``."""
     from repro_torch.configs import get_config, reduced_config
     from repro_torch.configs.base import ShapeConfig
@@ -356,10 +434,16 @@ def _cost_worker(rank, world, work_dir):
                                   build_model(cfg, "cpu", gen).init())
                 arg0 = reshard_state(params, mesh, place)
             gen = torch.Generator().manual_seed(1)
-            batch = {k: (torch.randint(0, cfg.vocab, v.shape, generator=gen,
-                                       dtype=v.dtype)
-                         if not v.is_floating_point() else
-                         torch.randn(v.shape, generator=gen).to(v.dtype))
+
+            def leaf(v):
+                if not v.is_floating_point():
+                    return torch.randint(0, cfg.vocab, v.shape, generator=gen,
+                                         dtype=v.dtype)
+                return torch.randn(v.shape, generator=gen).to(v.dtype)
+
+            # A decode's cache (nested) is drawn whole: the step keeps
+            # each rank's shard; its pos is the dry-run's, seq_len.
+            batch = {k: shape.seq_len if k == "pos" else tree_map(leaf, v)
                      for k, v in specs.items()}
             tr = C.trace(step, arg0, batch)
             out[f"{arch}/{kind}/{mesh_shape[0]}x{mesh_shape[1]}/{variant}"] = \

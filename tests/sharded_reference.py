@@ -6,15 +6,15 @@
 
 ``WORK_DIR/cases.json`` lists ``[arch, [data, model], ep, steps]`` train
 cases, ``[data, model]`` MoE cases and ``[arch, [data, model]]`` serve
-cases; this process runs every ``N_PARTS``-th of them from ``PART``
-on.  Part 0 first writes
+cases (a third entry names a variant of :data:`VARIANTS`); this process
+runs every ``N_PARTS``-th of them from ``PART`` on.  Part 0 first writes
 ``WORK_DIR/params.pkl``: the initial parameters of every arch (seed 0)
 and the MoE case's layer and input, as nested numpy trees.  Each part
 writes ``WORK_DIR/ref_<PART>.npz``: each train case's per-step loss and
 grad_norm on the batches of :func:`batches` and the bytes of one
 device's share of the state, each MoE case's expert-parallel ``y``
-and aux, and each serve case's logits and greedy tokens
-(:func:`serve_case`).
+and aux, and each serve case's logits, greedy tokens and one device's
+bytes of its last cache on ``cache_shardings`` (:func:`serve_case`).
 """
 
 import dataclasses
@@ -42,6 +42,11 @@ from repro.optim.adamw import AdamWConfig, init_opt_state  # noqa: E402
 B, T = 4, 16
 #: Greedy decode steps after a serve case's prefill.
 SERVE_STEPS = 3
+#: A serve case's variant: its switches.
+VARIANTS = {"": {}, "kvint8": {"REPRO_KV_INT8": "1"}, "slots": {}}
+#: A variant's prompt length (else T): at 64 the cache's slots are its
+#: largest dim, so "model" divides them.
+PROMPT = {"slots": 64}
 #: Depths other than the reduced config's (recurrentgemma with a tail).
 OVERRIDES = {"recurrentgemma-2b": dict(n_layers=8)}
 
@@ -58,7 +63,7 @@ def mesh(shape):
                          devices=jax.devices()[:shape[0] * shape[1]])
 
 
-def batches(cfg, steps, seed=0):
+def batches(cfg, steps, seed=0, T=T):
     rng = np.random.default_rng(seed)
     out = []
     for _ in range(steps):
@@ -120,22 +125,27 @@ def moe_case(shape, p, x, out):
     out[f"moe/aux/{tag}"] = np.asarray(aux)
 
 
-def serve_batch(cfg):
+def serve_batch(cfg, T_p=T):
     """The serve cases' prompt batch: the first train batch's tokens
-    (and frontend input)."""
-    return {k: v for k, v in batches(cfg, 1)[0].items() if k != "labels"}
+    (and frontend input), of ``T_p`` positions."""
+    return {k: v for k, v in batches(cfg, 1, T=T_p)[0].items()
+            if k != "labels"}
 
 
-def serve_case(arch, shape, params, out, steps=SERVE_STEPS):
+def serve_case(arch, shape, params, out, variant="", steps=SERVE_STEPS):
     """``make_prefill_step`` on :func:`serve_batch`, then ``steps``
     greedy ``make_decode_step`` steps from the prefill's cache: each
-    step's last-position logits (B, V) and the greedy tokens (B,)."""
+    step's last-position logits (B, V), the greedy tokens (B,), and the
+    bytes one device holds of the last cache on ``cache_shardings``."""
+    for k in ("REPRO_KV_INT8",):
+        os.environ.pop(k, None)
+    os.environ.update(VARIANTS[variant])
     cfg = config(arch)
     m = mesh(shape)
     prefill, p_shard = ST.make_prefill_step(cfg, m)
     decode, _ = ST.make_decode_step(cfg, m)
     p = jax.device_put(jax.tree.map(np.array, params), p_shard)
-    batch = serve_batch(cfg)
+    batch = serve_batch(cfg, PROMPT.get(variant, T))
     logits, cache = jax.jit(prefill)(p, batch)
     pos = batch["tokens"].shape[1] + (cfg.n_patches if cfg.family == "vlm"
                                       else 0)
@@ -149,9 +159,16 @@ def serve_case(arch, shape, params, out, steps=SERVE_STEPS):
             break
         logits, cache = decode(p, {"token": tokens[-1][:, None],
                                    "pos": pos + i, "cache": cache})
-    tag = f"{arch}/{shape[0]}x{shape[1]}"
+    nbytes = sum(int(np.prod(s.shard_shape(x.shape))) * x.dtype.itemsize
+                 for x, s in zip(jax.tree.leaves(cache), jax.tree.leaves(
+                     ST.cache_shardings(cfg, m, cache))))
+    tag = "/".join([arch, f"{shape[0]}x{shape[1]}"] + ([variant] if variant
+                                                      else []))
     out[f"serve/logits/{tag}"] = np.stack(all_logits)
     out[f"serve/tokens/{tag}"] = np.stack(tokens)
+    out[f"serve/cache_bytes/{tag}"] = np.array(nbytes)
+    for k in VARIANTS[variant]:
+        os.environ.pop(k)
 
 
 def main(work_dir, part, n_parts):
@@ -160,7 +177,7 @@ def main(work_dir, part, n_parts):
     serve = cases.get("serve", [])
     mine = (cases["train"] + cases["moe"] + serve)[part::n_parts]
     archs = {c[0] for c in (cases["train"] + serve if part == 0 else mine)
-             if len(c) in (2, 4) and isinstance(c[0], str)}
+             if isinstance(c[0], str)}
     params = {a: init_params(a) for a in sorted(archs)}
     moe_p, moe_x = moe_inputs()
     if part == 0:
@@ -173,7 +190,7 @@ def main(work_dir, part, n_parts):
         if len(case) == 4:
             train_case(*case, params[case[0]], out)
         elif isinstance(case[0], str):
-            serve_case(*case, params[case[0]], out)
+            serve_case(case[0], case[1], params[case[0]], out, *case[2:])
         else:
             moe_case(case, moe_p, moe_x, out)
     np.savez(work / f"ref_{part}.npz", **out)

@@ -20,14 +20,14 @@ Reduced configs; the shapes of :data:`SHAPES`.
     ``hlo_cost.breakdown``'s, and a prefill's ``dot`` and ``kernel``
     equal to the reference's cell with its kernel stand-ins (``dot``,
     ``custom-call(kernel)``), where the training cells differ by the
-    reference's nested remat and the (1, 4) cells by the partitioner
-    decisions :func:`test_flops_match_reference` names (the products
-    are divided over "model", ROADMAP D15c-1); mamba2-130m and
-    olmoe-1b-7b, whose SSM and expert products stay whole over "model",
-    between the reference's count and the port's without "model";
-  * at (1, 1) and (2, 1), each cell's FLOPs and collectives equal to the
-    records of the code before the products were divided over "model"
-    (:data:`MODEL_ONE`);
+    reference's nested remat and the (1, 4) and (2, 2) cells by the
+    partitioner decisions :func:`test_flops_match_reference` names (the
+    products are divided over "model", ROADMAP D15c-1, and the dense
+    MoE's over "model" and the batch axes, D15c-2a); mamba2-130m, whose
+    SSM products stay whole over "model", between the reference's count
+    and the port's without "model";
+  * at (1, 1) and (2, 1), each cell's FLOPs and collectives equal to
+    :data:`MODEL_ONE`'s records;
   * one rank issues no collective;
   * the collectives of a fake-group trace equal those the same step
     issues on a real 4-rank gloo run at (2, 2), for train and prefill
@@ -65,7 +65,8 @@ SHAPES = {"train": ["train_small", 32, 4], "prefill": ["prefill_small", 64, 4],
           "decode": ["decode_small", 64, 4]}
 CELLS = [("gemma2-2b", "train"), ("llama3.2-3b", "prefill"),
          ("mamba2-130m", "prefill"), ("olmoe-1b-7b", "decode"),
-         ("whisper-large-v3", "prefill"), ("internvl2-1b", "train")]
+         ("olmoe-1b-7b", "prefill"), ("whisper-large-v3", "prefill"),
+         ("internvl2-1b", "train")]
 MESHES = [(1, 1), (2, 1), (2, 2), (1, 4)]
 #: The reference's record keys (``repro.launch.dryrun.run_cell``); the
 #: port's ``trace_s`` takes the place of ``lower_s`` and ``compile_s``.
@@ -211,7 +212,9 @@ def test_input_specs_match_reference(ref_specs, arch, monkeypatch):
 def test_memory_bytes_match_reference(mesh_run, cell):
     """Each rank's argument and output bytes (the local shards on the
     cell's placements) equal to the reference's ``memory_analysis``
-    exactly; a differing argument leaf is named."""
+    exactly; a differing argument leaf is named.  A serve step holds
+    exactly those bytes (its ``step_*`` bytes equal them: it takes and
+    returns its shards, ROADMAP D15c-2a)."""
     mesh, ref, port = mesh_run
     r, p = ref[_key(*cell, mesh)], port[_key(*cell, mesh)]
     bad = {k: (p["leaves"].get(k), r["leaves"].get(k))
@@ -224,6 +227,9 @@ def test_memory_bytes_match_reference(mesh_run, cell):
     assert r["output_bytes"] == r["output_data_bytes"] + 8 * r["output_leaves"]
     assert p["memory"]["output_bytes"] == r["output_data_bytes"]
     assert p["status"] == "ok" and p["device"] == "cuda"
+    if cell[1] != "train":
+        assert p["memory"]["step_argument_bytes"] == r["argument_bytes"]
+        assert p["memory"]["step_output_bytes"] == r["output_data_bytes"]
 
 
 def _layer_kinds(cfg):
@@ -256,28 +262,32 @@ def _attention_tile_flops(arch, B, T):
     return total
 
 
-def _moe_flops(arch, n_tokens):
-    """The dense MoE dispatch's products over ``n_tokens`` tokens, summed
-    over the MoE layers."""
-    from torch.utils.flop_counter import FlopCounterMode
-
+def _router_split(arch, kind, mesh) -> float:
+    """The partitioner decision of the reduced olmoe-1b-7b decode cell at
+    (2, 2), read from the compiled HLO: the reference contracts the
+    router (d, E) over d / "model" on each rank's rows (its FSDP slice
+    moved to the "model" rank by a collective-permute, the partial
+    logits all-reduced over "model"), where at (2, 1), at (1, 4) and in
+    every prefill cell it contracts all of d, as the port does at every
+    mesh.  The port's count is the reference's plus (1 - 1 / model) of
+    the router products, every MoE layer: 2 048 FLOPs."""
     from repro_torch.configs import get_config, reduced_config
     from repro_torch.models import lm as LM
-    from repro_torch.models import moe as MOE
 
+    if kind != "decode" or mesh != (2, 2):
+        return 0.0
     cfg = reduced_config(get_config(arch))
-    p = MOE.moe_init(torch.Generator().manual_seed(0), cfg, cfg.moe)
-    with FlopCounterMode(display=False) as fc:
-        MOE.moe_apply(cfg, cfg.moe, p, torch.zeros(n_tokens, 1, cfg.d_model))
     n = len(cfg.block_pattern)
     layers = sum(LM._moe_here(cfg, i % n) for i, _ in
                  enumerate(_layer_kinds(cfg)))
-    return layers * fc.get_total_flops()
+    rows = SHAPES[kind][2] // mesh[0]
+    return layers * 2 * rows * cfg.d_model * cfg.moe.n_experts * (
+        1 - 1 / mesh[1])
 
 
 #: The cells whose products the port leaves whole over "model": Mamba-2's
-#: (ROADMAP D15c-3) and the dense MoE's experts (D15c-2).
-WHOLE_OVER_MODEL = ("mamba2-130m", "olmoe-1b-7b")
+#: (ROADMAP D15c-3).
+WHOLE_OVER_MODEL = ("mamba2-130m",)
 
 
 def _local_heads(arch, model: int) -> float:
@@ -313,11 +323,9 @@ def test_flops_match_reference(mesh_run, cell, tmp_path_factory):
         FLOPs (its windowed-flash branch, ``marker >= 10000``, takes the
         scan's markers 30000 + L first: ROADMAP C15), is held to the
         formula of ``hlo_cost.py:191-200``;
-      * decode: ``dot`` equal exactly at (1, 1); at (2, 1) the port's
-        dense MoE dispatch computes the global batch's experts on every
-        data rank (it gathers the tokens for the reference's global
-        capacity; ROADMAP D15c-2), so the port counts the reference's
-        FLOPs plus (1 - 1/data) of the MoE products, exactly;
+      * decode: ``dot`` equal exactly: the dense MoE dispatch divides
+        its experts over "model" and its products over "data" as the
+        reference's partitioner does (ROADMAP D15c-2a);
       * train: the reference's attention rematerializes its tiles once
         more inside the attention's backward (``jax.checkpoint`` on its
         tile steps, ``models/attention.py:174, 202, 239``), the port's
@@ -326,7 +334,8 @@ def test_flops_match_reference(mesh_run, cell, tmp_path_factory):
         tolerance), and no more.
 
     Where "model" is above 1, the port divides attention, the dense MLP,
-    the embedding and the head over "model" (ROADMAP D15c-1):
+    the embedding and the head over "model" (ROADMAP D15c-1), and the
+    dense MoE's experts over "model" (D15c-2a):
 
       * prefill: ``kernel`` as at "model" 1; ``dot`` equal to the
         ``opaque`` cell's where "model" divides the kv heads.  Where it
@@ -351,10 +360,13 @@ def test_flops_match_reference(mesh_run, cell, tmp_path_factory):
         port's k/v FLOPs at "model" 4, read from the dot shapes of the
         compiled HLO.  The port's count is held with its k/v products
         at the reference's share;
-      * mamba2-130m prefill and olmoe-1b-7b decode, whose SSM and expert
-        products stay whole (ROADMAP D15c-3, D15c-2): strictly below the
-        port's count without the model axis, and at least the
-        reference's."""
+      * decode (olmoe-1b-7b over a cache whose slots "model" divides):
+        ``dot`` equal to the reference's exactly at (1, 4); at (2, 2)
+        the reference's plus the router decision
+        :func:`_router_split` names, exactly;
+      * mamba2-130m prefill, whose SSM products stay whole (ROADMAP
+        D15c-3): strictly below the port's count without the model
+        axis, and at least the reference's."""
     from repro_torch.configs import get_config, reduced_config
 
     mesh, ref, port = mesh_run
@@ -391,8 +403,7 @@ def test_flops_match_reference(mesh_run, cell, tmp_path_factory):
             assert split["dot"] == r["dot"] - tile
     elif kind == "decode":
         assert split["kernel"] == 0.0
-        excess = (1 - 1 / mesh[0]) * _moe_flops(arch, SHAPES[kind][2])
-        assert split["dot"] == r["dot"] + excess
+        assert split["dot"] == r["dot"] + _router_split(arch, kind, mesh)
     else:
         assert split["kernel"] == 0.0
         T += cfg.n_patches if cfg.family == "vlm" else 0
@@ -407,15 +418,25 @@ def test_flops_match_reference(mesh_run, cell, tmp_path_factory):
         assert tile <= gap <= 2 * tile
 
 
-#: The records at meshes whose "model" axis is 1, as the port gave them
-#: before its products were divided over "model" (the parent of ROADMAP
-#: D15c-1): (``dot``, ``kernel``) FLOPs and, by collective kind issued,
-#: (count, output bytes, ring traffic).  At (1, 1) no collective.
+#: The records at meshes whose "model" axis is 1: (``dot``, ``kernel``)
+#: FLOPs and, by collective kind issued, (count, output bytes, ring
+#: traffic); at (1, 1) no collective.  As the port gave them before its
+#: products were divided over "model" (the parent of ROADMAP D15c-1),
+#: but for the serve cells at (2, 1) since the serve steps return their
+#: shards (D15c-2a): each lost the all-gathers of its outputs over
+#: "data", one a leaf, their bytes the global outputs' (llama3.2-3b
+#: prefill 18 -> 15, 286 720 -> 212 992 bytes: 8 192 of logits and 65
+#: 536 of cache; mamba2-130m 8 -> 5, 81 408 fewer; whisper-large-v3 7 ->
+#: 2, 172 032 fewer), and olmoe-1b-7b's decode, whose dense MoE no
+#: longer computes the global batch's experts on every data rank (6 627
+#: 328 -> 3 477 504 FLOPs, the reference's) and sums its buffers and
+#: products over "data" (the all-reduces).
 MODEL_ONE = {
     ("gemma2-2b", "train", (1, 1)): (197132288, 0, {}),
     ("llama3.2-3b", "prefill", (1, 1)): (38010880, 4194304, {}),
     ("mamba2-130m", "prefill", (1, 1)): (28049408, 12582912, {}),
     ("olmoe-1b-7b", "decode", (1, 1)): (6955008, 0, {}),
+    ("olmoe-1b-7b", "prefill", (1, 1)): (420216832, 4194304, {}),
     ("whisper-large-v3", "prefill", (1, 1)): (52690944, 6815744, {}),
     ("internvl2-1b", "train", (1, 1)): (127401984, 0, {}),
     ("gemma2-2b", "train", (2, 1)): (98566144, 0, {
@@ -423,13 +444,17 @@ MODEL_ONE = {
         "all-reduce": (11, 2312, 2312),
         "reduce-scatter": (29, 360448, 360448)}),
     ("llama3.2-3b", "prefill", (2, 1)): (19005440, 2097152, {
-        "all-gather": (18, 286720, 143360)}),
+        "all-gather": (15, 212992, 106496)}),
     ("mamba2-130m", "prefill", (2, 1)): (14024704, 6291456, {
-        "all-gather": (8, 255488, 127744)}),
-    ("olmoe-1b-7b", "decode", (2, 1)): (6627328, 0, {
-        "all-gather": (23, 1125376, 562688)}),
+        "all-gather": (5, 174080, 87040)}),
+    ("olmoe-1b-7b", "decode", (2, 1)): (3477504, 0, {
+        "all-gather": (16, 215168, 107584),
+        "all-reduce": (4, 81920, 81920)}),
+    ("olmoe-1b-7b", "prefill", (2, 1)): (344326144, 2097152, {
+        "all-gather": (20, 1779712, 889856),
+        "all-reduce": (2, 1048576, 1048576)}),
     ("whisper-large-v3", "prefill", (2, 1)): (26345472, 3407872, {
-        "all-gather": (7, 4431872, 2215936)}),
+        "all-gather": (2, 4259840, 2129920)}),
     ("internvl2-1b", "train", (2, 1)): (63700992, 0, {
         "all-gather": (29, 720896, 360448),
         "all-reduce": (7, 1288, 1288),
@@ -483,7 +508,9 @@ def test_one_rank_issues_no_collective(mesh_run):
 # ---------------------------------------------------------------------------
 
 GLOO_CELLS = [["gemma2-2b", "train", [2, 2], "base", SHAPES["train"]],
-              ["llama3.2-3b", "prefill", [2, 2], "base", SHAPES["prefill"]]]
+              ["llama3.2-3b", "prefill", [2, 2], "base", SHAPES["prefill"]],
+              ["olmoe-1b-7b", "decode", [2, 2], "base", SHAPES["decode"]],
+              ["gemma2-2b", "decode", [1, 4], "base", SHAPES["decode"]]]
 
 
 @pytest.fixture(scope="module")
@@ -499,11 +526,16 @@ def gloo_costs(tmp_path_factory):
     return _result(work, "fake", fake), real
 
 
-@pytest.mark.parametrize("cell", GLOO_CELLS, ids=lambda c: c[1])
+@pytest.mark.parametrize("cell", GLOO_CELLS,
+                         ids=lambda c: c[1] if c[1] != "decode" else
+                         f"{c[0]}-{c[1]}")
 def test_collectives_match_gloo_run(gloo_costs, cell):
     """Counts, output bytes and ring traffic of every collective kind,
     from the fake 4-rank group's trace and from the same step run on
-    four gloo ranks: equal."""
+    four gloo ranks: equal; the decode cells take the divided dense MoE
+    (olmoe-1b-7b at (2, 2): its all-reduces over "data") and the window
+    cache's shift across shards (gemma2-2b at (1, 4): the
+    collective-permute)."""
     fake, real = gloo_costs
     key = _key(cell[0], cell[1], cell[2])
     assert fake[key]["collectives"] == real[key]
@@ -779,7 +811,8 @@ def test_production_record_keys(production_records, shape, mesh):
     record has every key of the reference's record (``trace_s`` for
     ``lower_s`` and ``compile_s``), its memory keys (alias and generated
     code null), collectives by the five kinds, and the kernel calls of
-    the kind (prefill: one B4 call a layer; no stand-in under ``base``)."""
+    the kind (prefill: one B4 call a layer; no stand-in under ``base``);
+    a serve cell's step holds its argument bytes exactly."""
     from repro_torch.configs import get_config, reduced_config
     from repro_torch.launch import cost as C
 
@@ -804,6 +837,9 @@ def test_production_record_keys(production_records, shape, mesh):
         rec["flops_breakdown"]["kernel"] == 0
     assert rec["memory"]["total_bytes"] == (
         rec["memory"]["step_argument_bytes"] + rec["memory"]["temp_bytes"])
+    if shape != "train_4k":      # the serve steps take their shards
+        assert rec["memory"]["step_argument_bytes"] == \
+            rec["memory"]["argument_bytes"]
 
 
 def test_long_context_skips_as_the_reference(tmp_path):
@@ -916,21 +952,24 @@ def test_serve_dry_run(tmp_path):
     ("olmoe-1b-7b", "prefill_32k", "ep")])
 def test_variant_changes_the_cell(tmp_path, arch, shape, variant):
     """A variant's switch reaches the traced program, against ``base`` on
-    the same (1, 4) fake group (reduced configs): ``kvint8`` makes the
-    decode cache int8 with scales, so the argument bytes fall;
-    ``ep`` runs the expert-parallel MoE, the one layer that divides its
-    products over "model", so the FLOPs fall and its combine adds
-    all-reduces.  The record's file carries the variant."""
+    the same fake group (reduced configs): ``kvint8`` at (1, 4) makes the
+    decode cache int8 with scales, so the argument bytes fall; ``ep`` at
+    (2, 2) runs the expert-parallel MoE, whose ranks dispatch their own
+    rows with a local capacity where the dense dispatch's buffers hold
+    the global batch's (ROADMAP D15c-2a), so the FLOPs fall and the
+    dense dispatch's all-reduces of its buffers over "data" go.  The
+    record's file carries the variant."""
+    mesh = "2x2" if variant == "ep" else "1x4"
     recs = {}
     for v in ("base", variant):
         out = subprocess.run(
             [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-             arch, "--shape", shape, "--mesh", "1x4", "--smoke",
+             arch, "--shape", shape, "--mesh", mesh, "--smoke",
              "--variant", v, "--out-dir", str(tmp_path)], env=_env(),
             capture_output=True, text=True, timeout=600)
         assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-3000:]
         tag = "" if v == "base" else f"__{v}"
-        recs[v] = json.loads((tmp_path / f"{arch}__{shape}__1x4{tag}.json")
+        recs[v] = json.loads((tmp_path / f"{arch}__{shape}__{mesh}{tag}.json")
                              .read_text())
         assert recs[v]["variant"] == v and recs[v]["status"] == "ok"
     base, var = recs["base"], recs[variant]
@@ -941,5 +980,5 @@ def test_variant_changes_the_cell(tmp_path, arch, shape, variant):
     else:
         assert var["flops_per_device"] < base["flops_per_device"]
         counts = var["collectives"]["counts"]
-        assert counts["all-reduce"] > base["collectives"]["counts"][
+        assert counts["all-reduce"] < base["collectives"]["counts"][
             "all-reduce"]

@@ -23,13 +23,26 @@ its cases), float32 activations, batch 4 x 16.
     single-device loop bit for bit;
   * the tensor-parallel products over "model" (ROADMAP D15c-1):
     llama3.2-3b at (1, 2), (2, 2), (1, 4), gemma2-2b at (1, 4) and
-    internvl2-1b at (2, 2) among the train cases; ``make_prefill_step``
-    and three greedy ``make_decode_step`` steps of llama3.2-3b and
-    whisper-large-v3 at (1, 2), (2, 2) and (1, 4) against the
-    reference's: logits within 1e-4 of the largest, greedy tokens
-    equal; at (2, 1) no collective on the "model" group;
+    internvl2-1b at (2, 2) among the train cases; at (2, 1) no
+    collective on the "model" group;
+  * the serve steps on shards (ROADMAP D15c-2a): ``make_prefill_step``
+    and three greedy ``make_decode_step`` steps, handed the prompt and
+    then their own DTensors, against the reference's: llama3.2-3b and
+    whisper-large-v3 at (1, 2), (2, 2) and (1, 4), olmoe-1b-7b (the
+    divided dense MoE) at (2, 2) and (1, 4), llama3.2-3b's int8 cache
+    and gemma2-2b (its window cache divided over "model") at (1, 4),
+    and llama3.2-3b at (2, 2) on a 64-token prompt (its slots divided:
+    the other cases' 16 slots tie the head dim, which is divided):
+    logits within 1e-4 of the largest, greedy tokens equal, each rank's
+    bytes of the last cache equal to one device's shard on the
+    reference's ``cache_shardings``;
   * the expert-parallel layer's y and aux against the reference's
     ``moe_apply_ep`` at (1, 2), (1, 4) and (2, 2) within 1e-5;
+  * the dense MoE layer divided over (2, 1), (2, 2) and (1, 4) (ROADMAP
+    D15c-2a), with a capacity below d (its products' d contracted on
+    the weights' shards) and above it (wi and wg gathered): y, the aux
+    loss and the gradients of its input, router and experts within
+    1e-5 of the whole layer's;
   * ``compress_grads`` and ``global_norm`` on DTensor gradients over
     (2, 2) against the whole tree;
   * elastic restart: two steps at (2, 2) saved to disk, restored on
@@ -73,8 +86,16 @@ TRAIN_CASES = [
     ["internvl2-1b", [2, 2], 0, 3],
 ]
 MOE_CASES = [[1, 2], [1, 4], [2, 2]]
+DENSE_MOE_CASES = [[s, t] for s in ([2, 1], [2, 2], [1, 4]) for t in (1, 8)]
 SERVE_CASES = [[a, s] for a in ("llama3.2-3b", "whisper-large-v3")
-               for s in ([1, 2], [2, 2], [1, 4])]
+               for s in ([1, 2], [2, 2], [1, 4])] + [
+    ["olmoe-1b-7b", [2, 2]], ["olmoe-1b-7b", [1, 4]],
+    ["llama3.2-3b", [1, 4], "kvint8"], ["gemma2-2b", [1, 4]],
+    ["llama3.2-3b", [2, 2], "slots"]]
+
+
+def _serve_tag(case):
+    return "/".join([case[0], f"{case[1][0]}x{case[1][1]}"] + case[2:])
 
 
 def _tag(case):
@@ -91,7 +112,8 @@ def runs(tmp_path_factory):
     """(the reference's results, the port's by world size)."""
     work = tmp_path_factory.mktemp("sharded")
     (work / "cases.json").write_text(json.dumps(
-        {"train": TRAIN_CASES, "moe": MOE_CASES, "serve": SERVE_CASES}))
+        {"train": TRAIN_CASES, "moe": MOE_CASES, "serve": SERVE_CASES,
+         "dense_moe": DENSE_MOE_CASES}))
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
     refs = [subprocess.Popen(
         [sys.executable, str(ROOT / "tests" / "sharded_reference.py"),
@@ -156,21 +178,47 @@ def test_expert_parallel_layer_matches_reference(runs, shape):
     np.testing.assert_allclose(aux, float(ref[f"moe/aux/{tag}"]), rtol=1e-5)
 
 
-@pytest.mark.parametrize("case", SERVE_CASES,
-                         ids=lambda c: f"{c[0]}/{c[1][0]}x{c[1][1]}")
+@pytest.mark.parametrize("case", DENSE_MOE_CASES,
+                         ids=lambda c: f"{c[0][0]}x{c[0][1]}/T{c[1]}")
+def test_dense_moe_divided_matches_whole(runs, case):
+    """The dense MoE divided over the mesh against the whole layer: y,
+    aux and every gradient within 1e-5 of the whole's largest."""
+    _, port = runs
+    shape, T_moe = case
+    errs = port[shape[0] * shape[1]]["dense_moe"][
+        f"{shape[0]}x{shape[1]}/T{T_moe}"]
+    assert set(errs) == {"y", "aux", "x", "router", "moe_wi", "moe_wg",
+                         "moe_wd"}
+    assert max(errs.values()) <= 1e-5, errs
+
+
+@pytest.mark.parametrize("case", SERVE_CASES, ids=_serve_tag)
 def test_serve_steps_match_reference(runs, case):
     """``make_prefill_step`` and three greedy ``make_decode_step`` steps
     against the reference's on the same mesh: each step's float32
     logits within 1e-4 relative of the reference's largest, the greedy
     tokens equal."""
     ref, port = runs
-    arch, shape = case
-    tag = f"{arch}/{shape[0]}x{shape[1]}"
-    logits, tokens = port[shape[0] * shape[1]]["serve"][tag]
+    tag = _serve_tag(case)
+    shape = case[1]
+    logits, tokens, _ = port[shape[0] * shape[1]]["serve"][tag]
     want = ref[f"serve/logits/{tag}"]
     np.testing.assert_allclose(np.array(logits), want, rtol=1e-4,
                                atol=1e-4 * np.abs(want).max())
     np.testing.assert_array_equal(np.array(tokens), ref[f"serve/tokens/{tag}"])
+
+
+@pytest.mark.parametrize("case", SERVE_CASES, ids=_serve_tag)
+def test_serve_cache_bytes_equal_reference_shard(runs, case):
+    """After the last decode step each rank holds exactly one device's
+    share of the reference's cache on ``cache_shardings``: the batch
+    over "data", the largest dim "model" divides over "model"."""
+    ref, port = runs
+    tag = _serve_tag(case)
+    shape = case[1]
+    per_rank = port[shape[0] * shape[1]]["serve"][tag][2]
+    want = int(ref[f"serve/cache_bytes/{tag}"])
+    assert per_rank == [want] * (shape[0] * shape[1])
 
 
 def test_model_axis_of_one_issues_no_model_collective(runs):
