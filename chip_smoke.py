@@ -369,7 +369,16 @@ exits non-zero):
                      placements (DTensors, whole on one rank), and one
                      prefill and decode step of each dispatch under
                      ``launch.cost.trace`` issue no collective on the
-                     "model" group.
+                     "model" group; (d) mamba2-130m at full width and
+                     depth (Mamba-2's products divided over "model"
+                     where it divides them, the identity on one rank):
+                     ``make_prefill_step`` on the short set through B5
+                     (24 launches, each held against the plain version
+                     and counted apart, ``dist_launches``), then one
+                     ``make_decode_step`` step whose greedy tokens equal
+                     the unsharded ``prefill`` and ``decode_step``'s bit
+                     for bit, 0 collectives on the "model" group under
+                     ``launch.cost.trace``, the case's seconds printed.
  20. dryrun        — ``repro_torch.launch.dryrun`` on the card's host: (a)
                      for each distinct B4 and B5 launch of phases 6-19
                      (inputs' shapes, dtypes and strides, the static
@@ -387,7 +396,10 @@ exits non-zero):
                      101/102) and ``decode_32k`` under ``flash+kvint8``
                      (402), mamba2-130m ``train_4k`` under ``ssdk``
                      (30256/40256), each record's bytes, FLOPs,
-                     collectives and ``trace_s`` printed, each serve
+                     collectives and ``trace_s`` printed (the two
+                     mamba2-130m cells' ``dot`` and ``kernel`` beside
+                     their counts with Mamba-2's products whole over
+                     "model", ``DRYRUN_WHOLE_SSM``), each serve
                      cell's ``step_argument_bytes`` equal to its
                      ``argument_bytes`` (the steps take their shards),
                      each stand-in cell's ``kernel`` FLOPs equal to the
@@ -676,6 +688,9 @@ DIST_LOSS_RTOL = 1e-5
 DIST_COMPRESS_SEED = 19
 DIST_MOE_ARCH = "olmoe-1b-7b"
 DIST_DECODE_STEPS = 3
+#: mamba2-130m's decode steps after its sharded prefill (phase 19 (d)):
+#: one, as the whole script came within 100 s of its limit with three.
+DIST_SSM_DECODE_STEPS = 1
 #: The collective calls one sharded train step should make on the
 #: one-rank (1, 1) mesh, counted from the code: global_norm's all-reduce
 #: over each mesh dim and the heartbeat's all-gather.  The
@@ -696,6 +711,13 @@ DRYRUN_CELLS = (("llama3.2-3b", "train_4k", "base"),
                 ("llama3.2-3b", "decode_32k", "flash+kvint8"),
                 ("mamba2-130m", "train_4k", "ssdk"))
 DRYRUN_REAL = ("llama3.2-3b", 1, 2048)
+#: (dot, kernel) FLOPs a rank of the mamba2-130m cells above as the
+#: parent of the division of Mamba-2's products over "model" traced them
+#: (every product whole over "model"), printed beside this run's.
+DRYRUN_WHOLE_SSM = {("mamba2-130m", "prefill_32k", "base"):
+                    (11809167040512.0, 4947802324992.0),
+                    ("mamba2-130m", "train_4k", "ssdk"):
+                    (58709250146304.0, 24739011624960.0)}
 DRYRUN_BUDGET_S = 90.0
 #: A (b) cell's limit in seconds: the cells start before phase 18 and
 #: trace beside phases 18 and 19 on the host's cores (they use no
@@ -4621,11 +4643,93 @@ def dist_phase(smi, train_losses=None):
         _print_held("  dist prefill flash_attention", held)
         out.update(prefill_ms=prefill_s * 1e3, dense_ms=dense_s * 1e3,
                    logits_ratio=ratio)
+        out["ssd_launches"], out["ssd_held"] = _dist_mamba(mesh, smi)
         return launches, held, out
     finally:
         os.environ.pop("REPRO_MOE_EP", None)
         dist.destroy_process_group()
         store.unlink(missing_ok=True)
+
+
+def _dist_mamba(mesh, smi):
+    """Phase 19 (d): mamba2-130m at full width and depth on the one-rank
+    mesh: ``make_prefill_step`` on the short set (B5 through the sharded
+    step: a launch a layer, each held against the plain version), then
+    ``DIST_SSM_DECODE_STEPS`` ``make_decode_step`` steps, their greedy
+    tokens against the unsharded ``prefill`` and ``decode_step``'s bit
+    for bit, and a prefill and a decode step's collectives on the
+    "model" group under the cost counter (0).  Returns (B5 launches,
+    held records)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import steps as ST
+    from repro_torch.distributed.elastic import reshard_state
+    from repro_torch.distributed.sharding import local
+    from repro_torch.kernels.ssd_scan import ops as SO
+    from repro_torch.launch import cost as C
+    from repro_torch.models import build_model
+
+    t0 = time.perf_counter()
+    cfg = get_config(SSM_ARCH)
+    prefill, place = ST.make_prefill_step(cfg, mesh)
+    decode, _ = ST.make_decode_step(cfg, mesh)
+    model = build_model(cfg, DEVICE, torch.Generator(DEVICE).manual_seed(0))
+    plain = model.init()
+    params = reshard_state(plain, mesh, place)
+    toks = torch.as_tensor(_pad_left(_request_sets(cfg.vocab)[0][1]),
+                           device=DEVICE)
+    pos = toks.shape[1]
+
+    def greedy(first, step, cache):
+        out = [first[:, -1].argmax(-1)]
+        for i in range(DIST_SSM_DECODE_STEPS):
+            lg, cache = step({"token": out[-1][:, None], "pos": pos + i,
+                              "cache": cache})
+            out.append(local(lg)[:, -1].argmax(-1))
+        return torch.stack(out, 1).cpu()
+
+    with torch.no_grad():
+        SO.launches = 0
+        with _Recorder(SO, "ssd_scan_fwd") as rec:
+            logits, cache = prefill(params, {"tokens": toks})
+        launches = SO.launches
+        got = greedy(local(logits), lambda b: decode(params, b), cache)
+        lg, cache = model.prefill(plain, {"tokens": toks})
+        want = greedy(lg, lambda b: model.decode_step(plain, b), cache)
+    if launches != cfg.n_layers or rec.n != launches:
+        raise AssertionError(f"{SSM_ARCH} sharded prefill: {launches} B5 "
+                             f"launches ({rec.n} recorded), {cfg.n_layers} "
+                             f"expected")
+    if not torch.equal(got, want):
+        raise AssertionError(f"{SSM_ARCH} sharded greedy tokens {got} != "
+                             f"the unsharded decode's {want}")
+    held = [_HOLDERS["ssd_scan"][1](f"dist mamba prefill launch {i}", a, o)
+            for i, (a, o) in enumerate(rec.calls)]
+    del rec, cache
+    torch.cuda.empty_cache()
+
+    def steps():
+        lg, c = prefill(params, {"tokens": toks})
+        tok = local(lg)[:, -1].argmax(-1)[:, None]
+        decode(params, {"token": tok, "pos": pos, "cache": c})
+
+    with torch.no_grad():
+        calls = C.trace(steps).group_calls.get(
+            mesh.get_group("model").group_name, 0)
+    if calls:
+        raise AssertionError(f"the one-rank {SSM_ARCH} serve steps issued "
+                             f"{calls} collectives on the \"model\" group")
+    print(f"(d) {SSM_ARCH} full width and depth on the (1, 1) mesh, short "
+          f"set {tuple(toks.shape)} on {smi}: B5 {launches} launches "
+          f"through make_prefill_step, each held against the plain "
+          f"version; {DIST_SSM_DECODE_STEPS} make_decode_step step(s)' "
+          f"greedy tokens equal the unsharded prefill and decode_step's "
+          f"bit for bit; collectives on the \"model\" group, a prefill and a "
+          f"decode step under the cost counter: {calls}; "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    _print_held("  dist mamba prefill ssd_scan", held)
+    return launches, held
 
 
 def _model_group_calls(mesh, prefill, decode, params, vocab):
@@ -5043,6 +5147,12 @@ def dryrun_phase(smi):
               f"fits {m['fits']}; collectives counts {c['counts']} traffic "
               f"{ {k: round(v) for k, v in c['traffic'].items()} }; kernel "
               f"calls {rec['kernel_calls']}", flush=True)
+    for key, (dot, kernel) in DRYRUN_WHOLE_SSM.items():
+        b = recs[key]["flops_breakdown"]
+        print(f"(b) {' x '.join(key)}: dot {b['dot']:.6e} kernel "
+              f"{b['kernel']:.6e} a rank, with Mamba-2's products divided "
+              f"over \"model\" where it divides them (whole over \"model\": "
+              f"dot {dot:.6e} kernel {kernel:.6e})", flush=True)
     for (arch, shape, variant), rec in recs.items():
         if variant not in ("flash", "ssdk", "flash+kvint8"):
             continue
@@ -5244,7 +5354,7 @@ def main() -> int:
         serve_launches[k] += int8_launches[k]
     held_kv += int8_held["kv_retry"]
     torch.cuda.empty_cache()
-    dist_launches, dist_held, _ = dist_phase(smi, train["losses"])
+    dist_launches, dist_held, dist_out = dist_phase(smi, train["losses"])
     torch.cuda.empty_cache()
     dryrun_phase(smi)
     # The head-dim-16 launches are summed apart: SDPA has no softcap, so
@@ -5300,9 +5410,11 @@ def main() -> int:
              encdec_held=len(encdec_held["kv_retry"]),
              int8_launches=int8_launches["kv_retry_int8"],
              int8_held=len(held_int8), **_sub_sums("int8", held_int8)),
-        _kernel_line("ssd_scan", f"{kernels}/ssd_scan/csrc/ssd_scan.cu",
-                     "src/repro/kernels/ssd_scan/kernel.py:40",
-                     ssd_launches, ssd_cases, held_ssd, library=False),
+        dict(_kernel_line("ssd_scan", f"{kernels}/ssd_scan/csrc/ssd_scan.cu",
+                          "src/repro/kernels/ssd_scan/kernel.py:40",
+                          ssd_launches, ssd_cases, held_ssd, library=False),
+             dist_launches=dist_out["ssd_launches"],
+             **_sub_sums("dist", dist_out["ssd_held"])),
         dict(_kernel_line("rber", f"{kernels}/rber/csrc/rber.cu",
                           "src/repro/kernels/rber/kernel.py:30",
                           rber_launches, [], [rber], library=False),

@@ -337,21 +337,32 @@ def gather_tp(x, dim: int):
         grad_placements=grad_placements(mesh, model=model))
 
 
-#: The leaves whose products are divided over "model" (ROADMAP D15c-1),
-#: each with the dim it is divided along: attention's projections over
-#: the heads, the dense MLP's over ff (in every layer that has one and
-#: in the MoE's shared expert), the embedding and the head over the
-#: vocab.  Each is divided where "model" divides that dim, as the
-#: reference's partitioner divides it: ``param_specs`` shards the same
-#: dim over "model" where it divides (``_guarded``), and where it leaves
-#: a weight replicated (the whisper units' paths match no rule), the
-#: consumer's ``constrain`` hint ("kv_heads", "ff", "vocab") divides the
-#: product.  :func:`gather_tree` gathers them with :func:`gather_tp`,
-#: the leaves of :data:`KEPT_LEAVES` not at all, every other leaf
-#: whole: Mamba-2's and RG-LRU's products (D15c-3) and the router.
+#: The leaves whose products are divided over "model", each with the
+#: dim it is divided along: attention's projections over the heads, the
+#: dense MLP's over ff (in every layer that has one and in the MoE's
+#: shared expert), the embedding and the head over the vocab (ROADMAP
+#: D15c-1); Mamba-2's in_proj over its packed columns (z | xBC | dt),
+#: its out_proj over the rows of d_inner, RG-LRU's w_gate and w_rec over
+#: the width and w_out over its rows, and the depthwise conv_w of both
+#: blocks, (K, channels), over the channels (D15c-3).  Each is divided
+#: where "model" divides that dim, as the reference's partitioner
+#: divides it: ``param_specs`` shards the same dim over "model" where it
+#: divides (``_guarded``), and where it leaves a weight replicated (the
+#: whisper units' paths match no rule), the consumer's ``constrain``
+#: hint ("kv_heads", "ff", "vocab") divides the product.
+#: :func:`gather_tree` gathers them with :func:`gather_tp`, the leaves of
+#: :data:`KEPT_LEAVES` not at all, every other leaf whole: the router,
+#: the norms' scales and biases, and the leaves ``param_specs``
+#: replicates (Mamba-2's conv_b, dt_bias, a_log, d_skip and norm_scale;
+#: RG-LRU's a_gate and x_gate, whose rule has one axis for two dims, and
+#: its biases and lambda_p), which a layer slices where the dims they
+#: serve are divided (``tensor_parallel.copy_to_model`` first).
 TP_LEAVES = {"wq": 1, "wk": 1, "wv": 1, "wo": 0,     # (d, H, hd), (H, hd, d)
              "wi": 1, "wg": 1, "wd": 0,              # (d, ff), (ff, d)
-             "embed": 0, "unembed": 1}               # (V, d), (d, V)
+             "embed": 0, "unembed": 1,               # (V, d), (d, V)
+             "in_proj": 1, "out_proj": 0,            # (d, n), (di, d)
+             "w_gate": 1, "w_rec": 1, "w_out": 0,    # (d, w), (w, d)
+             "conv_w": 1}                            # (K, channels)
 
 #: The leaves whose layer takes its own shards (ROADMAP D15c-2a): the
 #: MoE's experts (E, d, ff) and (E, ff, d), divided over "model" along

@@ -35,9 +35,12 @@ serve steps gather the logits over "model" (the reference replicates
 them).  The dense MoE divides its experts over "model" and its products
 over the batch axes as the reference's partitioner does, and the
 expert-parallel MoE (``REPRO_MOE_EP=1``) its experts
-(``models.moe``; ROADMAP D15c-2a).  What it does not divide: Mamba-2's
-and RG-LRU's products (D15c-3), which every "model" rank computes for
-its batch rows in full, their decode states gathered on entry.
+(``models.moe``; ROADMAP D15c-2a).  Mamba-2's and RG-LRU's products are
+divided as the reference's partitioner divides them (D15c-3): in_proj,
+w_gate and w_rec by columns, out_proj and w_out by rows, the conv by
+channels, the scan by heads (``models.ssm``, ``models.rglru``), each
+where "model" divides that dim; their decode states stay divided along
+the dims ``cache_leaf_spec`` picks.
 :func:`build_cell` gives the dry-run one (arch x shape x mesh) cell:
 the step, its arguments as meta tensors and their placements.
 """

@@ -27,7 +27,17 @@ Megatron's pieces, each over the active mesh's "model" group
     divided over "model" (an all-reduce of the max and one of the sum;
     :func:`reduce_from_model` adds the partial p.v), and
     :func:`from_next` moves a window cache's slot across shards (a
-    collective-permute).
+    collective-permute);
+  * the columns of a packed product moved between layouts (ROADMAP
+    D15c-3): :func:`cols`, :func:`each` and :func:`join` say which
+    columns of a last dim each rank holds (a :class:`Cols`), and
+    :func:`regroup` moves a tensor from one layout to others (a local
+    slice, an all-gather or one all-to-all), as the partitioner moves
+    Mamba-2's ``in_proj`` columns (z | xBC | dt) to its conv channels
+    and scan heads; :func:`gather_own` makes a divided tensor whole on
+    every rank for its own product (all-gather forward, reduce-scatter
+    backward), as RG-LRU's gates take their input.  Each layout's plan
+    is made once and kept (``functools.lru_cache``).
 
 Where there is no mesh, or its "model" axis has one rank, every piece
 is the identity (and the two vocab-parallel pieces the plain lookup and
@@ -42,6 +52,8 @@ logits always agree.
 
 from __future__ import annotations
 
+import functools
+import itertools
 from typing import NamedTuple, Optional
 
 import torch
@@ -63,6 +75,8 @@ def model_group() -> Optional[ModelGroup]:
     """The "model" group of the active mesh, or None where there is no
     mesh or its "model" axis has one rank."""
     mesh = SH.current_mesh()
+    if mesh is None:
+        return None
     names = getattr(mesh, "mesh_dim_names", None) or ()
     if "model" not in names:
         return None
@@ -308,3 +322,235 @@ def from_next(t):
     for req in dist.batch_isend_irecv(ops):
         req.wait()
     return out
+
+
+# -- columns of a packed product over "model" -----------------------------------
+
+
+class Cols(NamedTuple):
+    """The columns of a tensor's last dim on each "model" rank:
+    ``ranks[r]`` the global column indices rank r holds, in order, as a
+    tuple of ranges.  ``alike``: every rank holds the same columns and
+    uses them alike (a replicated tensor, its gradient whole on every
+    rank); else each rank's columns are its own use (where the ranks'
+    columns overlap, their gradients are summed)."""
+    ranks: tuple
+    alike: bool
+
+
+def model_size() -> int:
+    """The number of ranks of the active mesh's "model" group (1 where
+    there is none)."""
+    mg = model_group()
+    return 1 if mg is None else mg.size
+
+
+def cols(n: int, start: int = 0) -> Cols:
+    """The columns [start, start + n) divided over "model" where it
+    divides n (:func:`local`): each rank its contiguous share; else whole
+    and alike on every rank."""
+    return _layout("cols", n, start, model_size())
+
+
+def whole(n: int, start: int = 0) -> Cols:
+    """The columns [start, start + n) whole and alike on every rank."""
+    return _layout("whole", n, start, model_size())
+
+
+def each(n: int, start: int = 0) -> Cols:
+    """The columns [start, start + n) on every rank, each rank's own use
+    (alike where there is no "model" group)."""
+    return _layout("each", n, start, model_size())
+
+
+@functools.lru_cache(maxsize=None)
+def _layout(kind: str, n: int, start: int, size: int) -> Cols:
+    n_l = SH.model_share(n, size) if kind == "cols" and size > 1 else n
+    if n_l != n:
+        return Cols(tuple((range(start + r * n_l, start + (r + 1) * n_l),)
+                          for r in range(size)), False)
+    return Cols(((range(start, start + n),),) * size,
+                kind != "each" or size == 1)
+
+
+def _cat(*segs) -> tuple:
+    """Ranges of columns one after another, adjacent ones merged."""
+    out = []
+    for s in (s for ss in segs for s in ss):
+        if out and out[-1].stop == s.start:
+            out[-1] = range(out[-1].start, s.stop)
+        elif len(s):
+            out.append(s)
+    return tuple(out)
+
+
+@functools.lru_cache(maxsize=None)
+def join(*parts: Cols) -> Cols:
+    """The layouts ``parts`` one after another on each rank."""
+    return Cols(tuple(_cat(*(p.ranks[r] for p in parts))
+                      for r in range(len(parts[0].ranks))),
+                all(p.alike for p in parts))
+
+
+@functools.lru_cache(maxsize=None)
+def _where(have: tuple, want: tuple):
+    """The positions of the columns ``want`` among ``have``'s (each a
+    tuple of ranges): a slice where they are contiguous, else a tuple."""
+    at = {c: i for i, c in enumerate(itertools.chain(*have))}
+    idx = [at[c] for c in itertools.chain(*want)]
+    first = idx[0] if idx else 0
+    if idx == list(range(first, first + len(idx))):
+        return slice(first, first + len(idx))
+    return tuple(idx)
+
+
+def _pick(t, where):
+    """The columns of ``t`` at ``where`` (:func:`_where`)."""
+    if isinstance(where, slice):
+        return t[..., where]
+    return t.index_select(-1, torch.tensor(where, device=t.device))
+
+
+def _a2a(x, n_send, n_recv, group):
+    """``x``'s columns, n_send[j] of them to rank j in rank order, to
+    their ranks, and the n_recv[i] from each rank i back, in rank order:
+    one all-to-all along the last dim."""
+    x = x.movedim(-1, 0).contiguous()
+    out = x.new_empty((sum(n_recv),) + tuple(x.shape[1:]))
+    dist.all_to_all_single(out, x, list(n_recv), list(n_send), group=group)
+    return out.movedim(0, -1)
+
+
+class _Regroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, plan, group):
+        send, n_send, n_recv, perm = plan
+        ctx.plan, ctx.group, ctx.n = plan, group, t.shape[-1]
+        dev = t.device
+        out = _a2a(t.index_select(-1, torch.tensor(send, device=dev)),
+                   n_send, n_recv, group)
+        return out.index_select(-1, torch.tensor(perm, device=dev))
+
+    @staticmethod
+    def backward(ctx, g):
+        send, n_send, n_recv, perm = ctx.plan
+        dev, lead = g.device, tuple(g.shape[:-1])
+        back = g.new_zeros(lead + (sum(n_recv),)).index_add_(
+            -1, torch.tensor(perm, device=dev), g)
+        back = _a2a(back, n_recv, n_send, ctx.group)
+        grad = g.new_zeros(lead + (ctx.n,)).index_add_(
+            -1, torch.tensor(send, device=dev), back)
+        return grad, None, None
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(have: Cols, want: Cols, rank: int) -> tuple:
+    """What this rank sends each rank (positions in its own columns, in
+    the receiver's order), the counts each way, and the order that puts
+    what it receives (by sender) into its ``want`` columns."""
+    mine = {c: i for i, c in enumerate(itertools.chain(*have.ranks[rank]))}
+    send, n_send = [], []
+    for w in want.ranks:
+        part = [mine[c] for c in itertools.chain(*w) if c in mine]
+        send += part
+        n_send.append(len(part))
+    recv, n_recv = [], []
+    for h in have.ranks:
+        held = set(itertools.chain(*h))
+        part = [k for k, c in enumerate(itertools.chain(*want.ranks[rank]))
+                if c in held]
+        recv += part
+        n_recv.append(len(part))
+    perm = [0] * len(recv)
+    for i, k in enumerate(recv):
+        perm[k] = i
+    return tuple(send), tuple(n_send), tuple(n_recv), tuple(perm)
+
+
+class _Own(torch.autograd.Function):
+    """Each rank's own layouts of a tensor alike on every rank: a slice
+    each forward (a view where its columns are contiguous); backward
+    their gradients, one after another, all-gathered from every rank and
+    added at its columns."""
+    @staticmethod
+    def forward(ctx, t, mine, every, mg):
+        ctx.every, ctx.mg, ctx.n = every, mg, t.shape[-1]
+        return tuple(_pick(t, w) for w in mine)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        mg = ctx.mg
+        g = torch.cat(gs, -1)
+        parts = [torch.empty_like(g) for _ in range(mg.size)]
+        dist.all_gather(parts, g, group=mg.group)
+        grad = g.new_zeros(tuple(g.shape[:-1]) + (ctx.n,)).index_add_(
+            -1, torch.tensor(ctx.every, device=g.device), torch.cat(parts, -1))
+        return grad, None, None, None
+
+
+@functools.lru_cache(maxsize=None)
+def _every(have: tuple, want: Cols) -> tuple:
+    """The positions among ``have``'s columns of every rank's ``want``
+    columns, rank after rank (the ranks hold as many columns each)."""
+    per = [_where(have, w) for w in want.ranks]
+    per = [tuple(range(p.start, p.stop)) if isinstance(p, slice) else p
+           for p in per]
+    assert len({len(p) for p in per}) == 1, "ranks' columns must be as many"
+    return sum(per, ())
+
+
+class _GatherOwn(_GatherFromModel):
+    @staticmethod
+    def backward(ctx, g):
+        mg = ctx.mg
+        chunks = [c.contiguous() for c in g.chunk(mg.size, dim=ctx.dim)]
+        out = torch.empty_like(chunks[0])
+        dist.reduce_scatter(out, chunks, group=mg.group)
+        return out, None, None
+
+
+def gather_own(x, dim: int):
+    """``x`` divided over "model" along ``dim`` made whole on every rank
+    for that rank's own use: all-gather forward; backward the ranks'
+    gradients summed and this rank's slice kept (a reduce-scatter)."""
+    mg = model_group()
+    return x if mg is None else _GatherOwn.apply(x, dim % x.dim(), mg)
+
+
+def regroup(t, have: Cols, *wants: Cols):
+    """``t``, which holds the columns ``have``, in each of the layouts
+    ``wants``: a local slice (``have`` alike: whole on every rank; a
+    layout of each rank's own use gets its gradient back by one
+    all-gather), the whole gathered (``have`` divided, in rank order,
+    into an alike layout), or one all-to-all for all the layouts of each
+    rank's own use, whose gradient goes back to the ranks holding the
+    columns and is summed; ``t`` itself where a layout is ``have``.
+    Returns a tensor, or a tuple where several are wanted."""
+    mg = model_group()
+    if mg is None:                    # one layout, whole: slices of t
+        out = [t if w == have else _pick(t, _where(have.ranks[0],
+                                                   w.ranks[0]))
+               for w in wants]
+        return out[0] if len(wants) == 1 else tuple(out)
+    rank = mg.rank
+    out = [t if w == have else None for w in wants]
+    own = [i for i, w in enumerate(wants) if not w.alike and out[i] is None]
+    alike = [i for i, w in enumerate(wants) if w.alike and out[i] is None]
+    have_t = have.ranks[0] if have.alike else _cat(*have.ranks)
+    if own:
+        joined = join(*(wants[i] for i in own))
+        if have.alike:
+            res = _Own.apply(t, tuple(_where(have_t, wants[i].ranks[rank])
+                                      for i in own),
+                             _every(have_t, joined), mg)
+        else:
+            n = [sum(map(len, wants[i].ranks[rank])) for i in own]
+            res = _Regroup.apply(t, _plan(have, joined, rank),
+                                 mg.group).split(n, dim=-1)
+        for i, part in zip(own, res):
+            out[i] = part
+    if alike and not have.alike:
+        t = gather_from_model(t, -1)
+    for i in alike:
+        out[i] = _pick(t, _where(have_t, wants[i].ranks[rank]))
+    return out[0] if len(wants) == 1 else tuple(out)

@@ -23,9 +23,10 @@ region in training, so the backward pass gathers them again rather
 than keeping them, its collectives issued again under the restored
 mesh context), the other weights where an entry point starts
 (``distributed.sharding.gather_tree``).  Attention's, the dense MLP's,
-the embedding's and the head's weights arrive as this rank's "model"
-shard where "model" divides them, and those layers compute their share
-of the products (``distributed.tensor_parallel``; ``train_loss`` takes
+Mamba-2's and RG-LRU's products', the embedding's and the head's
+weights (``sharding.TP_LEAVES``) arrive as this rank's "model" shard
+where "model" divides them, and those layers compute their share of
+the products (``distributed.tensor_parallel``; ``train_loss`` takes
 the vocab-parallel cross-entropy); the MoE's experts stay DTensors
 (``sharding.KEPT_LEAVES``) for its dispatch to take its shards; every
 other weight arrives whole.  Activations stay plain local tensors (the

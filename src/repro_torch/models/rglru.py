@@ -17,6 +17,11 @@ orders are the reference's: the prefill conv sums its K products in the
 activation dtype, left to right from 0; the decode conv is a product
 summed in float32 and rounded once; the gates' w x w products are
 float32.
+
+Under a mesh (ROADMAP D15c-3), where "model" divides the width w, the
+block runs on this rank's channels as the reference's partitioner runs
+it (:func:`_divided`); the decode state (conv and h) stays divided
+along w.
 """
 
 from __future__ import annotations
@@ -69,14 +74,40 @@ def _conv(x, w, b):
     return out + b.to(x.dtype), xp[:, -(K - 1):]
 
 
-def _gates(p, x):
-    """x (B, T, w) -> (log_a, b) of the recurrence h = a h + b, float32."""
-    xf = x.float()
-    r = torch.sigmoid(xf @ p["a_gate"] + p["a_gate_b"])
-    i = torch.sigmoid(xf @ p["x_gate"] + p["x_gate_b"])
+def _gates(p, x, x_all):
+    """x (B, T, w) -> (log_a, b) of the recurrence h = a h + b, float32.
+    ``x_all``: the gates' input, x itself or, where x is this rank's
+    channels of it, every channel (the gate products then this rank's
+    columns).  The products are float32 whatever the weights' dtype (the
+    reference's promotion)."""
+    xf, xa = x.float(), x_all.float()
+    r = torch.sigmoid(xa @ p["a_gate"].float() + p["a_gate_b"])
+    i = torch.sigmoid(xa @ p["x_gate"].float() + p["x_gate_b"])
     log_a = -_C * softplus(p["lambda_p"]) * r
     beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-9))
     return log_a, beta * (i * xf)
+
+
+def _divided(cfg: ModelConfig, p: dict, x):
+    """The block's layout under the active mesh: (the channels' layout,
+    x into the column-parallel w_gate and w_rec, the weights with each
+    replicated leaf at this rank's channels).  Where "model" divides the
+    width w, w_gate and w_rec are column-parallel and w_out row-parallel
+    (their shards this rank's), the conv and the recurrence run on this
+    rank's channels, and the gates' w x w products (a_gate, x_gate: the
+    reference replicates them) take the whole input to this rank's
+    columns, as the reference's partitioner computes them."""
+    w = cfg.rglru.lru_width or cfg.d_model
+    chans = TP.cols(w)
+    if chans.alike:
+        return chans, x, p
+    names = ("conv_b", "lambda_p", "a_gate_b", "x_gate_b", "a_gate",
+             "x_gate")
+    a, b = TP.shard_range(TP.local(w))
+    q = dict(p)
+    q.update(zip(names, (t[..., a:b] for t in TP.copy_to_model(
+        *(p[n] for n in names)))))
+    return chans, TP.copy_to_model(x), q
 
 
 def _combine(a1, b1, a2, b2):
@@ -109,36 +140,61 @@ def linear_scan(a, b):
 
 
 def rglru_fullseq(cfg: ModelConfig, p: dict, x, return_cache: bool = True):
-    """x (B, T, d) -> (y, cache or None)."""
+    """x (B, T, d) -> (y, cache or None); divided over "model" as
+    :func:`_divided` says."""
     dt = x.dtype
+    chans, x, p = _divided(cfg, p, x)
     gate = gelu(x @ p["w_gate"].to(dt))
     u = x @ p["w_rec"].to(dt)
     u, conv_state = _conv(u, p["conv_w"], p["conv_b"])
-    log_a, b = _gates(p, u)
+    log_a, b = _gates(p, u, _all(chans, u))
     _, h = linear_scan(torch.exp(log_a), b)
     h = h.to(dt)
-    y = (gate * h) @ p["w_out"].to(dt)
+    y = _w_out(chans, p, gate * h)
     if not return_cache:
         return y, None
-    return y, {"conv": TP.to_cache(conv_state),
-               "h": TP.to_cache(h[:, -1].float())}
+    conv_dim, h_dim = _state_dims(chans)
+    return y, {"conv": TP.to_cache(conv_state, conv_dim),
+               "h": TP.to_cache(h[:, -1].float(), h_dim)}
+
+
+def _state_dims(chans):
+    """The dims of the conv state (B, K-1, w) and of h (B, w) divided
+    over "model": the channels', or None (whole)."""
+    return (None, None) if chans.alike else (2, 1)
+
+
+def _all(chans, u):
+    """The gates' input: u at every channel, each rank's own use (u
+    itself where it is whole)."""
+    return u if chans.alike else TP.gather_own(u, -1)
+
+
+def _w_out(chans, p, v):
+    """The row-parallel w_out: the ranks' partial sums added."""
+    y = v @ p["w_out"].to(v.dtype)
+    return y if chans.alike else TP.reduce_from_model(y)
 
 
 def rglru_decode(cfg: ModelConfig, p: dict, x, cache: dict):
-    """x (B, 1, d); one O(1) recurrent step.  A state divided over
-    "model" (the serve steps' DTensor) is gathered whole and the new
-    state kept in its layout: the products stay whole (D15c-3)."""
+    """x (B, 1, d); one O(1) recurrent step, divided over "model" as
+    :func:`rglru_fullseq`; the conv state and h are read and kept at
+    this rank's channels."""
     dt = x.dtype
+    chans, x, p = _divided(cfg, p, x)
+    conv_dim, h_dim = _state_dims(chans)
     gate = gelu(x @ p["w_gate"].to(dt))
     u = x @ p["w_rec"].to(dt)
-    state = {n: TP.relayout(*TP.cache_part(t)[:2], None)
-             for n, t in cache.items()}
-    window = torch.cat([state["conv"].to(dt), u], dim=1)      # (B, K, w)
+    conv, h = (TP.relayout(*TP.cache_part(cache[n])[:2], d)
+               for n, d in (("conv", conv_dim), ("h", h_dim)))
+    window = torch.cat([conv.to(dt), u], dim=1)               # (B, K, w)
     # The reference's einsum over the K taps, summed in float32.
     u_t = (window.float() * p["conv_w"].to(dt).float()).sum(dim=1).to(dt) \
         + p["conv_b"].to(dt)
-    log_a, b = _gates(p, u_t[:, None, :])
-    h = state["h"] * torch.exp(log_a[:, 0]) + b[:, 0]
-    y = (gate * h[:, None, :].to(dt)) @ p["w_out"].to(dt)
-    return y, {"conv": TP.cache_like(cache["conv"], window[:, 1:]),
-               "h": TP.cache_like(cache["h"], h)}
+    u_t = u_t[:, None, :]
+    log_a, b = _gates(p, u_t, _all(chans, u_t))
+    h = h * torch.exp(log_a[:, 0]) + b[:, 0]
+    y = _w_out(chans, p, gate * h[:, None, :].to(dt))
+    return y, {"conv": TP.cache_like(cache["conv"], window[:, 1:],
+                                     conv_dim),
+               "h": TP.cache_like(cache["h"], h, h_dim)}

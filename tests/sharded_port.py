@@ -6,8 +6,8 @@ port).  Imports no JAX.
 ``run(world, work_dir)`` reads ``work_dir/cases.json`` and the
 reference's initial parameters (``work_dir/params.pkl``: nested numpy
 trees by arch, and the MoE case's layer and input), runs the cases of
-that world size (train, MoE, dense MoE and serve cases; at world size
-2 also the
+that world size (train, MoE, dense MoE, recurrent-layer and serve
+cases; at world size 2 also the
 collectives a step issues on each mesh axis's group,
 :func:`_group_collectives`) and writes ``work_dir/port_<world>.json``
 from rank 0.
@@ -172,6 +172,80 @@ def _dense_moe(shape, ref, T_moe):
                      / want[k].abs().max()) for k in want}
 
 
+#: A recurrent case's widths other than the reduced config's: at "model"
+#: 4, "mixed" leaves in_proj (230 columns) and the 6 heads whole and
+#: divides the 128 conv channels and the 96 rows of d_inner, as "model"
+#: 16 divides mamba2-130m at full width.
+RECURRENT_WIDTHS = {"": {}, "mixed": dict(d_model=48)}
+
+
+def _recurrent_divided(shape, arch, widths=""):
+    """A Mamba-2 (``models.ssm``) or RG-LRU (``models.rglru``) layer
+    divided over the mesh (its weights' "model" shards, ROADMAP D15c-3)
+    on this rank's rows of a seeded input, against the whole layer on the
+    whole input: the largest differences of the training output y and of
+    the gradients of the input and of every weight of the loss sum(y *
+    w) (w seeded), of the prefill's output and its cache (the new
+    state), and of one decode step's output and state, each relative to
+    the whole's largest."""
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed.elastic import reshard_state
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import rglru as RG
+    from repro_torch.models import ssm as SSMM
+    from repro_torch.optim.adamw import tree_map
+
+    cfg = dataclasses.replace(config(arch), **RECURRENT_WIDTHS[widths])
+    init, full, dec = {
+        "mamba2-130m": (SSMM.ssm_init, SSMM.ssm_fullseq, SSMM.ssm_decode),
+        "recurrentgemma-2b": (RG.rglru_init, RG.rglru_fullseq,
+                              RG.rglru_decode)}[arch]
+    mesh = make_mesh(shape, device="cpu")
+    p = tree_map(lambda t: t.requires_grad_(True),
+                 init(torch.Generator().manual_seed(5), cfg))
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.standard_normal(
+        (B, T, cfg.d_model)).astype(np.float32)).requires_grad_(True)
+    x1 = torch.from_numpy(rng.standard_normal(
+        (B, 1, cfg.d_model)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal(x.shape).astype(np.float32))
+
+    def run(params, xs, x1s, ws):
+        y, _ = full(cfg, params(), xs, return_cache=False)
+        (y * ws).sum().backward()
+        with torch.no_grad():
+            yp, cache = full(cfg, params(), xs.detach())
+            yd, state = dec(cfg, params(), x1s, cache)
+        return {"y": y.detach(), "prefill": yp, "decode": yd,
+                **{f"cache/{k}": v for k, v in cache.items()},
+                **{f"state/{k}": v for k, v in state.items()}}
+
+    want = run(lambda: p, x, x1, w)
+    want.update({"x": x.grad, **{k: v.grad for k, v in p.items()}})
+
+    axes = ("data",) if shape[0] > 1 else ()
+    pd = tree_map(lambda t: t.detach().requires_grad_(True),
+                  reshard_state(tree_map(lambda t: t.detach(), p), mesh,
+                                SH.param_placements(p, mesh)))
+    rows = (lambda t: SH.local_rows(t, mesh, axes)) if axes else (
+        lambda t: t)
+    xl = rows(x.detach()).requires_grad_(True)
+    with SH.use_mesh(mesh, batch_axes=axes):
+        got = run(lambda: SH.gather_tree(pd), xl, rows(x1), rows(w))
+    got.update({"x": xl.grad,
+                **{k: v.grad.full_tensor() for k, v in pd.items()}})
+    for k in list(got):
+        if isinstance(got[k], SH.DTensor):
+            got[k] = got[k].full_tensor()
+        elif axes and k in ("y", "prefill", "decode", "x"):
+            parts = [torch.empty_like(got[k]) for _ in range(shape[0])]
+            dist.all_gather(parts, got[k].contiguous(),
+                            group=mesh.get_group("data"))
+            got[k] = torch.cat(parts)
+    return {k: float((got[k] - want[k]).abs().max()
+                     / want[k].abs().max()) for k in want}
+
+
 def _serve(arch, shape, ref_params, variant="", steps=SERVE_STEPS):
     """``make_prefill_step`` and ``steps`` greedy ``make_decode_step``
     steps on a mesh of ``shape`` (``sharded_reference.serve_case``),
@@ -329,7 +403,7 @@ def _worker(rank, world, work_dir):
         cases = json.loads((work / "cases.json").read_text())
         ref = pickle.loads((work / "params.pkl").read_bytes())
         out = {"train": {}, "bytes": {}, "moe": {}, "serve": {},
-               "dense_moe": {}}
+               "dense_moe": {}, "recurrent": {}}
         for arch, shape, ep, steps in cases["train"]:
             if shape[0] * shape[1] != world:
                 continue
@@ -346,6 +420,11 @@ def _worker(rank, world, work_dir):
             if shape[0] * shape[1] == world:
                 out["dense_moe"][f"{shape[0]}x{shape[1]}/T{T_moe}"] = \
                     _dense_moe(shape, ref, T_moe)
+        for arch, shape, *widths in cases.get("recurrent", []):
+            if shape[0] * shape[1] == world:
+                tag = "/".join([arch, f"{shape[0]}x{shape[1]}"] + widths)
+                out["recurrent"][tag] = _recurrent_divided(shape, arch,
+                                                           *widths)
         for arch, shape, *variant in cases.get("serve", []):
             if shape[0] * shape[1] == world:
                 tag = "/".join([arch, f"{shape[0]}x{shape[1]}"] + variant)

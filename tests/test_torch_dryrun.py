@@ -20,12 +20,13 @@ Reduced configs; the shapes of :data:`SHAPES`.
     ``hlo_cost.breakdown``'s, and a prefill's ``dot`` and ``kernel``
     equal to the reference's cell with its kernel stand-ins (``dot``,
     ``custom-call(kernel)``), where the training cells differ by the
-    reference's nested remat and the (1, 4) and (2, 2) cells by the
-    partitioner decisions :func:`test_flops_match_reference` names (the
-    products are divided over "model", ROADMAP D15c-1, and the dense
-    MoE's over "model" and the batch axes, D15c-2a); mamba2-130m, whose
-    SSM products stay whole over "model", between the reference's count
-    and the port's without "model";
+    reference's nested remat, the recurrent cells by the products the
+    reference's HLO counts as dots and the port's autograd and decode
+    conv do not, and the (1, 4) and (2, 2) cells by the partitioner
+    decisions :func:`test_flops_match_reference` names (the products
+    are divided over "model", ROADMAP D15c-1, the dense MoE's over
+    "model" and the batch axes, D15c-2a, and Mamba-2's and RG-LRU's
+    over "model", D15c-3);
   * at (1, 1) and (2, 1), each cell's FLOPs and collectives equal to
     :data:`MODEL_ONE`'s records;
   * one rank issues no collective;
@@ -66,7 +67,9 @@ SHAPES = {"train": ["train_small", 32, 4], "prefill": ["prefill_small", 64, 4],
 CELLS = [("gemma2-2b", "train"), ("llama3.2-3b", "prefill"),
          ("mamba2-130m", "prefill"), ("olmoe-1b-7b", "decode"),
          ("olmoe-1b-7b", "prefill"), ("whisper-large-v3", "prefill"),
-         ("internvl2-1b", "train")]
+         ("internvl2-1b", "train"), ("mamba2-130m", "decode"),
+         ("recurrentgemma-2b", "prefill"), ("recurrentgemma-2b", "decode"),
+         ("mamba2-130m", "train")]
 MESHES = [(1, 1), (2, 1), (2, 2), (1, 4)]
 #: The reference's record keys (``repro.launch.dryrun.run_cell``); the
 #: port's ``trace_s`` takes the place of ``lower_s`` and ``compile_s``.
@@ -130,6 +133,10 @@ def _port_records(mesh, tmp_path_factory):
     return _PORT[mesh]
 
 
+#: Reference subprocesses a mesh (each compiles every second cell).
+N_REF = 2
+
+
 @pytest.fixture(scope="module", params=MESHES, ids=_tag)
 def mesh_run(request, tmp_path_factory):
     """(mesh, the reference's cells, the port's records) of one mesh
@@ -140,11 +147,14 @@ def mesh_run(request, tmp_path_factory):
     cells = _port_cells(mesh)
     ref_cells = cells + [[a, k, list(mesh), "opaque", SHAPES[k]]
                          for a, k in CELLS if k == "prefill"]
-    ref = _reference(work, "ref", ref_cells)
+    refs = [_reference(work, f"ref{i}", ref_cells[i::N_REF])
+            for i in range(N_REF)]
     if mesh not in _PORT:
         port = _port(work, "port", cells)
         _PORT[mesh] = _result(work, "port", port)
-    ref = _result(work, "ref", ref)
+    ref = {}
+    for i, proc in enumerate(refs):
+        ref.update(_result(work, f"ref{i}", proc))
     return mesh, ref, _PORT[mesh]
 
 
@@ -214,21 +224,27 @@ def test_memory_bytes_match_reference(mesh_run, cell):
     cell's placements) equal to the reference's ``memory_analysis``
     exactly; a differing argument leaf is named.  A serve step holds
     exactly those bytes (its ``step_*`` bytes equal them: it takes and
-    returns its shards, ROADMAP D15c-2a)."""
+    returns its shards, ROADMAP D15c-2a).  A decode step of a model
+    without attention (mamba2-130m) never reads ``pos``: XLA drops the
+    unused parameter from the compiled program, so the reference's
+    ``memory_analysis`` leaves out its 4 bytes, which every leaf's bytes
+    still hold."""
     mesh, ref, port = mesh_run
     r, p = ref[_key(*cell, mesh)], port[_key(*cell, mesh)]
     bad = {k: (p["leaves"].get(k), r["leaves"].get(k))
            for k in set(p["leaves"]) | set(r["leaves"])
            if p["leaves"].get(k) != r["leaves"].get(k)}
     assert not bad, f"argument leaves (port, reference): {bad}"
-    assert p["memory"]["argument_bytes"] == r["argument_bytes"]
+    unused = p["leaves"]["1/pos"] if cell == ("mamba2-130m", "decode") else 0
+    assert p["memory"]["argument_bytes"] == r["argument_bytes"] + unused
     # XLA's output size also counts the output tuple's index table, 8
     # bytes a leaf; the outputs' data is the rest.
     assert r["output_bytes"] == r["output_data_bytes"] + 8 * r["output_leaves"]
     assert p["memory"]["output_bytes"] == r["output_data_bytes"]
     assert p["status"] == "ok" and p["device"] == "cuda"
     if cell[1] != "train":
-        assert p["memory"]["step_argument_bytes"] == r["argument_bytes"]
+        assert p["memory"]["step_argument_bytes"] == \
+            r["argument_bytes"] + unused
         assert p["memory"]["step_output_bytes"] == r["output_data_bytes"]
 
 
@@ -240,10 +256,10 @@ def _layer_kinds(cfg):
 def _attention_tile_flops(arch, B, T):
     """One forward pass of every self-attention layer's tile products
     (the port's training attention, blockwise or windowed) at B rows of
-    T positions."""
+    T positions; 0 for the recurrent layers."""
     from torch.utils.flop_counter import FlopCounterMode
 
-    from repro_torch.configs import LOCAL, get_config, reduced_config
+    from repro_torch.configs import ATTN, LOCAL, get_config, reduced_config
     from repro_torch.models import attention as A
 
     cfg = reduced_config(get_config(arch))
@@ -253,6 +269,8 @@ def _attention_tile_flops(arch, B, T):
     pos = torch.arange(T, dtype=torch.int32)
     total = 0
     for kind in _layer_kinds(cfg):
+        if kind not in (ATTN, LOCAL):
+            continue
         with FlopCounterMode(display=False) as fc:
             if kind == LOCAL:
                 A.windowed_attention(cfg, q, k, v, pos, cfg.window)
@@ -274,9 +292,9 @@ def _router_split(arch, kind, mesh) -> float:
     from repro_torch.configs import get_config, reduced_config
     from repro_torch.models import lm as LM
 
-    if kind != "decode" or mesh != (2, 2):
-        return 0.0
     cfg = reduced_config(get_config(arch))
+    if kind != "decode" or mesh != (2, 2) or cfg.moe is None:
+        return 0.0
     n = len(cfg.block_pattern)
     layers = sum(LM._moe_here(cfg, i % n) for i, _ in
                  enumerate(_layer_kinds(cfg)))
@@ -285,9 +303,61 @@ def _router_split(arch, kind, mesh) -> float:
         1 - 1 / mesh[1])
 
 
-#: The cells whose products the port leaves whole over "model": Mamba-2's
-#: (ROADMAP D15c-3).
-WHOLE_OVER_MODEL = ("mamba2-130m",)
+def _decode_conv(arch, kind, mesh) -> float:
+    """The decode conv of every Mamba-2 and RG-LRU layer, which the
+    reference writes as an einsum over the K taps (``bkc,kc->bc``,
+    counted as a dot) and the port as a product summed in float32 (no
+    dot, the same roundings): 2 B K C a layer at this rank's rows and
+    conv channels."""
+    from repro_torch.configs import RGLRU, SSM, get_config, reduced_config
+    from repro_torch.distributed.sharding import model_share
+
+    if kind != "decode":
+        return 0.0
+    cfg = reduced_config(get_config(arch))
+    if cfg.ssm is not None:
+        K = cfg.ssm.d_conv
+        C = cfg.ssm.d_inner(cfg.d_model) + 2 * cfg.ssm.d_state
+    elif cfg.rglru is not None:
+        K, C = cfg.rglru.d_conv, cfg.rglru.lru_width or cfg.d_model
+    else:
+        return 0.0
+    layers = sum(k in (SSM, RGLRU) for k in _layer_kinds(cfg))
+    B = SHAPES[kind][2] // mesh[0]
+    return float(layers * 2 * B * K * model_share(C, mesh[1]))
+
+
+def _ssd_train_split(arch, mesh) -> float:
+    """The port's training scan against the reference's, at a reduced
+    mamba2-130m train cell (each rank's rows; 0 for other cells): the
+    reference's count less the port's.
+
+      * The gradients of dt through x * dt and through the chunk state,
+        which XLA contracts over the head dim as dots (``(B, T, nh, hd)
+        x (B, T, nh, hd) -> (B, T, nh)``, two a layer) and autograd as
+        products and sums: 2 * 2 B T nh hd a layer at this rank's heads,
+        which the reference counts and the port does not.
+      * The scores C.B^T (B, L, L) a chunk, which B and C (one group,
+        whole on every rank) share across the heads: the port's scan
+        computes them whole on every "model" rank, where the reference's
+        partitioner divides their query rows over "model".  Four
+        products a layer (the forward, the unit's recomputation and the
+        two gradients) of 2 B T L ds each, (1 - 1 / model) of them more
+        in the port."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.distributed.sharding import model_share
+
+    cfg = reduced_config(get_config(arch))
+    if cfg.ssm is None:
+        return 0.0
+    s = cfg.ssm
+    _, T, B = SHAPES["train"]
+    B //= mesh[0]
+    nh = model_share(s.n_heads(cfg.d_model), mesh[1])
+    L = min(s.chunk, T)
+    dt_grad = 2 * 2 * B * T * nh * s.head_dim
+    scores = 4 * 2 * B * T * L * s.d_state * (1 - 1 / mesh[1])
+    return float(cfg.n_layers * (dt_grad - scores))
 
 
 def _local_heads(arch, model: int) -> float:
@@ -314,7 +384,7 @@ def _kv_products(arch, B, T):
 
 
 @pytest.mark.parametrize("cell", CELLS, ids=lambda c: f"{c[0]}-{c[1]}")
-def test_flops_match_reference(mesh_run, cell, tmp_path_factory):
+def test_flops_match_reference(mesh_run, cell):
     """Where "model" is 1, against ``hlo_cost.breakdown``:
 
       * prefill: ``dot`` and ``kernel`` each equal to the reference's
@@ -325,13 +395,18 @@ def test_flops_match_reference(mesh_run, cell, tmp_path_factory):
         formula of ``hlo_cost.py:191-200``;
       * decode: ``dot`` equal exactly: the dense MoE dispatch divides
         its experts over "model" and its products over "data" as the
-        reference's partitioner does (ROADMAP D15c-2a);
+        reference's partitioner does (ROADMAP D15c-2a); but the decode
+        conv of the Mamba-2 and RG-LRU layers, which the reference
+        counts as a dot and the port sums as a product (no dot,
+        :func:`_decode_conv`), 2 B K C a layer, exactly;
       * train: the reference's attention rematerializes its tiles once
         more inside the attention's backward (``jax.checkpoint`` on its
         tile steps, ``models/attention.py:174, 202, 239``), the port's
         only with its unit; the port counts fewer, by between one and
         two forward passes of the attention tile products (the
-        tolerance), and no more.
+        tolerance), and no more.  mamba2-130m (no attention) exactly
+        the reference's less the dt gradients its HLO contracts as dots
+        (:func:`_ssd_train_split`).
 
     Where "model" is above 1, the port divides attention, the dense MLP,
     the embedding and the head over "model" (ROADMAP D15c-1), and the
@@ -363,10 +438,17 @@ def test_flops_match_reference(mesh_run, cell, tmp_path_factory):
       * decode (olmoe-1b-7b over a cache whose slots "model" divides):
         ``dot`` equal to the reference's exactly at (1, 4); at (2, 2)
         the reference's plus the router decision
-        :func:`_router_split` names, exactly;
-      * mamba2-130m prefill, whose SSM products stay whole (ROADMAP
-        D15c-3): strictly below the port's count without the model
-        axis, and at least the reference's."""
+        :func:`_router_split` names, exactly; the recurrent cells (their
+        products divided over "model", ROADMAP D15c-3; recurrentgemma-2b's
+        local attention as gemma2-2b's, k and v whole where "model" does
+        not divide the kv head) the reference's less the decode conv at
+        this rank's channels, exactly;
+      * Mamba-2 (D15c-3): prefill as above, ``dot`` equal to the
+        ``opaque`` cell's and ``kernel`` B5's formula at this rank's
+        heads; train the reference's less :func:`_ssd_train_split`,
+        which also holds the scores C.B^T the port's scan computes whole
+        on every "model" rank, exactly; recurrentgemma-2b's prefill
+        follows llama3.2-3b's rule (its one kv head), exactly."""
     from repro_torch.configs import get_config, reduced_config
 
     mesh, ref, port = mesh_run
@@ -378,22 +460,11 @@ def test_flops_match_reference(mesh_run, cell, tmp_path_factory):
     _, T, B = SHAPES[kind]
     B //= mesh[0]
     heads = _local_heads(arch, mesh[1])
-    if arch in WHOLE_OVER_MODEL and mesh[1] > 1:
-        base_mesh = (mesh[0], 1)
-        no_model = _port_records(base_mesh, tmp_path_factory)[
-            _key(*cell, base_mesh)]["flops_breakdown"]
-        total = split["dot"] + split["kernel"]
-        whole = no_model["dot"] + no_model["kernel"]
-        print(f"{arch} {kind} mesh {mesh}: port {total:.0f} FLOPs, "
-              f"without the model axis {whole:.0f}, reference "
-              f"{r['dot']:.0f}")
-        assert r["dot"] <= total < whole
-        return
     if kind == "prefill":
         o = ref[_key(*cell, mesh, "opaque")]
         if arch == "mamba2-130m":
             assert o["kernel"] == 0.0        # ROADMAP C15
-            assert split["kernel"] == _ssd_formula_flops(p, SHAPES[kind])
+            assert split["kernel"] == _ssd_formula_flops(p, SHAPES[kind]) > 0
         else:
             assert split["kernel"] == o["kernel"] > 0
         if cfg.n_kv_heads % mesh[1] == 0:
@@ -403,7 +474,11 @@ def test_flops_match_reference(mesh_run, cell, tmp_path_factory):
             assert split["dot"] == r["dot"] - tile
     elif kind == "decode":
         assert split["kernel"] == 0.0
-        assert split["dot"] == r["dot"] + _router_split(arch, kind, mesh)
+        assert split["dot"] == r["dot"] + _router_split(arch, kind, mesh) \
+            - _decode_conv(arch, kind, mesh)
+    elif cfg.ssm is not None:
+        assert split["kernel"] == 0.0
+        assert split["dot"] == r["dot"] - _ssd_train_split(arch, mesh)
     else:
         assert split["kernel"] == 0.0
         T += cfg.n_patches if cfg.family == "vlm" else 0
@@ -430,7 +505,10 @@ def test_flops_match_reference(mesh_run, cell, tmp_path_factory):
 #: 2, 172 032 fewer), and olmoe-1b-7b's decode, whose dense MoE no
 #: longer computes the global batch's experts on every data rank (6 627
 #: 328 -> 3 477 504 FLOPs, the reference's) and sums its buffers and
-#: products over "data" (the all-reduces).
+#: products over "data" (the all-reduces).  The recurrent cells (the
+#: last four of :data:`CELLS`) as the port gave them before Mamba-2's
+#: and RG-LRU's products were divided over "model" (the parent of ROADMAP
+#: D15c-3).
 MODEL_ONE = {
     ("gemma2-2b", "train", (1, 1)): (197132288, 0, {}),
     ("llama3.2-3b", "prefill", (1, 1)): (38010880, 4194304, {}),
@@ -459,6 +537,20 @@ MODEL_ONE = {
         "all-gather": (29, 720896, 360448),
         "all-reduce": (7, 1288, 1288),
         "reduce-scatter": (15, 212992, 212992)}),
+    ("mamba2-130m", "decode", (1, 1)): (729088, 0, {}),
+    ("recurrentgemma-2b", "prefill", (1, 1)): (128188416, 4194304, {}),
+    ("recurrentgemma-2b", "decode", (1, 1)): (2326528, 0, {}),
+    ("mamba2-130m", "train", (1, 1)): (91226112, 0, {}),
+    ("mamba2-130m", "decode", (2, 1)): (364544, 0, {
+        "all-gather": (5, 174080, 87040)}),
+    ("recurrentgemma-2b", "prefill", (2, 1)): (64094208, 2097152, {
+        "all-gather": (39, 499712, 249856)}),
+    ("recurrentgemma-2b", "decode", (2, 1)): (1163264, 0, {
+        "all-gather": (39, 499712, 249856)}),
+    ("mamba2-130m", "train", (2, 1)): (45613056, 0, {
+        "all-gather": (9, 565248, 282624),
+        "all-reduce": (17, 8392, 8392),
+        "reduce-scatter": (5, 174080, 174080)}),
 }
 
 
@@ -480,14 +572,17 @@ def test_model_one_records_unchanged(cell, mesh, tmp_path_factory):
 
 def _ssd_formula_flops(rec, shape):
     """``B nh T (2 L (ds + hd) + 4 ds hd)`` summed over the layers, at a
-    reduced mamba2-130m prefill, each rank's rows."""
+    reduced mamba2-130m prefill, each rank's rows and heads (the scan
+    runs on the heads "model" divides, ROADMAP D15c-3)."""
     from repro_torch.configs import get_config, reduced_config
+    from repro_torch.distributed.sharding import model_share
 
     cfg = reduced_config(get_config("mamba2-130m"))
     s = cfg.ssm
-    n_data = int(rec["mesh"].split("x")[0])
+    n_data, n_model = map(int, rec["mesh"].split("x"))
     B, T = shape[2] // n_data, shape[1]
-    nh, hd, ds, L = s.n_heads(cfg.d_model), s.head_dim, s.d_state, s.chunk
+    nh = model_share(s.n_heads(cfg.d_model), n_model)
+    hd, ds, L = s.head_dim, s.d_state, s.chunk
     return float(cfg.n_layers * B * nh * T * (2 * L * (ds + hd)
                                               + 4 * ds * hd))
 
@@ -510,7 +605,15 @@ def test_one_rank_issues_no_collective(mesh_run):
 GLOO_CELLS = [["gemma2-2b", "train", [2, 2], "base", SHAPES["train"]],
               ["llama3.2-3b", "prefill", [2, 2], "base", SHAPES["prefill"]],
               ["olmoe-1b-7b", "decode", [2, 2], "base", SHAPES["decode"]],
-              ["gemma2-2b", "decode", [1, 4], "base", SHAPES["decode"]]]
+              ["gemma2-2b", "decode", [1, 4], "base", SHAPES["decode"]],
+              # Mamba-2's in_proj columns moved by one all-to-all, its
+              # norm's and out_proj's all-reduces; RG-LRU's gates' input
+              # all-gathered (reduce-scattered back in training).
+              ["mamba2-130m", "prefill", [1, 4], "base", SHAPES["prefill"]],
+              ["recurrentgemma-2b", "prefill", [1, 4], "base",
+               SHAPES["prefill"]],
+              ["recurrentgemma-2b", "train", [1, 4], "base",
+               SHAPES["train"]]]
 
 
 @pytest.fixture(scope="module")
@@ -527,7 +630,8 @@ def gloo_costs(tmp_path_factory):
 
 
 @pytest.mark.parametrize("cell", GLOO_CELLS,
-                         ids=lambda c: c[1] if c[1] != "decode" else
+                         ids=lambda c: c[1] if c[1] != "decode" and c[0] in (
+                             "gemma2-2b", "llama3.2-3b") else
                          f"{c[0]}-{c[1]}")
 def test_collectives_match_gloo_run(gloo_costs, cell):
     """Counts, output bytes and ring traffic of every collective kind,
@@ -535,7 +639,9 @@ def test_collectives_match_gloo_run(gloo_costs, cell):
     four gloo ranks: equal; the decode cells take the divided dense MoE
     (olmoe-1b-7b at (2, 2): its all-reduces over "data") and the window
     cache's shift across shards (gemma2-2b at (1, 4): the
-    collective-permute)."""
+    collective-permute), the recurrent cells Mamba-2's and RG-LRU's
+    products over "model" (the uneven all-to-all of in_proj's columns,
+    the gates' all-gather and its reduce-scatter backward)."""
     fake, real = gloo_costs
     key = _key(cell[0], cell[1], cell[2])
     assert fake[key]["collectives"] == real[key]

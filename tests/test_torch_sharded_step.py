@@ -25,13 +25,21 @@ its cases), float32 activations, batch 4 x 16.
     llama3.2-3b at (1, 2), (2, 2), (1, 4), gemma2-2b at (1, 4) and
     internvl2-1b at (2, 2) among the train cases; at (2, 1) no
     collective on the "model" group;
+  * Mamba-2's and RG-LRU's products over "model" (ROADMAP D15c-3):
+    mamba2-130m and recurrentgemma-2b at (1, 4) and (2, 2) among the
+    train cases, mamba2-130m at (1, 4) and (2, 2) and recurrentgemma-2b
+    at (1, 4) among the serve cases; a Mamba-2 and an RG-LRU layer
+    divided over (1, 4) (and a Mamba-2 layer at widths whose in_proj
+    and heads "model" does not divide) against the whole layer: y, the
+    cache and decode state, and every gradient within 1e-5;
   * the serve steps on shards (ROADMAP D15c-2a): ``make_prefill_step``
     and three greedy ``make_decode_step`` steps, handed the prompt and
     then their own DTensors, against the reference's: llama3.2-3b and
     whisper-large-v3 at (1, 2), (2, 2) and (1, 4), olmoe-1b-7b (the
     divided dense MoE) at (2, 2) and (1, 4), llama3.2-3b's int8 cache
     and gemma2-2b (its window cache divided over "model") at (1, 4),
-    and llama3.2-3b at (2, 2) on a 64-token prompt (its slots divided:
+    the recurrent cases above, and llama3.2-3b at (2, 2) on a 64-token
+    prompt (its slots divided:
     the other cases' 16 slots tie the head dim, which is divided):
     logits within 1e-4 of the largest, greedy tokens equal, each rank's
     bytes of the last cache equal to one device's shard on the
@@ -84,6 +92,14 @@ TRAIN_CASES = [
     ["llama3.2-3b", [1, 4], 0, 3],
     ["gemma2-2b", [1, 4], 0, 3],
     ["internvl2-1b", [2, 2], 0, 3],
+    # Mamba-2's and RG-LRU's products over "model" (ROADMAP D15c-3):
+    # in_proj's packed columns moved to the conv channels and scan
+    # heads, the gated norm's sum over "model"; recurrentgemma-2b with its
+    # tail.
+    ["mamba2-130m", [1, 4], 0, 3],
+    ["mamba2-130m", [2, 2], 0, 3],
+    ["recurrentgemma-2b", [1, 4], 0, 3],
+    ["recurrentgemma-2b", [2, 2], 0, 3],
 ]
 MOE_CASES = [[1, 2], [1, 4], [2, 2]]
 DENSE_MOE_CASES = [[s, t] for s in ([2, 1], [2, 2], [1, 4]) for t in (1, 8)]
@@ -91,7 +107,12 @@ SERVE_CASES = [[a, s] for a in ("llama3.2-3b", "whisper-large-v3")
                for s in ([1, 2], [2, 2], [1, 4])] + [
     ["olmoe-1b-7b", [2, 2]], ["olmoe-1b-7b", [1, 4]],
     ["llama3.2-3b", [1, 4], "kvint8"], ["gemma2-2b", [1, 4]],
-    ["llama3.2-3b", [2, 2], "slots"]]
+    ["llama3.2-3b", [2, 2], "slots"], ["mamba2-130m", [1, 4]],
+    ["mamba2-130m", [2, 2]], ["recurrentgemma-2b", [1, 4]]]
+#: The recurrent layers divided over "model" against whole (ROADMAP
+#: D15c-3): (arch, mesh[, widths of ``sharded_port.RECURRENT_WIDTHS``]).
+RECURRENT_CASES = [["mamba2-130m", [1, 4]], ["recurrentgemma-2b", [1, 4]],
+                   ["mamba2-130m", [1, 4], "mixed"]]
 
 
 def _serve_tag(case):
@@ -113,7 +134,7 @@ def runs(tmp_path_factory):
     work = tmp_path_factory.mktemp("sharded")
     (work / "cases.json").write_text(json.dumps(
         {"train": TRAIN_CASES, "moe": MOE_CASES, "serve": SERVE_CASES,
-         "dense_moe": DENSE_MOE_CASES}))
+         "dense_moe": DENSE_MOE_CASES, "recurrent": RECURRENT_CASES}))
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
     refs = [subprocess.Popen(
         [sys.executable, str(ROOT / "tests" / "sharded_reference.py"),
@@ -189,6 +210,26 @@ def test_dense_moe_divided_matches_whole(runs, case):
         f"{shape[0]}x{shape[1]}/T{T_moe}"]
     assert set(errs) == {"y", "aux", "x", "router", "moe_wi", "moe_wg",
                          "moe_wd"}
+    assert max(errs.values()) <= 1e-5, errs
+
+
+@pytest.mark.parametrize("case", RECURRENT_CASES, ids=_serve_tag)
+def test_recurrent_layer_divided_matches_whole(runs, case):
+    """A Mamba-2 and an RG-LRU layer divided over the mesh against the
+    whole layer: the training output y and the gradients of its input
+    and of every weight (the divided leaves and the replicated ones
+    each rank slices), the prefill's output and cache, and a decode
+    step's output and new state, within 1e-5 of the whole's largest;
+    and a Mamba-2 layer whose in_proj and heads "model" does not divide
+    while it divides the conv channels and d_inner (as at full width)."""
+    _, port = runs
+    arch, shape = case[:2]
+    errs = port[shape[0] * shape[1]]["recurrent"][_serve_tag(case)]
+    block = {"mamba2-130m": ("in_proj", "conv_w", "out_proj"),
+             "recurrentgemma-2b": ("w_gate", "w_rec", "w_out", "conv_w",
+                                   "a_gate", "x_gate")}[arch]
+    assert {"y", "x", "prefill", "decode", *block} <= set(errs)
+    assert any(k.startswith("state/") for k in errs)
     assert max(errs.values()) <= 1e-5, errs
 
 
