@@ -1282,7 +1282,8 @@ def _fa_bound_ms(q, k, v, out, kw):
     BH, T, hd = q.shape
     S = k.shape[1]
     pairs = int(attention_mask(T, S, kw.get("causal", True), kw.get("window"),
-                               kw.get("kv_valid"), q.device).sum())
+                               kw.get("kv_valid"), q.device,
+                               kw.get("q_offset", 0)).sum())
     n_ops = 4.0 * BH * pairs * hd
     peak = BF16_OPS_PER_S if q.dtype.itemsize == 2 else F32_OPS_PER_S
     n_bytes = sum(t.numel() * t.element_size() for t in (q, k, v, out))
@@ -1552,12 +1553,14 @@ def serve_kernel_phase():
         (f"kv_valid {T * 3 // 4 - 36}, non-causal", (B * H, B * K, T, hd),
          dict(causal=False, kv_valid=T * 3 // 4 - 36)),
     ]
-    fa, controls = [], None
-    for name, (bh, bk, t, d), kw in cases:
+    fa, controls, cp = [], None, []
+    for i, (name, (bh, bk, t, d), kw) in enumerate(cases):
         q, k, v = randn(bh, t, d), randn(bk, t, d), randn(bk, t, d)
         fa.append(_hold_fa(name, q, k, v, kw))
         if controls is None:
             controls = _check_controls(q, k, v)
+        if i in (0, 2):     # llama3.2-3b's prefill; gemma2-2b's window
+            cp += _cp_shards(name, q, k, v, kw)
         del q, k, v
     torch.cuda.empty_cache()
 
@@ -1578,7 +1581,45 @@ def serve_kernel_phase():
                        f"exact sums)", q.to(DEVICE), s.to(DEVICE),
                        randn(*q.shape), tau))
     torch.cuda.empty_cache()
-    return fa, kv, controls
+    return fa, kv, controls, cp
+
+
+#: The context-parallel check's query shards ("model" 4).
+CP_SHARDS = 4
+
+
+def _cp_shards(name, q, k, v, kw):
+    """Context-parallel B4 (ROADMAP D15c-2b): the queries of one prefill
+    case split into ``CP_SHARDS`` shards at offsets 0, T/4, T/2 and 3T/4,
+    each launched against every key with ``q_offset`` and held against
+    the plain version at that offset; the shards' outputs concatenated
+    equal the unsplit launch bit for bit.  Returns the shards' held
+    records."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as FA
+
+    t0 = time.perf_counter()
+    T = q.shape[1]
+    n = T // CP_SHARDS
+    whole = FA.flash_attention_fwd(q, k, v, **kw)
+    held, outs = [], []
+    for i in range(CP_SHARDS):
+        qs = q[:, i * n:(i + 1) * n].contiguous()
+        kwi = dict(kw, q_offset=i * n)
+        outs.append(FA.flash_attention_fwd(qs, k, v, **kwi))
+        held.append(_hold_fa(f"{name} shard {i}", qs, k, v, kwi,
+                             got=outs[-1], library=False, quiet=True))
+    cat = torch.cat(outs, dim=1)
+    if not torch.equal(cat, whole):
+        raise AssertionError(f"{name}: the {CP_SHARDS} query shards' B4 "
+                             f"outputs differ from the unsplit launch (max "
+                             f"abs {float((cat - whole).float().abs().max())})")
+    _print_held(f"  {name}, {CP_SHARDS} query shards (q_offset "
+                f"{[i * n for i in range(CP_SHARDS)]}; concatenated equal "
+                f"to the unsplit launch bit for bit; "
+                f"{time.perf_counter() - t0:.3f} s)", held)
+    return held
 
 
 def _routing_flips(arch, calls, k):
@@ -4552,6 +4593,8 @@ def dist_phase(smi, train_losses=None):
               f"equal the CPU's bit for bit", flush=True)
         out = dict(losses=losses, how=how, peak_gb=peak, step_s=wall)
 
+        out["flash_s"] = _flash_prefill_check(mesh, smi)
+
         # (c) the expert-parallel prefill and decode at full width.
         cfg = get_config(DIST_MOE_ARCH)
         prefill, place = ST.make_prefill_step(cfg, mesh)
@@ -4649,6 +4692,50 @@ def dist_phase(smi, train_losses=None):
         os.environ.pop("REPRO_MOE_EP", None)
         dist.destroy_process_group()
         store.unlink(missing_ok=True)
+
+
+def _flash_prefill_check(mesh, smi):
+    """Phase 19 (b'): llama3.2-3b's ``make_prefill_step`` at full width and
+    depth on the one-rank mesh, on the short set, in the base mode and
+    under ``REPRO_ATTN_IMPL=flash`` (the reference's flash mode: at
+    "model" 1 the sequence pieces are the identity, ROADMAP D15c-2b): the
+    two steps' logits equal bit for bit.  Returns its seconds."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import steps as ST
+    from repro_torch.distributed.elastic import reshard_state
+    from repro_torch.models import build_model
+
+    t0 = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    prefill, place = ST.make_prefill_step(cfg, mesh)
+    gen = torch.Generator(DEVICE).manual_seed(0)
+    params = reshard_state(build_model(cfg, DEVICE, gen).init(), mesh, place)
+    toks = torch.as_tensor(_pad_left(_request_sets(cfg.vocab)[0][1]),
+                           device=DEVICE)
+    out = {}
+    try:
+        with torch.no_grad():
+            for mode in ("blockwise", "flash"):
+                os.environ["REPRO_ATTN_IMPL"] = mode
+                out[mode] = prefill(params, {"tokens": toks})[0].to_local()
+    finally:
+        os.environ.pop("REPRO_ATTN_IMPL", None)
+    if not bool(torch.isfinite(out["flash"]).all()) or \
+            not torch.equal(out["flash"], out["blockwise"]):
+        raise AssertionError(f"{TRAIN_ARCH} prefill under "
+                             f"REPRO_ATTN_IMPL=flash differs from the base "
+                             f"step's (max abs "
+                             f"{float((out['flash'] - out['blockwise']).abs().max())})")
+    del params, out
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t0
+    print(f"(b') {TRAIN_ARCH} full width and depth, make_prefill_step on "
+          f"the short set {tuple(toks.shape)} on {smi}: logits under "
+          f"REPRO_ATTN_IMPL=flash equal the base step's bit for bit; "
+          f"{secs:.1f} s", flush=True)
+    return secs
 
 
 def _dist_mamba(mesh, smi):
@@ -4800,7 +4887,8 @@ def _fake_launch_checks():
                     out = ops[kernel](
                         *ts, bool(st["causal"]), st["window"],
                         None if cap is None else float(cap),
-                        None if kv is None else int(kv))
+                        None if kv is None else int(kv),
+                        int(st.get("q_offset", 0)))
                 else:
                     out = ops[kernel](*ts, st["chunk"])
                 outs = tuple(out) if isinstance(out, (tuple, list)) else \
@@ -5032,11 +5120,12 @@ def _standin_formula(arch, shape_name, variant):
     """The stand-in FLOPs one rank of the 16 x 16 mesh should count for a
     (b) cell, from the reference's marker formulas summed over the
     config's layers: under the unit's remat two forwards and a backward
-    a layer (flash x 2.5, the scan x 3), decode one fused call a layer
-    over this rank's share of the cache, as the reference's
-    ``shard_map`` divides it over "model" 16: its kv heads where 16
-    divides them, else its ``seq_len`` / 16 slots where 16 divides
-    those."""
+    a layer (flash x 2.5, the scan x 3) over the rank's ``seq_len`` / 16
+    queries of the context-parallel flash mode (ROADMAP D15c-2b), decode
+    one fused call a layer over this rank's share of the cache, as the
+    reference's ``shard_map`` divides it over "model" 16: its kv heads
+    where 16 divides them, else its ``seq_len`` / 16 slots where 16
+    divides those."""
     from repro_torch.configs import SHAPES, get_config
 
     cfg, shape = get_config(arch), SHAPES[shape_name]
@@ -5053,7 +5142,7 @@ def _standin_formula(arch, shape_name, variant):
     if shape.kind == "decode":
         share = 16 if K % 16 == 0 or T % 16 == 0 else 1
         return cfg.n_layers * 4 * B * K * G * hd * T // share
-    fwd = 4 * B * T * K * G * hd * T // 2             # causal (101)
+    fwd = 4 * B * (T // 16) * K * G * hd * T // 2     # causal (101)
     return cfg.n_layers * (2 * fwd + fwd * 5 // 2)
 
 
@@ -5319,7 +5408,7 @@ def main() -> int:
     kern, chain_ns = kernel_phase()
     launches, smem_launches, held = main_path_phase(chain_ns)
     torch.cuda.empty_cache()
-    fa_cases, kv_cases, _ = serve_kernel_phase()
+    fa_cases, kv_cases, _, cp_held = serve_kernel_phase()
     serve_launches, held_fa, held_kv, _ = serve_path_phase()
     torch.cuda.empty_cache()
     ssd_cases, _, rber_launches, rber = ssd_rber_kernel_phase()
@@ -5399,7 +5488,8 @@ def main() -> int:
              encdec_launches=encdec_launches["flash_attention"],
              small_hd_launches=small_hd,
              **_sub_sums("small_hd", held_small),
-             dist_launches=dist_launches, **_sub_sums("dist", dist_held)),
+             dist_launches=dist_launches, **_sub_sums("dist", dist_held),
+             cp_launches=len(cp_held), **_sub_sums("cp", cp_held)),
         dict(_kernel_line("kv_retry", f"{kernels}/kv_retry/csrc/kv_retry.cu",
                           "src/repro/kernels/kv_retry/kernel.py:26",
                           serve_launches["kv_retry"], kv_cases, held_kv,

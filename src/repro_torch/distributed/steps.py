@@ -41,6 +41,20 @@ w_gate and w_rec by columns, out_proj and w_out by rows, the conv by
 channels, the scan by heads (``models.ssm``, ``models.rglru``), each
 where "model" divides that dim; their decode states stay divided along
 the dims ``cache_leaf_spec`` picks.
+
+Along the sequence (ROADMAP D15c-2b): the train step's remat carry is
+each rank's T / model rows wherever "model" divides T, in every mode
+(``models.lm``), as the reference constrains it to ``act_seq``.  Under
+``REPRO_ATTN_IMPL=flash`` (the reference's flash mode, a real run as
+the dry-run) the train and prefill steps also hold the residual stream
+as those rows (``models.blocks``' ``seq``): attention context-parallel
+(q, rope and o at the rows' positions, K/V gathered over "model", B4
+with the rows' ``q_offset``), the column-parallel products' input
+gathered and the row-parallel products reduce-scattered along T
+(``tensor_parallel.gather_own``, ``reduce_scatter_seq``).  Decode is
+unchanged (T is 1), and at "model" 1 every sequence piece is the
+identity.
+
 :func:`build_cell` gives the dry-run one (arch x shape x mesh) cell:
 the step, its arguments as meta tensors and their placements.
 """

@@ -37,7 +37,21 @@ Megatron's pieces, each over the active mesh's "model" group
     and scan heads; :func:`gather_own` makes a divided tensor whole on
     every rank for its own product (all-gather forward, reduce-scatter
     backward), as RG-LRU's gates take their input.  Each layout's plan
-    is made once and kept (``functools.lru_cache``).
+    is made once and kept (``functools.lru_cache``);
+  * the sequence pieces of the reference's sequence-parallel stream
+    (ROADMAP D15c-2b), each along the sequence dim over "model":
+    :func:`seq_divided` says whether "model" divides a sequence of T
+    (else the stream stays whole, as ``sharding._guarded`` drops the
+    axis), :func:`scatter_seq` takes this rank's rows (forward a slice,
+    backward an all-gather), :func:`gather_own` along it makes the rows
+    whole for each rank's own use (all-gather forward, reduce-scatter
+    backward: a column-parallel product's input, attention's K/V) and
+    :func:`reduce_scatter_seq` sums a row-parallel product's partial
+    sums into this rank's rows (reduce-scatter forward, all-gather
+    backward) in place of :func:`reduce_from_model`;
+    :func:`gathered_product` a product over the gathered rows whose
+    gradients are taken on this rank's rows; :func:`gather_from_model` is the gather for a computation every rank
+    does alike (its gradient this rank's slice).
 
 Where there is no mesh, or its "model" axis has one rank, every piece
 is the identity (and the two vocab-parallel pieces the plain lookup and
@@ -137,13 +151,26 @@ class _ReduceFromModel(torch.autograd.Function):
         return g, None
 
 
+def _all_gather(x, dim: int, mg: ModelGroup):
+    """The ranks' ``x`` concatenated along ``dim`` in rank order."""
+    parts = [torch.empty_like(x.contiguous()) for _ in range(mg.size)]
+    dist.all_gather(parts, x.contiguous(), group=mg.group)
+    return torch.cat(parts, dim=dim)
+
+
+def _reduce_scatter(x, dim: int, mg: ModelGroup):
+    """The sum of the ranks' ``x``, this rank's part of it along ``dim``."""
+    chunks = [c.contiguous() for c in x.chunk(mg.size, dim=dim)]
+    out = torch.empty_like(chunks[0])
+    dist.reduce_scatter(out, chunks, group=mg.group)
+    return out
+
+
 class _GatherFromModel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dim, mg):
         ctx.dim, ctx.mg = dim, mg
-        parts = [torch.empty_like(x.contiguous()) for _ in range(mg.size)]
-        dist.all_gather(parts, x.contiguous(), group=mg.group)
-        return torch.cat(parts, dim=dim)
+        return _all_gather(x, dim, mg)
 
     @staticmethod
     def backward(ctx, g):
@@ -502,11 +529,7 @@ def _every(have: tuple, want: Cols) -> tuple:
 class _GatherOwn(_GatherFromModel):
     @staticmethod
     def backward(ctx, g):
-        mg = ctx.mg
-        chunks = [c.contiguous() for c in g.chunk(mg.size, dim=ctx.dim)]
-        out = torch.empty_like(chunks[0])
-        dist.reduce_scatter(out, chunks, group=mg.group)
-        return out, None, None
+        return _reduce_scatter(g, ctx.dim, ctx.mg), None, None
 
 
 def gather_own(x, dim: int):
@@ -554,3 +577,95 @@ def regroup(t, have: Cols, *wants: Cols):
     for i in alike:
         out[i] = _pick(t, _where(have_t, wants[i].ranks[rank]))
     return out[0] if len(wants) == 1 else tuple(out)
+
+
+# -- the sequence-parallel stream over "model" ----------------------------------
+
+
+def seq_divided(T: int) -> bool:
+    """Whether the active mesh divides a sequence of ``T`` positions over
+    "model" (more than one rank, dividing ``T``): the stream then holds
+    this rank's T / model rows; else it stays whole (the guard of
+    ``sharding._guarded``)."""
+    mg = model_group()
+    return mg is not None and T % mg.size == 0
+
+
+class _ScatterSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, mg):
+        ctx.dim, ctx.mg = dim, mg
+        n = x.shape[dim] // mg.size
+        return x.narrow(dim, mg.rank * n, n).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.dim, ctx.mg), None, None
+
+
+class _ReduceScatterSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, mg):
+        ctx.dim, ctx.mg = dim, mg
+        return _reduce_scatter(x, dim, mg)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.dim, ctx.mg), None, None
+
+
+def scatter_seq(x, dim: int = 1):
+    """This rank's rows of ``x``, whole on every rank, along ``dim``
+    divided over "model": a slice forward; backward the ranks' gradients
+    all-gathered.  ``x`` itself where ``seq_divided`` is false."""
+    mg = model_group()
+    if mg is None or x.shape[dim] % mg.size:
+        return x
+    return _ScatterSeq.apply(x, dim % x.dim(), mg)
+
+
+def reduce_scatter_seq(x, dim: int = 1):
+    """The sum over "model" of the ranks' partial ``x`` (a row-parallel
+    product's, whole along ``dim``), this rank's rows of it kept: a
+    reduce-scatter forward; backward the gradient all-gathered."""
+    mg = model_group()
+    return x if mg is None else _ReduceScatterSeq.apply(x, dim % x.dim(), mg)
+
+
+class _GatheredProduct(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, mg):
+        ctx.mg = mg
+        ctx.save_for_backward(x, w)
+        return _all_gather(x, 1, mg) @ w
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = _reduce_scatter(g, 1, ctx.mg)
+        dw = x.reshape(-1, x.shape[-1]).T @ g.reshape(-1, g.shape[-1])
+        return g @ w.T, dw, None
+
+
+def gathered_product(x, w):
+    """``gather_own(x, 1) @ w`` for x (B, T_l, d) this rank's rows and w (d,
+    n) whole, as the reference's partitioner computes it: forward on the
+    rows gathered over "model"; backward the output's gradient
+    reduce-scattered to this rank's rows first, both gradient products
+    on them (the gradient of w each rank's partial sum)."""
+    mg = model_group()
+    return x @ w if mg is None else _GatheredProduct.apply(x, w, mg)
+
+
+def column_input(x, seq: bool = False):
+    """A column-parallel product's input from the stream: replicated over
+    "model" (:func:`copy_to_model`), or, with ``seq``, this rank's rows
+    of a sequence-divided stream made whole (:func:`gather_own`)."""
+    return gather_own(x, 1) if seq else copy_to_model(x)
+
+
+def row_output(y, seq: bool = False):
+    """A row-parallel product's partial sums into the stream: summed
+    over "model" (:func:`reduce_from_model`), or, with ``seq``, summed
+    and cut to this rank's rows (:func:`reduce_scatter_seq`)."""
+    return reduce_scatter_seq(y) if seq else reduce_from_model(y)

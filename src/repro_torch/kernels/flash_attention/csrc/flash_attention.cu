@@ -171,7 +171,7 @@ __global__ void __launch_bounds__(kThreads)
 fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, T* __restrict__ o, int T_, int S,
               int G, int n_qt, int causal, int has_window, int window,
-              int kv_valid, float scale, int has_cap, float cap) {
+              int kv_valid, float scale, int has_cap, float cap, int q_off) {
   constexpr int W = Cols<HD>::W;
   constexpr int NG = Cols<HD>::NG;
   extern __shared__ float smem[];
@@ -201,11 +201,13 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int c = 0; c < W; ++c) acc[i][g][c] = 0.f;
   }
 
-  // Key tiles holding a visible key for some row of this query tile.
+  // Key tiles holding a visible key for some row of this query tile,
+  // whose rows sit at positions q_off + q0 on.
+  const int p0 = q_off + q0;
   int k_end = kv_valid;
-  if (causal) k_end = min(k_end, q0 + kBQ);
+  if (causal) k_end = min(k_end, p0 + kBQ);
   int k_beg = 0;
-  if (has_window) k_beg = max(0, q0 - window + 1);
+  if (has_window) k_beg = max(0, p0 - window + 1);
   const int t_beg = k_beg / kBK;
   const int t_end = (k_end + kBK - 1) / kBK;
 
@@ -243,7 +245,7 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     // Scale, softcap, mask; online-softmax update of each owned row.
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + ty + 16 * i;
+      const int qpos = p0 + ty + 16 * i;
       bool ok[4];
       float mb = kNeg;
 #pragma unroll
@@ -330,7 +332,7 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, void* o, int BH,
            int T_, int S, int BK, int causal, int has_window, int window,
-           int kv_valid, float scale, int has_cap, float cap,
+           int kv_valid, float scale, int has_cap, float cap, int q_off,
            cudaStream_t stream) {
   const size_t smem = sizeof(float) *
       ((size_t)(kBQ + kBK) * (HD + 4) + (size_t)kBQ * (kBK + 4));
@@ -345,7 +347,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int BH,
   kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), T_, S, BH / BK, n_qt,
-      causal, has_window, window, kv_valid, scale, has_cap, cap);
+      causal, has_window, window, kv_valid, scale, has_cap, cap, q_off);
   return (int)cudaGetLastError();
 }
 
@@ -355,15 +357,15 @@ template <typename T>
 int launch_hd(int hd, const void* q, const void* k, const void* v, void* o,
               int BH, int T_, int S, int BK, int causal, int has_window,
               int window, int kv_valid, float scale, int has_cap, float cap,
-              cudaStream_t stream) {
+              int q_off, cudaStream_t stream) {
   constexpr bool kF32 = sizeof(T) == 4;
   switch (hd) {
     case 16:
       return launch<T, 16>(q, k, v, o, BH, T_, S, BK, causal, has_window,
-                           window, kv_valid, scale, has_cap, cap, stream);
+                           window, kv_valid, scale, has_cap, cap, q_off, stream);
     case 32:
       return launch<T, 32>(q, k, v, o, BH, T_, S, BK, causal, has_window,
-                           window, kv_valid, scale, has_cap, cap, stream);
+                           window, kv_valid, scale, has_cap, cap, q_off, stream);
     default:
       break;
   }
@@ -371,13 +373,13 @@ int launch_hd(int hd, const void* q, const void* k, const void* v, void* o,
     switch (hd) {
       case 64:
         return launch<T, 64>(q, k, v, o, BH, T_, S, BK, causal, has_window,
-                             window, kv_valid, scale, has_cap, cap, stream);
+                             window, kv_valid, scale, has_cap, cap, q_off, stream);
       case 128:
         return launch<T, 128>(q, k, v, o, BH, T_, S, BK, causal, has_window,
-                              window, kv_valid, scale, has_cap, cap, stream);
+                              window, kv_valid, scale, has_cap, cap, q_off, stream);
       case 256:
         return launch<T, 256>(q, k, v, o, BH, T_, S, BK, causal, has_window,
-                              window, kv_valid, scale, has_cap, cap, stream);
+                              window, kv_valid, scale, has_cap, cap, q_off, stream);
       default:
         break;
     }
@@ -582,7 +584,7 @@ fa_tc_kernel(const __grid_constant__ CUtensorMap map_q,
              const __grid_constant__ CUtensorMap map_v,
              __nv_bfloat16* __restrict__ o, int T_, int BH, int G, int n_qt,
              int causal, int has_window, int window, int kv_valid,
-             float scale, int has_cap, float cap) {
+             float scale, int has_cap, float cap, int q_off) {
   using C = Cfg<HD, BKV, NWG>;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bars[1 + 3 * C::STAGES];
@@ -601,10 +603,11 @@ fa_tc_kernel(const __grid_constant__ CUtensorMap map_q,
   const int bh = blockIdx.x % BH;
   const int q0 = (n_qt - 1 - blockIdx.x / BH) * C::BQ;
 
-  // Key tiles holding a visible key for some row of this block.
+  // Key tiles holding a visible key for some row of this block, whose
+  // rows sit at positions q_off + q0 on.
   int k_end = kv_valid;
-  if (causal) k_end = min(k_end, q0 + C::BQ);
-  const int k_beg = has_window ? max(0, q0 - window + 1) : 0;
+  if (causal) k_end = min(k_end, q_off + q0 + C::BQ);
+  const int k_beg = has_window ? max(0, q_off + q0 - window + 1) : 0;
   const int t_beg = k_beg / BKV;
   const int n_tiles = max(0, (k_end + BKV - 1) / BKV - t_beg);
 
@@ -715,7 +718,7 @@ fa_tc_kernel(const __grid_constant__ CUtensorMap map_q,
       constexpr bool kMasked = decltype(masked)::value;
       auto visible = [&](int idx) {
         const int kpos = k0 + 8 * (idx / 4) + col + (idx % 2);
-        const int qpos = row0 + 8 * ((idx / 2) % 2);
+        const int qpos = q_off + row0 + 8 * ((idx / 2) % 2);
         return kpos < kv_valid && (!causal || kpos <= qpos) &&
                (!has_window || qpos - kpos < window);
       };
@@ -771,8 +774,9 @@ fa_tc_kernel(const __grid_constant__ CUtensorMap map_q,
     };
     auto softmax = [&](int it, float* sc, float* c) {
       const int k0 = (t_beg + it) * BKV;
-      if (k0 + BKV > kv_valid || (causal && k0 + BKV - 1 > qa) ||
-          (has_window && qa + 63 - k0 >= window))
+      const int pa = q_off + qa;       // the position of row qa
+      if (k0 + BKV > kv_valid || (causal && k0 + BKV - 1 > pa) ||
+          (has_window && pa + 63 - k0 >= window))
         softmax_tile(k0, sc, c, Flag<true>{});
       else
         softmax_tile(k0, sc, c, Flag<false>{});
@@ -848,7 +852,7 @@ fa_tc_kernel(const __grid_constant__ CUtensorMap map_q,
 template <int HD, int BKV, int NWG>
 int launch(const void* q, const void* k, const void* v, void* o, int BH,
            int T_, int S, int BK, int causal, int has_window, int window,
-           int kv_valid, float scale, int has_cap, float cap,
+           int kv_valid, float scale, int has_cap, float cap, int q_off,
            cudaStream_t stream) {
   using C = Cfg<HD, BKV, NWG>;
   const int n_qt = (T_ + C::BQ - 1) / C::BQ;
@@ -866,7 +870,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int BH,
   if (e != cudaSuccess) return (int)e;
   kernel<<<(unsigned)blocks, C::THREADS, C::SMEM, stream>>>(
       mq, mk, mv, static_cast<__nv_bfloat16*>(o), T_, BH, BH / BK, n_qt,
-      causal, has_window, window, kv_valid, scale, has_cap, cap);
+      causal, has_window, window, kv_valid, scale, has_cap, cap, q_off);
   return (int)cudaGetLastError();
 }
 
@@ -880,11 +884,12 @@ extern "C" int fa_fwd_f32_launch(const void* q, const void* k, const void* v,
                                  void* o, int BH, int T_, int S, int BK,
                                  int hd, int causal, int has_window,
                                  int window, int kv_valid, float scale,
-                                 int has_cap, float cap, void* stream) {
-  if (BK <= 0 || BH % BK) return (int)cudaErrorInvalidValue;
+                                 int has_cap, float cap, int q_off,
+                                 void* stream) {
+  if (BK <= 0 || BH % BK || q_off < 0) return (int)cudaErrorInvalidValue;
   return simt::launch_hd<float>(hd, q, k, v, o, BH, T_, S, BK, causal,
                                 has_window, window, kv_valid, scale, has_cap,
-                                cap, static_cast<cudaStream_t>(stream));
+                                cap, q_off, static_cast<cudaStream_t>(stream));
 }
 
 // bfloat16 q, k, v, o at hd 16 or 32 (contiguous, 16-byte aligned): the
@@ -894,11 +899,12 @@ extern "C" int fa_fwd_simt_bf16_launch(const void* q, const void* k,
                                        int T_, int S, int BK, int hd,
                                        int causal, int has_window,
                                        int window, int kv_valid, float scale,
-                                       int has_cap, float cap, void* stream) {
-  if (BK <= 0 || BH % BK) return (int)cudaErrorInvalidValue;
+                                       int has_cap, float cap, int q_off,
+                                       void* stream) {
+  if (BK <= 0 || BH % BK || q_off < 0) return (int)cudaErrorInvalidValue;
   return simt::launch_hd<__nv_bfloat16>(
       hd, q, k, v, o, BH, T_, S, BK, causal, has_window, window, kv_valid,
-      scale, has_cap, cap, static_cast<cudaStream_t>(stream));
+      scale, has_cap, cap, q_off, static_cast<cudaStream_t>(stream));
 }
 
 // bfloat16 q, k, v, o (16-byte aligned, contiguous): the tensor-core
@@ -907,22 +913,23 @@ extern "C" int fa_fwd_tc_launch(const void* q, const void* k, const void* v,
                                 void* o, int BH, int T_, int S, int BK,
                                 int hd, int causal, int has_window,
                                 int window, int kv_valid, float scale,
-                                int has_cap, float cap, void* stream) {
+                                int has_cap, float cap, int q_off,
+                                void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (BK <= 0 || BH % BK) return (int)cudaErrorInvalidValue;
+  if (BK <= 0 || BH % BK || q_off < 0) return (int)cudaErrorInvalidValue;
   switch (hd) {
     case 64:
       return tc::launch<64, 128, 2>(q, k, v, o, BH, T_, S, BK, causal,
                                     has_window, window, kv_valid, scale,
-                                    has_cap, cap, st);
+                                    has_cap, cap, q_off, st);
     case 128:
       return tc::launch<128, 64, 2>(q, k, v, o, BH, T_, S, BK, causal,
                                     has_window, window, kv_valid, scale,
-                                    has_cap, cap, st);
+                                    has_cap, cap, q_off, st);
     case 256:
       return tc::launch<256, 64, 1>(q, k, v, o, BH, T_, S, BK, causal,
                                     has_window, window, kv_valid, scale,
-                                    has_cap, cap, st);
+                                    has_cap, cap, q_off, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

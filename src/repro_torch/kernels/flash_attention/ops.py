@@ -81,14 +81,14 @@ def _kernel_fn(entry):
     fn = getattr(build.load(_SOURCE), entry)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, ci,
-                   ctypes.c_float, ci, ctypes.c_float, vp]
+                   ctypes.c_float, ci, ctypes.c_float, ci, vp]
     fn.restype = ci
     return fn
 
 
-def _launch_cuda(q, k, v, causal, window, softcap, kv_valid):
+def _launch_cuda(q, k, v, causal, window, softcap, kv_valid, q_offset=0):
     """Launch the CUDA kernel of q's dtype on the current stream (no
-    synchronize)."""
+    synchronize); query row t at position ``q_offset + t``."""
     global launches, tc_launches, small_hd_launches
     BH, T, hd = q.shape
     BK, S, _ = k.shape
@@ -106,7 +106,8 @@ def _launch_cuda(q, k, v, causal, window, softcap, kv_valid):
              BH, T, S, BK, hd, int(causal),
              int(window is not None), 0 if window is None else int(window),
              kv_valid, hd ** -0.5, int(softcap is not None),
-             0.0 if softcap is None else float(softcap), stream)
+             0.0 if softcap is None else float(softcap), int(q_offset),
+             stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")
@@ -119,12 +120,15 @@ def _launch_cuda(q, k, v, causal, window, softcap, kv_valid):
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: Optional[int] = None,
                         softcap: Optional[float] = None,
-                        kv_valid: Optional[int] = None) -> torch.Tensor:
+                        kv_valid: Optional[int] = None,
+                        q_offset: int = 0) -> torch.Tensor:
     """Forward attention in the kernel layout.
 
     q (BH, T, hd), k and v (BK, S, hd), one dtype (float32 or bfloat16)
     on one device, BH a multiple of BK.  Keys at or past ``kv_valid``
-    are padding.  Returns (BH, T, hd) in q's dtype.
+    are padding.  Query row t sits at position ``q_offset + t`` (a
+    context-parallel shard's rows of a longer sequence; the causal and
+    window masks take it).  Returns (BH, T, hd) in q's dtype.
     """
     require_local("flash_attention_fwd", q, k, v)
     if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape:
@@ -144,9 +148,11 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"flash_attention runs on cuda or cpu (meta: "
                          f"shapes only), not {q.device}")
+    if q_offset < 0:
+        raise ValueError(f"q_offset must be >= 0, got {q_offset}")
     return torch.ops.repro_torch.flash_attention(
         q, k, v, causal, window, None if softcap is None else float(softcap),
-        None if kv_valid is None else int(kv_valid))
+        None if kv_valid is None else int(kv_valid), int(q_offset))
 
 
 @torch.library.custom_op("repro_torch::flash_attention", mutates_args=(),
@@ -154,23 +160,25 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool, window: Optional[int],
                         softcap: Optional[float],
-                        kv_valid: Optional[int]) -> torch.Tensor:
+                        kv_valid: Optional[int],
+                        q_offset: int = 0) -> torch.Tensor:
     """The custom op on CUDA tensors: the kernel's launch."""
     S = k.shape[1]
     kv = S if kv_valid is None else max(0, min(kv_valid, S))
     return _launch_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
                         causal=causal, window=window, softcap=softcap,
-                        kv_valid=kv)
+                        kv_valid=kv, q_offset=q_offset)
 
 
 @_flash_attention_op.register_kernel("cpu")
-def _(q, k, v, causal, window, softcap, kv_valid):
+def _(q, k, v, causal, window, softcap, kv_valid, q_offset=0):
     return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                 softcap=softcap, kv_valid=kv_valid)
+                                 softcap=softcap, kv_valid=kv_valid,
+                                 q_offset=q_offset)
 
 
 @_flash_attention_op.register_fake
-def _fake(q, k, v, causal, window, softcap, kv_valid):
+def _fake(q, k, v, causal, window, softcap, kv_valid, q_offset=0):
     """The launch's output: (BH, T, hd) in q's dtype, contiguous."""
     return q.new_empty(q.shape)
 
@@ -181,8 +189,10 @@ def _flops(q_shape, k_shape, v_shape, causal, window, softcap, kv_valid,
     """The reference dry-run's count (``launch/hlo_cost.py``'s
     ``_opaque_kernel_cost``): ``4 BH T hd S_eff frac`` (BH = B K G), with
     ``S_eff = min(window, S)`` and ``frac`` 1 for a window, else S and ½
-    causal, 1 not.  ``kv_valid`` does not enter it, as the reference's
-    stand-in has none."""
+    causal, 1 not.  ``kv_valid`` and ``q_offset`` do not enter it, as
+    the reference's stand-in has neither: a context-parallel shard is
+    counted on its own shapes, as the stand-in is inside its
+    ``shard_map``."""
     BH, T, hd = q_shape
     S = k_shape[1]
     if window is not None:
@@ -194,12 +204,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: Optional[int] = None,
                     softcap: Optional[float] = None,
                     kv_valid: Optional[int] = None,
-                    device=None) -> torch.Tensor:
+                    device=None, q_offset: int = 0) -> torch.Tensor:
     """Attention in the model layout, on ``device`` (``None``: the CUDA
     card; inputs elsewhere are moved there).
 
-    q (B, T, K, G, hd), k and v (B, S, K, hd).  Returns (B, T, K, G, hd)
-    on ``device``.
+    q (B, T, K, G, hd), k and v (B, S, K, hd); query t at position
+    ``q_offset + t``.  Returns (B, T, K, G, hd) on ``device``.
     """
     dev = resolve_device(device)
     q, k, v = (t.to(dev) for t in (q, k, v))
@@ -209,5 +219,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kf = k.permute(0, 2, 1, 3).reshape(B * K, S, hd)
     vf = v.permute(0, 2, 1, 3).reshape(B * K, S, hd)
     of = flash_attention_fwd(qf, kf, vf, causal=causal, window=window,
-                             softcap=softcap, kv_valid=kv_valid)
+                             softcap=softcap, kv_valid=kv_valid,
+                             q_offset=q_offset)
     return of.reshape(B, K, G, T, hd).permute(0, 3, 1, 2, 4)

@@ -18,9 +18,11 @@ NEG = -1e30
 
 
 def attention_mask(T: int, S: int, causal: bool, window: Optional[int],
-                   kv_valid: Optional[int], device) -> torch.Tensor:
-    """(T, S) bool: key ``s`` is visible to query ``t``."""
-    qpos = torch.arange(T, device=device)[:, None]
+                   kv_valid: Optional[int], device,
+                   q_offset: int = 0) -> torch.Tensor:
+    """(T, S) bool: key ``s`` is visible to query ``t``, which sits at
+    position ``q_offset + t`` (a context-parallel shard's queries)."""
+    qpos = q_offset + torch.arange(T, device=device)[:, None]
     kpos = torch.arange(S, device=device)[None, :]
     mask = (kpos < (S if kv_valid is None else kv_valid)).expand(T, S)
     if causal:
@@ -33,9 +35,11 @@ def attention_mask(T: int, S: int, causal: bool, window: Optional[int],
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           causal: bool = True, window: Optional[int] = None,
                           softcap: Optional[float] = None,
-                          kv_valid: Optional[int] = None) -> torch.Tensor:
+                          kv_valid: Optional[int] = None,
+                          q_offset: int = 0) -> torch.Tensor:
     """q (BH, T, hd); k, v (BK, S, hd) with BH = BK * G (query row ``bh``
-    reads kv row ``bh // G``).  Returns (BH, T, hd) in q's dtype."""
+    reads kv row ``bh // G``); query ``t`` at position ``q_offset + t``.
+    Returns (BH, T, hd) in q's dtype."""
     BH, T, hd = q.shape
     BK, S, _ = k.shape
     G = BH // BK
@@ -44,7 +48,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s = torch.matmul(q.float(), kf.transpose(1, 2)) * (hd ** -0.5)
     if softcap is not None:
         s = softcap * torch.tanh(s / softcap)
-    mask = attention_mask(T, S, causal, window, kv_valid, q.device)
+    mask = attention_mask(T, S, causal, window, kv_valid, q.device,
+                          q_offset)
     s = torch.where(mask, s, NEG)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(mask, torch.exp(s - m), 0.0)

@@ -80,11 +80,19 @@ def opaque_mode() -> bool:
     return os.environ.get("REPRO_OPAQUE_KERNELS", "0") == "1"
 
 
+def seq_parallel_mode() -> bool:
+    """The reference's flash mode (``REPRO_ATTN_IMPL=flash``, read at each
+    call as the reference reads it at each trace), on a real run as in
+    the dry-run: the residual stream divided along the sequence over
+    "model" and attention context-parallel (``models.blocks``,
+    ``models.attention``; ROADMAP D15c-2b)."""
+    return os.environ.get("REPRO_ATTN_IMPL", "blockwise") == "flash"
+
+
 def flash_mode() -> bool:
     """Training and decode attention run the stand-ins
-    (``REPRO_ATTN_IMPL=flash`` with :func:`opaque_mode`)."""
-    return os.environ.get("REPRO_ATTN_IMPL", "blockwise") == "flash" and \
-        opaque_mode()
+    (:func:`seq_parallel_mode` with :func:`opaque_mode`)."""
+    return seq_parallel_mode() and opaque_mode()
 
 
 def ssd_mode() -> bool:

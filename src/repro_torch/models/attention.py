@@ -43,9 +43,20 @@ to their own kv head (the reference's partitioner does the same).  The
 cache leaves a prefill returns and a decode step takes are the serve
 steps' DTensors, divided over "model" along the dim
 ``sharding.cache_leaf_spec`` picks (kv heads, slots or head dim), and
-decode attends over a rank's shard (:func:`attention_decode`).  The
-``flash`` variant hints the sequence-parallel layout of the reference's
-flash mode (ROADMAP D15c-2b); the hints are no-ops here.
+decode attends over a rank's shard (:func:`attention_decode`).
+
+In the reference's flash mode (``REPRO_ATTN_IMPL=flash``,
+:func:`seq_parallel_mode`; ROADMAP D15c-2b) a self-attention layer on
+a sequence-divided stream (``seq=True``: x is this rank's T / model
+rows) is context-parallel, as the reference's partitioner runs it
+(:func:`_cp_qkv`): wq, wk, wv and wo whole on every rank (gathered over
+"model" where the heads divide them), q, its rope and o at this rank's
+rows and their absolute positions, k computed on the rows and gathered
+over "model", and v likewise where "model" divides the kv heads, else
+projected from the gathered stream (its gradients on the rows); B4
+takes the rows' offset (``q_offset``), training's blockwise and
+windowed scans their positions.  The prefill cache is cut from the
+whole k and v as elsewhere (``tensor_parallel.to_cache``).
 
 Under the dry-run's ``flash`` variant (``REPRO_ATTN_IMPL=flash`` and
 ``REPRO_OPAQUE_KERNELS=1``, :func:`repro_torch.kernels.opaque.flash_mode`)
@@ -71,6 +82,7 @@ from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.distributed.sharding import constrain
 from repro_torch.kernels import opaque
 from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.opaque import seq_parallel_mode  # noqa: F401
 from repro_torch.kernels.kv_retry.plain import quantize_pages
 from repro_torch.models.common import init_dense, rmsnorm, rope, softcap
 
@@ -211,12 +223,66 @@ def _roped_qkv(cfg: ModelConfig, p, x, positions, kind, enc_out=None,
     kv_pos = positions if enc_out is None else enc_positions
     if kind != "cross":
         k = rope(k, kv_pos, cfg.rope_theta)
-    # The reference's flash mode streams q over the sequence (D15c-2b).
-    q_t = "act_seq" if opaque.flash_mode() else None
-    q = constrain(q, ("batch", q_t, "kv_heads", None, None))
+    q = constrain(q, ("batch", None, "kv_heads", None, None))
     k = constrain(k, ("batch", None, "kv_heads", None))
     v = constrain(v, ("batch", None, "kv_heads", None))
     return q, k, v, kv_pos
+
+
+def _whole_weights(cfg: ModelConfig, p):
+    """The projections whole on every rank, each rank's own use (its
+    rows of the sequence): a weight divided over "model" all-gathered
+    (its gradient reduce-scattered back), a whole one and the qk-norm
+    scales with their gradients summed over "model" (one all-reduce)."""
+    H, K = cfg.n_heads, cfg.n_kv_heads
+    w = {n: TP.gather_own(p[n], dim) if TP.divided(heads) else p[n]
+         for n, dim, heads in (("wq", 1, H), ("wk", 1, K), ("wv", 1, K),
+                               ("wo", 0, H))}
+    names = [n for n in ("wq", "wk", "wv", "wo", "q_scale", "k_scale")
+             if n in p and (n not in w or w[n] is p[n])]
+    if names:
+        out = TP.copy_to_model(*(p[n] for n in names))
+        w.update(zip(names, out if len(names) > 1 else (out,)))
+    return w
+
+
+def _cp_qkv(cfg: ModelConfig, p, x, positions):
+    """Context-parallel q, k, v of a self-attention layer (the
+    reference's flash mode): x (B, T_l, d) this rank's rows of the
+    stream divided over "model", ``positions`` (T,) the whole sequence's.
+    Returns (q (B, T_l, K, G, hd) at this rank's positions, k and v (B,
+    T, K, hd) whole, every kv head, the whole weights, the rows'
+    offset).  k is projected and roped on the rows and gathered; v
+    likewise where "model" divides the kv heads, else projected from the
+    gathered stream, as the reference's partitioner computes it (its
+    gradients on the rows: ``tensor_parallel.gathered_product``)."""
+    B, T_l = x.shape[:2]
+    K, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    off = TP.shard_range(T_l)[0]
+    pos = positions[off:off + T_l]
+    w = _whole_weights(cfg, p)
+    q = _proj(x, w["wq"])
+    k = _proj(x, w["wk"])
+    if cfg.qk_norm:
+        q = rmsnorm(q, w["q_scale"])
+        k = rmsnorm(k, w["k_scale"])
+    q = rope(q, pos, cfg.rope_theta).reshape(B, T_l, K, -1, hd)
+    k = TP.gather_own(rope(k, pos, cfg.rope_theta), 1)
+    if TP.divided(K):
+        v = TP.gather_own(_proj(x, w["wv"]), 1)
+    else:
+        wv = w["wv"]
+        v = TP.gathered_product(x, wv.to(x.dtype).reshape(wv.shape[0], -1))
+        v = v.reshape(B, -1, K, hd)
+    return q, k, v, w, off
+
+
+def _cp_out(o, w):
+    """o (B, T_l, K, G, hd) of every head at this rank's rows -> (B, T_l,
+    d): the whole wo, no collective."""
+    B, T_l = o.shape[:2]
+    H, hd, d = w["wo"].shape
+    return o.reshape(B, T_l, H * hd) @ w["wo"].to(o.dtype).reshape(H * hd, d)
 
 
 def _core_kv(cfg: ModelConfig, k, v):
@@ -230,7 +296,7 @@ def _core_kv(cfg: ModelConfig, k, v):
 
 
 def attention_fullseq(cfg: ModelConfig, p: dict, x, positions, kind: str,
-                      enc_out=None, enc_positions=None
+                      enc_out=None, enc_positions=None, seq: bool = False
                       ) -> Tuple[torch.Tensor, Optional[dict]]:
     """Prefill attention of ``kind`` over x (B, T, d); ``enc_out`` (B, S,
     d) and ``enc_positions`` (S,) for "cross".  Returns (y, cache): a
@@ -240,17 +306,26 @@ def attention_fullseq(cfg: ModelConfig, p: dict, x, positions, kind: str,
     the caches are int8 with their scales, quantized from whole rows.
     Under a mesh each cache leaf leaves as this rank's shard
     (``tensor_parallel.to_cache``): cut from its k/v, or moved from its
-    kv heads by an all-to-all, never gathered whole."""
-    q, k, v, _ = _roped_qkv(cfg, p, x, positions, kind, enc_out,
-                            enc_positions)
+    kv heads by an all-to-all, never gathered whole.  With ``seq`` (a
+    self-attention kind), x and y are this rank's rows of the
+    sequence-divided stream and attention is context-parallel
+    (:func:`_cp_qkv`): B4 over this rank's queries at their offset,
+    against every key."""
     window = cfg.window if kind == "local" else None
-    kq, vq = _core_kv(cfg, k, v)
-    o = flash_attention(q, kq, vq, causal=kind in ("causal", "local"),
-                        window=window, softcap=cfg.attn_softcap,
-                        device=x.device)
-    if opaque.flash_mode():
-        o = constrain(o, ("batch", "act_seq", None, None, None))
-    y = _merge_out(cfg, p, o)
+    causal = kind in ("causal", "local")
+    if seq:
+        q, k, v, w, off = _cp_qkv(cfg, p, x, positions)
+        o = flash_attention(q, k, v, causal=causal, window=window,
+                            softcap=cfg.attn_softcap, device=x.device,
+                            q_offset=off)
+        y = _cp_out(o, w)
+    else:
+        q, k, v, _ = _roped_qkv(cfg, p, x, positions, kind, enc_out,
+                                enc_positions)
+        kq, vq = _core_kv(cfg, k, v)
+        o = flash_attention(q, kq, vq, causal=causal, window=window,
+                            softcap=cfg.attn_softcap, device=x.device)
+        y = _merge_out(cfg, p, o)
     if kind == "bidir":
         return y, None
     kc = k.transpose(1, 2)
@@ -263,7 +338,7 @@ def attention_fullseq(cfg: ModelConfig, p: dict, x, positions, kind: str,
             kc = torch.nn.functional.pad(kc, pad)
             vc = torch.nn.functional.pad(vc, pad)
     cache = _maybe_quantize_cache({"k": kc.contiguous(), "v": vc.contiguous()})
-    have = 1 if TP.divided(cfg.n_kv_heads) else None
+    have = 1 if TP.divided(cfg.n_kv_heads) and not seq else None
     return y, {n: TP.to_cache(t, have) for n, t in cache.items()}
 
 
@@ -518,11 +593,15 @@ def blockwise_attention(cfg: ModelConfig, q, k, v, q_positions,
 
 
 def windowed_attention(cfg: ModelConfig, q, k, v, q_positions,
-                       causal_window: int, bq: int = 256):
+                       causal_window: int, bq: int = 256,
+                       q_offset: int = 0):
     """Sliding-window attention, the reference's ``windowed_attention``:
     q block i attends to the slice [i bq, i bq + window + bq) of the
-    window-left-padded K/V, O(T window) work."""
+    window-left-padded K/V, O(T window) work.  A context-parallel
+    shard's queries (at positions ``q_offset`` on, ``q_positions``)
+    take the slices at their offset of the whole K/V."""
     B, T, K, G, hd = q.shape
+    S = k.shape[1]
     w = causal_window
     scale = hd ** -0.5
     bq = min(bq, T)
@@ -532,13 +611,13 @@ def windowed_attention(cfg: ModelConfig, q, k, v, q_positions,
     k_pad, v_pad = torch.cat([zeros, k], dim=1), torch.cat([zeros, v], dim=1)
     kpos_full = torch.cat([
         torch.full((w,), -1, dtype=torch.int32, device=q.device),
-        torch.arange(T, dtype=torch.int32, device=q.device)])
+        torch.arange(S, dtype=torch.int32, device=q.device)])
     span = w + bq
     outs = []
     for i in range(q_pad.shape[1] // bq):
         qb = q_pad[:, i * bq:(i + 1) * bq].permute(0, 2, 3, 1, 4)
         qpos = qp[i * bq:(i + 1) * bq]
-        start = i * bq
+        start = q_offset + i * bq
         kb, vb = k_pad[:, start:start + span], v_pad[:, start:start + span]
         kpos = kpos_full[start:start + span]
         if kb.shape[1] < span:    # the reference's dynamic_slice clamps
@@ -556,23 +635,32 @@ def windowed_attention(cfg: ModelConfig, q, k, v, q_positions,
 
 
 def attention_train(cfg: ModelConfig, p: dict, x, positions, kind: str,
-                    enc_out=None, enc_positions=None):
+                    enc_out=None, enc_positions=None, seq: bool = False):
     """Training attention of ``kind`` over x (B,T,d) (``enc_out``,
     ``enc_positions`` for "cross"): the reference's training path,
     blockwise (global, bidirectional, cross) or windowed (local) online
     softmax, differentiable by autograd.  No kernel runs here: flash
     attention stays the prefill's.  Under the dry-run's ``flash``
-    stand-ins, the reference's flash stand-in and its backward instead."""
-    q, k, v, kv_pos = _roped_qkv(cfg, p, x, positions, kind, enc_out,
-                                 enc_positions)
-    k, v = _core_kv(cfg, k, v)
+    stand-ins, the reference's flash stand-in and its backward instead.
+    With ``seq``, context-parallel as :func:`attention_fullseq`: this
+    rank's queries at their positions against every key."""
+    if seq:
+        q, k, v, w, off = _cp_qkv(cfg, p, x, positions)
+        q_pos = positions[off:off + q.shape[1]]
+        kv_pos = positions
+    else:
+        q, k, v, kv_pos = _roped_qkv(cfg, p, x, positions, kind, enc_out,
+                                     enc_positions)
+        k, v = _core_kv(cfg, k, v)
+        q_pos, off = positions, 0
     if opaque.flash_mode():
         o = opaque.flash_attention(
             q, k, v, causal=kind in ("causal", "local"),
             window=cfg.window if kind == "local" else None)
     elif kind == "local":
-        o = windowed_attention(cfg, q, k, v, positions, cfg.window)
+        o = windowed_attention(cfg, q, k, v, q_pos, cfg.window,
+                               q_offset=off)
     else:
-        o = blockwise_attention(cfg, q, k, v, positions, kv_pos,
+        o = blockwise_attention(cfg, q, k, v, q_pos, kv_pos,
                                 causal=kind == "causal")
-    return _merge_out(cfg, p, o)
+    return _cp_out(o, w) if seq else _merge_out(cfg, p, o)

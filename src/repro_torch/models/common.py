@@ -112,15 +112,22 @@ def softplus(x):
     return torch.clamp(x, min=0.0) + torch.log1p(torch.exp(-x.abs()))
 
 
-def mlp_apply(cfg: ModelConfig, p, x, ff: Optional[int] = None):
+def mlp_apply(cfg: ModelConfig, p, x, ff: Optional[int] = None,
+              seq: bool = False):
     """The MLP of x (B, T, d), ``ff`` wide (default ``cfg.d_ff``).  Where
     ff is divided over "model" (its weights this rank's ff columns:
     ``wi`` and ``wg`` column-parallel, ``wd`` row-parallel), the ranks'
-    partial outputs are summed over "model"."""
+    partial outputs are summed over "model".  With ``seq``, x and y are
+    this rank's rows of the sequence-divided stream: a divided MLP
+    takes x gathered over "model" and reduce-scatters its output
+    (``tensor_parallel.column_input``, ``row_output``); a whole one runs
+    on the rows, its weights' gradients summed over "model"."""
     dt = x.dtype
     divided = TP.divided(ff or cfg.d_ff)
     if divided:
-        x = TP.copy_to_model(x)
+        x = TP.column_input(x, seq)
+    elif seq and TP.model_group() is not None:
+        p = dict(zip(p, TP.copy_to_model(*p.values())))
     h = x @ p["wi"].to(dt)
     if cfg.mlp in ("swiglu", "geglu"):
         g = x @ p["wg"].to(dt)
@@ -130,7 +137,7 @@ def mlp_apply(cfg: ModelConfig, p, x, ff: Optional[int] = None):
         h = gelu(h)
     h = constrain(h, ("batch", None, "ff"))
     y = h @ p["wd"].to(dt)
-    return TP.reduce_from_model(y) if divided else y
+    return TP.row_output(y, seq) if divided else y
 
 
 # -- embeddings / head ---------------------------------------------------------

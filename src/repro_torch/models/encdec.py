@@ -20,7 +20,12 @@ entry point starts; the encoder's, decoder's and cross attention, the
 MLPs, the embedding and the head divide their products over "model"
 as there.  Prefill attention goes through the
 flash-attention kernel (bidirectional, causal and cross), training
-through the blockwise attention by autograd.
+through the blockwise attention by autograd.  In the reference's flash
+mode (``REPRO_ATTN_IMPL=flash``) the encoder's and the decoder's
+streams are each rank's rows of their sequence where "model" divides
+it (``models.lm.seq_stream``: the blocks' ``seq``; the cross sub-block
+attends to the whole encoder output), gathered whole before their
+final norms (ROADMAP D15c-2b).
 """
 
 from __future__ import annotations
@@ -40,7 +45,9 @@ from repro_torch.models.common import (
     norm_init,
 )
 from repro_torch.distributed.sharding import constrain
-from repro_torch.models.lm import _index, _stack, outer_params, unit_params
+from repro_torch.distributed import tensor_parallel as TP
+from repro_torch.models.lm import (_index, _stack, outer_params, seq_stream,
+                                   unit_params)
 
 #: The stacked entries of the parameter tree.
 _STACKED = ("enc_units", "dec_units")
@@ -91,12 +98,17 @@ def encode(cfg: ModelConfig, params, audio_embed, train: bool = False):
     x = x + sinusoids(S, cfg.d_model, x.device).to(x.dtype)[None]
     x = constrain(x, ("batch", None, None))
     positions = _arange(S, x.device)
+    seq = seq_stream(cfg, S)
+    if seq:
+        x = TP.scatter_seq(x)
     for u in range(cfg.n_enc_layers):
         p = unit_params(cfg, params["enc_units"], u)["b0"]
         if train:
-            x, _ = B.block_train(cfg, ENC_ATTN, p, x, positions)
+            x, _ = B.block_train(cfg, ENC_ATTN, p, x, positions, seq=seq)
         else:
-            x, _ = B.block_fullseq(cfg, ENC_ATTN, p, x, positions)
+            x, _ = B.block_fullseq(cfg, ENC_ATTN, p, x, positions, seq=seq)
+    if seq:
+        x = TP.gather_from_model(x, 1)
     return apply_norm(cfg, params["enc_norm"], x)
 
 
@@ -110,16 +122,21 @@ def _decoder_fullseq(cfg: ModelConfig, params, tokens, enc_out,
     x = x + params["pos_embed"][:T].to(x.dtype)[None]
     x = constrain(x, ("batch", None, None))
     enc_positions = _arange(enc_out.shape[1], enc_out.device)
+    seq = seq_stream(cfg, T)
+    if seq:
+        x = TP.scatter_seq(x)
     caches = []
     for u in range(cfg.unit_count()):
         p = unit_params(cfg, params["dec_units"], u)["b0"]
         if train:
             x, _ = B.block_train(cfg, ATTN, p, x, positions, enc_out,
-                                 enc_positions)
+                                 enc_positions, seq=seq)
         else:
             x, c = B.block_fullseq(cfg, ATTN, p, x, positions, enc_out,
-                                   enc_positions)
+                                   enc_positions, seq=seq)
             caches.append({"b0": c})
+    if seq:
+        x = TP.gather_from_model(x, 1)
     x = apply_norm(cfg, params["final_norm"], x)
     return x, (None if train else _stack(caches))
 

@@ -13,7 +13,10 @@ plain lists of per-layer trees, not stacked.
 ``train_loss`` rematerializes each unit in the backward pass
 (``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` of its
 scan body), so only the unit inputs are kept; the tail runs without
-remat.  MoE configs add 0.01 x the load-balance aux loss summed over the
+remat.  Under a mesh the kept input, the carry, is this rank's T /
+model rows where "model" divides the T positions, in every mode (the
+reference constrains it to ``act_seq``): a unit on a whole stream
+gathers it on entry and cuts its output back (ROADMAP D15c-2b).  MoE configs add 0.01 x the load-balance aux loss summed over the
 units' MoE layers: the reference drops the tail's aux, and so does the
 port (ROADMAP C13).
 
@@ -31,7 +34,17 @@ the vocab-parallel cross-entropy); the MoE's experts stay DTensors
 (``sharding.KEPT_LEAVES``) for its dispatch to take its shards; every
 other weight arrives whole.  Activations stay plain local tensors (the
 serve steps' cache leaves DTensors, ``tensor_parallel.cache_part``);
-the ``constrain`` hints are no-ops on them.
+the ``constrain`` hints are no-ops on them: the layouts along the
+sequence are the ``tensor_parallel`` pieces below.
+
+In the reference's flash mode (``REPRO_ATTN_IMPL=flash``,
+``models.attention.seq_parallel_mode``) the prefill's and training's
+residual stream is this rank's T / model rows (:func:`seq_stream`; the
+blocks' ``seq``) where "model" divides T and no layer is an SSD layer:
+the embeddings are cut to the rows, the blocks keep them, and the
+prefill's last position is taken from the rank that holds it (a
+gather of one row a rank), training's stream gathered whole before the
+head.
 
 The VLM (``family == "vlm"``, internvl2) takes ``batch["patches"]`` (B,
 n_patches, d), the stub vision frontend's output, in front of the token
@@ -45,10 +58,12 @@ from __future__ import annotations
 import torch
 import torch.utils.checkpoint
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import SSM, ModelConfig
+from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.distributed.sharding import (constrain, gather_tree,
                                               restored, snapshot,
                                               stack_units, unit_of)
+from repro_torch.models import attention as A
 from repro_torch.models import blocks as B
 from repro_torch.models.common import (
     apply_norm,
@@ -119,8 +134,19 @@ def lm_init(cfg: ModelConfig, generator: torch.Generator) -> dict:
     return params
 
 
-def backbone_fullseq(cfg: ModelConfig, params, x, positions):
-    """x (B, T, d) embedded input -> (x_out, cache)."""
+def seq_stream(cfg: ModelConfig, T: int) -> bool:
+    """Whether the prefill's and training's residual stream is this
+    rank's rows of the T positions (the reference's flash mode, "model"
+    dividing T, and no SSD layer: the reference's SSD blocks keep the
+    whole stream)."""
+    return (A.seq_parallel_mode() and TP.seq_divided(T)
+            and SSM not in cfg.block_pattern + cfg.tail_pattern())
+
+
+def backbone_fullseq(cfg: ModelConfig, params, x, positions,
+                     seq: bool = False):
+    """x (B, T, d) embedded input -> (x_out, cache); ``seq``: x and
+    x_out this rank's rows of the sequence-divided stream."""
     x = constrain(x, ("batch", None, None))
     caches = []
     for u in range(cfg.unit_count()):
@@ -128,14 +154,15 @@ def backbone_fullseq(cfg: ModelConfig, params, x, positions):
         unit_c = {}
         for i, kind in enumerate(cfg.block_pattern):
             x, unit_c[f"b{i}"] = B.block_fullseq(
-                cfg, kind, unit_p[f"b{i}"], x, positions)
+                cfg, kind, unit_p[f"b{i}"], x, positions, seq=seq)
         caches.append(unit_c)
     cache = {"units": _stack(caches)}
     tail = cfg.tail_pattern()
     if tail:
         cache["tail"] = []
         for i, kind in enumerate(tail):
-            x, c = B.block_fullseq(cfg, kind, params["tail"][i], x, positions)
+            x, c = B.block_fullseq(cfg, kind, params["tail"][i], x, positions,
+                                   seq=seq)
             cache["tail"].append(c)
     return x, cache
 
@@ -181,9 +208,15 @@ def prefill(cfg: ModelConfig, params, batch):
     x, _ = _embed_input(cfg, params, batch)
     T = x.shape[1]
     positions = torch.arange(T, dtype=torch.int32, device=x.device)
-    x, cache = backbone_fullseq(cfg, params, x, positions)
-    x = apply_norm(cfg, params["final_norm"], x)
-    return logits_apply(cfg, params["embed_p"], x[:, -1:]), cache
+    seq = seq_stream(cfg, T)
+    if seq:
+        x = TP.scatter_seq(x)
+    x, cache = backbone_fullseq(cfg, params, x, positions, seq=seq)
+    last = x[:, -1:]
+    if seq:        # the last position, from the last "model" rank
+        last = TP.gather_from_model(last, 1)[:, -1:]
+    x = apply_norm(cfg, params["final_norm"], last)
+    return logits_apply(cfg, params["embed_p"], x), cache
 
 
 def decode_step(cfg: ModelConfig, params, batch):
@@ -196,19 +229,27 @@ def decode_step(cfg: ModelConfig, params, batch):
     return logits_apply(cfg, params["embed_p"], x), new_cache
 
 
-def _unit_train(cfg: ModelConfig, snap, unit_p, x, positions):
+def _unit_train(cfg: ModelConfig, snap, unit_p, x, positions, seq: bool,
+                carry: bool):
     """One unit in training: (x, the sum of its MoE layers' aux losses
     from 0, in layer order).  ``unit_p`` is gathered here, inside the
     remat region, under the mesh context ``snap`` (the recomputation may
-    run on the autograd engine's device thread)."""
+    run on the autograd engine's device thread).  ``carry``: x, the
+    saved input, is this rank's rows of the sequence; the blocks take
+    them as they are (``seq``) or the stream gathered whole, their
+    output cut back to the rows."""
     with restored(snap):
         unit_p = gather_tree(unit_p)
+        whole = carry and not seq
+        if whole:
+            x = TP.gather_from_model(x, 1)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, kind in enumerate(cfg.block_pattern):
-            x, a = B.block_train(cfg, kind, unit_p[f"b{i}"], x, positions)
+            x, a = B.block_train(cfg, kind, unit_p[f"b{i}"], x, positions,
+                                 seq=seq)
             if a is not None:
                 aux = aux + a
-        return x, aux
+        return TP.scatter_seq(x) if whole else x, aux
 
 
 def train_loss(cfg: ModelConfig, params, batch, return_aux: bool = False):
@@ -221,16 +262,25 @@ def train_loss(cfg: ModelConfig, params, batch, return_aux: bool = False):
     params = outer_params(cfg, params)
     x, n_prefix = _embed_input(cfg, params, batch)
     x = constrain(x, ("batch", None, None))
-    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    T = x.shape[1]
+    positions = torch.arange(T, dtype=torch.int32, device=x.device)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    # The remat carry is this rank's rows wherever "model" divides T.
+    carry, seq = TP.seq_divided(T), seq_stream(cfg, T)
+    if carry:
+        x = TP.scatter_seq(x)
     for u in range(cfg.unit_count()):
-        x = constrain(x, ("batch", "act_seq", None))
         x, aux = torch.utils.checkpoint.checkpoint(
             _unit_train, cfg, snapshot(), _index(params["units"], u), x,
-            positions, use_reentrant=False)
+            positions, seq, carry, use_reentrant=False)
         aux_total = aux_total + aux
+    if carry and not seq:
+        x = TP.gather_from_model(x, 1)
     for i, kind in enumerate(cfg.tail_pattern()):   # tail aux dropped
-        x, _ = B.block_train(cfg, kind, params["tail"][i], x, positions)
+        x, _ = B.block_train(cfg, kind, params["tail"][i], x, positions,
+                             seq=seq)
+    if seq:
+        x = TP.gather_from_model(x, 1)
     x = apply_norm(cfg, params["final_norm"], x)[:, n_prefix:]
     logits = logits_apply(cfg, params["embed_p"], x)
     loss = cross_entropy(logits[:, :-1], batch["labels"][:, 1:],

@@ -21,7 +21,11 @@ float32.
 Under a mesh (ROADMAP D15c-3), where "model" divides the width w, the
 block runs on this rank's channels as the reference's partitioner runs
 it (:func:`_divided`); the decode state (conv and h) stays divided
-along w.
+along w.  On the sequence-divided stream of the reference's flash mode
+(``seq``, ROADMAP D15c-2b) the column-parallel w_gate and w_rec take
+their input gathered over "model" and the row-parallel w_out
+reduce-scatters its output; a block whose width "model" does not
+divide runs on the gathered stream alike on every rank.
 """
 
 from __future__ import annotations
@@ -88,7 +92,7 @@ def _gates(p, x, x_all):
     return log_a, beta * (i * xf)
 
 
-def _divided(cfg: ModelConfig, p: dict, x):
+def _divided(cfg: ModelConfig, p: dict, x, seq: bool = False):
     """The block's layout under the active mesh: (the channels' layout,
     x into the column-parallel w_gate and w_rec, the weights with each
     replicated leaf at this rank's channels).  Where "model" divides the
@@ -96,18 +100,20 @@ def _divided(cfg: ModelConfig, p: dict, x):
     (their shards this rank's), the conv and the recurrence run on this
     rank's channels, and the gates' w x w products (a_gate, x_gate: the
     reference replicates them) take the whole input to this rank's
-    columns, as the reference's partitioner computes them."""
+    columns, as the reference's partitioner computes them.  With ``seq``,
+    x is this rank's rows of the sequence-divided stream, made whole (for
+    the column-parallel products, or for every rank alike)."""
     w = cfg.rglru.lru_width or cfg.d_model
     chans = TP.cols(w)
     if chans.alike:
-        return chans, x, p
+        return chans, TP.gather_from_model(x, 1) if seq else x, p
     names = ("conv_b", "lambda_p", "a_gate_b", "x_gate_b", "a_gate",
              "x_gate")
     a, b = TP.shard_range(TP.local(w))
     q = dict(p)
     q.update(zip(names, (t[..., a:b] for t in TP.copy_to_model(
         *(p[n] for n in names)))))
-    return chans, TP.copy_to_model(x), q
+    return chans, TP.column_input(x, seq), q
 
 
 def _combine(a1, b1, a2, b2):
@@ -139,18 +145,20 @@ def linear_scan(a, b):
     return _interleave(ea, oa), _interleave(eb, ob)
 
 
-def rglru_fullseq(cfg: ModelConfig, p: dict, x, return_cache: bool = True):
+def rglru_fullseq(cfg: ModelConfig, p: dict, x, return_cache: bool = True,
+                  seq: bool = False):
     """x (B, T, d) -> (y, cache or None); divided over "model" as
-    :func:`_divided` says."""
+    :func:`_divided` says (``seq``: x and y this rank's rows of the
+    sequence-divided stream)."""
     dt = x.dtype
-    chans, x, p = _divided(cfg, p, x)
+    chans, x, p = _divided(cfg, p, x, seq)
     gate = gelu(x @ p["w_gate"].to(dt))
     u = x @ p["w_rec"].to(dt)
     u, conv_state = _conv(u, p["conv_w"], p["conv_b"])
     log_a, b = _gates(p, u, _all(chans, u))
     _, h = linear_scan(torch.exp(log_a), b)
     h = h.to(dt)
-    y = _w_out(chans, p, gate * h)
+    y = _w_out(chans, p, gate * h, seq)
     if not return_cache:
         return y, None
     conv_dim, h_dim = _state_dims(chans)
@@ -170,10 +178,14 @@ def _all(chans, u):
     return u if chans.alike else TP.gather_own(u, -1)
 
 
-def _w_out(chans, p, v):
-    """The row-parallel w_out: the ranks' partial sums added."""
+def _w_out(chans, p, v, seq: bool = False):
+    """The row-parallel w_out: the ranks' partial sums added (``seq``:
+    reduce-scattered to this rank's rows, or a whole block's output cut
+    to them)."""
     y = v @ p["w_out"].to(v.dtype)
-    return y if chans.alike else TP.reduce_from_model(y)
+    if chans.alike:
+        return TP.scatter_seq(y) if seq else y
+    return TP.row_output(y, seq)
 
 
 def rglru_decode(cfg: ModelConfig, p: dict, x, cache: dict):

@@ -7,7 +7,9 @@ on a torch without CUDA).  Imports no JAX.
 
 ``WORK_DIR/NAME.json`` lists cells ``[arch, kind, [data, model],
 variant, [shape name, seq_len, global batch]]`` of one mesh shape, as
-``dryrun_reference.py`` takes them; this process opens a fake process
+``dryrun_reference.py`` takes them (a sixth entry replacing fields of
+the reduced config; named by ``dryrun_reference.cell_key``); this
+process opens a fake process
 group of that world size, traces each cell with
 ``launch.dryrun.run_cell`` at its reduced config and shape and writes
 ``WORK_DIR/NAME.out.json``: each record, with each argument leaf's bytes
@@ -21,14 +23,25 @@ from pathlib import Path
 import torch.distributed as dist
 
 
-def cell(arch, kind, mesh_shape, variant, shape, out_dir):
+def cell_key(arch, kind, mesh_shape, variant, shape, widths=None) -> str:
+    """``dryrun_reference.cell_key`` (that module imports JAX)."""
+    key = f"{arch}/{kind}/{mesh_shape[0]}x{mesh_shape[1]}/{variant}"
+    if widths:
+        key += "/" + ",".join(f"{k}={v}" for k, v in sorted(widths.items()))
+    return key
+
+
+def cell(arch, kind, mesh_shape, variant, shape, widths, out_dir):
+    import dataclasses
+
     from repro_torch.configs import get_config, reduced_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.distributed import steps as ST
     from repro_torch.launch import dryrun as DR
     from repro_torch.launch import mesh as M
 
-    cfg = reduced_config(get_config(arch))
+    cfg = dataclasses.replace(reduced_config(get_config(arch)),
+                              **(widths or {}))
     shape = ShapeConfig(shape[0], shape[1], shape[2], kind)
     mesh = M.make_mesh(tuple(mesh_shape), device="cuda")
     with DR.variant_switches(DR.variant_flags(variant)):   # kvint8's cache
@@ -52,8 +65,8 @@ def main(work_dir, name):
     dist.init_process_group("fake", store=FakeStore(), rank=0,
                             world_size=d * m)
     try:
-        out = {f"{c[0]}/{c[1]}/{c[2][0]}x{c[2][1]}/{c[3]}":
-               cell(*c, work / "records") for c in cells}
+        out = {cell_key(*c): cell(*c[:5], c[5] if len(c) > 5 else None,
+                                  work / "records") for c in cells}
     finally:
         dist.destroy_process_group()
     tmp = work / f"{name}.out.json.tmp"

@@ -5,7 +5,8 @@ sets ``XLA_FLAGS`` before JAX starts):
     python tests/dryrun_reference.py WORK_DIR NAME
 
 ``WORK_DIR/NAME.json`` lists cells ``[arch, kind, [data, model],
-variant, [shape name, seq_len, global batch]]``; the variant is
+variant, [shape name, seq_len, global batch]]`` (a sixth entry, a dict,
+replaces fields of the reduced config: :func:`cell_key`); the variant is
 ``base``, ``opaque`` (``REPRO_ATTN_IMPL=flash REPRO_OPAQUE_KERNELS=1
 REPRO_PALLAS_SSD=opaque``, the kernels as the reference's stand-ins), or
 a ``+`` join of the reference dry-run's flags (``flash``, ``ssdk``,
@@ -81,7 +82,18 @@ def specs_out():
     return out
 
 
-def cell(arch, kind, mesh_shape, variant, shape):
+def cell_key(arch, kind, mesh_shape, variant, shape, widths=None) -> str:
+    """A cell's name: ``arch/kind/DxM/variant``, and ``/field=value,...``
+    where it replaces fields of the reduced config."""
+    key = f"{arch}/{kind}/{mesh_shape[0]}x{mesh_shape[1]}/{variant}"
+    if widths:
+        key += "/" + ",".join(f"{k}={v}" for k, v in sorted(widths.items()))
+    return key
+
+
+def cell(arch, kind, mesh_shape, variant, shape, widths=None):
+    import dataclasses
+
     from repro.distributed.steps import build_cell
     from repro.launch import hlo_cost as HC
 
@@ -89,7 +101,8 @@ def cell(arch, kind, mesh_shape, variant, shape):
                                                 FLAG_ENV.values()):
         os.environ.pop(k, None)
     os.environ.update(variant_env(variant))
-    cfg = reduced_config(get_config(arch))
+    cfg = dataclasses.replace(reduced_config(get_config(arch)),
+                              **(widths or {}))
     mesh = jax.make_mesh(tuple(mesh_shape), ("data", "model"),
                          axis_types=(AxisType.Auto,) * 2,
                          devices=jax.devices()[:mesh_shape[0]
@@ -131,8 +144,7 @@ def main(work_dir, name):
         out = specs_out()
     else:
         cells = json.loads((work / f"{name}.json").read_text())
-        out = {"/".join(map(str, c[:2])) + f"/{c[2][0]}x{c[2][1]}/{c[3]}":
-               cell(*c) for c in cells}
+        out = {cell_key(*c): cell(*c) for c in cells}
     tmp = work / f"{name}.out.json.tmp"
     tmp.write_text(json.dumps(out))
     tmp.rename(work / f"{name}.out.json")

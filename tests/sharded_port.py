@@ -9,8 +9,10 @@ trees by arch, and the MoE case's layer and input), runs the cases of
 that world size (train, MoE, dense MoE, recurrent-layer and serve
 cases; at world size 2 also the
 collectives a step issues on each mesh axis's group,
-:func:`_group_collectives`) and writes ``work_dir/port_<world>.json``
-from rank 0.
+:func:`_group_collectives`; at world size 4 the saved unit carries,
+:func:`_saved_carries`, and context-parallel attention layers,
+:func:`_cp_attention`) and writes ``work_dir/port_<world>.json`` from
+rank 0.
 """
 
 from __future__ import annotations
@@ -67,14 +69,17 @@ def _local_bytes(state):
                for x in tree_leaves(state))
 
 
-def _train(arch, shape, ep, steps, ref_params, bs=None, state=None):
-    """Sharded steps on a mesh of ``shape``: (metrics, state, this
-    rank's state bytes)."""
+def _train(arch, shape, ep, steps, ref_params, bs=None, state=None,
+           variant=""):
+    """Sharded steps on a mesh of ``shape`` under the switches of
+    ``variant`` (:data:`VARIANTS`): (metrics, state, this rank's state
+    bytes)."""
     from repro_torch.distributed import steps as ST
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.convert import params_from_jax
 
     os.environ["REPRO_MOE_EP"] = str(ep)
+    os.environ.update(VARIANTS[variant])
     cfg = config(arch)
     mesh = make_mesh(shape, device="cpu")
     step, place = ST.make_train_step(cfg, mesh)
@@ -88,6 +93,8 @@ def _train(arch, shape, ep, steps, ref_params, bs=None, state=None):
         state, m = step(state, b)
         metrics.append([float(m["loss"]), float(m["grad_norm"])])
     os.environ["REPRO_MOE_EP"] = "0"
+    for k in VARIANTS[variant]:
+        os.environ.pop(k)
     return metrics, state, nbytes
 
 
@@ -116,10 +123,11 @@ def _moe(shape, ref):
     return y.numpy().tolist(), float(aux)
 
 
-#: A serve case's variant: its switches, and its prompt length where it
-#: is not T (``sharded_reference.VARIANTS``, ``PROMPT``).
-VARIANTS = {"": {}, "kvint8": {"REPRO_KV_INT8": "1"}, "slots": {}}
-PROMPT = {"slots": 64}
+#: A case's variant: its switches, and a serve case's prompt length
+#: where it is not T (``sharded_reference.VARIANTS``, ``PROMPT``).
+VARIANTS = {"": {}, "kvint8": {"REPRO_KV_INT8": "1"}, "slots": {},
+            "flash": {"REPRO_ATTN_IMPL": "flash"}}
+PROMPT = {"slots": 64, "flash": 64}
 
 
 def _dense_moe(shape, ref, T_moe):
@@ -330,6 +338,117 @@ def _group_collectives(ref_params):
     return out
 
 
+def _saved_carries(ref_params, variant):
+    """One train loss and its backward of reduced llama3.2-3b on the (1,
+    4) mesh under ``variant``'s switches, the tensors autograd saves
+    recorded (``torch.autograd.graph.saved_tensors_hooks``; the remat
+    unit's input is saved outside its region) and each unit's carry,
+    the input ``models.lm._unit_train`` takes: [each carry's shape and
+    whether it is among the saved tensors], and the whole stream's
+    (B, T, d)."""
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed import steps as ST
+    from repro_torch.distributed.elastic import reshard_state
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm as LM
+    from repro_torch.models.convert import params_from_jax
+    from repro_torch.optim.adamw import tree_map
+
+    os.environ.update(VARIANTS[variant])
+    cfg = config("llama3.2-3b")
+    mesh = make_mesh((1, 4), device="cpu")
+    _, place = ST.make_train_step(cfg, mesh)
+    params = reshard_state(params_from_jax(ref_params["llama3.2-3b"],
+                                           device="cpu"), mesh,
+                           place["params"])
+    params = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    b = {k: torch.from_numpy(v) for k, v in batches(cfg, 1)[0].items()}
+    saved, carries = [], []
+    unit = LM._unit_train
+
+    def record(cfg_, snap, unit_p, x, *args):
+        carries.append(x)
+        return unit(cfg_, snap, unit_p, x, *args)
+
+    LM._unit_train = record
+    try:
+        with SH.use_mesh(mesh), \
+                torch.autograd.graph.saved_tensors_hooks(
+                    lambda t: saved.append(t) or t, lambda t: t):
+            loss = LM.train_loss(cfg, params, b)
+        loss.backward()
+    finally:
+        LM._unit_train = unit
+        for k in VARIANTS[variant]:
+            os.environ.pop(k)
+    first = carries[:cfg.unit_count()]      # the forward's, not the remat's
+    return ([[list(x.shape), any(t is x for t in saved)] for x in first],
+            [B, T, cfg.d_model])
+
+
+#: The context-parallel layer's length: the window (32) cuts its keys.
+CP_T = 64
+
+
+def _cp_attention(kind):
+    """A reduced gemma2-2b attention layer (``kind`` "causal" or "local":
+    a window of 32 with softcap) trained on a (1, 4) mesh under
+    ``REPRO_ATTN_IMPL=flash`` (context-parallel: each rank's 16 rows of
+    the 64) against the whole layer on the whole input: the largest
+    differences of y, of the gradients of x and of every leaf (the loss
+    sum(y * w), w seeded), and of the prefill's output (B4's plain
+    version at the rows' offset) and cache, each relative to the
+    whole's largest."""
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed import tensor_parallel as TP
+    from repro_torch.distributed.elastic import reshard_state
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import attention as A
+    from repro_torch.optim.adamw import tree_map
+
+    cfg = config("gemma2-2b")
+    p = tree_map(lambda t: t.requires_grad_(True),
+                 A.attn_init(torch.Generator().manual_seed(7), cfg))
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(rng.standard_normal(
+        (B, CP_T, cfg.d_model)).astype(np.float32)).requires_grad_(True)
+    w = torch.from_numpy(rng.standard_normal(x.shape).astype(np.float32))
+    pos = torch.arange(CP_T, dtype=torch.int32)
+    y = A.attention_train(cfg, p, x, pos, kind)
+    (y * w).sum().backward()
+    with torch.no_grad():
+        yp, cache = A.attention_fullseq(cfg, p, x.detach(), pos, kind)
+    want = {"y": y.detach(), "x": x.grad, "prefill": yp,
+            **{f"cache/{k}": v for k, v in cache.items()},
+            **{k: v.grad for k, v in p.items()}}
+
+    mesh = make_mesh((1, 4), device="cpu")
+    pd = tree_map(lambda t: t.detach().requires_grad_(True),
+                  reshard_state(tree_map(lambda t: t.detach(), p), mesh,
+                                SH.param_placements(p, mesh)))
+    os.environ["REPRO_ATTN_IMPL"] = "flash"
+    try:
+        with SH.use_mesh(mesh):
+            xl = TP.scatter_seq(x.detach()).requires_grad_(True)
+            y = A.attention_train(cfg, SH.gather_tree(pd), xl, pos, kind,
+                                  seq=True)
+            (y * TP.scatter_seq(w)).sum().backward()
+            with torch.no_grad():
+                yp, cache = A.attention_fullseq(cfg, SH.gather_tree(pd),
+                                                xl.detach(), pos, kind,
+                                                seq=True)
+            got = {"y": TP.gather_from_model(y.detach(), 1),
+                   "x": TP.gather_from_model(xl.grad, 1),
+                   "prefill": TP.gather_from_model(yp, 1),
+                   **{f"cache/{k}": v.full_tensor()
+                      for k, v in cache.items()},
+                   **{k: v.grad.full_tensor() for k, v in pd.items()}}
+    finally:
+        os.environ.pop("REPRO_ATTN_IMPL")
+    return {k: float((got[k] - want[k]).abs().max()
+                     / want[k].abs().max()) for k in want}
+
+
 def _unsharded_vs_mesh(ref_params):
     """``launch.train.train`` on one device and on a (1, 1) mesh."""
     from repro_torch.core import characterize as TC
@@ -404,12 +523,14 @@ def _worker(rank, world, work_dir):
         ref = pickle.loads((work / "params.pkl").read_bytes())
         out = {"train": {}, "bytes": {}, "moe": {}, "serve": {},
                "dense_moe": {}, "recurrent": {}}
-        for arch, shape, ep, steps in cases["train"]:
+        for arch, shape, ep, steps, *variant in cases["train"]:
             if shape[0] * shape[1] != world:
                 continue
-            tag = f"{arch}/{shape[0]}x{shape[1]}/ep{ep}"
+            tag = "/".join([arch, f"{shape[0]}x{shape[1]}", f"ep{ep}"]
+                           + variant)
             metrics, _, nbytes = _train(arch, shape, ep, steps,
-                                        ref["params"])
+                                        ref["params"], variant=
+                                        variant[0] if variant else "")
             got = [None] * world
             dist.all_gather_object(got, nbytes)
             out["train"][tag], out["bytes"][tag] = metrics, got
@@ -436,6 +557,10 @@ def _worker(rank, world, work_dir):
         if world == 1:
             out["plain_vs_mesh"] = _unsharded_vs_mesh(ref["params"])
         if world == 4:
+            out["saved"] = {v: _saved_carries(ref["params"], v)
+                            for v in ("", "flash")}
+            out["cp_attention"] = {k: _cp_attention(k)
+                                   for k in ("causal", "local")}
             # Two steps at (2, 2), then the state to host numpy and disk.
             metrics, state, _ = _train(arch, (2, 2), 0, 2, ref["params"],
                                        bs=bs[:2])
@@ -504,6 +629,11 @@ def _cost_worker(rank, world, work_dir):
             cfg = reduced_config(get_config(arch))
             shape = ShapeConfig(shp[0], shp[1], shp[2], kind)
             mesh = make_mesh(tuple(mesh_shape), device="cpu")
+            # The flash variant's stand-ins have no real implementation:
+            # the real run takes the scans they stand for, which issue
+            # the same collectives (none of their own).
+            os.environ.update({"REPRO_ATTN_IMPL": "flash"}
+                              if "flash" in variant.split("+") else {})
             step, (_, specs), (place, _) = ST.build_cell(cfg, shape, mesh)
             if kind == "train":
                 arg0 = ST.init_train_state(cfg, mesh, place, seed=0)
@@ -525,6 +655,7 @@ def _cost_worker(rank, world, work_dir):
             batch = {k: shape.seq_len if k == "pos" else tree_map(leaf, v)
                      for k, v in specs.items()}
             tr = C.trace(step, arg0, batch)
+            os.environ.pop("REPRO_ATTN_IMPL", None)
             out[f"{arch}/{kind}/{mesh_shape[0]}x{mesh_shape[1]}/{variant}"] = \
                 collective_bytes(tr.cost)
         if rank == 0:

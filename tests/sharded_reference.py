@@ -5,8 +5,9 @@
     python tests/sharded_reference.py WORK_DIR PART N_PARTS
 
 ``WORK_DIR/cases.json`` lists ``[arch, [data, model], ep, steps]`` train
-cases, ``[data, model]`` MoE cases and ``[arch, [data, model]]`` serve
-cases (a third entry names a variant of :data:`VARIANTS`); this process
+cases (a fifth entry names a variant of :data:`VARIANTS`), ``[data,
+model]`` MoE cases and ``[arch, [data, model]]`` serve cases (a third
+entry names a variant); this process
 runs every ``N_PARTS``-th of them from ``PART`` on.  Part 0 first writes
 ``WORK_DIR/params.pkl``: the initial parameters of every arch (seed 0)
 and the MoE case's layer and input, as nested numpy trees.  Each part
@@ -42,11 +43,15 @@ from repro.optim.adamw import AdamWConfig, init_opt_state  # noqa: E402
 B, T = 4, 16
 #: Greedy decode steps after a serve case's prefill.
 SERVE_STEPS = 3
-#: A serve case's variant: its switches.
-VARIANTS = {"": {}, "kvint8": {"REPRO_KV_INT8": "1"}, "slots": {}}
+#: A case's variant: its switches (``flash``: the reference's flash mode,
+#: its sequence-parallel stream; on the CPU its attention is the
+#: blockwise and windowed scans).
+VARIANTS = {"": {}, "kvint8": {"REPRO_KV_INT8": "1"}, "slots": {},
+            "flash": {"REPRO_ATTN_IMPL": "flash"}}
 #: A variant's prompt length (else T): at 64 the cache's slots are its
-#: largest dim, so "model" divides them.
-PROMPT = {"slots": 64}
+#: largest dim, so "model" divides them, and a window of 32 cuts the
+#: local layers' keys.
+PROMPT = {"slots": 64, "flash": 64}
 #: Depths other than the reduced config's (recurrentgemma with a tail).
 OVERRIDES = {"recurrentgemma-2b": dict(n_layers=8)}
 
@@ -93,8 +98,9 @@ def moe_inputs():
     return p, x
 
 
-def train_case(arch, shape, ep, steps, params, out):
+def train_case(arch, shape, ep, steps, params, out, variant=""):
     os.environ["REPRO_MOE_EP"] = str(ep)
+    os.environ.update(VARIANTS[variant])
     cfg = config(arch)
     m = mesh(shape)
     step, shard = ST.make_train_step(cfg, m)
@@ -109,9 +115,12 @@ def train_case(arch, shape, ep, steps, params, out):
     for b in batches(cfg, steps):
         state, mt = step(state, b)
         metrics.append((float(mt["loss"]), float(mt["grad_norm"])))
-    tag = f"{arch}/{shape[0]}x{shape[1]}/ep{ep}"
+    tag = f"{arch}/{shape[0]}x{shape[1]}/ep{ep}" + (f"/{variant}" if variant
+                                                     else "")
     out[f"train/{tag}"] = np.array(metrics, np.float64)
     out[f"bytes/{tag}"] = np.array(nbytes)
+    for k in VARIANTS[variant]:
+        os.environ.pop(k)
 
 
 def moe_case(shape, p, x, out):
@@ -187,8 +196,8 @@ def main(work_dir, part, n_parts):
         tmp.rename(work / "params.pkl")
     out = {}
     for case in mine:
-        if len(case) == 4:
-            train_case(*case, params[case[0]], out)
+        if len(case) >= 4 and isinstance(case[2], int):
+            train_case(*case[:4], params[case[0]], out, *case[4:])
         elif isinstance(case[0], str):
             serve_case(case[0], case[1], params[case[0]], out, *case[2:])
         else:

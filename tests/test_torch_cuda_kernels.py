@@ -111,6 +111,35 @@ def test_flash_attention_matches_plain(hd, dtype, kw):
         assert bf16_err_ratio(got, want) <= 1.0
 
 
+@pytest.mark.parametrize("hd,dtype", [(16, "float32"), (128, "float32"),
+                                      (64, "bfloat16"), (128, "bfloat16"),
+                                      (256, "bfloat16")])
+@pytest.mark.parametrize("kw", [dict(causal=True),
+                                dict(causal=True, window=48, softcap=50.0)],
+                         ids=["causal", "window-softcap"])
+def test_flash_attention_query_shards(hd, dtype, kw):
+    """Context-parallel queries (ROADMAP D15c-2b): four query shards,
+    each launched against every key at its ``q_offset`` (offsets not a
+    multiple of a tile among them), each held against the plain version
+    at that offset, and the four concatenated equal to the unsplit
+    launch bit for bit."""
+    T, n = 320, 80
+    q, k, v = _fa_inputs(2, 3, T, T, hd, getattr(torch, dtype), seed=hd)
+    whole = FA.flash_attention_fwd(q, k, v, **kw)
+    outs = []
+    for i in range(T // n):
+        qs = q[:, i * n:(i + 1) * n].contiguous()
+        got = FA.flash_attention_fwd(qs, k, v, q_offset=i * n, **kw)
+        want = flash_attention_plain(qs, k, v, q_offset=i * n, **kw)
+        if dtype == "float32":
+            assert float((got - want).abs().max()) <= F32_TOL
+        else:
+            assert bf16_err_ratio(got, want) <= 1.0
+        outs.append(got)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat(outs, dim=1), whole)
+
+
 def _fa_inputs(BK, G, T, S, hd, dtype, seed=0):
     rng = np.random.default_rng(seed)
     return tuple(torch.from_numpy(rng.standard_normal(s).astype(np.float32))

@@ -119,8 +119,16 @@ def _tag(mesh):
 _PORT = {}
 
 
+#: The prefill cells the port also traces in the reference's flash mode
+#: (ROADMAP D15c-2b: the sequence-divided stream, context-parallel
+#: attention), held to the reference's flash cell.
+FLASH_PREFILL = ("llama3.2-3b", "recurrentgemma-2b")
+
+
 def _port_cells(mesh):
-    return [[a, k, list(mesh), "base", SHAPES[k]] for a, k in CELLS]
+    return [[a, k, list(mesh), "base", SHAPES[k]] for a, k in CELLS] + [
+        [a, "prefill", list(mesh), "flash", SHAPES["prefill"]]
+        for a in FLASH_PREFILL]
 
 
 def _port_records(mesh, tmp_path_factory):
@@ -413,14 +421,18 @@ def test_flops_match_reference(mesh_run, cell):
     dense MoE's experts over "model" (D15c-2a):
 
       * prefill: ``kernel`` as at "model" 1; ``dot`` equal to the
-        ``opaque`` cell's where "model" divides the kv heads.  Where it
-        does not (llama3.2-3b at (1, 4): 2 kv heads), the ``opaque``
-        cell runs the reference's flash mode, whose sequence-parallel
-        stream (q on ``act_seq``, ``repro/models/attention.py:307``;
-        D15c-2) has the partitioner compute one of k and v on the T/4
-        tokens of a sequence shard; the port is held to the base cell
-        instead: its ``dot`` less the blockwise tile products that B4
-        takes over, at the port's local q heads, exactly;
+        ``opaque`` cell's where "model" divides the kv heads.  The
+        ``opaque`` cell runs the reference's flash mode, whose
+        sequence-parallel stream (q on ``act_seq``,
+        ``repro/models/attention.py:307``) the port runs too (ROADMAP
+        D15c-2b): llama3.2-3b's and recurrentgemma-2b's flash cells
+        (:data:`FLASH_PREFILL`) equal it exactly at every mesh, ``dot``
+        and ``kernel``, also where "model" does not divide the kv heads
+        ((1, 4): k on the T/4 rows of a sequence shard, v from the
+        gathered stream).  There the base cell, which divides the
+        heads, is held to the reference's base cell: its ``dot`` less
+        the blockwise tile products that B4 takes over, at the port's
+        local q heads, exactly;
       * train: as at "model" 1, the reference's count less the port's
         within one to two attention tile forwards, at the local q
         heads.  Where "model" does not divide the kv heads (gemma2-2b
@@ -467,6 +479,9 @@ def test_flops_match_reference(mesh_run, cell):
             assert split["kernel"] == _ssd_formula_flops(p, SHAPES[kind]) > 0
         else:
             assert split["kernel"] == o["kernel"] > 0
+        if arch in FLASH_PREFILL:
+            flash = port[_key(*cell, mesh, "flash")]["flops_breakdown"]
+            assert flash == {"dot": o["dot"], "kernel": o["kernel"]}
         if cfg.n_kv_heads % mesh[1] == 0:
             assert split["dot"] == o["dot"]
         else:

@@ -55,7 +55,21 @@ its cases), float32 activations, batch 4 x 16.
     (2, 2) against the whole tree;
   * elastic restart: two steps at (2, 2) saved to disk, restored on
     ``plan_mesh(2, (2, 2))``'s mesh (1, 2) through ``reshard_state``
-    bit for bit, two more steps equal to an unbroken (1, 2) run's.
+    bit for bit, two more steps equal to an unbroken (1, 2) run's;
+  * the reference's flash mode (ROADMAP D15c-2b), ``REPRO_ATTN_IMPL=
+    flash`` on both sides (the reference's attention on the CPU is its
+    blockwise and windowed scans under its sequence-parallel layouts;
+    the port's stream is each rank's T / model rows, its attention
+    context-parallel): the train cases ``*/flash`` (llama3.2-3b,
+    gemma2-2b and recurrentgemma-2b at (1, 4) and (2, 2), olmoe-1b-7b
+    at (2, 2)) and the serve cases ``*/flash`` (llama3.2-3b and
+    gemma2-2b at (1, 4) on a 64-token prompt, whose local layers' window
+    of 32 cuts the keys) at the tolerances above, tokens equal, each
+    rank's cache bytes one device's shard; each rank's saved unit
+    carry its T / model rows in ``base`` and in ``flash``; a
+    context-parallel attention layer (causal, and windowed with softcap)
+    at (1, 4) against the whole layer: y, the prefill's output and
+    cache, and the gradients of x and of every leaf within 1e-5.
 
 The ``torchrun`` launch is in ``tests/test_torch_distributed.py``.
 """
@@ -100,6 +114,15 @@ TRAIN_CASES = [
     ["mamba2-130m", [2, 2], 0, 3],
     ["recurrentgemma-2b", [1, 4], 0, 3],
     ["recurrentgemma-2b", [2, 2], 0, 3],
+    # The reference's flash mode: the sequence-parallel stream and
+    # context-parallel attention (ROADMAP D15c-2b).
+    ["llama3.2-3b", [1, 4], 0, 3, "flash"],
+    ["llama3.2-3b", [2, 2], 0, 3, "flash"],
+    ["gemma2-2b", [1, 4], 0, 3, "flash"],
+    ["gemma2-2b", [2, 2], 0, 3, "flash"],
+    ["recurrentgemma-2b", [1, 4], 0, 3, "flash"],
+    ["recurrentgemma-2b", [2, 2], 0, 3, "flash"],
+    ["olmoe-1b-7b", [2, 2], 0, 3, "flash"],
 ]
 MOE_CASES = [[1, 2], [1, 4], [2, 2]]
 DENSE_MOE_CASES = [[s, t] for s in ([2, 1], [2, 2], [1, 4]) for t in (1, 8)]
@@ -108,7 +131,8 @@ SERVE_CASES = [[a, s] for a in ("llama3.2-3b", "whisper-large-v3")
     ["olmoe-1b-7b", [2, 2]], ["olmoe-1b-7b", [1, 4]],
     ["llama3.2-3b", [1, 4], "kvint8"], ["gemma2-2b", [1, 4]],
     ["llama3.2-3b", [2, 2], "slots"], ["mamba2-130m", [1, 4]],
-    ["mamba2-130m", [2, 2]], ["recurrentgemma-2b", [1, 4]]]
+    ["mamba2-130m", [2, 2]], ["recurrentgemma-2b", [1, 4]],
+    ["llama3.2-3b", [1, 4], "flash"], ["gemma2-2b", [1, 4], "flash"]]
 #: The recurrent layers divided over "model" against whole (ROADMAP
 #: D15c-3): (arch, mesh[, widths of ``sharded_port.RECURRENT_WIDTHS``]).
 RECURRENT_CASES = [["mamba2-130m", [1, 4]], ["recurrentgemma-2b", [1, 4]],
@@ -120,8 +144,8 @@ def _serve_tag(case):
 
 
 def _tag(case):
-    arch, shape, ep, _ = case
-    return f"{arch}/{shape[0]}x{shape[1]}/ep{ep}"
+    arch, shape, ep, _, *variant = case
+    return "/".join([arch, f"{shape[0]}x{shape[1]}", f"ep{ep}"] + variant)
 
 
 #: Reference subprocesses (each takes every second case).
@@ -293,3 +317,35 @@ def test_elastic_restart_on_planned_mesh(runs):
     resumed, unbroken = np.array(el["resumed"]), np.array(el["unbroken"])
     np.testing.assert_allclose(resumed[:, 0], unbroken[:, 0], rtol=1e-5)
     np.testing.assert_allclose(resumed[:, 1], unbroken[:, 1], rtol=1e-5)
+
+
+@pytest.mark.parametrize("variant", ["", "flash"],
+                         ids=["base", "flash"])
+def test_saved_unit_carry_is_the_sequence_shard(runs, variant):
+    """Reduced llama3.2-3b's train loss at (1, 4), in ``base`` and under
+    ``REPRO_ATTN_IMPL=flash``: each unit's carry (the remat region's
+    input, which autograd keeps for the backward pass) is among the
+    tensors ``saved_tensors_hooks`` sees, and is this rank's T / 4 rows
+    of the (B, T, d) stream, as the reference constrains it to
+    ``act_seq`` (``repro/models/lm.py:92``)."""
+    _, port = runs
+    carries, (b, t, d) = port[4]["saved"][variant]
+    assert len(carries) == 2
+    for shape, saved in carries:
+        assert saved
+        assert shape == [b, t // 4, d]
+
+
+@pytest.mark.parametrize("kind", ["causal", "local"])
+def test_context_parallel_attention_matches_whole(runs, kind):
+    """A reduced gemma2-2b attention layer at (1, 4) on the
+    sequence-divided stream (each rank's 16 of 64 rows: q, rope and o at
+    the rows' positions, k and v gathered; ``local``: the window of 32
+    and the softcap), training and prefill, against the whole layer: y,
+    the prefill's output and cache, and the gradients of x and of every
+    leaf within 1e-5 of the whole's largest."""
+    _, port = runs
+    errs = port[4]["cp_attention"][kind]
+    assert {"y", "x", "prefill", "cache/k", "cache/v", "wq", "wk", "wv",
+            "wo"} <= set(errs)
+    assert max(errs.values()) <= 1e-5, errs
