@@ -23,20 +23,26 @@ exits non-zero):
                      the pins, ``mean_margin_final`` to this host's mean
                      of the CPU's margins;
   4. kernels       — the shard-core kernel against its plain torch version
-                     on the same card tensors, bit for bit, on the padded
-                     op tables of ``websearch`` at 20 000 requests
+                     on the same card tensors, bit for bit over each
+                     case's first ``KERNEL_HOLD_STEPS`` steps, on the
+                     padded op tables of ``websearch`` at 20 000 requests
                      (``baseline`` serial and ``pr2ar2`` pipelined; FIFO,
                      and priority rings with aging bounds inf and 8), on
                      one 48-lane table stacking all six mechanisms, on the
                      same table with each mechanism's own serial or
                      pipelined lanes (FIFO, and priority rings at bound
                      8), and on ``baseline``'s table padded to 16 384 rows,
-                     too wide for shared memory; each case prints its
-                     variant (op table and rings in shared or global
-                     memory) and its shared-memory bytes a block, and the
-                     variant must be the one the shapes call for; then
-                     the floor of one step's dependency chain (a probe
-                     kernel of dependent f64 max and adds);
+                     too wide for shared memory; then on lanes of 17, 32,
+                     64 and 100 dies (``WIDE_DIES``: the 32-slot, 64-slot
+                     and generic instances, ``websearch`` at 4 000
+                     requests, baseline's serial and pr2ar2's pipelined
+                     lanes), FIFO from shared memory and, padded to
+                     16 384 rows, priority rings from global memory; each
+                     case prints its variant (op table and rings in shared
+                     or global memory) and its shared-memory bytes a
+                     block, and the variant must be the one the shapes
+                     call for; then the floor of one step's dependency
+                     chain (a probe kernel of dependent f64 max and adds);
   5. main path     — ``compare_mechanisms`` over the six mechanisms at
                      20 000 requests with ``engine="batched"``; the kernel
                      must have launched, every launch from shared memory
@@ -53,6 +59,13 @@ exits non-zero):
                      and timed beside its bounds: bytes or operations,
                      and the serial chain (longest lane's steps x the
                      measured floor).
+  5b. wide channels — the same ``compare_mechanisms`` on 8 channels x 32
+                     dies with ``engine="auto"``: every mechanism must
+                     select ``"batched"`` with no fallback reason; its
+                     launches (``wide_launches``; 48 lanes of 32 dies)
+                     are held against the plain version over their first
+                     ``GC_HOLD_STEPS`` steps and timed beside their
+                     bounds.
   6. serve kernels — the count of HGMMA (wgmma) instructions in the SASS
                      of each flash-attention instance (``cuobjdump
                      -sass``), nonzero for every bfloat16 one; the
@@ -470,6 +483,18 @@ N_REQUESTS = 20000
 CONDITION = (365.0, 1000.0)
 MECHANISMS = ("baseline", "sota", "pr2", "ar2", "pr2ar2", "sota+pr2ar2")
 KERNEL_REPS = 5
+#: Phase 4 holds each case's first this many lockstep steps against the
+#: plain core (kernel and plain version both stopped there); phase 5
+#: holds the main path's launch whole, phase 5b its wide cell's launches
+#: over their first GC_HOLD_STEPS.
+KERNEL_HOLD_STEPS = 16384
+#: Phase 4's wide lanes: dies a channel, and the requests of the
+#: ``websearch`` trace their tables come from.
+WIDE_DIES = (17, 32, 64, 100)
+WIDE_CASE_REQUESTS = 4000
+#: Phase 5b: the main path's cell on channels of this many dies (8
+#: channels x 32 dies, 256 dies).
+WIDE_CELL_DIES = 32
 CHAIN_PROBE_STEPS = 1 << 21
 DEVICE = "cuda"
 
@@ -898,28 +923,33 @@ def characterize_phase():
     return dict(card_s=card_s, cpu_s=cpu_s)
 
 
-def _main_path_tables():
-    """Padded op tables of the main path's cells (one per mechanism)."""
+def _main_path_tables(dies_per_channel=None, n_requests=N_REQUESTS,
+                      mechanisms=MECHANISMS):
+    """Padded op tables of the main path's cells (one per mechanism), on
+    ``DEFAULT_SSD`` or its channels widened to ``dies_per_channel``."""
+    import dataclasses
+
     from repro_torch.core.retry import RetryPolicy
     from repro_torch.flashsim import DEFAULT_SSD, OperatingCondition
     from repro_torch.flashsim import engine_batched as EB
     from repro_torch.flashsim import ssd
     from repro_torch.kernels.fcfs_core import ops as K
 
-    trace = ssd.resolve_trace(WORKLOAD, seed=0, n_requests=N_REQUESTS)
-    expansion = ssd.expand_trace(trace, DEFAULT_SSD)
+    cfg = DEFAULT_SSD if dies_per_channel is None else dataclasses.replace(
+        DEFAULT_SSD, dies_per_channel=dies_per_channel)
+    trace = ssd.resolve_trace(WORKLOAD, seed=0, n_requests=n_requests)
+    expansion = ssd.expand_trace(trace, cfg)
     tables, pipelined = {}, {}
-    for m in MECHANISMS:
-        sim = ssd.SSDSim(DEFAULT_SSD, OperatingCondition(*CONDITION),
+    for m in mechanisms:
+        sim = ssd.SSDSim(cfg, OperatingCondition(*CONDITION),
                          RetryPolicy(m), seed=7, engine="batched",
                          device=DEVICE)
         prep = sim._prepare(trace, expansion=expansion)
         lanes, _, _ = EB._lane_tables(sim.cfg, prep.bufs)
         tables[m] = K.pad_ops(lanes)
         pipelined[m] = prep.pipelined
-    n_dies = -(-DEFAULT_SSD.n_dies // DEFAULT_SSD.n_channels)
-    t = DEFAULT_SSD.timing
-    return tables, pipelined, n_dies, (t.tdma_us, t.tecc_us)
+    t = cfg.timing
+    return tables, pipelined, EB.dies_per_lane(cfg), (t.tdma_us, t.tecc_us)
 
 
 def _bound_ms(ops, fin, diestat, lane):
@@ -993,7 +1023,7 @@ def _variant(ops, kw):
     from repro_torch.kernels.fcfs_core import ops as K
 
     shape = (ops.shape[1], kw["n_dies"], kw["capq"], kw["capw"], kw["prio"])
-    place = K.placement(*shape, K.smem_budget(ops.device))
+    place = K.placement(*shape, K.smem_budget(ops.device, kw["n_dies"]))
     if place == K.SMEM:
         return "smem", K.smem_bytes(*shape)
     return "global", 0
@@ -1067,26 +1097,33 @@ def kernel_phase():
         for label, bound in (("fifo", None), ("prio-inf", float("inf")),
                              ("prio-8", 8.0)):
             cases.append((f"{m}/{label}", tables[m], pipelined[m], bound,
-                          "smem"))
-    widest = max(t.shape[1] for t in tables.values())
-    stacked = np.concatenate(
-        [K.pad_ops([row[np.isfinite(row[:, 0])] for row in tables[m]],
-                   maxp=widest) for m in MECHANISMS], axis=0)
-    mixed = np.concatenate([[pipelined[m]] * tables[m].shape[0]
-                            for m in MECHANISMS])
+                          "smem", n_dies))
+    stacked, mixed = _stack_lanes(tables, pipelined, MECHANISMS)
     cases.append(("six-mechanisms-48-lanes/fifo", stacked, True, None,
-                  "smem"))
+                  "smem", n_dies))
     cases.append(("six-mechanisms-48-lanes-mixed/fifo", stacked, mixed,
-                  None, "smem"))
+                  None, "smem", n_dies))
     cases.append(("six-mechanisms-48-lanes-mixed/prio-8", stacked, mixed,
-                  8.0, "smem"))
+                  8.0, "smem", n_dies))
     wide = K.pad_ops([row[np.isfinite(row[:, 0])]
                       for row in tables["baseline"]], maxp=WIDE_MAXP)
     cases.append((f"baseline-{WIDE_MAXP}-rows/fifo", wide,
-                  pipelined["baseline"], None, "global"))
+                  pipelined["baseline"], None, "global", n_dies))
+    # Wide lanes: baseline's serial and pr2ar2's pipelined lanes of one
+    # table, FIFO from shared memory and, padded to WIDE_MAXP rows,
+    # priority rings at bound 8 from global memory.
+    for dies in WIDE_DIES:
+        wt, wp, nd, _ = _main_path_tables(dies, WIDE_CASE_REQUESTS,
+                                          ("baseline", "pr2ar2"))
+        st, mx = _stack_lanes(wt, wp, ("baseline", "pr2ar2"))
+        cases.append((f"{dies}-dies-16-lanes-mixed/fifo", st, mx, None,
+                      "smem", nd))
+        cases.append((f"{dies}-dies-16-lanes-mixed-{WIDE_MAXP}-rows/prio-8",
+                      K.pad_ops([r[np.isfinite(r[:, 0])] for r in st],
+                                maxp=WIDE_MAXP), mx, 8.0, "global", nd))
 
     results = []
-    for name, ops_np, pip, bound, variant in cases:
+    for name, ops_np, pip, bound, variant, n_dies in cases:
         prio = bound is not None
         L = ops_np.shape[0]
         pip = np.broadcast_to(np.asarray(pip, np.float64), (L,))
@@ -1098,7 +1135,9 @@ def kernel_phase():
              np.full(L, bound if prio else 0.0), pip], axis=1),
             dtype=torch.float64, device=DEVICE)
         kw = dict(n_dies=n_dies, capq=capq, capw=capw, prio=prio)
-        r = _hold(name, ops, timing, K.count_steps(ops_np), kw)
+        r = _hold(name, ops, timing, K.count_steps(ops_np), kw,
+                  plain_steps=KERNEL_HOLD_STEPS)
+        r["n_dies"] = n_dies
         if r["variant"] != variant:
             raise AssertionError(f"{name}: took the {r['variant']} variant, "
                                  f"the shapes call for {variant}")
@@ -1107,6 +1146,22 @@ def kernel_phase():
     print(f"chain floor: {chain_ns:.3f} ns per step (dependent f64 max "
           f"and adds, {CHAIN_PROBE_STEPS} links)", flush=True)
     return results, chain_ns
+
+
+def _stack_lanes(tables, pipelined, mechanisms):
+    """The mechanisms' lanes stacked into one table at the widest
+    mechanism's padding, and each lane's pipelined flag."""
+    import numpy as np
+
+    from repro_torch.kernels.fcfs_core import ops as K
+
+    widest = max(tables[m].shape[1] for m in mechanisms)
+    stacked = np.concatenate(
+        [K.pad_ops([row[np.isfinite(row[:, 0])] for row in tables[m]],
+                   maxp=widest) for m in mechanisms], axis=0)
+    mixed = np.concatenate([[pipelined[m]] * tables[m].shape[0]
+                            for m in mechanisms])
+    return stacked, mixed
 
 
 def _outcome(s):
@@ -1261,6 +1316,85 @@ def main_path_phase(chain_ns):
         r = _hold(f"main-path launch {i} ({mode}, "
                   f"{int((timing[:, 3] != 0).sum())} of {ops.shape[0]} "
                   f"lanes pipelined)", ops, timing, steps, kw, got=out)
+        r["chain_ms"] = r["longest"] * chain_ns * 1e-6
+        print(f"  chain bound {r['chain_ms']:.3f} ms = {r['longest']} steps "
+              f"x {chain_ns:.3f} ns; kernel at "
+              f"{r['ms'] / r['chain_ms']:.1f}x its chain bound", flush=True)
+        held.append(r)
+    return launches, smem_launches, held
+
+
+@phase("wide channels")
+def wide_phase(chain_ns):
+    """The main path's cell on 8 channels of WIDE_CELL_DIES dies through
+    ``engine="auto"``: it must select the batched engine with no fallback
+    reason, as the reference does, and every launch is held against the
+    plain version on the inputs it had (over its first GC_HOLD_STEPS
+    steps where a launch is longer)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.flashsim import (DEFAULT_SSD, OperatingCondition,
+                                      compare_mechanisms)
+    from repro_torch.kernels.fcfs_core import ops as K
+
+    cfg = dataclasses.replace(DEFAULT_SSD, dies_per_channel=WIDE_CELL_DIES)
+    recorded = []
+    fwd = K.fcfs_core_fwd
+
+    def recording_fwd(ops, timing, steps, **kw):
+        out = fwd(ops, timing, steps, **kw)
+        recorded.append((ops, timing, steps, kw, out))
+        return out
+
+    K.fcfs_core_fwd = recording_fwd
+    K.launches = K.smem_launches = 0
+    t0 = time.perf_counter()
+    try:
+        res = compare_mechanisms(WORKLOAD, OperatingCondition(*CONDITION),
+                                 MECHANISMS, cfg=cfg, n_requests=N_REQUESTS,
+                                 engine="auto", device=DEVICE)
+        torch.cuda.synchronize()
+    finally:
+        K.fcfs_core_fwd = fwd
+    wide_s = time.perf_counter() - t0
+    launches, smem_launches = K.launches, K.smem_launches
+    if launches <= 0 or len(recorded) != launches:
+        raise AssertionError(f"wide cell: {launches} kernel launches, "
+                             f"{len(recorded)} recorded calls")
+    for m, st in res.items():
+        if st.engine_selected != "batched" or st.engine_fallback_reason:
+            raise AssertionError(
+                f"{m}: engine='auto' selected {st.engine_selected!r} "
+                f"({st.engine_fallback_reason!r}) on {WIDE_CELL_DIES} dies "
+                f"a channel")
+        if st.n_requests != N_REQUESTS or st.fast_path_events <= 0 or \
+                not all(math.isfinite(v) for v in (st.mean_us, st.p99_us)):
+            raise AssertionError(f"{m}: bad stats {st}")
+        print(f"{m:>12}: mean {st.mean_us:.3f} us  p99 {st.p99_us:.3f} us  "
+              f"attempts {st.mean_read_attempts:.3f}  fused_cells "
+              f"{st.fused_cells}")
+    if not res["pr2ar2"].mean_us < res["baseline"].mean_us:
+        raise AssertionError("wide cell: pr2ar2 is not faster than baseline")
+    ops0, _, _, kw0, _ = recorded[0]
+    variant, smem = _variant(ops0, kw0)
+    resident = K.resident_lanes(ops0.shape[1], kw0["n_dies"], kw0["capq"],
+                                kw0["capw"], kw0["prio"], DEVICE)
+    print(f"wide cell: {cfg.n_channels} channels x {WIDE_CELL_DIES} dies, "
+          f"engine 'batched' (auto, no fallback) for all "
+          f"{len(MECHANISMS)} mechanisms in {wide_s:.3f} s; {launches} "
+          f"kernel launch(es), {smem_launches} from shared memory "
+          f"(placement {variant}, {smem} B a block, "
+          f"{K.static_smem_bytes(kw0['n_dies'])} B of die state), "
+          f"{ops0.shape[0]} lanes of {kw0['n_dies']} dies, capq "
+          f"{kw0['capq']}; the card holds {resident} lanes at once at "
+          f"this footprint", flush=True)
+    held = []
+    for i, (ops, timing, steps, kw, out) in enumerate(recorded):
+        r = _hold(f"wide-cell launch {i} ({ops.shape[0]} lanes of "
+                  f"{kw['n_dies']} dies)", ops, timing, steps, kw, got=out,
+                  plain_steps=GC_HOLD_STEPS)
         r["chain_ms"] = r["longest"] * chain_ns * 1e-6
         print(f"  chain bound {r['chain_ms']:.3f} ms = {r['longest']} steps "
               f"x {chain_ns:.3f} ns; kernel at "
@@ -5407,6 +5541,7 @@ def main() -> int:
     characterize_phase()
     kern, chain_ns = kernel_phase()
     launches, smem_launches, held = main_path_phase(chain_ns)
+    wide_launches, wide_smem_launches, wide_held = wide_phase(chain_ns)
     torch.cuda.empty_cache()
     fa_cases, kv_cases, _, cp_held = serve_kernel_phase()
     serve_launches, held_fa, held_kv, _ = serve_path_phase()
@@ -5464,6 +5599,13 @@ def main() -> int:
             "fcfs_core", f"{kernels}/fcfs_core/csrc/fcfs_core.cu",
             "src/repro/kernels/fcfs_core/kernel.py:120", launches, kern,
             held, library=False), smem_launches=smem_launches,
+            wide_dies_cases=[r["case"] for r in kern
+                             if r["n_dies"] > 16],
+            wide_launches=wide_launches,
+            wide_smem_launches=wide_smem_launches,
+            wide_held=len(wide_held),
+            wide_plain_steps=min(r["plain_steps"] for r in wide_held),
+            **_sub_sums("wide", wide_held),
             sweep_launches=sweep_launches, sweep_ms=sweep_held["ms"],
             sweep_plain_ms=sweep_held["plain_ms"],
             sweep_bound_ms=sweep_held["bound_ms"],

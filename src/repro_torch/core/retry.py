@@ -130,3 +130,21 @@ def attempts_for_population(key: torch.Tensor, retention_days: float,
     rber_final = torch.take_along_dim(rber, k[..., None], dim=-1)[..., 0]
     attempts = (k - start + 1).to(torch.int32)
     return attempts, rber_final
+
+
+def mean_retry_steps(key: torch.Tensor, retention_days: float, pec: float,
+                     sota: bool = False,
+                     params: NandParams = DEFAULT_NAND) -> float:
+    """Population-mean number of *retry steps* (attempts - 1), page-type
+    mix, on the device of ``key``: each page type's float32 mean over
+    :func:`attempts_for_population` (key folded with its index), then
+    the float32 mean of the three, as ``jnp.mean`` gives them on XLA's
+    CPU backend (exact sums times the float32 reciprocal of the count)."""
+    import numpy as np
+
+    from repro_torch.core.characterize import mean32
+
+    lsb, csb, msb = (np.float32(mean32(attempts_for_population(
+        prng.fold_in(key, i), retention_days, pec, pt, sota=sota,
+        params=params)[0] - 1)) for i, pt in enumerate(C.PAGE_TYPES))
+    return float((lsb + csb + msb) * (np.float32(1.0) / np.float32(3.0)))

@@ -188,6 +188,18 @@ def rber_from_distributions(mu, sigma, read_levels, page_type: str,
     return sum_last(per_boundary * page_mask(page_type, mu.device))
 
 
+def rber_all_page_types(mu, sigma, read_levels, tr_scale=1.0,
+                        params: NandParams = DEFAULT_NAND) -> torch.Tensor:
+    """Stacked RBER for (lsb, csb, msb): shape ``(..., 3)``.  Each page
+    type sums its boundaries left to right (:func:`sum_last`), as
+    :func:`rber_from_distributions` does; the reference contracts the
+    same 0/1 masks by ``einsum``."""
+    per_boundary = boundary_error_rates(mu, sigma, read_levels, tr_scale,
+                                        params)
+    return torch.stack([sum_last(per_boundary * page_mask(pt, mu.device))
+                        for pt in C.PAGE_TYPES], dim=-1)
+
+
 def sum_last(x: torch.Tensor) -> torch.Tensor:
     """Sum over the last axis left to right, XLA's order on the CPU for a
     short row (torch's reductions order the adds by device)."""

@@ -77,11 +77,9 @@ def check_batched_config(cfg, device=None) -> None:
     (``None`` is the CUDA card, as for every entry point; fail fast at
     construction; run-time state is checked again by
     :func:`check_batched_supported`).  Online GC, faults and the
-    closed-loop frontend are outside the matrix.  On a CUDA device a channel holds at most the
-    shard-core kernel's ``MAX_DIES`` dies; the CPU's plain core has no
-    cap."""
+    closed-loop frontend are outside the matrix; a channel may hold any
+    number of dies, on the card as on the CPU."""
     from repro_torch.flashsim.sched import get_scheduler
-    from repro_torch.kernels.fcfs_core.ops import MAX_DIES
 
     pol = get_scheduler(cfg.scheduler)
     if pol.ring_lowering is None:
@@ -105,13 +103,7 @@ def check_batched_config(cfg, device=None) -> None:
             "engine='batched' is open-loop only (ncq_depth=None); the "
             "closed-loop frontend requires engine='array'"
         )
-    dies = dies_per_lane(cfg)
-    if resolve_device(device).type == "cuda" and dies > MAX_DIES:
-        raise BatchedUnsupported(
-            f"engine='batched' on a CUDA device holds at most {MAX_DIES} "
-            f"dies per channel (the shard-core kernel's die slots), got "
-            f"{dies}; use engine='array'"
-        )
+    resolve_device(device)          # None is the card: raises without one
 
 
 def check_batched_supported(

@@ -37,8 +37,12 @@ launches = 0
 smem_launches = 0
 
 _SOURCE = Path(__file__).resolve().parent / "csrc" / "fcfs_core.cu"
-#: Largest per-lane die count the kernel holds (``kMaxDies`` in the source).
-MAX_DIES = 16
+#: Die slots of the kernel's instances with their die state in static
+#: shared memory (``slots_of`` in the source); a lane of more dies runs
+#: the generic instance, its die state beside the rings.
+DIE_SLOTS = (8, 16, 32, 64)
+#: Bytes of one die's state in the kernel (``kDieBytes``).
+DIE_BYTES = 104
 
 
 def pad_width(widest: int) -> int:
@@ -140,9 +144,10 @@ def ring_caps(ops: np.ndarray, n_dies: int) -> Tuple[int, int]:
 
 
 #: Bit layout of the packed op word (``csrc/fcfs_core.cu``): kind in
-#: bits 0-1, hp in bit 2, the local die in bits 3-6, attempts from bit 7.
-_HP_SHIFT, _DIE_SHIFT, _ATT_SHIFT = 2, 3, 7
-#: Attempts must stay below this to fit the packed word's int32.
+#: bits 0-1, hp in bit 2, attempts in bits 3-26.  The local die is a
+#: column of its own, so any die count fits.
+_HP_SHIFT, _ATT_SHIFT = 2, 3
+#: Attempts must stay below this to fit the word's attempts field.
 MAX_ATTEMPTS = 1 << 24
 
 #: ``placement`` of a launch: the op table and the rings in the block's
@@ -174,33 +179,49 @@ def _check_ops(ops: torch.Tensor, n_dies: int) -> None:
             raise ValueError(msg)
 
 
-def pack_ops(ops: torch.Tensor, n_dies: int = MAX_DIES):
-    """The kernel's compressed op table, 20 bytes a row.
+def pack_ops(ops: torch.Tensor, n_dies: int):
+    """The kernel's compressed op table, 24 bytes a row.
 
-    From the augmented (L, MAXP, 10) float64 table, on its device:
-    ``arr`` (L, MAXP) float64 arrivals, ``gdt`` (L, MAXP) float64 grant
-    deltas (tR for reads, dur for writes and erases; column 7 of
-    :func:`augment_ops`), and ``pk`` (L, MAXP) int32 words holding kind,
-    ``hp == 1``, die and attempts (pad rows: kind 3 and zeros).  Raises
+    From the augmented (L, MAXP, 10) float64 table of a lane of
+    ``n_dies`` dies, on its device: ``arr`` (L, MAXP) float64 arrivals,
+    ``gdt`` (L, MAXP) float64 grant deltas (tR for reads, dur for writes
+    and erases; column 7 of :func:`augment_ops`), ``pk`` (L, MAXP) int32
+    words holding kind, ``hp == 1`` and attempts, and ``die`` (L, MAXP)
+    int32 local dies (pad rows: kind 3 and zeros).  Raises
     ``ValueError`` for a row the kernel does not take (:func:`_check_ops`).
     """
     _check_ops(ops, n_dies)
     kind = ops[:, :, 1]
     real = kind != 3.0
     i64 = torch.int64
-    die = torch.where(real, ops[:, :, 2], 0.0).to(i64)
+    die = torch.where(real, ops[:, :, 2], 0.0).to(torch.int32)
     att = torch.where(real, ops[:, :, 4], 0.0).to(i64)
     hp = (ops[:, :, 6] == 1.0).to(i64)
-    pk = (kind.to(i64) | (hp << _HP_SHIFT) | (die << _DIE_SHIFT)
+    pk = (kind.to(i64) | (hp << _HP_SHIFT)
           | (att << _ATT_SHIFT)).to(torch.int32)
-    return ops[:, :, 0].contiguous(), ops[:, :, 7].contiguous(), pk
+    return ops[:, :, 0].contiguous(), ops[:, :, 7].contiguous(), pk, die
+
+
+def die_slots(n_dies: int) -> int:
+    """Die slots of the kernel instance that runs a lane of ``n_dies``
+    dies: the least of :data:`DIE_SLOTS` that holds them, or 0 past 64
+    dies (the generic instance)."""
+    return next((s for s in DIE_SLOTS if n_dies <= s), 0)
+
+
+def static_smem_bytes(n_dies: int) -> int:
+    """Static shared memory of ``n_dies``' instance: its die state."""
+    return DIE_BYTES * die_slots(n_dies)
 
 
 def smem_bytes(maxp: int, n_dies: int, capq: int, capw: int,
                prio: bool) -> int:
-    """Dynamic shared memory of one shared-memory block: the ACQ ring,
-    the packed op table and the FIFO rings (``layout`` in the source)."""
-    return 24 * capw + 20 * maxp + 4 * n_dies * capq * (2 if prio else 1)
+    """Dynamic shared memory of one shared-memory block: past 64 dies
+    the die state, then the ACQ ring, the packed op table and the FIFO
+    rings (``layout`` in the source)."""
+    dies = 0 if die_slots(n_dies) else DIE_BYTES * n_dies
+    return (dies + 24 * capw + 24 * maxp
+            + 4 * n_dies * capq * (2 if prio else 1))
 
 
 def placement(maxp: int, n_dies: int, capq: int, capw: int, prio: bool,
@@ -218,11 +239,13 @@ def _lib():
 
     lib = build.load(_SOURCE)
     vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.fcfs_core_launch.argtypes = [vp, vp, vp, ci, ci, ci, vp, ll, ci, ci,
-                                     ci, ci, vp, vp, vp, vp, vp, vp]
+    lib.fcfs_core_launch.argtypes = [vp, vp, vp, vp, ci, ci, ci, vp, ll, ci,
+                                     ci, ci, ci, vp, vp, vp, vp, vp, vp, vp]
     lib.fcfs_core_launch.restype = ci
-    lib.fcfs_core_smem_budget.argtypes = [ci, ctypes.POINTER(ll)]
+    lib.fcfs_core_smem_budget.argtypes = [ci, ci, ctypes.POINTER(ll)]
     lib.fcfs_core_smem_budget.restype = ci
+    lib.fcfs_core_static_smem.argtypes = [ci, ctypes.POINTER(ll)]
+    lib.fcfs_core_static_smem.restype = ci
     lib.fcfs_core_resident_blocks.argtypes = [ci, ci, ci, ll,
                                               ctypes.POINTER(ci)]
     lib.fcfs_core_resident_blocks.restype = ci
@@ -236,11 +259,12 @@ def _device_index(device) -> int:
     return torch.cuda.current_device() if dev.index is None else dev.index
 
 
-def smem_budget(device) -> int:
-    """Dynamic shared memory one block of the kernel may take on a CUDA
-    ``device``: the opt-in limit less the kernel's static die state."""
+def smem_budget(device, n_dies: int) -> int:
+    """Dynamic shared memory one block of ``n_dies``' kernel instance may
+    take on a CUDA ``device``: the opt-in limit less the instance's
+    static die state."""
     out = ctypes.c_longlong()
-    err = _lib().fcfs_core_smem_budget(_device_index(device),
+    err = _lib().fcfs_core_smem_budget(_device_index(device), n_dies,
                                        ctypes.byref(out))
     if err != 0:
         raise RuntimeError(f"fcfs_core shared-memory query failed: CUDA "
@@ -253,7 +277,8 @@ def resident_lanes(maxp: int, n_dies: int, capq: int, capw: int,
     """Lanes the card holds at once for these shapes: blocks per SM of
     the variant :func:`placement` picks, at its shared memory
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), times the SMs."""
-    place = placement(maxp, n_dies, capq, capw, prio, smem_budget(device))
+    place = placement(maxp, n_dies, capq, capw, prio,
+                      smem_budget(device, n_dies))
     nbytes = smem_bytes(maxp, n_dies, capq, capw, prio) if place else 0
     out = ctypes.c_int()
     err = _lib().fcfs_core_resident_blocks(_device_index(device), place,
@@ -268,32 +293,35 @@ def _launch_cuda(ops: torch.Tensor, timing: torch.Tensor, steps: int,
                  n_dies: int, capq: int, capw: int, prio: bool):
     """Launch the CUDA kernel on the current stream (no synchronize)."""
     global launches, smem_launches
-    if n_dies > MAX_DIES:
-        raise ValueError(f"fcfs_core kernel holds at most {MAX_DIES} dies "
-                         f"per lane, got {n_dies}")
+    if n_dies < 1:
+        raise ValueError(f"fcfs_core kernel takes at least one die a lane, "
+                         f"got {n_dies}")
     for name, cap in (("capq", capq), ("capw", capw)):
         if cap < 1 or cap & (cap - 1):
             raise ValueError(f"fcfs_core kernel takes power-of-two ring "
                              f"capacities, got {name} = {cap}")
-    arr, gdt, pk = pack_ops(ops, n_dies)
+    arr, gdt, pk, die = pack_ops(ops, n_dies)
     L, maxp, _ = ops.shape
     dev = ops.device
-    place = placement(maxp, n_dies, capq, capw, prio, smem_budget(dev))
-    fifo = acq = None
+    place = placement(maxp, n_dies, capq, capw, prio,
+                      smem_budget(dev, n_dies))
+    fifo = acq = dies = None
     if place != SMEM:
         fifo = torch.empty((L, n_dies, capq * (2 if prio else 1)),
                            dtype=torch.int32, device=dev)
         acq = torch.empty((L, capw, 3), dtype=torch.float64, device=dev)
+        if not die_slots(n_dies):
+            dies = torch.empty((L, DIE_BYTES // 8 * n_dies),
+                               dtype=torch.float64, device=dev)
     fin = torch.zeros((L, maxp + 1), dtype=torch.float64, device=dev)
     diestat = torch.empty((L, n_dies, 2), dtype=torch.float64, device=dev)
     lane = torch.empty((L, 4), dtype=torch.float64, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _lib().fcfs_core_launch(
-        arr.data_ptr(), gdt.data_ptr(), pk.data_ptr(), L, maxp, n_dies,
-        timing.data_ptr(), steps, capq, capw, int(prio), place,
-        None if fifo is None else fifo.data_ptr(),
-        None if acq is None else acq.data_ptr(), fin.data_ptr(),
-        diestat.data_ptr(), lane.data_ptr(), stream)
+        arr.data_ptr(), gdt.data_ptr(), pk.data_ptr(), die.data_ptr(), L,
+        maxp, n_dies, timing.data_ptr(), steps, capq, capw, int(prio), place,
+        *(None if t is None else t.data_ptr() for t in (fifo, acq, dies)),
+        fin.data_ptr(), diestat.data_ptr(), lane.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"fcfs_core kernel launch failed: CUDA error {err}")
     launches += 1
@@ -308,11 +336,11 @@ def fcfs_core_fwd(ops: torch.Tensor, timing: torch.Tensor, steps: int, *,
     ``ops`` (L, MAXP, 10) float64 augmented table, ``timing`` (L, 4)
     float64 per-lane [tdma, tecc, age_bound, pipelined] (pipelined 1.0
     or 0.0), ``steps`` the lockstep step bound (:func:`count_steps`).
-    CUDA tensors launch the kernel (its table and rings in shared memory
-    where they fit, counted in ``smem_launches``, else in global
-    memory); CPU tensors run the plain version.  Returns float64 tensors
-    ``(fin (L, MAXP+1), diestat (L, n_dies, 2), lane (L, 4))`` on the
-    input's device.
+    CUDA tensors launch the kernel for any ``n_dies`` (its table and
+    rings in shared memory where they fit, counted in ``smem_launches``,
+    else in global memory); CPU tensors run the plain version.  Returns
+    float64 tensors ``(fin (L, MAXP+1), diestat (L, n_dies, 2), lane (L,
+    4))`` on the input's device.
     """
     L = ops.shape[0]
     if ops.dim() != 3 or ops.shape[2] != 10 or ops.dtype != torch.float64:

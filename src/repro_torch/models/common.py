@@ -17,8 +17,15 @@ from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.distributed.sharding import constrain
 
 
+def dtype_of(cfg: ModelConfig, kind: str = "param") -> torch.dtype:
+    """The config's parameter dtype (``kind="param"``), else its
+    activation dtype."""
+    return getattr(torch, cfg.param_dtype if kind == "param"
+                   else cfg.activation_dtype)
+
+
 def act_dtype(cfg: ModelConfig) -> torch.dtype:
-    return getattr(torch, cfg.activation_dtype)
+    return dtype_of(cfg, "act")
 
 
 def init_dense(gen: torch.Generator, shape, scale: Optional[float] = None,

@@ -553,19 +553,26 @@ def test_rber_matches_plain(n_pages, n_steps):
     assert torch.allclose(got, want, rtol=RBER_RTOL, atol=RBER_ATOL)
 
 
-def _fc_table(seed, sizes, n_dies=3, maxp=None):
+def _fc_table(seed, sizes, n_dies=3, maxp=None, grid=False):
     """A padded shard-core table of random lanes (reads, writes and
-    erases; half the reads host reads)."""
+    erases; half the reads host reads).  ``grid`` puts arrivals and
+    durations on whole microseconds, so events of different dies tie in
+    time and the choice's tie-breaks decide."""
     rng = np.random.default_rng(seed)
     lanes = []
     for n in sizes:
         kind = rng.choice([0.0, 0.0, 1.0, 2.0], size=n)
+        if grid:
+            arr = np.sort(rng.integers(0, 40, n)).astype(np.float64)
+            dur = rng.choice([10.0, 20.0], size=n)
+            tr = np.full(n, 5.0)
+        else:
+            arr = np.sort(rng.uniform(0.0, 400.0, n))
+            dur = rng.uniform(10.0, 60.0, n)
+            tr = rng.uniform(5.0, 25.0, n)
         lanes.append(np.stack([
-            np.sort(rng.uniform(0.0, 400.0, n)), kind,
-            rng.integers(0, n_dies, n).astype(np.float64),
-            rng.uniform(10.0, 60.0, n),
-            rng.integers(1, 6, n).astype(np.float64),
-            rng.uniform(5.0, 25.0, n),
+            arr, kind, rng.integers(0, n_dies, n).astype(np.float64), dur,
+            rng.integers(1, 6, n).astype(np.float64), tr,
             np.where((kind == 0.0) & (rng.random(n) < 0.5), 1.0, 0.0)],
             axis=1))
     return FC.pad_ops(lanes, maxp=maxp)
@@ -601,17 +608,41 @@ def _fc_hold(ops_np, pip, bound, n_dies=3):
 @pytest.mark.parametrize("variant", ["smem", "global"])
 def test_fcfs_core_matches_plain(variant, bound, pipelined, monkeypatch):
     if variant == "global":
-        monkeypatch.setattr(FC, "smem_budget", lambda device: 0)
+        monkeypatch.setattr(FC, "smem_budget", lambda device, n_dies: 0)
     counts = _fc_hold(_fc_table(1, [40, 0, 1, 40, 23]), pipelined, bound)
     assert counts == ((1, 1) if variant == "smem" else (1, 0))
 
 
-@pytest.mark.parametrize("n_dies", [9, 16])
+_LANES = {"serial": [False] * 3, "pipelined": [True] * 3,
+          "mixed": [False, True, True]}
+
+
+@pytest.mark.parametrize("lanes", sorted(_LANES))
+@pytest.mark.parametrize("variant", ["smem", "global"])
+@pytest.mark.parametrize("n_dies", [9, 16, 17, 32, 64, 100])
 @pytest.mark.parametrize("bound", [None, 2.0], ids=["fifo", "prio-2"])
-def test_fcfs_core_sixteen_die_slots(n_dies, bound):
-    """Past 8 dies the event choice compares 16 slots."""
-    ops_np = _fc_table(5, [60, 45, 60], n_dies=n_dies)
-    assert _fc_hold(ops_np, [False, True, True], bound, n_dies) == (1, 1)
+def test_fcfs_core_sixteen_die_slots(n_dies, bound, variant, lanes,
+                                     monkeypatch):
+    """Past 8 dies the event choice compares 16 slots in registers; past
+    16, 32 or 64 slots across warp 0; past 64 the generic instance's
+    n_dies, its die state beside the rings (shared or global memory)."""
+    if variant == "global":
+        monkeypatch.setattr(FC, "smem_budget", lambda device, n_dies: 0)
+    n = max(60, 4 * n_dies)
+    ops_np = _fc_table(5, [n, 3 * n // 4, n], n_dies=n_dies)
+    assert _fc_hold(ops_np, _LANES[lanes], bound, n_dies) == \
+        ((1, 1) if variant == "smem" else (1, 0))
+
+
+@pytest.mark.parametrize("n_dies", [3, 8, 16, 32, 64, 100])
+@pytest.mark.parametrize("bound", [None, 2.0], ids=["fifo", "prio-2"])
+def test_fcfs_core_ties_across_die_slots(n_dies, bound):
+    """Arrivals and durations on whole microseconds: events of different
+    dies tie in time, and every instance's choice must break the ties as
+    the plain version does (least seq, then the lower slot)."""
+    n = max(80, 6 * n_dies)
+    ops_np = _fc_table(6, [n, n, n // 2], n_dies=n_dies, grid=True)
+    assert _fc_hold(ops_np, [False, True, False], bound, n_dies) == (1, 1)
 
 
 @pytest.mark.parametrize("bound", [None, 8.0], ids=["fifo", "prio-8"])
@@ -630,13 +661,36 @@ def test_fcfs_core_lanes_past_one_wave():
 
 
 def test_fcfs_core_smem_layout_matches_source():
+    import ctypes
+
     lib = FC._lib()
     for shape in [(4096, 8, 1024, 64, 0), (4096, 8, 1024, 64, 1),
-                  (16, 3, 4, 4, 1), (16384, 16, 2048, 128, 0)]:
+                  (16, 3, 4, 4, 1), (16384, 16, 2048, 128, 0),
+                  (4096, 32, 512, 64, 0), (4096, 64, 256, 64, 1),
+                  (1024, 100, 64, 32, 1), (256, 1000, 8, 16, 0)]:
         assert lib.fcfs_core_smem_bytes(*shape, FC.SMEM) == \
             FC.smem_bytes(*shape)
         assert lib.fcfs_core_smem_bytes(*shape, FC.GLOBAL) == 0
-    assert FC.smem_budget("cuda") >= FC.smem_bytes(4096, 8, 1024, 64, True)
+    assert FC.smem_budget("cuda", 8) >= \
+        FC.smem_bytes(4096, 8, 1024, 64, True)
+    # each instance: its static die state, its budget, and lanes resident
+    # the generic instance keeps no static die state: its budget is the
+    # card's opt-in limit (227 KB on an H100)
+    optin = FC.smem_budget("cuda", 1000)
+    assert optin >= 232448
+    for n_dies in (1, 8, 9, 16, 17, 32, 33, 64, 65, 100, 1000):
+        out = ctypes.c_longlong()
+        assert lib.fcfs_core_static_smem(n_dies, ctypes.byref(out)) == 0
+        assert out.value == FC.static_smem_bytes(n_dies)
+        assert FC.smem_budget("cuda", n_dies) == optin - out.value
+        for maxp in (256, 4096):
+            capq = 64
+            want = FC.SMEM if FC.smem_bytes(maxp, n_dies, capq, 64, True) \
+                <= optin - out.value else FC.GLOBAL
+            assert FC.placement(maxp, n_dies, capq, 64, True,
+                                FC.smem_budget("cuda", n_dies)) == want
+            assert FC.resident_lanes(maxp, n_dies, capq, 64, True,
+                                     "cuda") >= 1
 
 
 def test_fcfs_core_rejects_bad_rows_and_caps():

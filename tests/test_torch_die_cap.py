@@ -1,12 +1,14 @@
-"""The shard-core kernel's die cap, on the CUDA launch path only.
+"""The batched engine at any die count a channel, on the card as on the CPU.
 
-The CUDA shard-core kernel holds at most ``MAX_DIES`` (16) dies a lane;
-the plain core on the CPU, like the reference, has no cap (the
-32-dies-per-channel cell runs batched on the CPU and matches the
-reference in ``tests/test_torch_flashsim.py``).  On a CUDA device
-``engine="auto"`` resolves to the array engine and records why, and
-``engine="batched"`` raises ``BatchedUnsupported`` naming the cap.  No
-card is needed: resolution reads only the device's type.
+The CUDA shard-core kernel runs a lane of any number of dies: 8, 16, 32
+and 64 slots are instances with their die state in static shared
+memory, wider lanes take the generic instance with its die state beside
+the rings.  So ``resolve_engine`` picks the batched engine for every
+ring-lowerable config on a CUDA device, as the reference does, and no
+refusal names a die count.  The launch refuses only a lane of no dies
+and ring capacities that are not powers of two.  No card is needed:
+resolution reads only the device's type, and the launch's checks come
+before anything touches a device.
 """
 
 import dataclasses
@@ -21,36 +23,40 @@ from repro_torch.kernels.fcfs_core import ops as fcfs_ops
 WIDE = dataclasses.replace(TF.DEFAULT_SSD, dies_per_channel=32)
 
 
-def test_cuda_device_records_the_cap_instead_of_raising():
+@pytest.mark.parametrize("dies", [17, 24, 32, 64, 256])
+def test_cuda_device_takes_any_die_count(dies):
+    cfg = dataclasses.replace(TF.DEFAULT_SSD, dies_per_channel=dies)
     cuda = torch.device("cuda")
-    engine, reason = TF.resolve_engine(WIDE, device=cuda)
-    assert engine == "array"
-    assert f"at most {fcfs_ops.MAX_DIES} dies per channel" in reason
-    assert "got 32" in reason and "engine='array'" in reason
-    with pytest.raises(TF.BatchedUnsupported, match="die slots"):
-        check_batched_config(WIDE, cuda)
-    # The cap is the card's alone, and the default 8 dies fit it.
-    assert TF.resolve_engine(WIDE, device="cpu") == ("batched", "")
-    assert TF.resolve_engine(TF.DEFAULT_SSD, device=cuda) == ("batched", "")
+    assert TF.resolve_engine(cfg, device=cuda) == ("batched", "")
+    assert TF.resolve_engine(cfg, device="cpu") == ("batched", "")
+    check_batched_config(cfg, cuda)
+    # what still falls back names its own reason, never the die count
+    engine, reason = TF.resolve_engine(
+        dataclasses.replace(cfg, scheduler="tokens"), device=cuda)
+    assert engine == "array" and "scheduler" in reason
+    assert "dies" not in reason and str(dies) not in reason
 
 
 def test_no_device_means_the_card(monkeypatch):
     """``device=None`` resolves as every entry point resolves it: the
-    CUDA card, which holds the cap; without a card it raises."""
+    CUDA card; without a card it raises."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         TF.resolve_engine(WIDE)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    engine, reason = TF.resolve_engine(WIDE)
-    assert engine == "array" and "die slots" in reason
+    assert TF.resolve_engine(WIDE) == ("batched", "")
     assert TF.resolve_engine(TF.DEFAULT_SSD) == ("batched", "")
 
 
-def test_kernel_launch_keeps_its_cap():
-    """The cap is checked on the CUDA launch path, before anything
-    touches the card."""
+@pytest.mark.parametrize("n_dies,capq,capw,match", [
+    (0, 4, 4, "at least one die"), (-3, 4, 4, "at least one die"),
+    (32, 6, 4, "power-of-two"), (100, 4, 12, "power-of-two")])
+def test_kernel_launch_refuses_only_bad_arguments(n_dies, capq, capw, match):
+    """The launch path refuses a lane of no dies and ring capacities
+    that are not powers of two, before anything touches the card; any
+    die count is taken."""
     ops = torch.zeros((1, 4, 10), dtype=torch.float64)
     timing = torch.zeros((1, 4), dtype=torch.float64)
-    with pytest.raises(ValueError, match="at most 16 dies"):
-        fcfs_ops._launch_cuda(ops, timing, 1, n_dies=32, capq=4, capw=4,
-                              prio=False)
+    with pytest.raises(ValueError, match=match):
+        fcfs_ops._launch_cuda(ops, timing, 1, n_dies=n_dies, capq=capq,
+                              capw=capw, prio=False)

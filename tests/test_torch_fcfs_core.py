@@ -146,11 +146,11 @@ def test_mixed_pipelined_lanes_equal_reference_groups(ref_kernel, prio):
         _equal(tuple(g[sel] for g in got), want)
 
 
-def _decode(pk):
-    """The packed word's fields, by the layout ``csrc/fcfs_core.cu``
-    states: kind, hp, die, attempts."""
+def _decode(pk, die):
+    """The packed word's fields and the die column, by the layout
+    ``csrc/fcfs_core.cu`` states: kind, hp, die, attempts."""
     pk = pk.numpy().astype(np.int64)
-    return pk & 3, (pk >> 2) & 1, (pk >> 3) & 15, pk >> 7
+    return pk & 3, (pk >> 2) & 1, die.numpy().astype(np.int64), pk >> 3
 
 
 @pytest.mark.parametrize("pipelined", [False, True, "mixed"])
@@ -161,9 +161,10 @@ def test_pack_ops_round_trips_augment_columns(pipelined):
     pip = np.array([0, 1, 1, 0], bool) if pipelined == "mixed" \
         else pipelined
     aug = T.augment_ops(ops, pip)
-    arr, gdt, pk = T.pack_ops(torch.as_tensor(aug), 3)
-    assert arr.dtype == gdt.dtype == torch.float64 and pk.dtype == torch.int32
-    kind, hp, die, att = _decode(pk)
+    arr, gdt, pk, dk = T.pack_ops(torch.as_tensor(aug), 3)
+    assert arr.dtype == gdt.dtype == torch.float64
+    assert pk.dtype == dk.dtype == torch.int32
+    kind, hp, die, att = _decode(pk, dk)
     real = aug[:, :, 1] != 3.0
     read = aug[:, :, 1] == 0.0
     assert np.array_equal(arr.numpy(), aug[:, :, 0])
@@ -193,7 +194,7 @@ def test_pack_ops_rejects_rows_the_kernel_does_not_take(col, value, match):
     aug = T.augment_ops(_table(0), False)
     aug[0, 3, col] = value
     with pytest.raises(ValueError, match=match):
-        T.pack_ops(torch.as_tensor(aug))
+        T.pack_ops(torch.as_tensor(aug), 16)
 
 
 def test_pack_ops_checks_die_against_lane_dies():
@@ -206,13 +207,59 @@ def test_pack_ops_checks_die_against_lane_dies():
         T.pack_ops(torch.as_tensor(aug), 3)
 
 
+@pytest.mark.parametrize("n_dies", [1, 16, 17, 64, 1000])
+def test_pack_ops_round_trips_any_die_count(n_dies):
+    """Kind, hp, die and attempts come back from the packed word and the
+    die column at any die count, the lane's last die and the largest
+    attempt count the word holds included."""
+    import torch
+
+    rng = np.random.default_rng(n_dies)
+    lanes = [_random_table(rng, n, n_dies) for n in (40, 3, 0, 25)]
+    lanes[0][:2, 1] = 0.0                     # two reads at the extremes
+    lanes[0][0, 2], lanes[0][0, 4] = n_dies - 1, T.MAX_ATTEMPTS - 1
+    lanes[0][1, 2], lanes[0][1, 4] = 0, 0
+    aug = T.augment_ops(T.pad_ops(lanes), False)
+    kind, hp, die, att = _decode(*T.pack_ops(torch.as_tensor(aug),
+                                             n_dies)[2:])
+    real = aug[:, :, 1] != 3.0
+    assert np.array_equal(kind, aug[:, :, 1])
+    assert np.array_equal(hp, aug[:, :, 6] == 1.0)
+    assert np.array_equal(die[real], aug[:, :, 2][real])
+    assert np.array_equal(att[real].astype(np.float64), aug[:, :, 4][real])
+    assert not die[~real].any() and not att[~real].any()
+    assert die[0, 0] == n_dies - 1 and att[0, 0] == T.MAX_ATTEMPTS - 1
+    # one past the largest attempt count, or a die past the lane's, raises
+    for col, value, match in ((4, T.MAX_ATTEMPTS, "attempts"),
+                              (2, n_dies, "die")):
+        bad = aug.copy()
+        bad[0, 0, col] = value
+        with pytest.raises(ValueError, match=match):
+            T.pack_ops(torch.as_tensor(bad), n_dies)
+
+
+@pytest.mark.parametrize("n_dies,slots", [(1, 8), (8, 8), (9, 16), (16, 16),
+                                          (17, 32), (32, 32), (33, 64),
+                                          (64, 64), (65, 0), (1000, 0)])
+def test_instance_of_die_count(n_dies, slots):
+    """The kernel instance a lane takes, and where its die state sits:
+    static shared memory of the instance's slots up to 64 dies, the
+    dynamic shared memory (beside the rings) past that."""
+    assert T.die_slots(n_dies) == slots
+    assert T.static_smem_bytes(n_dies) == T.DIE_BYTES * slots
+    dies = T.DIE_BYTES * n_dies if slots == 0 else 0
+    assert T.smem_bytes(64, n_dies, 4, 4, False) == \
+        dies + 24 * 4 + 24 * 64 + 4 * n_dies * 4
+
+
 def test_smem_placement_from_shapes():
     """The main path's table (MAXP 4096, 8 dies, capq 1024, capw 64)
     fits a block's shared memory under both lowerings; MAXP 16 384 does
     not and takes the global-memory variant."""
-    budget = 232448 - 1664                    # H100 opt-in less DieState
-    assert T.smem_bytes(4096, 8, 1024, 64, False) == 116224
-    assert T.smem_bytes(4096, 8, 1024, 64, True) == 148992
+    budget = 232448 - 832                     # H100 opt-in less 8 dies' state
+    assert T.static_smem_bytes(8) == 832
+    assert T.smem_bytes(4096, 8, 1024, 64, False) == 132608
+    assert T.smem_bytes(4096, 8, 1024, 64, True) == 165376
     assert T.placement(4096, 8, 1024, 64, False, budget) == T.SMEM
     assert T.placement(4096, 8, 1024, 64, True, budget) == T.SMEM
     assert T.placement(16384, 8, 1024, 64, False, budget) == T.GLOBAL

@@ -155,21 +155,22 @@ def test_simulate_matches_reference(tables, engine, scheduler):
 
 
 @pytest.mark.parametrize("engine", ENGINES)
-def test_wide_channels_match_reference(tables, engine):
-    """32 dies a channel, twice the CUDA shard core's die slots (ROADMAP
-    C8's cell).  The cap is the card's alone: on the CPU the batched
-    and auto engines run the cell like the reference's, with no
-    fallback."""
+@pytest.mark.parametrize("dies", [24, 32, 64])
+def test_wide_channels_match_reference(tables, dies, engine):
+    """Wide channels (ROADMAP C8's cells): 24 and 32 dies take the
+    kernel's 32-slot instance, 64 its 64-slot one.  The batched and auto
+    engines run each cell like the reference's, with no fallback, here
+    on the plain core and on the card on the kernel."""
     from repro.flashsim import config as RCFG
     from repro.flashsim import ssd as RS
 
     kw = dict(n_requests=200, engine=engine)
     ref = RS.simulate("websearch", _ref_cond(AGED), "pr2ar2",
                       cfg=dataclasses.replace(RCFG.DEFAULT_SSD,
-                                              dies_per_channel=32), **kw)
+                                              dies_per_channel=dies), **kw)
     got = TF.simulate("websearch", TF.OperatingCondition(*AGED), "pr2ar2",
                       cfg=dataclasses.replace(TF.DEFAULT_SSD,
-                                              dies_per_channel=32),
+                                              dies_per_channel=dies),
                       device="cpu", **kw)
     _same(got, ref)
     assert got.engine_selected == ref.engine_selected
